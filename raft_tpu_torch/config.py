@@ -1,0 +1,138 @@
+"""Typed configuration for raft_tpu_torch.
+
+The port's own copy of ``raft_tpu/config.py::RAFTConfig``: the same fields,
+defaults and validation, so flags and configs carry over between the two
+packages. What a field selects differs where the hardware differs:
+
+- ``corr_impl``: ``"gather"`` runs the plain 4-corner gather lookup
+  (``models.corr.corr_lookup_gather``). Every other name (``onehot``,
+  ``onehot_t``, ``softsel``, ``softsel_t``, ``pallas``) selects the
+  hand-written CUDA lookup kernel (``kernels.corr_lookup``) on a CUDA
+  tensor. The four XLA names are formulations that exist only to avoid
+  gathers on the TPU; a GPU gathers natively, so they share the kernel.
+- ``gru_impl``: ``"fused"`` runs the SepConvGRU's gate and blend tails in
+  the CUDA kernels of ``kernels.gru``; ``"xla"`` runs the plain
+  elementwise PyTorch math.
+
+On a CPU tensor every choice runs the plain PyTorch version.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class RAFTConfig:
+    """Architecture hyper-parameters (see ``raft_tpu.config.RAFTConfig``).
+
+    basic: hdim=cdim=128, corr_levels=4, corr_radius=4, fnet 256ch instance
+    norm, cnet 256ch batch norm; small: hdim=96, cdim=64, radius=3, fnet 128
+    instance, cnet 160 no-norm.
+    """
+
+    small: bool = False
+    dropout: float = 0.0
+    alternate_corr: bool = False
+    mixed_precision: bool = False
+    corr_levels: int = 4
+    corr_impl: str = "onehot"
+    # storage dtype of the materialized correlation pyramid; the all-pairs
+    # product always runs fp32 and the lookup lerps in fp32
+    corr_dtype: str = "float32"
+    remat: bool = False
+    remat_policy: str = "full"
+    gru_impl: str = "xla"
+    # accepted for config compatibility; the port's refinement loop is a
+    # Python loop, so there is nothing to unroll
+    scan_unroll: int = 1
+    # two fnet calls instead of one batch-concat call: identical values
+    # (fnet is instance-norm, per-sample statistics)
+    split_encode: bool = False
+
+    def __post_init__(self):
+        if not (isinstance(self.scan_unroll, int)
+                and not isinstance(self.scan_unroll, bool)
+                and self.scan_unroll >= 1):
+            raise ValueError(
+                f"scan_unroll={self.scan_unroll!r}: must be an int >= 1")
+        if self.corr_impl not in ("gather", "onehot", "onehot_t", "softsel",
+                                  "softsel_t", "pallas"):
+            raise ValueError(
+                f"corr_impl={self.corr_impl!r}: choose gather, onehot, "
+                "onehot_t, softsel, softsel_t, or pallas (the "
+                "memory-efficient alternate path is selected by "
+                "alternate_corr=True, with corr_impl picking its "
+                "XLA/pallas backend)")
+        if self.gru_impl not in ("xla", "fused"):
+            raise ValueError(
+                f"gru_impl={self.gru_impl!r}: choose 'xla' (plain "
+                "elementwise GRU tails) or 'fused' (the gate/blend "
+                "kernels)")
+        if self.gru_impl == "fused" and self.small:
+            raise ValueError(
+                "gru_impl='fused' covers the basic model's "
+                "BasicMotionEncoder + SepConvGRU; the small model's "
+                "3x3 ConvGRU has no fused path — drop one of the two "
+                "settings")
+        if self.remat_policy not in ("full", "dots"):
+            raise ValueError(
+                f"remat_policy={self.remat_policy!r}: choose 'full' or "
+                "'dots'")
+        if self.corr_dtype not in ("float32", "bfloat16"):
+            raise ValueError(
+                f"corr_dtype={self.corr_dtype!r}: choose 'float32' "
+                "(bit-level reference parity) or 'bfloat16' (halved "
+                "volume traffic; see the corr_dtype comment)")
+        if self.alternate_corr and self.corr_dtype != "float32":
+            raise ValueError(
+                "corr_dtype applies to the materialized correlation "
+                "pyramid only; alternate_corr never builds one, so "
+                f"corr_dtype={self.corr_dtype!r} would silently do "
+                "nothing — remove one of the two settings.")
+
+    @property
+    def hidden_dim(self) -> int:
+        return 96 if self.small else 128
+
+    @property
+    def context_dim(self) -> int:
+        return 64 if self.small else 128
+
+    @property
+    def corr_radius(self) -> int:
+        return 3 if self.small else 4
+
+    @property
+    def fnet_dim(self) -> int:
+        return 128 if self.small else 256
+
+    @property
+    def cnet_dim(self) -> int:
+        return self.hidden_dim + self.context_dim
+
+    @property
+    def fnet_norm(self) -> str:
+        return "instance"
+
+    @property
+    def cnet_norm(self) -> str:
+        return "none" if self.small else "batch"
+
+    @property
+    def corr_planes(self) -> int:
+        return self.corr_levels * (2 * self.corr_radius + 1) ** 2
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return torch.bfloat16 if self.mixed_precision else torch.float32
+
+
+# Iteration counts per use-site: train 12, demo 20, eval sintel 32 /
+# kitti 24 / chairs 24, export bakes 20.
+ITERS_TRAIN = 12
+ITERS_DEMO = 20
+ITERS_EVAL = {"sintel": 32, "kitti": 24, "chairs": 24}
+ITERS_EXPORT = 20

@@ -1,0 +1,64 @@
+"""Feature/context encoders (extractor.py:118-267), port of
+``raft_tpu/models/encoders.py``.
+
+3-stage residual CNNs with total stride 8, NCHW. Dropout is a training-only
+layer (``Dropout2d`` has no parameters), so the test-mode port leaves it out.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from raft_tpu_torch.models.layers import (BottleneckBlock, ResidualBlock,
+                                          conv, norm_layer)
+
+
+class BasicEncoder(nn.Module):
+    """64 -> 64 -> 96 -> 128 residual encoder + 1x1 head (extractor.py:118)."""
+
+    def __init__(self, output_dim: int = 128, norm_fn: str = "batch"):
+        super().__init__()
+        self.conv1 = conv(3, 64, 7, 2, 3)
+        # stem GroupNorm uses 8 groups, not 64//8 (extractor.py:124)
+        self.norm1 = norm_layer(norm_fn, 64, num_groups=8)
+        self.relu1 = nn.ReLU()
+        self.layer1 = self._layer(64, 64, norm_fn, 1)
+        self.layer2 = self._layer(64, 96, norm_fn, 2)
+        self.layer3 = self._layer(96, 128, norm_fn, 2)
+        self.conv2 = conv(128, output_dim, 1, 1, 0)
+
+    @staticmethod
+    def _layer(cin, dim, norm_fn, stride):
+        return nn.Sequential(ResidualBlock(cin, dim, norm_fn, stride),
+                             ResidualBlock(dim, dim, norm_fn, 1))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.relu1(self.norm1(self.conv1(x)))
+        x = self.layer3(self.layer2(self.layer1(x)))
+        return self.conv2(x)
+
+
+class SmallEncoder(nn.Module):
+    """32 -> 32 -> 64 -> 96 bottleneck encoder + 1x1 head (extractor.py:195)."""
+
+    def __init__(self, output_dim: int = 128, norm_fn: str = "batch"):
+        super().__init__()
+        self.conv1 = conv(3, 32, 7, 2, 3)
+        self.norm1 = norm_layer(norm_fn, 32, num_groups=8)
+        self.relu1 = nn.ReLU()
+        self.layer1 = self._layer(32, 32, norm_fn, 1)
+        self.layer2 = self._layer(32, 64, norm_fn, 2)
+        self.layer3 = self._layer(64, 96, norm_fn, 2)
+        self.conv2 = conv(96, output_dim, 1, 1, 0)
+
+    @staticmethod
+    def _layer(cin, dim, norm_fn, stride):
+        return nn.Sequential(
+            BottleneckBlock(cin, dim, norm_fn, stride),
+            BottleneckBlock(dim, dim, norm_fn, 1))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.relu1(self.norm1(self.conv1(x)))
+        x = self.layer3(self.layer2(self.layer1(x)))
+        return self.conv2(x)

@@ -1,0 +1,136 @@
+"""Building-block layers (NCHW inside), port of ``raft_tpu/models/layers.py``.
+
+Submodule names are the reference's ``state_dict`` names
+(``core/extractor.py:6-116``), so a reference ``.pth`` loads with
+``strict=True``: the stride-2 blocks register their last norm twice, as
+``normN`` and as ``downsample.1``, exactly as the reference does.
+
+Norm parity notes (torch defaults the reference relies on):
+- instance: ``nn.InstanceNorm2d`` — no affine, no running stats, biased
+  variance, eps 1e-5.
+- batch: eps 1e-5; this slice is inference only, so it always normalizes
+  with the running statistics (train mode is ROADMAP M8).
+- group: affine, eps 1e-5, ``num_groups = planes // 8`` except where the
+  reference says otherwise (the stem's 8 groups, the bottleneck's
+  ``planes // 8`` on its ``planes // 4``-channel norms).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+class EvalBatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` (same parameters and buffers) that normalizes with
+    its running statistics whatever the module's ``training`` flag: the
+    JAX model's ``use_running_average=True``, which test mode always sets."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.batch_norm(x, self.running_mean, self.running_var,
+                            self.weight, self.bias, False, 0.0, self.eps)
+
+
+def norm_layer(norm_fn: str, features: int,
+               num_groups: Optional[int] = None) -> nn.Module:
+    """The reference's four norm options (``extractor.py:16-38``)."""
+    if norm_fn == "group":
+        groups = num_groups if num_groups else features // 8
+        return nn.GroupNorm(groups, features, eps=1e-5)
+    if norm_fn == "batch":
+        return EvalBatchNorm2d(features, eps=1e-5)
+    if norm_fn == "instance":
+        return nn.InstanceNorm2d(features, eps=1e-5)
+    if norm_fn == "none":
+        return nn.Sequential()
+    raise ValueError(f"norm_fn={norm_fn!r}: choose group, batch, instance "
+                     "or none")
+
+
+def conv(cin: int, cout: int, kernel, stride=1, padding=0) -> nn.Conv2d:
+    """torch ``Conv2d``: symmetric padding, as the JAX ``TorchConv`` mimics."""
+    return nn.Conv2d(cin, cout, kernel, stride=stride, padding=padding)
+
+
+class ResidualBlock(nn.Module):
+    """Two 3x3 convs + skip (extractor.py:6-56)."""
+
+    def __init__(self, in_planes: int, planes: int, norm_fn: str = "group",
+                 stride: int = 1):
+        super().__init__()
+        self.conv1 = conv(in_planes, planes, 3, stride, 1)
+        self.conv2 = conv(planes, planes, 3, 1, 1)
+        self.relu = nn.ReLU()
+        self.norm1 = norm_layer(norm_fn, planes)
+        self.norm2 = norm_layer(norm_fn, planes)
+        if stride == 1:
+            self.downsample = None
+        else:
+            self.norm3 = norm_layer(norm_fn, planes)
+            self.downsample = nn.Sequential(
+                conv(in_planes, planes, 1, stride, 0), self.norm3)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.relu(self.norm1(self.conv1(x)))
+        y = self.relu(self.norm2(self.conv2(y)))
+        if self.downsample is not None:
+            x = self.downsample(x)
+        return self.relu(x + y)
+
+
+class BottleneckBlock(nn.Module):
+    """1x1 -> 3x3 -> 1x1 bottleneck + skip (extractor.py:60-116)."""
+
+    def __init__(self, in_planes: int, planes: int, norm_fn: str = "group",
+                 stride: int = 1):
+        super().__init__()
+        p4 = planes // 4
+        # the reference's num_groups = planes // 8 for ALL norms in the
+        # block, including the planes//4-channel ones (extractor.py:69-74)
+        g = planes // 8
+        self.conv1 = conv(in_planes, p4, 1, 1, 0)
+        self.conv2 = conv(p4, p4, 3, stride, 1)
+        self.conv3 = conv(p4, planes, 1, 1, 0)
+        self.relu = nn.ReLU()
+        self.norm1 = norm_layer(norm_fn, p4, g)
+        self.norm2 = norm_layer(norm_fn, p4, g)
+        self.norm3 = norm_layer(norm_fn, planes, g)
+        if stride == 1:
+            self.downsample = None
+        else:
+            self.norm4 = norm_layer(norm_fn, planes, g)
+            self.downsample = nn.Sequential(
+                conv(in_planes, planes, 1, stride, 0), self.norm4)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.relu(self.norm1(self.conv1(x)))
+        y = self.relu(self.norm2(self.conv2(y)))
+        y = self.relu(self.norm3(self.conv3(y)))
+        if self.downsample is not None:
+            x = self.downsample(x)
+        return self.relu(x + y)
+
+
+@torch.no_grad()
+def init_weights(module: nn.Module, generator: torch.Generator) -> None:
+    """The JAX package's init, drawn from ``generator``: conv kernels
+    Kaiming-normal (fan_out, relu; extractor.py:150-157), conv biases
+    U(±1/sqrt(fan_in)) as torch's ``Conv2d`` default, norm scales 1 and
+    shifts 0, running statistics (0, 1)."""
+    for m in module.modules():
+        if isinstance(m, nn.Conv2d):
+            nn.init.kaiming_normal_(m.weight, mode="fan_out",
+                                    nonlinearity="relu", generator=generator)
+            if m.bias is not None:
+                fan_in = m.weight[0].numel()
+                bound = 1.0 / math.sqrt(fan_in)
+                nn.init.uniform_(m.bias, -bound, bound, generator=generator)
+        elif isinstance(m, (nn.GroupNorm, nn.BatchNorm2d)):
+            nn.init.ones_(m.weight)
+            nn.init.zeros_(m.bias)
+            if isinstance(m, nn.BatchNorm2d):
+                m.reset_running_stats()

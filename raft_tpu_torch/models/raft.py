@@ -1,0 +1,128 @@
+"""RAFT model in test mode, port of ``raft_tpu/models/raft.py``.
+
+``RAFT.forward(image1, image2, iters, flow_init=None, test_mode=True)``
+returns ``(flow_low, flow_up)`` with images and flows NHWC, as the JAX
+model does; inside, the encoders and the update block run NCHW. The scanned
+refinement loop becomes a Python loop, and ``coords1.detach()`` plays the
+part of ``stop_gradient`` (core/raft.py:123).
+
+The paths of later slices raise ``NotImplementedError`` naming their
+ROADMAP item: train mode (M8), ``mixed_precision`` (M8),
+``alternate_corr`` (K5), ``forward_cached`` and ``forward_ragged`` (M10).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from raft_tpu_torch.config import RAFTConfig
+from raft_tpu_torch.models.corr import build_corr_pyramid, corr_lookup
+from raft_tpu_torch.models.encoders import BasicEncoder, SmallEncoder
+from raft_tpu_torch.models.layers import init_weights
+from raft_tpu_torch.models.update import BasicUpdateBlock, SmallUpdateBlock
+from raft_tpu_torch.ops.flow_ops import (convex_upsample, initialize_flow,
+                                         upflow8)
+
+
+class RAFT(nn.Module):
+    """Recurrent All-Pairs Field Transforms (core/raft.py:24).
+
+    Weights are drawn from ``generator`` (a CPU ``torch.Generator``; seed 0
+    when none is given) on the CPU; move the module with ``.to(device)``.
+    """
+
+    def __init__(self, config: RAFTConfig = RAFTConfig(),
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if config.mixed_precision:
+            raise NotImplementedError(
+                "mixed_precision: bf16 compute with the fp32 corr island "
+                "is ROADMAP M8 of the port")
+        if config.alternate_corr:
+            raise NotImplementedError(
+                "alternate_corr: the on-the-fly correlation kernel is "
+                "ROADMAP K5 of the port")
+        self.config = cfg = config
+        if cfg.small:
+            self.fnet = SmallEncoder(cfg.fnet_dim, cfg.fnet_norm)
+            self.cnet = SmallEncoder(cfg.cnet_dim, cfg.cnet_norm)
+            self.update_block = SmallUpdateBlock(cfg.corr_planes,
+                                                 cfg.hidden_dim)
+        else:
+            self.fnet = BasicEncoder(cfg.fnet_dim, cfg.fnet_norm)
+            self.cnet = BasicEncoder(cfg.cnet_dim, cfg.cnet_norm)
+            self.update_block = BasicUpdateBlock(
+                cfg.corr_planes, cfg.hidden_dim,
+                fused=cfg.gru_impl == "fused")
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        init_weights(self, generator)
+
+    def forward(self, image1: torch.Tensor, image2: torch.Tensor,
+                iters: int = 12, flow_init: Optional[torch.Tensor] = None,
+                test_mode: bool = True):
+        """Estimate flow. Images: (B, H, W, 3) float in [0, 255] with
+        H, W % 8 == 0 (pad with ``InputPadder``); ``flow_init``: (B, H/8,
+        W/8, 2). Returns ``(flow_low (B,H/8,W/8,2), flow_up (B,H,W,2))``."""
+        if not test_mode:
+            raise NotImplementedError(
+                "train mode (the per-iteration prediction stack) is ROADMAP "
+                "M8 of the port; call with test_mode=True")
+        cfg = self.config
+        B, H, W, _ = image1.shape
+        if H % 8 or W % 8:
+            raise ValueError(f"image size {H}x{W}: pad inputs to a multiple "
+                             "of 8 with InputPadder first")
+
+        # normalize to [-1, 1] (core/raft.py:89-90), then NCHW
+        x1 = (2.0 * (image1.float() / 255.0) - 1.0).permute(0, 3, 1, 2)
+        x2 = (2.0 * (image2.float() / 255.0) - 1.0).permute(0, 3, 1, 2)
+        x1, x2 = x1.contiguous(), x2.contiguous()
+
+        if cfg.split_encode:
+            fmap1, fmap2 = self.fnet(x1), self.fnet(x2)
+        else:
+            fmaps = self.fnet(torch.cat([x1, x2], 0))
+            fmap1, fmap2 = fmaps[:B], fmaps[B:]
+        pyramid = build_corr_pyramid(fmap1.permute(0, 2, 3, 1),
+                                     fmap2.permute(0, 2, 3, 1),
+                                     cfg.corr_levels)
+        if cfg.corr_dtype == "bfloat16":
+            pyramid = [v.to(torch.bfloat16) for v in pyramid]
+
+        # context network (core/raft.py:110-114)
+        cnet = self.cnet(x1)
+        net = torch.tanh(cnet[:, :cfg.hidden_dim])
+        inp = torch.relu(cnet[:, cfg.hidden_dim:])
+
+        coords0, coords1 = initialize_flow(B, H // 8, W // 8, image1.device)
+        if flow_init is not None:
+            coords1 = coords1 + flow_init
+        up_mask = None
+        for _ in range(iters):
+            coords1 = coords1.detach().contiguous()
+            corr = corr_lookup(pyramid, coords1, cfg.corr_radius,
+                               cfg.corr_impl)
+            flow = coords1 - coords0
+            net, up_mask, delta = self.update_block(
+                net, inp, corr.permute(0, 3, 1, 2).contiguous(),
+                flow.permute(0, 3, 1, 2).contiguous())
+            coords1 = coords1 + delta.permute(0, 2, 3, 1)
+
+        flow_lr = coords1 - coords0
+        if cfg.small:
+            return flow_lr, upflow8(flow_lr)
+        return flow_lr, convex_upsample(flow_lr, up_mask.permute(0, 2, 3, 1))
+
+    def forward_cached(self, *args, **kwargs):
+        raise NotImplementedError(
+            "forward_cached (cross-frame cached serving) is ROADMAP M10 of "
+            "the port")
+
+    def forward_ragged(self, *args, **kwargs):
+        raise NotImplementedError(
+            "forward_ragged (ragged serving batches) is ROADMAP M10 of the "
+            "port")
