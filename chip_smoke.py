@@ -28,7 +28,28 @@ Phases, each of which fails loudly (nothing is caught):
    against itself on frames moved by one ulp; and the small model with
    its trained fixture, kernel lookup against plain lookup; one
    basic-model pair is profiled for the device's busy and idle time;
-6. print the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
+6. hold all six kernels (the lookup and its scatter, the gates and blend
+   and their backward) against their plain versions at the training
+   geometry (the chairs recipe's 368x496 crops at batch 10: the 1/8 grid
+   is 46x62, B·N = 28,520 queries, levels 46x62, 23x31, 11x15, 5x7; the
+   GRU's z/r halves strided views of a double-width conv output), two
+   scatter calls bitwise equal, and time all six there as in phase 4,
+   with the scatter's library yardstick, the backward of one
+   ``F.grid_sample`` per level;
+7. train through ``training.trainer.train`` on the chairs recipe (basic
+   model at full width, batch 10, 368x496, iters 12, lr 4e-4, fp32, batch
+   norms trained, ``pallas``+``fused``) for 6 steps on seeded synthetic
+   batches whose ground truth is their known shift: ms per step, pairs per
+   second, peak memory, launches per step of each kernel, the idle share
+   of one profiled step and its top device ops; the ``.pth`` it writes
+   loads back with ``strict=True``;
+8. from the same weights and batch, one step's loss and gradients with the
+   kernels against the plain configuration, the gradients held to the gap
+   the plain path opens against itself on frames moved by one ulp: the
+   basic model at iters=1, and the trained small fixture at iters=12
+   (kernel lookup against plain lookup); then the basic model at iters=12
+   to 10x that gap, a witness that random weights make unable to fail;
+9. print the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
    the ``{"ok": true, "device": ...}`` line.
 
 Exits non-zero, printing no result, when there is no CUDA device.
@@ -41,6 +62,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -58,6 +80,21 @@ LOOKUP_TOL = 1e-5               # fp32 lerp of identical window values
 GRU_TOL = 1e-6                  # expf/tanhf vs PyTorch's, ~1 ulp
 BASIC_STEP_TOL = 2e-3           # px, basic model, one refinement step
 SMALL_TOL = 5e-4                # px, the ROADMAP's end-to-end bound
+TRAIN_HW = (368, 496)           # chairs crops (train_standard.sh stage 1)
+TRAIN_B = 10
+TRAIN_GRID = (46, 62)
+TRAIN_ITERS = 12
+TRAIN_STEPS = 6
+TRAIN_FLOW = (-3.0, -2.0)       # synthetic_frames' shift, frame to frame
+SCATTER_TOL = 1e-5              # fp32: the same taps summed in another order
+# One train step, kernels vs plain, raw gradients (no clip), cuDNN
+# deterministic: the loss within 1e-5 relative (a mean of fp32 terms that
+# differ by fp32 rounding); the gradients within what one ulp of input does
+# to the plain path in the same run (phase 8 measures it): for each
+# parameter, its gradient gap relative to its largest gradient, and the
+# median of those over the parameters. The kernels change only the order
+# of fp32 sums, a perturbation of the same size as one ulp of input.
+STEP_LOSS_TOL = 1e-5
 
 
 def log(msg: str) -> None:
@@ -85,27 +122,50 @@ def device_events(prof):
             if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
+def device_busy_ms(prof) -> float:
+    """Milliseconds in which at least one kernel or copy ran on the card:
+    the union of the device events' intervals (a sum of their times counts
+    twice what overlaps, as cuDNN's kernels on its own streams do)."""
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    if not busy > 0:
+        raise RuntimeError("torch.profiler recorded no device intervals")
+    return busy / 1e3
+
+
 def kernel_ms(fn, reps: int = 50, flush=None):
     """Device milliseconds per call of ``fn``: the sum of the device time of
     everything it ran on the card, from ``torch.profiler``, over ``reps``
     calls after a warm-up. With ``flush`` (a device-to-device copy larger
     than the 50 MB L2), each call finds the L2 cold; the copies' own time
-    is left out. Raises if the profiler sees no device time."""
+    is left out. A profiler session now and then comes back without its
+    device events (seen once on the card in some sixty sessions), so the
+    measurement is taken again, up to three times; raises if the profiler
+    sees no device time in any."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            if flush is not None:
-                flush()
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in device_events(prof)
-             if not e.key.startswith("Memcpy DtoD"))
-    if not us > 0:
-        raise RuntimeError("torch.profiler recorded no device time")
-    return us / reps / 1e3
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                if flush is not None:
+                    flush()
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in device_events(prof)
+                 if not e.key.startswith("Memcpy DtoD"))
+        if us > 0:
+            return us / reps / 1e3
+        log(f"    torch.profiler recorded no device time (session "
+            f"{attempt + 1} of 3)")
+    raise RuntimeError("torch.profiler recorded no device time")
 
 
 def bound_ms(nbytes: float, ops: float):
@@ -118,16 +178,74 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
+def bf16_ulp_ok(got, want) -> bool:
+    """Within one bf16 ulp: |diff| <= 2^-7 * max(|plain|, 1) (one bf16
+    rounding of the same fp32 value may land one ulp apart)."""
+    return bool(((got.float() - want.float()).abs()
+                 <= 2 ** -7 * want.float().abs().clamp(min=1)).all())
+
+
+def hold_gru(tag: str, pairs, dtype, shape: str, err, err_bf16) -> None:
+    """Phases 3 and 6: each ``name: (kernel outputs, plain outputs)``
+    within GRU_TOL in fp32 and one bf16 ulp in bf16; the largest error
+    over both phases goes into ``err`` or ``err_bf16``."""
+    for name, (got, want) in pairs.items():
+        e = max(max_err(a, w) for a, w in zip(got, want))
+        if dtype == torch.float32:
+            ok, bound = e <= GRU_TOL, f"tol {GRU_TOL:g}"
+            err[name] = max(err.get(name, 0.0), e)
+        else:
+            ok = all(bf16_ulp_ok(a, w) for a, w in zip(got, want))
+            bound = "bound one bf16 ulp: 2^-7*max(|plain|,1)"
+            err_bf16[name] = max(err_bf16.get(name, 0.0), e)
+        log(f"[{tag}] {name} {str(dtype)[6:]} {shape}: max abs err {e:.3e} "
+            f"({bound})")
+        if not ok:
+            raise RuntimeError(f"{name} disagrees with its plain version")
+
+
+def time_kernels(tag: str, work, smi: str, reps: int, plain_reps: int,
+                 where: str = ""):
+    """Phases 4 and 6: for each ``name: (kernel, plain, library or None,
+    bytes, operations)``, device times L2 cold (a 128 MB copy, more than
+    the 50 MB L2, before each call; the copies' own time left out) and,
+    for the kernel, L2 warm, beside the bound; logged with the card."""
+    src = torch.empty(32 * 2 ** 20, device="cuda")
+    dst = torch.empty_like(src)
+
+    def flush():
+        dst.copy_(src)
+
+    times = {}
+    for name, (kern, plain, library, nb, ops) in work.items():
+        t = times[name] = dict(
+            ms=kernel_ms(kern, reps, flush=flush),
+            ms_l2_warm=kernel_ms(kern, reps),
+            plain_ms=kernel_ms(plain, plain_reps, flush=flush),
+            library_ms=(None if library is None
+                        else kernel_ms(library, plain_reps, flush=flush)),
+            bound=bound_ms(nb, ops), mbytes=nb / 1e6)
+        lib = ("" if t["library_ms"] is None
+               else f", library {t['library_ms']:.4f} ms")
+        log(f"[{tag}] {name}{where}: kernel {t['ms']:.4f} ms (profiler, L2 "
+            f"cold; {t['ms_l2_warm']:.4f} ms L2 warm), plain {t['plain_ms']:.4f} "
+            f"ms{lib}, bound {t['bound'][0]:.4f} ms by {t['bound'][1]} "
+            f"({nb / 1e6:.2f} MB); {smi}")
+    return times
+
+
 # ---------------------------------------------------------------------------
 # phase 3-4 inputs and yardsticks
 # ---------------------------------------------------------------------------
 
-def lookup_inputs(gen: torch.Generator, dtype: torch.dtype):
-    """The main path's pyramid (1, 7040, Hl, Wl) and coords (1, 55, 128, 2):
+def lookup_inputs(gen: torch.Generator, dtype: torch.dtype, B: int = 1,
+                  grid=GRID):
+    """A pyramid (B, N, Hl, Wl) and coords (B, H, W, 2) at a path's
+    geometry (by default the inference path's, N = 7040 on a 55x128 grid):
     grid + random flow, with a tenth of the queries far outside the image."""
-    H, W = GRID
+    H, W = grid
     N = H * W
-    vol = torch.randn((1, N, H, W), generator=gen, device="cuda")
+    vol = torch.randn((B, N, H, W), generator=gen, device="cuda")
     pyramid = [vol]
     for _ in range(3):
         pyramid.append(F.avg_pool2d(pyramid[-1], 2, stride=2))
@@ -135,10 +253,10 @@ def lookup_inputs(gen: torch.Generator, dtype: torch.dtype):
     ys, xs = torch.meshgrid(torch.arange(H, device="cuda", dtype=torch.float32),
                             torch.arange(W, device="cuda", dtype=torch.float32),
                             indexing="ij")
-    coords = torch.stack([xs, ys], -1)[None]
+    coords = torch.stack([xs, ys], -1)[None].expand(B, H, W, 2)
     coords = coords + 12.0 * torch.randn(coords.shape, generator=gen,
                                          device="cuda")
-    far = torch.rand((1, H, W, 1), generator=gen, device="cuda") < 0.1
+    far = torch.rand((B, H, W, 1), generator=gen, device="cuda") < 0.1
     coords = torch.where(far, coords + 150.0 * torch.sign(
         torch.randn(coords.shape, generator=gen, device="cuda")), coords)
     return pyramid, coords.contiguous()
@@ -188,10 +306,11 @@ def lookup_bytes(pyramid, coords, radius: int) -> float:
 # phase 5 inputs
 # ---------------------------------------------------------------------------
 
-def synthetic_frames(seed: int, n: int):
+def synthetic_frames(seed: int, n: int, hw=FRAME_HW):
     """``n`` frames of a smooth random texture, each shifted by (2, 3) px
-    from the last, as (436, 1024, 3) float32 in [0, 255]."""
-    H, W = FRAME_HW
+    from the last (a flow of (-3, -2) in (x, y)), as (H, W, 3) float32 in
+    [0, 255]."""
+    H, W = hw
     m = 4 * n
     rng = np.random.RandomState(seed)
     noise = rng.randn(H + m, W + m, 3)
@@ -228,6 +347,126 @@ def flow_diff(a, b) -> float:
     return float(max(np.abs(x - y).max() for x, y in zip(a, b)))
 
 
+# ---------------------------------------------------------------------------
+# phases 6-8: the training path
+# ---------------------------------------------------------------------------
+
+def scatter_bytes(pyramid, coords, radius: int) -> float:
+    """Bytes the lookup's backward must move: the cotangent and coords
+    read once, the whole gradient volume written once (zero outside the
+    windows)."""
+    K = 2 * radius + 1
+    n = coords[..., 0].numel()
+    return (n * len(pyramid) * K * K * 4 + coords.numel() * 4
+            + sum(v.numel() * v.element_size() for v in pyramid))
+
+
+def gru_bwd_inputs(gen: torch.Generator, dtype: torch.dtype):
+    """The training path's GRU operands, (10, 128, 46, 62), forward and
+    backward: zl and rl as the strided channel halves of a double-width
+    conv output, as the update block hands them at batch 10."""
+    shape = (TRAIN_B, 128) + TRAIN_GRID
+
+    def rand(*s):
+        return (3 * torch.randn(s, generator=gen, device="cuda")).to(dtype)
+
+    zr = rand(TRAIN_B, 256, *TRAIN_GRID)
+    h, ql, dz, drh, g = (rand(*shape) / 3 for _ in range(5))
+    z = torch.sigmoid(rand(*shape).float()).to(dtype)
+    return zr[:, :128], zr[:, 128:], h, ql, dz, drh, g, z
+
+
+def train_batch(seed: int):
+    """A chairs-geometry batch on the loader's uint8 wire: TRAIN_B pairs of
+    consecutive synthetic frames, ground truth their known shift, every
+    pixel valid."""
+    H, W = TRAIN_HW
+    frames = synthetic_frames(seed, TRAIN_B + 1, TRAIN_HW)
+    frames = [np.round(f).astype(np.uint8) for f in frames]
+    return {"image1": np.stack(frames[:-1]), "image2": np.stack(frames[1:]),
+            "flow": np.broadcast_to(np.float32(TRAIN_FLOW),
+                                    (TRAIN_B, H, W, 2)).copy(),
+            "valid": np.ones((TRAIN_B, H, W), np.uint8)}
+
+
+class TimedLoader:
+    """The batches, with the host clock read (device synchronised) each time
+    the trainer asks for the next one: mark k+1 - mark k is step k."""
+
+    def __init__(self, batches):
+        self.batches = batches
+        self.marks = []
+
+    def __iter__(self):
+        for b in self.batches:
+            torch.cuda.synchronize()
+            self.marks.append(time.perf_counter())
+            yield b
+
+
+def train_config(**kw):
+    from raft_tpu_torch.config import stage_config
+
+    base = dict(batch_size=TRAIN_B, image_size=TRAIN_HW, iters=TRAIN_ITERS,
+                validation=())
+    base.update(kw)
+    return stage_config("chairs", **base)
+
+
+def step_grads(config, weights, batch, iters: int):
+    """One train step from ``weights`` on ``batch``: (loss, raw gradient of
+    every parameter). The clip is set out of reach so the gradients are the
+    backward's own."""
+    from raft_tpu_torch.models import RAFT
+    from raft_tpu_torch.training.train_step import (create_train_state,
+                                                    make_train_step)
+
+    model = RAFT(config)
+    model.load_state_dict(weights)
+    tc = train_config(iters=iters, clip=float("inf"))
+    state = create_train_state(model.cuda(), tc)
+    metrics = make_train_step(config, tc)(state, batch)
+    grads = {k: p.grad.detach().clone() for k, p in model.named_parameters()}
+    return float(metrics["loss"]), grads
+
+
+def step_gap(a, b):
+    """Between two ``step_grads`` results: (relative loss gap; the largest
+    and the median over parameters of max|grad gap| / max|grad|; each
+    parameter's (max|grad gap|, max|grad|); the model's largest gradient).
+    Parameters whose gradient is under 1e-4 of the model's largest (biases
+    in front of a norm, zero in exact arithmetic) are left out of the
+    largest and the median; the per-parameter bound covers them."""
+    (la, ga), (lb, gb) = a, b
+    gmax = max(float(g.abs().max()) for g in gb.values())
+    rel, worst = [], {}
+    for k in gb:
+        scale = float(gb[k].abs().max())
+        err = float((ga[k] - gb[k]).abs().max())
+        worst[k] = (err, scale)
+        if scale > 1e-4 * gmax:
+            rel.append(err / scale)
+    return abs(la - lb) / abs(lb), max(rel), float(np.median(rel)), worst, gmax
+
+
+def check_step(name, plain, kernels, ulp):
+    """Phase 8: one step's kernels-vs-plain gap against STEP_LOSS_TOL for
+    the loss and, for the gradients, the gap that the plain path opens
+    against itself on inputs moved by one ulp (``ulp``): each parameter's
+    within the largest relative one-ulp gap of the model (plus 1e-6 of its
+    largest gradient), and the median within the one-ulp median."""
+    dl, worst_rel, median, worst, gmax = step_gap(kernels, plain)
+    _, grad_tol, median_tol, _, _ = step_gap(ulp, plain)
+    bad = [(k, e, s) for k, (e, s) in worst.items()
+           if not e <= grad_tol * s + 1e-6 * gmax]
+    log(f"[8] {name}: loss gap {dl:.3e} (tol {STEP_LOSS_TOL:g}), gradient "
+        f"gap largest {worst_rel:.3e} of a parameter's largest (bound: one "
+        f"ulp of input, {grad_tol:.3e}, + 1e-6 of the model's), median "
+        f"{median:.3e} (bound: one ulp of input, {median_tol:.3e})")
+    if not (dl <= STEP_LOSS_TOL and not bad and median <= median_tol):
+        raise RuntimeError(f"{name}: kernels disagree with plain: {bad[:5]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -236,12 +475,20 @@ def main() -> int:
     from raft_tpu_torch import kernels
     from raft_tpu_torch.config import RAFTConfig
     from raft_tpu_torch.kernels import _build
-    from raft_tpu_torch.kernels.corr_lookup import corr_lookup_cuda
-    from raft_tpu_torch.kernels.gru import (gru_blend, gru_blend_plain,
-                                            gru_gates, gru_gates_plain)
+    from raft_tpu_torch.kernels.corr_lookup import (corr_lookup_bwd_plain,
+                                                    corr_lookup_cuda,
+                                                    corr_scatter_cuda)
+    from raft_tpu_torch.kernels.gru import (gru_blend, gru_blend_bwd,
+                                            gru_blend_bwd_plain,
+                                            gru_blend_plain, gru_gates,
+                                            gru_gates_bwd,
+                                            gru_gates_bwd_plain,
+                                            gru_gates_plain)
     from raft_tpu_torch.models import RAFT
     from raft_tpu_torch.models.corr import corr_lookup_gather
     from raft_tpu_torch.tools.convert import load_pth
+    from raft_tpu_torch.training.train_step import make_train_step
+    from raft_tpu_torch.training.trainer import train
 
     # -- 1. device -----------------------------------------------------------
     kind = torch.cuda.get_device_name(0)
@@ -266,7 +513,8 @@ def main() -> int:
     smem = {r: 8 * (2 * r + 2) ** 2 * 4 for r in (4, 3)}
     log(f"[2] dynamic shared memory per 256-thread block: corr_lookup "
         f"{smem[4]} B at r=4, {smem[3]} B at r=3 (8 warps x (2r+2)^2 fp32 "
-        "windows); gru_gates, gru_blend none")
+        f"windows); corr_scatter {8 * 81 * 4} B at r=4 (8 warps x (2r+1)^2 "
+        "fp32 cotangents); the GRU kernels none")
 
     # -- 3. kernels against their plain versions ----------------------------
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -288,29 +536,13 @@ def main() -> int:
         zl, rl, h, ql = (3 * torch.randn(shape, generator=gen, device="cuda")
                          .to(dtype) for _ in range(4))
         z = torch.sigmoid(zl.float()).to(dtype)
-        pairs = {"gru_gates": (gru_gates(zl, rl, h), gru_gates_plain(zl, rl, h)),
-                 "gru_blend": ((gru_blend(z, h, ql),), (gru_blend_plain(z, h, ql),))}
-        for name, (got, want) in pairs.items():
-            e = max(max_err(g, w) for g, w in zip(got, want))
-            if dtype == torch.float32:
-                ok = e <= GRU_TOL
-                err[name] = e
-                bound = f"tol {GRU_TOL:g}"
-            else:
-                # one bf16 rounding of the same fp32 value may land one ulp
-                # apart: |diff| <= 2^-7 * max(|plain|, 1)
-                ok = all(bool(((g.float() - w.float()).abs()
-                               <= 2 ** -7 * w.float().abs().clamp(min=1)).all())
-                         for g, w in zip(got, want))
-                err_bf16[name] = e
-                bound = "bound one bf16 ulp: 2^-7*max(|plain|,1)"
-            log(f"[3] {name} {str(dtype)[6:]} (1,7040,128): max abs err "
-                f"{e:.3e} ({bound})")
-            if not ok:
-                raise RuntimeError(f"{name} disagrees with its plain version")
+        hold_gru("3", {"gru_gates": (gru_gates(zl, rl, h),
+                                     gru_gates_plain(zl, rl, h)),
+                       "gru_blend": ((gru_blend(z, h, ql),),
+                                     (gru_blend_plain(z, h, ql),))},
+                 dtype, "(1,7040,128)", err, err_bf16)
 
     # -- 4. times ------------------------------------------------------------
-    times = {}
     pyramid, coords = lookup_inputs(gen, torch.float32)
     e = max_err(lookup_grid_sample(pyramid, coords, 4),
                 corr_lookup_gather(pyramid, coords, 4))
@@ -330,28 +562,11 @@ def main() -> int:
             "gru_blend": (lambda: gru_blend(z, h, ql),
                           lambda: gru_blend_plain(z, h, ql), None,
                           4 * n * 4, 6 * n)}
-    src = torch.empty(32 * 2 ** 20, device="cuda")     # 128 MB > L2
-    dst = torch.empty_like(src)
-
-    def flush():
-        dst.copy_(src)
-
-    for name, (kern, plain, library, nb, ops) in work.items():
-        ms = kernel_ms(kern, flush=flush)
-        t = times[name] = dict(
-            ms=ms, ms_l2_warm=kernel_ms(kern),
-            plain_ms=kernel_ms(plain, flush=flush),
-            library_ms=(None if library is None
-                        else kernel_ms(library, flush=flush)),
-            call_ms=cuda_ms(kern, 200), bound=bound_ms(nb, ops))
-        lib = ("" if t["library_ms"] is None
-               else f", library {t['library_ms']:.4f} ms")
-        log(f"[4] {name}: kernel {ms:.4f} ms (profiler, L2 cold; "
-            f"{t['ms_l2_warm']:.4f} ms L2 warm), plain {t['plain_ms']:.4f} "
-            f"ms{lib}, bound {t['bound'][0]:.4f} ms by {t['bound'][1]} "
-            f"({nb / 1e6:.2f} MB); one wrapper call back-to-back "
-            f"{t['call_ms']:.4f} ms (events, host included); {smi}")
-    del src, dst
+    times = time_kernels("4", work, smi, 50, 50)
+    for name, (kern, *_) in work.items():
+        times[name]["call_ms"] = cuda_ms(kern, 200)
+        log(f"[4] {name}: one wrapper call back-to-back "
+            f"{times[name]['call_ms']:.4f} ms (events, host included)")
     del pyramid
 
     # -- 5. end to end -------------------------------------------------------
@@ -369,8 +584,9 @@ def main() -> int:
     log(f"[5] basic model, pallas+fused, iters={ITERS}: {ms_k:.2f} ms/pair, "
         f"peak {peak_k:.0f} MiB, launches {launches} over {PAIRS} pairs, "
         f"{per_pair} per pair; {smi}")
-    want = {"corr_lookup": ITERS * PAIRS, "gru_gates": 2 * ITERS * PAIRS,
-            "gru_blend": 2 * ITERS * PAIRS}
+    want = {"corr_lookup": ITERS * PAIRS, "corr_scatter": 0,
+            "gru_gates": 2 * ITERS * PAIRS, "gru_blend": 2 * ITERS * PAIRS,
+            "gru_gates_bwd": 0, "gru_blend_bwd": 0}
     if launches != want:
         raise RuntimeError(f"main path launches {launches}, want {want}")
     from torch.profiler import ProfilerActivity, profile
@@ -380,7 +596,7 @@ def main() -> int:
         run_pairs(model_k, cfg_k, frames[:2], ITERS)
         wall = (time.perf_counter() - t0) * 1e3
     evs = device_events(prof)
-    busy = sum(e.self_device_time_total for e in evs) / 1e3
+    busy = device_busy_ms(prof)
     log(f"[5] basic model, one pair under the profiler: wall {wall:.2f} ms, "
         f"device busy {busy:.2f} ms, idle share {1 - busy / wall:.3f}; top "
         "device time:")
@@ -433,22 +649,220 @@ def main() -> int:
     if not d <= SMALL_TOL or slaunch["corr_lookup"] != ITERS * PAIRS:
         raise RuntimeError("small model: kernel lookup disagrees with plain")
 
-    # -- 6. result -----------------------------------------------------------
+    del small_k, small_p
+
+    # -- 6. backward kernels at the training geometry ------------------------
+    B, (Hg, Wg) = TRAIN_B, TRAIN_GRID
+    for dtype in (torch.float32, torch.bfloat16):
+        pyramid, coords = lookup_inputs(gen, dtype, B, TRAIN_GRID)
+        e = max_err(corr_lookup_cuda(pyramid, coords, 4),
+                    corr_lookup_gather(pyramid, coords, 4))
+        log(f"[6] corr_lookup r=4 {str(dtype)[6:]} volume, B={B}, grid "
+            f"{Hg}x{Wg}: max abs err {e:.3e} (tol {LOOKUP_TOL:g})")
+        if not e <= LOOKUP_TOL:
+            raise RuntimeError("corr_lookup disagrees with its plain version")
+        err["corr_lookup"] = max(err["corr_lookup"], e)
+        g = torch.randn((B, Hg, Wg, 4 * 81), generator=gen, device="cuda")
+        got = corr_scatter_cuda(g, pyramid, coords, 4)
+        again = corr_scatter_cuda(g, pyramid, coords, 4)
+        want = corr_lookup_bwd_plain(g, [v.float() for v in pyramid], coords, 4)
+        bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+        e = max(max_err(a, w) for a, w in zip(got, want))
+        if dtype == torch.float32:
+            ok = e <= SCATTER_TOL
+            err["corr_scatter"] = e
+            bound = f"tol {SCATTER_TOL:g}"
+        else:
+            # one rounding of the fp32 gradient: half a bf16 ulp
+            ok = all(bool(((a.float() - w).abs()
+                           <= 2 ** -8 * w.abs() + SCATTER_TOL).all())
+                     for a, w in zip(got, want))
+            err_bf16["corr_scatter"] = e
+            bound = "bound half a bf16 ulp of the fp32 plain VJP + 1e-5"
+        log(f"[6] corr_scatter r=4 {str(dtype)[6:]} volume, B={B}, grid "
+            f"{Hg}x{Wg}: max abs err {e:.3e} vs the plain VJP ({bound}); two "
+            f"calls bitwise equal: {bitwise}")
+        if not (ok and bitwise):
+            raise RuntimeError("corr_scatter disagrees with its plain version")
+        del pyramid, got, again, want
+    for dtype in (torch.float32, torch.bfloat16):
+        zl, rl, h, ql, dz, drh, g, z = gru_bwd_inputs(gen, dtype)
+        hold_gru("6", {"gru_gates": (gru_gates(zl, rl, h),
+                                     gru_gates_plain(zl, rl, h)),
+                       "gru_blend": ((gru_blend(z, h, ql),),
+                                     (gru_blend_plain(z, h, ql),)),
+                       "gru_gates_bwd": (gru_gates_bwd(zl, rl, h, dz, drh),
+                                         gru_gates_bwd_plain(zl, rl, h, dz,
+                                                             drh)),
+                       "gru_blend_bwd": (gru_blend_bwd(z, h, ql, g),
+                                         gru_blend_bwd_plain(z, h, ql, g))},
+                 dtype, str(tuple(h.shape)), err, err_bf16)
+
+    pyramid, coords = lookup_inputs(gen, torch.float32, B, TRAIN_GRID)
+    g = torch.randn((B, Hg, Wg, 4 * 81), generator=gen, device="cuda")
+    leaves = [v.clone().requires_grad_() for v in pyramid]
+    ref = lookup_grid_sample(leaves, coords, 4)
+    e = max(max_err(a, w) for a, w in zip(
+        torch.autograd.grad(ref, leaves, g, retain_graph=True),
+        corr_lookup_bwd_plain(g, pyramid, coords, 4)))
+    log(f"[6] grid_sample backward yardstick vs plain VJP: max abs err {e:.3e}")
+    zl, rl, h, ql, dz, drh, gz, z = gru_bwd_inputs(gen, torch.float32)
+    n = h.numel()
+    train_work = {
+        "corr_lookup": (lambda: corr_lookup_cuda(pyramid, coords, 4),
+                        lambda: corr_lookup_gather(pyramid, coords, 4), None,
+                        lookup_bytes(pyramid, coords, 4),
+                        coords[..., 0].numel() * 4 * 81 * 9),
+        "corr_scatter": (lambda: corr_scatter_cuda(g, pyramid, coords, 4),
+                         lambda: corr_lookup_bwd_plain(g, pyramid, coords, 4),
+                         lambda: torch.autograd.grad(ref, leaves, g,
+                                                     retain_graph=True),
+                         scatter_bytes(pyramid, coords, 4),
+                         coords[..., 0].numel() * 4 * 100 * 8),
+        "gru_gates": (lambda: gru_gates(zl, rl, h),
+                      lambda: gru_gates_plain(zl, rl, h), None,
+                      5 * n * 4, 9 * n),
+        "gru_blend": (lambda: gru_blend(z, h, ql),
+                      lambda: gru_blend_plain(z, h, ql), None,
+                      4 * n * 4, 6 * n),
+        "gru_gates_bwd": (lambda: gru_gates_bwd(zl, rl, h, dz, drh),
+                          lambda: gru_gates_bwd_plain(zl, rl, h, dz, drh),
+                          None, 8 * n * 4, 16 * n),
+        "gru_blend_bwd": (lambda: gru_blend_bwd(z, h, ql, gz),
+                          lambda: gru_blend_bwd_plain(z, h, ql, gz), None,
+                          7 * n * 4, 12 * n)}
+    train_times = time_kernels("6", train_work, smi, 20, 10,
+                               " at the training geometry")
+    del pyramid, leaves, ref, zl, rl, h, ql, dz, drh, gz, z
+
+    # -- 7. training through trainer.train -----------------------------------
+    cfg_k = RAFTConfig(corr_impl="pallas", gru_impl="fused")
+    cfg_p = RAFTConfig(corr_impl="gather", gru_impl="xla")
+    batches = [train_batch(seed) for seed in range(TRAIN_STEPS)]
+    with tempfile.TemporaryDirectory() as tmp:
+        tc = train_config(name="chip-smoke", num_steps=TRAIN_STEPS,
+                          checkpoint_dir=os.path.join(tmp, "ckpt"),
+                          log_dir=os.path.join(tmp, "runs"))
+        loader = TimedLoader(batches)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        state = train(cfg_k, tc, loader=loader, device="cuda")
+        train_launches = kernels.launch_counts()
+        peak_train = torch.cuda.max_memory_allocated() / 2 ** 20
+        step_ms = [1e3 * (b - a) for a, b in zip(loader.marks, loader.marks[1:])]
+        ms_step = float(np.median(step_ms[1:]))
+        per_step = {k: v / TRAIN_STEPS for k, v in train_launches.items()}
+        log(f"[7] train(): basic model, chairs recipe (B={TRAIN_B}, "
+            f"{TRAIN_HW[0]}x{TRAIN_HW[1]}, iters={TRAIN_ITERS}, fp32, batch "
+            f"norms trained), pallas+fused, {TRAIN_STEPS} steps: "
+            f"{ms_step:.2f} ms per step (median of steps 2-{len(step_ms)}; "
+            f"all {', '.join(f'{x:.2f}' for x in step_ms)} ms), "
+            f"{TRAIN_B / ms_step * 1e3:.2f} pairs/s, peak {peak_train:.0f} "
+            f"MiB; launches {train_launches}, {per_step} per step; {smi}")
+        want = {"corr_lookup": TRAIN_ITERS, "corr_scatter": TRAIN_ITERS,
+                "gru_gates": 2 * TRAIN_ITERS, "gru_blend": 2 * TRAIN_ITERS,
+                "gru_gates_bwd": 2 * TRAIN_ITERS,
+                "gru_blend_bwd": 2 * TRAIN_ITERS}
+        if per_step != want:
+            raise RuntimeError(f"training launches {per_step} per step, "
+                               f"want {want}")
+        reloaded = load_pth(os.path.join(tmp, "ckpt", "chip-smoke.pth"), cfg_k)
+        for k, v in state.model.state_dict().items():
+            if not torch.equal(reloaded.state_dict()[k], v.cpu()):
+                raise RuntimeError(f"the written .pth differs at {k}")
+        log("[7] the .pth that train() wrote loads back with strict=True "
+            "and equals the trained weights")
+
+    from torch.profiler import ProfilerActivity, profile
+
+    step_fn = make_train_step(cfg_k, tc)
+    step_fn(state, batches[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        metrics = step_fn(state, batches[1])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    evs = device_events(prof)
+    busy = device_busy_ms(prof)
+    train_idle = 1 - busy / wall
+    log(f"[7] one train step under the profiler: wall {wall:.2f} ms, device "
+        f"busy {busy:.2f} ms (union of kernel intervals; their summed time "
+        f"{sum(e.self_device_time_total for e in evs) / 1e3:.2f} ms), idle "
+        f"share {train_idle:.3f}; loss "
+        f"{float(metrics['loss']):.4f}; top device time:")
+    for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:15]:
+        log(f"[7]   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} "
+            f"{e.key[:100]}")
+    del state, step_fn, prof
+
+    # -- 8. one step, kernels against plain ----------------------------------
+    torch.backends.cudnn.deterministic = True
+    weights = RAFT(cfg_k, torch.Generator().manual_seed(1)).state_dict()
+    batch = {k: v.astype(np.float32) for k, v in batches[0].items()}
+    ulp = dict(batch, image1=np.nextafter(batch["image1"], np.float32(np.inf)),
+               image2=np.nextafter(batch["image2"], np.float32(np.inf)))
+    check_step("basic model, iters=1, kernels vs plain",
+               step_grads(cfg_p, weights, batch, 1),
+               step_grads(cfg_k, weights, batch, 1),
+               step_grads(cfg_p, weights, ulp, 1))
+    small_w = load_pth(fixture, cfg_sp).state_dict()
+    check_step(f"small model (trained fixture), iters={TRAIN_ITERS}, "
+               "kernel lookup vs plain",
+               step_grads(cfg_sp, small_w, batch, TRAIN_ITERS),
+               step_grads(cfg_sk, small_w, batch, TRAIN_ITERS),
+               step_grads(cfg_sp, small_w, ulp, TRAIN_ITERS))
+    # At random init the 12-step recurrence is chaotic: one ulp of input
+    # moves the gradients by the size of the largest, so this witness
+    # cannot fail; the two checks above are the gates.
+    plain = step_grads(cfg_p, weights, batch, TRAIN_ITERS)
+    gap_kp = step_gap(step_grads(cfg_k, weights, batch, TRAIN_ITERS), plain)
+    gap_pp = step_gap(step_grads(cfg_p, weights, ulp, TRAIN_ITERS), plain)
+    log(f"[8] basic model, iters={TRAIN_ITERS}: kernels vs plain loss gap "
+        f"{gap_kp[0]:.3e}, gradient gap largest {gap_kp[1]:.3e} median "
+        f"{gap_kp[2]:.3e}; plain vs plain on frames moved by one ulp: loss "
+        f"{gap_pp[0]:.3e}, largest {gap_pp[1]:.3e} median {gap_pp[2]:.3e} "
+        "(kernels vs plain held to 10x each)")
+    if not all(a <= 10 * b for a, b in zip(gap_kp[:3], gap_pp[:3])):
+        raise RuntimeError(f"basic model: kernels vs plain at iters="
+                           f"{TRAIN_ITERS} exceeds 10x what 1 ulp of input "
+                           "gives")
+
+    # -- 9. result -----------------------------------------------------------
     sources = {"corr_lookup": ("raft_tpu_torch/csrc/corr_lookup.cu",
                                "raft_tpu/kernels/corr_pallas.py:177"),
                "gru_gates": ("raft_tpu_torch/csrc/gru.cu",
                              "raft_tpu/kernels/gru_pallas.py:93"),
                "gru_blend": ("raft_tpu_torch/csrc/gru.cu",
-                             "raft_tpu/kernels/gru_pallas.py:112")}
+                             "raft_tpu/kernels/gru_pallas.py:112"),
+               "corr_scatter": ("raft_tpu_torch/csrc/corr_lookup.cu",
+                                "raft_tpu/kernels/corr_pallas.py:219"),
+               "gru_gates_bwd": ("raft_tpu_torch/csrc/gru.cu",
+                                 "raft_tpu/kernels/gru_pallas.py:101"),
+               "gru_blend_bwd": ("raft_tpu_torch/csrc/gru.cu",
+                                 "raft_tpu/kernels/gru_pallas.py:117")}
     rows = []
     for name, (source, replaces) in sources.items():
-        t = times[name]
+        # the inference kernels keep phase 4's times at the inference
+        # geometry; every kernel has its training-geometry times (phase 6)
+        t = times.get(name, train_times[name])
+        tt = train_times[name]
         row = {"name": name, "route": "cuda", "source": source,
-               "replaces": replaces, "launches": launches[name],
+               "replaces": replaces, "launches": train_launches[name],
                "max_abs_err": err[name], "ms": t["ms"],
                "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
                "bound_by": t["bound"][1], "library_ms": t["library_ms"],
-               "ms_l2_warm": t["ms_l2_warm"], "call_ms": t["call_ms"]}
+               "ms_l2_warm": t["ms_l2_warm"],
+               "train_geometry": {"ms": tt["ms"], "ms_l2_warm": tt["ms_l2_warm"],
+                                  "plain_ms": tt["plain_ms"],
+                                  "library_ms": tt["library_ms"],
+                                  "bound_ms": tt["bound"][0],
+                                  "bound_by": tt["bound"][1],
+                                  "mbytes": tt["mbytes"]}}
+        if name in times:
+            row["launches_inference"] = launches[name]
+            row["call_ms"] = t["call_ms"]
         if name in err_bf16:
             row["max_abs_err_bf16"] = err_bf16[name]
         rows.append(row)

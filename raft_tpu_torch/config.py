@@ -1,8 +1,9 @@
 """Typed configuration for raft_tpu_torch.
 
-The port's own copy of ``raft_tpu/config.py::RAFTConfig``: the same fields,
-defaults and validation, so flags and configs carry over between the two
-packages. What a field selects differs where the hardware differs:
+The port's own copy of ``raft_tpu/config.py``'s ``RAFTConfig``,
+``TrainConfig``, stage presets and constants: the same fields, defaults and
+validation, so flags and configs carry over between the two packages.
+What a field selects differs where the hardware differs:
 
 - ``corr_impl``: ``"gather"`` runs the plain 4-corner gather lookup
   (``models.corr.corr_lookup_gather``). Every other name (``onehot``,
@@ -20,6 +21,7 @@ On a CPU tensor every choice runs the plain PyTorch version.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional, Tuple
 
 import torch
 
@@ -136,3 +138,94 @@ ITERS_TRAIN = 12
 ITERS_DEMO = 20
 ITERS_EVAL = {"sintel": 32, "kitti": 24, "chairs": 24}
 ITERS_EXPORT = 20
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """One curriculum stage (see ``raft_tpu.config.TrainConfig``). Defaults
+    follow the reference's ``train.py:217-239``.
+
+    The port's trainer (``training.trainer.train``) refuses, naming their
+    ROADMAP item, what it does not do yet: a ``validation`` list (M7),
+    ``profile_steps`` (M8.7), ``hang_s > 0`` (M8.2), and ``num_workers``,
+    ``data_root``, ``on_bad_sample`` or ``stall_s`` away from their
+    defaults (they configure the data pipeline, M13).
+    """
+
+    name: str = "raft"
+    stage: str = "chairs"
+    restore_ckpt: Optional[str] = None
+    lr: float = 4e-4
+    num_steps: int = 100000
+    batch_size: int = 10
+    image_size: Tuple[int, int] = (368, 496)
+    wdecay: float = 1e-4
+    epsilon: float = 1e-8
+    clip: float = 1.0
+    gamma: float = 0.8
+    iters: int = 12
+    add_noise: bool = False
+    seed: int = 1234
+    val_freq: int = 5000
+    sum_freq: int = 100
+    validation: Tuple[str, ...] = ()
+    num_workers: int = 4
+    checkpoint_dir: str = "checkpoints"
+    data_root: str = "datasets"
+    log_dir: str = "runs"
+    # (start, stop): trace these step indices into log_dir
+    profile_steps: Optional[Tuple[int, int]] = None
+    # the sequence loss in the convex upsampler's subpixel domain (basic
+    # model): identical values without the (T,B,8H,8W,2) prediction stack.
+    # None = auto (fused for the basic model, standard for the small one,
+    # silently); True = requested (warns for the small model); False = the
+    # standard loss
+    fused_loss: Optional[bool] = None
+    # no-progress watchdog deadline in seconds; 0 disables
+    hang_s: float = 0.0
+    on_bad_sample: str = "raise"
+    stall_s: float = 0.0
+
+
+# Stage presets mirroring train_standard.sh:3-6 (2-GPU fp32 recipe).
+STANDARD_STAGES = {
+    "chairs": dict(stage="chairs", lr=4e-4, num_steps=100000, batch_size=10,
+                   image_size=(368, 496), wdecay=1e-4, gamma=0.8,
+                   validation=("chairs",)),
+    "things": dict(stage="things", lr=1.25e-4, num_steps=100000, batch_size=6,
+                   image_size=(400, 720), wdecay=1e-4, gamma=0.8,
+                   validation=("sintel",)),
+    "sintel": dict(stage="sintel", lr=1.25e-4, num_steps=100000, batch_size=6,
+                   image_size=(368, 768), wdecay=1e-5, gamma=0.85,
+                   validation=("sintel",)),
+    "kitti": dict(stage="kitti", lr=1e-4, num_steps=50000, batch_size=6,
+                  image_size=(288, 960), wdecay=1e-5, gamma=0.85,
+                  validation=("kitti",)),
+}
+
+# Stage presets mirroring train_mixed.sh:3-6 (1-GPU mixed-precision recipe).
+MIXED_STAGES = {
+    "chairs": dict(stage="chairs", lr=2.5e-4, num_steps=120000, batch_size=8,
+                   image_size=(368, 496), wdecay=1e-4, gamma=0.8,
+                   validation=("chairs",)),
+    "things": dict(stage="things", lr=1e-4, num_steps=120000, batch_size=5,
+                   image_size=(400, 720), wdecay=1e-4, gamma=0.8,
+                   validation=("sintel",)),
+    "sintel": dict(stage="sintel", lr=1e-4, num_steps=120000, batch_size=5,
+                   image_size=(368, 768), wdecay=1e-5, gamma=0.85,
+                   validation=("sintel",)),
+    "kitti": dict(stage="kitti", lr=1e-4, num_steps=50000, batch_size=5,
+                  image_size=(288, 960), wdecay=1e-5, gamma=0.85,
+                  validation=("kitti",)),
+}
+
+MAX_FLOW = 400.0  # train.py:42: displacements at or above it leave the loss
+
+
+def stage_config(stage: str, mixed: bool = False, **overrides) -> TrainConfig:
+    """The stage's preset (``MIXED_STAGES`` when ``mixed``) with
+    ``overrides`` applied."""
+    presets = MIXED_STAGES if mixed else STANDARD_STAGES
+    kw = dict(presets[stage])
+    kw.update(overrides)
+    return TrainConfig(**kw)

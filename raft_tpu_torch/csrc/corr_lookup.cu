@@ -1,4 +1,5 @@
-// Correlation window lookup for Hopper (sm_90a).
+// Correlation window lookup, and its adjoint (corr_scatter, below), for
+// Hopper (sm_90a).
 //
 // Replaces raft_tpu/kernels/corr_pallas.py::_lookup_kernel (reached through
 // _level_lookup_pallas and corr_lookup_pallas). For every query pixel q and
@@ -141,6 +142,149 @@ extern "C" int corr_lookup_launch(const void* const* vols, const int* hs,
   } else if (dtype == 1) {
     corr_lookup_kernel<__nv_bfloat16><<<(unsigned)blocks, threads, smem, s>>>(
         lv, levels, c, o, queries, radius);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// corr_scatter: the adjoint of corr_lookup, for training.
+//
+// Replaces raft_tpu/kernels/corr_pallas.py::_scatter_kernel (reached through
+// _level_scatter_pallas and _lookup_bwd). For every (query, level) it takes
+// the K^2 window cotangents g (fp32, x-major channels, as corr_lookup writes
+// them), runs the adjoint of the separable lerp -- x first, then y, the
+// reverse of the forward -- into a (K+1)^2 fp32 window, and stores the
+// in-range taps into the query's own (Hl, Wl) slice of the gradient volume.
+// The caller zero-fills the volume; out-of-range taps are dropped (in JAX
+// they land in the zero margin that the pad's VJP slices off).
+//
+// What bounds it on this card: bytes. The zero fill writes the whole
+// gradient volume (429.5 MB in fp32 at the chairs training geometry, B=10,
+// 46x62 grid), the kernel reads 4*K^2 bytes of cotangent per (query, level)
+// and writes at most (K+1)^2 values into it; ~0.14 ms at 3.35 TB/s.
+//
+// Design: the structure of corr_lookup, not the TPU kernel's (its 2r+3
+// margin, N rounded up to _QMAX, iota mask-adds over whole (Q,Hp,Wp) blocks
+// and a full-slice write per query exist for VMEM tiling):
+// - one warp per (query, level) item, walked grid-stride, all levels in one
+//   launch, coords clamped as corr_lookup clamps them;
+// - the warp stages its K^2 cotangents in shared memory, then each lane
+//   forms (K+1)^2 window entries, dwl = (1-wx)*g[x] + wx*g[x-1] along x and
+//   dwin = (1-wy)*dwl[y] + wy*dwl[y-1] along y, in fp32;
+// - each query owns its slice, so there are no atomics, and the result is
+//   bitwise the same from run to run;
+// - stores are in the volume's dtype (fp32 or bf16), one rounding from fp32.
+
+__device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_as(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16(v);
+}
+
+struct LevelsOut {
+  void* vol[RAFT_MAX_LEVELS];
+  int h[RAFT_MAX_LEVELS];
+  int w[RAFT_MAX_LEVELS];
+};
+
+template <typename T>
+__global__ void corr_scatter_kernel(const __grid_constant__ LevelsOut lv,
+                                    int levels,
+                                    const float* __restrict__ coords,
+                                    const float* __restrict__ grad,
+                                    long long queries, int radius) {
+  extern __shared__ float smem[];
+  const int K = 2 * radius + 1;
+  const int P = K + 1;
+  const int KK = K * K;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  float* g = smem + warp * KK;  // [x][y], x-major as the channels
+  const long long items = queries * levels;
+  const long long channels = (long long)levels * KK;
+
+  for (long long item = (long long)blockIdx.x * warps + warp; item < items;
+       item += (long long)gridDim.x * warps) {
+    const long long q = item / levels;
+    const int l = (int)(item - q * levels);
+    const int H = lv.h[l];
+    const int W = lv.w[l];
+    if (H == 0 || W == 0) continue;  // an empty level has nothing to store
+    const float scale = 1.0f / (float)(1 << l);
+    float x = coords[2 * q] * scale;
+    float y = coords[2 * q + 1] * scale;
+    x = fminf(fmaxf(x, -(radius + 2.0f)), (float)W + radius + 1.0f);
+    y = fminf(fmaxf(y, -(radius + 2.0f)), (float)H + radius + 1.0f);
+    const float xf = floorf(x);
+    const float yf = floorf(y);
+    const int x0 = (int)xf - radius;
+    const int y0 = (int)yf - radius;
+    const float wx = x - xf;
+    const float wy = y - yf;
+
+    const float* gq = grad + q * channels + (long long)l * KK;
+    for (int t = lane; t < KK; t += 32) g[t] = gq[t];
+    __syncwarp();
+
+    T* v = static_cast<T*>(lv.vol[l]) + q * (long long)H * W;
+    for (int i = lane; i < P * P; i += 32) {
+      const int py = i / P;
+      const int px = i - py * P;
+      const int iy = y0 + py;
+      const int ix = x0 + px;
+      if (iy < 0 || iy >= H || ix < 0 || ix >= W) continue;
+      // dwl(yy, px): the x adjoint of window row yy at column px
+      float d = 0.0f;
+      if (py < K) {
+        float dwl = 0.0f;
+        if (px < K) dwl = (1.0f - wx) * g[px * K + py];
+        if (px >= 1) dwl = dwl + wx * g[(px - 1) * K + py];
+        d = (1.0f - wy) * dwl;
+      }
+      if (py >= 1) {
+        float dwl = 0.0f;
+        if (px < K) dwl = (1.0f - wx) * g[px * K + py - 1];
+        if (px >= 1) dwl = dwl + wx * g[(px - 1) * K + py - 1];
+        d = d + wy * dwl;
+      }
+      store_as(v + (long long)iy * W + ix, d);
+    }
+    __syncwarp();  // g is rewritten by the next item
+  }
+}
+
+extern "C" int corr_scatter_launch(void* const* vols, const int* hs,
+                                   const int* ws, int levels,
+                                   const void* coords, const void* grad,
+                                   long long queries, int radius, int dtype,
+                                   void* stream) {
+  if (levels < 1 || levels > RAFT_MAX_LEVELS || radius < 1 || queries < 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  LevelsOut lv;
+  for (int l = 0; l < RAFT_MAX_LEVELS; ++l) {
+    lv.vol[l] = l < levels ? vols[l] : nullptr;
+    lv.h[l] = l < levels ? hs[l] : 0;
+    lv.w[l] = l < levels ? ws[l] : 0;
+  }
+  const int threads = 256;
+  const int warps = threads / 32;
+  const int K = 2 * radius + 1;
+  const size_t smem = (size_t)warps * K * K * sizeof(float);
+  long long blocks = (queries * levels + warps - 1) / warps;
+  if (blocks == 0) return 0;
+  if (blocks > (1LL << 30)) blocks = 1LL << 30;  // grid-stride covers the rest
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* c = static_cast<const float*>(coords);
+  const float* g = static_cast<const float*>(grad);
+  if (dtype == 0) {
+    corr_scatter_kernel<float><<<(unsigned)blocks, threads, smem, s>>>(
+        lv, levels, c, g, queries, radius);
+  } else if (dtype == 1) {
+    corr_scatter_kernel<__nv_bfloat16><<<(unsigned)blocks, threads, smem, s>>>(
+        lv, levels, c, g, queries, radius);
   } else {
     return (int)cudaErrorInvalidValue;
   }

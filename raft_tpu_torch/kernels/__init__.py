@@ -3,25 +3,26 @@ package's Pallas TPU kernels.
 
 Sources live in ``raft_tpu_torch/csrc/`` and are built at first use by
 ``kernels._build`` (nothing is built or imported from a GPU toolchain when
-this package is imported). Each wrapper counts its launches in a plain
-integer; :func:`launch_counts` reads them and :func:`reset_launch_counts`
-sets them to 0.
+this package is imported). Each wrapper counts its launches in its
+module's ``launches`` dict of plain integers; :func:`launch_counts` reads
+them and :func:`reset_launch_counts` sets them to 0.
 """
 
 from raft_tpu_torch.kernels import corr_lookup, gru
-from raft_tpu_torch.kernels.corr_lookup import corr_lookup_cuda  # noqa: F401
-from raft_tpu_torch.kernels.gru import (gru_blend, gru_blend_plain,  # noqa: F401
-                                        gru_gates, gru_gates_plain)
+from raft_tpu_torch.kernels.corr_lookup import (  # noqa: F401
+    CorrLookup, corr_lookup_bwd_plain, corr_lookup_cuda, corr_scatter_cuda)
+from raft_tpu_torch.kernels.gru import (  # noqa: F401
+    GruBlend, GruGates, gru_blend, gru_blend_bwd, gru_blend_bwd_plain,
+    gru_blend_plain, gru_gates, gru_gates_bwd, gru_gates_bwd_plain,
+    gru_gates_plain)
 
 
 def launch_counts() -> dict:
     """Launches of each kernel since the counts were last set to 0."""
-    return {"corr_lookup": corr_lookup.launches,
-            "gru_gates": gru.gates_launches,
-            "gru_blend": gru.blend_launches}
+    return {**corr_lookup.launches, **gru.launches}
 
 
 def reset_launch_counts() -> None:
-    corr_lookup.launches = 0
-    gru.gates_launches = 0
-    gru.blend_launches = 0
+    for counts in (corr_lookup.launches, gru.launches):
+        for k in counts:
+            counts[k] = 0

@@ -39,6 +39,11 @@ SIGNATURES = {
     "corr_lookup_launch": [_P, _P, _P, _I, _P, _P, _LL, _I, _I, _P],
     "gru_gates_launch": [_P, _P, _P, _P, _P, _LL, _I, _LL, _LL, _LL, _I, _P],
     "gru_blend_launch": [_P, _P, _P, _P, _LL, _I, _LL, _LL, _LL, _I, _P],
+    "corr_scatter_launch": [_P, _P, _P, _I, _P, _P, _LL, _I, _I, _P],
+    "gru_gates_bwd_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _LL,
+                             _LL, _LL, _LL, _LL, _I, _P],
+    "gru_blend_bwd_launch": [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _LL, _LL,
+                             _LL, _LL, _I, _P],
 }
 
 

@@ -1,20 +1,27 @@
-"""Kernel 1: the correlation window lookup, CUDA C++ for Hopper.
+"""Kernel 1, the correlation window lookup, and kernel 3, its adjoint, in
+CUDA C++ for Hopper.
 
-Replaces ``raft_tpu/kernels/corr_pallas.py::_lookup_kernel`` (through
-``_level_lookup_pallas`` and ``corr_lookup_pallas``). The kernel is
-``csrc/corr_lookup.cu``; its note says what bounds it and how it is laid
-out. The plain version is ``models.corr.corr_lookup_gather``.
+Replace ``raft_tpu/kernels/corr_pallas.py::_lookup_kernel`` and
+``::_scatter_kernel`` (through ``corr_lookup_pallas`` and its custom VJP,
+``_lookup_bwd``). The kernels are ``csrc/corr_lookup.cu``; its notes say
+what bounds them and how they are laid out. The plain versions are
+``models.corr.corr_lookup_gather`` and :func:`corr_lookup_bwd_plain`, its
+VJP by ``torch.autograd.grad``.
 
-:func:`corr_lookup_cuda` takes the plain version only for CPU tensors. For
-CUDA tensors it launches the kernel or raises; nothing falls back.
+:class:`CorrLookup` is the ``torch.autograd.Function`` that carries both:
+the lookup forward, the scatter backward; coords get no gradient, as in
+``_lookup_bwd``. :func:`corr_lookup_cuda` and :func:`corr_scatter_cuda` take
+the plain versions only for CPU tensors. For CUDA tensors they launch the
+kernel or raise; nothing falls back.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence
+from typing import List, Sequence
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from raft_tpu_torch.kernels._build import check, dtype_code, library, stream
 from raft_tpu_torch.models.corr import corr_lookup_gather
@@ -22,8 +29,8 @@ from raft_tpu_torch.models.corr import corr_lookup_gather
 MAX_LEVELS = 8      # RAFT_MAX_LEVELS in csrc/corr_lookup.cu
 MAX_RADIUS = 16     # keeps 8 warps' (2r+2)² fp32 windows under 48 KB smem
 
-#: kernel launches since the count was last set to 0
-launches = 0
+#: kernel launches since the counts were last set to 0
+launches = {"corr_lookup": 0, "corr_scatter": 0}
 
 
 def _validate(pyramid, coords, radius):
@@ -50,17 +57,14 @@ def _validate(pyramid, coords, radius):
                              "dtype")
 
 
-def corr_lookup_cuda(pyramid: Sequence[torch.Tensor], coords: torch.Tensor,
-                     radius: int) -> torch.Tensor:
-    """(B, N, Hl, Wl) levels (fp32 or bf16) + coords (B, H, W, 2) fp32 ->
-    (B, H, W, levels·K²) fp32 in the x-major channel order; level i samples
-    at coords/2^i with zeros outside its volume (an empty level gives
-    zeros: the kernel masks every tap and never reads it)."""
-    global launches
-    if coords.device.type == "cpu":
-        return corr_lookup_gather(pyramid, coords, radius)
-    if coords.device.type != "cuda":
-        raise ValueError(f"corr_lookup_cuda: no kernel for {coords.device}")
+def _levels(pyramid):
+    L = len(pyramid)
+    return ((ctypes.c_void_p * L)(*[v.data_ptr() for v in pyramid]),
+            (ctypes.c_int * L)(*[v.shape[2] for v in pyramid]),
+            (ctypes.c_int * L)(*[v.shape[3] for v in pyramid]))
+
+
+def _lookup_launch(pyramid, coords, radius) -> torch.Tensor:
     _validate(pyramid, coords, radius)
     B, H, W, _ = coords.shape
     L = len(pyramid)
@@ -69,12 +73,93 @@ def corr_lookup_cuda(pyramid: Sequence[torch.Tensor], coords: torch.Tensor,
                       device=coords.device)
     if out.numel() == 0:
         return out
-    vols = (ctypes.c_void_p * L)(*[v.data_ptr() for v in pyramid])
-    hs = (ctypes.c_int * L)(*[v.shape[2] for v in pyramid])
-    ws = (ctypes.c_int * L)(*[v.shape[3] for v in pyramid])
     code = library().lib.corr_lookup_launch(
-        vols, hs, ws, L, coords.data_ptr(), out.data_ptr(), B * H * W,
+        *_levels(pyramid), L, coords.data_ptr(), out.data_ptr(), B * H * W,
         radius, dtype_code(pyramid[0].dtype), stream(coords))
     check(code, "corr_lookup")
-    launches += 1
+    launches["corr_lookup"] += 1
     return out
+
+
+def corr_lookup_bwd_plain(grad: torch.Tensor, pyramid: Sequence[torch.Tensor],
+                          coords: torch.Tensor, radius: int
+                          ) -> List[torch.Tensor]:
+    """The plain version of :func:`corr_scatter_cuda`: the VJP of
+    ``corr_lookup_gather`` by ``torch.autograd.grad``. The lookup is linear
+    in the volume, so only the levels' shapes, dtype and device are read.
+    The VJP runs on fp32 volumes and each level's gradient is rounded once
+    to the volume's dtype, as ``_scatter_kernel`` accumulates in fp32 and
+    stores in the volume's dtype."""
+    levels = [torch.zeros(v.shape, dtype=torch.float32, device=v.device,
+                          requires_grad=True) for v in pyramid]
+    with torch.enable_grad():
+        out = corr_lookup_gather(levels, coords.detach(), radius)
+        grads = torch.autograd.grad(out, levels, grad, allow_unused=True)
+    return [(torch.zeros_like(lv) if g is None else g).to(v.dtype)
+            for g, lv, v in zip(grads, levels, pyramid)]
+
+
+def corr_scatter_cuda(grad: torch.Tensor, pyramid: Sequence[torch.Tensor],
+                      coords: torch.Tensor, radius: int) -> List[torch.Tensor]:
+    """The lookup's adjoint: the (B, H, W, levels·K²) fp32 cotangent of
+    :func:`corr_lookup_cuda`'s output -> one gradient per level, shaped and
+    typed like ``pyramid`` (whose values are not read). Zero outside each
+    query's window; out-of-range taps are dropped."""
+    if coords.device.type == "cpu":
+        return corr_lookup_bwd_plain(grad, pyramid, coords, radius)
+    if coords.device.type != "cuda":
+        raise ValueError(f"corr_scatter_cuda: no kernel for {coords.device}")
+    _validate(pyramid, coords, radius)
+    B, H, W, _ = coords.shape
+    L = len(pyramid)
+    K = 2 * radius + 1
+    if (grad.shape != (B, H, W, L * K * K) or grad.dtype != torch.float32
+            or grad.device != coords.device or not grad.is_contiguous()):
+        raise ValueError(f"grad must be contiguous float32 {(B, H, W, L * K * K)} "
+                         f"on {coords.device}, got {grad.dtype} "
+                         f"{tuple(grad.shape)} on {grad.device}")
+    dvol = [torch.zeros(v.shape, dtype=v.dtype, device=v.device)
+            for v in pyramid]
+    if grad.numel() == 0:
+        return dvol
+    code = library().lib.corr_scatter_launch(
+        *_levels(dvol), L, coords.data_ptr(), grad.data_ptr(), B * H * W,
+        radius, dtype_code(pyramid[0].dtype), stream(coords))
+    check(code, "corr_scatter")
+    launches["corr_scatter"] += 1
+    return dvol
+
+
+class CorrLookup(torch.autograd.Function):
+    """K1 forward, K3 backward; the plain versions on CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, coords, radius, *pyramid):
+        ctx.radius = radius
+        ctx.save_for_backward(coords, *pyramid)
+        if coords.device.type == "cpu":
+            return corr_lookup_gather(pyramid, coords, radius)
+        return _lookup_launch(pyramid, coords, radius)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        coords, *pyramid = ctx.saved_tensors
+        if not any(ctx.needs_input_grad[2:]):
+            return (None, None) + (None,) * len(pyramid)
+        dvol = corr_scatter_cuda(grad.contiguous(), pyramid, coords,
+                                 ctx.radius)
+        # coords get no gradient, as _lookup_bwd returns None for them
+        return (None, None, *dvol)
+
+
+def corr_lookup_cuda(pyramid: Sequence[torch.Tensor], coords: torch.Tensor,
+                     radius: int) -> torch.Tensor:
+    """(B, N, Hl, Wl) levels (fp32 or bf16) + coords (B, H, W, 2) fp32 ->
+    (B, H, W, levels·K²) fp32 in the x-major channel order; level i samples
+    at coords/2^i with zeros outside its volume (an empty level gives
+    zeros: the kernel masks every tap and never reads it). Differentiable
+    in the levels through :class:`CorrLookup`."""
+    if coords.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"corr_lookup_cuda: no kernel for {coords.device}")
+    return CorrLookup.apply(coords, radius, *pyramid)

@@ -1,21 +1,29 @@
-"""Kernels 2 and 3: the SepConvGRU gate and blend tails, CUDA C++ for Hopper.
+"""Kernels 2 and 4: the SepConvGRU gate and blend tails and their backward,
+CUDA C++ for Hopper.
 
-Replace ``raft_tpu/kernels/gru_pallas.py::_gates_kernel`` and
-``::_blend_kernel`` (through ``gru_gates`` and ``gru_blend``). The kernels
-are ``csrc/gru.cu``, built into the same library as the lookup; its note
-says what bounds them. They are written in CUDA C++ rather than Triton so
-the port has one build and one binding for all its kernels.
+Replace ``raft_tpu/kernels/gru_pallas.py::_gates_kernel``, ``::_blend_kernel``,
+``::_gates_bwd_kernel`` and ``::_blend_bwd_kernel`` (through ``gru_gates``
+and ``gru_blend`` and their custom VJPs). The kernels are ``csrc/gru.cu``,
+built into the same library as the lookup; its notes say what bounds them.
+They are written in CUDA C++ rather than Triton so the port has one build
+and one binding for all its kernels.
 
 - :func:`gru_gates`: ``(zl, rl, h) -> (σ(zl), σ(rl)·h)``
 - :func:`gru_blend`: ``(z, h, ql) -> (1−z)·h + z·tanh(ql)``
+- :func:`gru_gates_bwd`: ``(zl, rl, h, dz, drh) -> (dzl, drl, dh)``
+- :func:`gru_blend_bwd`: ``(z, h, ql, g) -> (dz, dh, dql)``
 
-Both take fp32 or bf16 operands of one shape, compute in fp32 and store in
-the operands' dtype; :func:`gru_gates_plain` and :func:`gru_blend_plain` are
-their plain versions, with the same rounding points. Each wrapper takes the
-plain version only for CPU tensors; for CUDA tensors it launches its kernel
-or raises. An operand may be any strided view whose per-batch slices
-``t[b]`` are contiguous (the z and r halves of the double-width gate conv's
-NCHW output are such views when B > 1); the kernel reads it in place.
+:func:`gru_gates` and :func:`gru_blend` are differentiable through
+:class:`GruGates` and :class:`GruBlend`, whose backward runs the backward
+kernels; as in JAX, the backward recomputes σ and tanh from the saved
+inputs. All take fp32 or bf16 operands of one shape, compute in fp32 and
+store in the operands' dtype; the ``*_plain`` functions are their plain
+versions, with the same rounding points. Each wrapper takes the plain
+version only for CPU tensors; for CUDA tensors it launches its kernel or
+raises. An input may be any strided view whose per-batch slices ``t[b]``
+are contiguous (the z and r halves of the double-width gate conv's NCHW
+output are such views when B > 1); the kernel reads it in place. Outputs
+are contiguous.
 """
 
 from __future__ import annotations
@@ -24,11 +32,13 @@ from typing import Tuple
 
 import torch
 
+from torch.autograd.function import once_differentiable
+
 from raft_tpu_torch.kernels._build import check, dtype_code, library, stream
 
 #: kernel launches since the counts were last set to 0
-gates_launches = 0
-blend_launches = 0
+launches = {"gru_gates": 0, "gru_blend": 0, "gru_gates_bwd": 0,
+            "gru_blend_bwd": 0}
 
 
 def gru_gates_plain(zl, rl, h) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -44,6 +54,28 @@ def gru_blend_plain(z, h, ql) -> torch.Tensor:
     zf = z.float()
     out = (1.0 - zf) * h.float() + zf * torch.tanh(ql.float())
     return out.to(z.dtype)
+
+
+def gru_gates_bwd_plain(zl, rl, h, dz, drh):
+    """The plain version of :func:`gru_gates_bwd` (``_gates_bwd_kernel``'s
+    formulas): ``dzl = dz·z(1−z)``, ``drl = drh·h·r(1−r)``, ``dh = drh·r``
+    with z and r recomputed from the inputs."""
+    z = torch.sigmoid(zl.float())
+    r = torch.sigmoid(rl.float())
+    g = drh.float()
+    dzl = dz.float() * z * (1.0 - z)
+    drl = g * h.float() * r * (1.0 - r)
+    return (dzl.to(zl.dtype), drl.to(zl.dtype), (g * r).to(zl.dtype))
+
+
+def gru_blend_bwd_plain(z, h, ql, g):
+    """The plain version of :func:`gru_blend_bwd` (``_blend_bwd_kernel``'s
+    formulas): ``dz = g·(tanh ql − h)``, ``dh = g·(1−z)``,
+    ``dql = g·z·(1 − tanh² ql)``."""
+    zf, gf = z.float(), g.float()
+    t = torch.tanh(ql.float())
+    return ((gf * (t - h.float())).to(z.dtype), (gf * (1.0 - zf)).to(z.dtype),
+            (gf * zf * (1.0 - t * t)).to(z.dtype))
 
 
 def _operands(name, *ts):
@@ -75,44 +107,87 @@ def _operands(name, *ts):
     return t0.shape[0], inner, [t.stride(0) for t in ts], code
 
 
+def _launch(name, plain, n_out, *ts):
+    """Kernel ``name`` on the operands ``ts``: ``plain(*ts)`` for CPU
+    tensors; for CUDA tensors the kernel, into ``n_out`` contiguous outputs
+    shaped and typed like the operands. Every ``<name>_launch`` in
+    ``csrc/gru.cu`` takes (operands, outputs, inner, batch, each operand's
+    batch stride, dtype code, stream)."""
+    t0 = ts[0]
+    if t0.device.type == "cpu":
+        return plain(*ts)
+    if t0.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for {t0.device}")
+    batch, inner, strides, code = _operands(name, *ts)
+    outs = tuple(torch.empty(t0.shape, dtype=t0.dtype, device=t0.device)
+                 for _ in range(n_out))
+    if t0.numel():
+        err = getattr(library().lib, f"{name}_launch")(
+            *(t.data_ptr() for t in ts), *(o.data_ptr() for o in outs),
+            inner, batch, *strides, code, stream(t0))
+        check(err, name)
+        launches[name] += 1
+    return outs[0] if n_out == 1 else outs
+
+
+def gru_gates_bwd(zl, rl, h, dz, drh) -> Tuple[torch.Tensor, ...]:
+    """Backward of :func:`gru_gates`: the cotangents ``dz``, ``drh`` of its
+    outputs -> ``(dzl, drl, dh)``, recomputing z and r from the inputs."""
+    return _launch("gru_gates_bwd", gru_gates_bwd_plain, 3,
+                   zl, rl, h, dz, drh)
+
+
+def gru_blend_bwd(z, h, ql, g) -> Tuple[torch.Tensor, ...]:
+    """Backward of :func:`gru_blend`: the cotangent ``g`` of its output ->
+    ``(dz, dh, dql)``, recomputing tanh(ql) from the input."""
+    return _launch("gru_blend_bwd", gru_blend_bwd_plain, 3, z, h, ql, g)
+
+
+def _cotangent(g, like):
+    """An output's cotangent as the backward kernels take it: zeros when
+    the output was unused, contiguous otherwise."""
+    return torch.zeros_like(like) if g is None else g.contiguous()
+
+
+class GruGates(torch.autograd.Function):
+    """K2 gates forward, K4 gates backward; plain versions on CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, zl, rl, h):
+        ctx.save_for_backward(zl, rl, h)
+        return _launch("gru_gates", gru_gates_plain, 2, zl, rl, h)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dz, drh):
+        zl, rl, h = ctx.saved_tensors
+        # each half gets its own gradient; autograd assembles the gradient
+        # of the double-width conv output that zl and rl are views of
+        return gru_gates_bwd(zl, rl, h, _cotangent(dz, h), _cotangent(drh, h))
+
+
+class GruBlend(torch.autograd.Function):
+    """K2 blend forward, K4 blend backward; plain versions on CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, z, h, ql):
+        ctx.save_for_backward(z, h, ql)
+        return _launch("gru_blend", gru_blend_plain, 1, z, h, ql)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        z, h, ql = ctx.saved_tensors
+        return gru_blend_bwd(z, h, ql, _cotangent(g, h))
+
+
 def gru_gates(zl, rl, h) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused update/reset-gate tail: ``(σ(zl), σ(rl)·h)``; ``z`` feeds
     :func:`gru_blend`, ``r·h`` the candidate conv."""
-    global gates_launches
-    if zl.device.type == "cpu":
-        return gru_gates_plain(zl, rl, h)
-    if zl.device.type != "cuda":
-        raise ValueError(f"gru_gates: no kernel for {zl.device}")
-    batch, inner, (zl_bs, rl_bs, h_bs), code = _operands("gru_gates",
-                                                         zl, rl, h)
-    z = torch.empty(zl.shape, dtype=zl.dtype, device=zl.device)
-    rh = torch.empty_like(z)
-    if z.numel() == 0:
-        return z, rh
-    err = library().lib.gru_gates_launch(
-        zl.data_ptr(), rl.data_ptr(), h.data_ptr(), z.data_ptr(),
-        rh.data_ptr(), inner, batch, zl_bs, rl_bs, h_bs, code, stream(zl))
-    check(err, "gru_gates")
-    gates_launches += 1
-    return z, rh
+    return GruGates.apply(zl, rl, h)
 
 
 def gru_blend(z, h, ql) -> torch.Tensor:
     """Fused candidate/blend tail: ``(1−z)·h + z·tanh(ql)``; ``ql`` is the
     candidate conv's pre-tanh output, so q never lands in memory."""
-    global blend_launches
-    if z.device.type == "cpu":
-        return gru_blend_plain(z, h, ql)
-    if z.device.type != "cuda":
-        raise ValueError(f"gru_blend: no kernel for {z.device}")
-    batch, inner, (z_bs, h_bs, ql_bs), code = _operands("gru_blend",
-                                                        z, h, ql)
-    out = torch.empty(z.shape, dtype=z.dtype, device=z.device)
-    if out.numel() == 0:
-        return out
-    err = library().lib.gru_blend_launch(
-        z.data_ptr(), h.data_ptr(), ql.data_ptr(), out.data_ptr(), inner,
-        batch, z_bs, h_bs, ql_bs, code, stream(z))
-    check(err, "gru_blend")
-    blend_launches += 1
-    return out
+    return GruBlend.apply(z, h, ql)

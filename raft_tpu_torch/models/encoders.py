@@ -1,8 +1,12 @@
 """Feature/context encoders (extractor.py:118-267), port of
 ``raft_tpu/models/encoders.py``.
 
-3-stage residual CNNs with total stride 8, NCHW. Dropout is a training-only
-layer (``Dropout2d`` has no parameters), so the test-mode port leaves it out.
+3-stage residual CNNs with total stride 8, NCHW. ``forward(x, train=False,
+freeze_bn=False)`` normalizes with the batch's statistics (and updates the
+running ones) only when ``train`` and not ``freeze_bn``, as the JAX
+encoders' ``use_running_average = not train or freeze_bn``. Dropout is a
+training-only layer (``Dropout2d`` has no parameters); ``RAFT`` refuses
+``dropout > 0`` in train mode, so the port leaves it out.
 """
 
 from __future__ import annotations
@@ -11,7 +15,17 @@ import torch
 from torch import nn
 
 from raft_tpu_torch.models.layers import (BottleneckBlock, ResidualBlock,
-                                          conv, norm_layer)
+                                          apply_norm, conv, norm_layer)
+
+
+def _encode(enc: nn.Module, x: torch.Tensor, train: bool,
+            freeze_bn: bool) -> torch.Tensor:
+    ura = (not train) or freeze_bn
+    x = enc.relu1(apply_norm(enc.norm1, enc.conv1(x), ura))
+    for layer in (enc.layer1, enc.layer2, enc.layer3):
+        for block in layer:
+            x = block(x, ura)
+    return enc.conv2(x)
 
 
 class BasicEncoder(nn.Module):
@@ -33,10 +47,9 @@ class BasicEncoder(nn.Module):
         return nn.Sequential(ResidualBlock(cin, dim, norm_fn, stride),
                              ResidualBlock(dim, dim, norm_fn, 1))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.relu1(self.norm1(self.conv1(x)))
-        x = self.layer3(self.layer2(self.layer1(x)))
-        return self.conv2(x)
+    def forward(self, x: torch.Tensor, train: bool = False,
+                freeze_bn: bool = False) -> torch.Tensor:
+        return _encode(self, x, train, freeze_bn)
 
 
 class SmallEncoder(nn.Module):
@@ -58,7 +71,6 @@ class SmallEncoder(nn.Module):
             BottleneckBlock(cin, dim, norm_fn, stride),
             BottleneckBlock(dim, dim, norm_fn, 1))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.relu1(self.norm1(self.conv1(x)))
-        x = self.layer3(self.layer2(self.layer1(x)))
-        return self.conv2(x)
+    def forward(self, x: torch.Tensor, train: bool = False,
+                freeze_bn: bool = False) -> torch.Tensor:
+        return _encode(self, x, train, freeze_bn)

@@ -8,11 +8,15 @@ Submodule names are the reference's ``state_dict`` names
 Norm parity notes (torch defaults the reference relies on):
 - instance: ``nn.InstanceNorm2d`` — no affine, no running stats, biased
   variance, eps 1e-5.
-- batch: eps 1e-5; this slice is inference only, so it always normalizes
-  with the running statistics (train mode is ROADMAP M8).
+- batch: eps 1e-5, with flax's semantics (``raft_tpu/models/layers.py``'s
+  ``nn.BatchNorm(momentum=0.9)``), see :class:`BatchNorm2d`.
 - group: affine, eps 1e-5, ``num_groups = planes // 8`` except where the
   reference says otherwise (the stem's 8 groups, the bottleneck's
   ``planes // 8`` on its ``planes // 4``-channel norms).
+
+Every block's ``forward(x, use_running_average=True)`` hands the switch to
+its batch norms (the JAX model's ``use_running_average``: ``True`` in test
+mode and under ``freeze_bn``, ``False`` when training them).
 """
 
 from __future__ import annotations
@@ -24,15 +28,45 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+#: flax ``BatchNorm(momentum=0.9)``: new = 0.9·running + 0.1·batch
+BN_MOMENTUM = 0.9
 
-class EvalBatchNorm2d(nn.BatchNorm2d):
-    """``nn.BatchNorm2d`` (same parameters and buffers) that normalizes with
-    its running statistics whatever the module's ``training`` flag: the
-    JAX model's ``use_running_average=True``, which test mode always sets."""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.batch_norm(x, self.running_mean, self.running_var,
-                            self.weight, self.bias, False, 0.0, self.eps)
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d``'s parameters and buffers with flax's semantics.
+
+    ``use_running_average=True`` normalizes with the running statistics
+    whatever the module's ``training`` flag. ``False`` normalizes with the
+    batch's mean and BIASED variance (gradients flow through both) and
+    updates the buffers as flax does: ``running = 0.9·running + 0.1·batch``
+    for the mean and for the biased variance. ``nn.BatchNorm2d`` in train
+    mode would update the variance with the unbiased one.
+    """
+
+    def forward(self, x: torch.Tensor,
+                use_running_average: bool = True) -> torch.Tensor:
+        if use_running_average:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, self.eps)
+        out = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                           self.eps)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3),
+                                       unbiased=False)
+            for buf, stat in ((self.running_mean, mean),
+                              (self.running_var, var)):
+                buf.copy_(BN_MOMENTUM * buf + (1.0 - BN_MOMENTUM) * stat)
+            self.num_batches_tracked += 1
+        return out
+
+
+def apply_norm(norm: nn.Module, x: torch.Tensor,
+               use_running_average: bool) -> torch.Tensor:
+    """``norm(x)``, handing the switch to a batch norm (the other norms
+    have no running statistics)."""
+    if isinstance(norm, BatchNorm2d):
+        return norm(x, use_running_average)
+    return norm(x)
 
 
 def norm_layer(norm_fn: str, features: int,
@@ -42,7 +76,7 @@ def norm_layer(norm_fn: str, features: int,
         groups = num_groups if num_groups else features // 8
         return nn.GroupNorm(groups, features, eps=1e-5)
     if norm_fn == "batch":
-        return EvalBatchNorm2d(features, eps=1e-5)
+        return BatchNorm2d(features, eps=1e-5)
     if norm_fn == "instance":
         return nn.InstanceNorm2d(features, eps=1e-5)
     if norm_fn == "none":
@@ -74,11 +108,13 @@ class ResidualBlock(nn.Module):
             self.downsample = nn.Sequential(
                 conv(in_planes, planes, 1, stride, 0), self.norm3)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.relu(self.norm1(self.conv1(x)))
-        y = self.relu(self.norm2(self.conv2(y)))
+    def forward(self, x: torch.Tensor,
+                use_running_average: bool = True) -> torch.Tensor:
+        ura = use_running_average
+        y = self.relu(apply_norm(self.norm1, self.conv1(x), ura))
+        y = self.relu(apply_norm(self.norm2, self.conv2(y), ura))
         if self.downsample is not None:
-            x = self.downsample(x)
+            x = apply_norm(self.norm3, self.downsample[0](x), ura)
         return self.relu(x + y)
 
 
@@ -106,12 +142,14 @@ class BottleneckBlock(nn.Module):
             self.downsample = nn.Sequential(
                 conv(in_planes, planes, 1, stride, 0), self.norm4)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.relu(self.norm1(self.conv1(x)))
-        y = self.relu(self.norm2(self.conv2(y)))
-        y = self.relu(self.norm3(self.conv3(y)))
+    def forward(self, x: torch.Tensor,
+                use_running_average: bool = True) -> torch.Tensor:
+        ura = use_running_average
+        y = self.relu(apply_norm(self.norm1, self.conv1(x), ura))
+        y = self.relu(apply_norm(self.norm2, self.conv2(y), ura))
+        y = self.relu(apply_norm(self.norm3, self.conv3(y), ura))
         if self.downsample is not None:
-            x = self.downsample(x)
+            x = apply_norm(self.norm4, self.downsample[0](x), ura)
         return self.relu(x + y)
 
 

@@ -1,4 +1,4 @@
-"""RAFT model in test mode, port of ``raft_tpu/models/raft.py``.
+"""RAFT model, port of ``raft_tpu/models/raft.py``.
 
 ``RAFT.forward(image1, image2, iters, flow_init=None, test_mode=True)``
 returns ``(flow_low, flow_up)`` with images and flows NHWC, as the JAX
@@ -6,9 +6,16 @@ model does; inside, the encoders and the update block run NCHW. The scanned
 refinement loop becomes a Python loop, and ``coords1.detach()`` plays the
 part of ``stop_gradient`` (core/raft.py:123).
 
+Train mode (``test_mode=False``) stacks each iteration's low-resolution
+flow (and, for the basic model, its upsampling mask) and upsamples the
+stack once after the loop, as the JAX model does; ``train=True`` trains
+the batch norms unless ``freeze_bn``. ``raw_predictions=True`` returns the
+basic model's stack in the upsampler's subpixel domain for the fused loss.
+
 The paths of later slices raise ``NotImplementedError`` naming their
-ROADMAP item: train mode (M8), ``mixed_precision`` (M8),
-``alternate_corr`` (K5), ``forward_cached`` and ``forward_ragged`` (M10).
+ROADMAP item: ``mixed_precision`` (M8.4), ``remat`` (M8.5) and
+``dropout > 0`` (M8.6) in train mode, ``alternate_corr`` (K5),
+``forward_cached`` and ``forward_ragged`` (M10).
 """
 
 from __future__ import annotations
@@ -23,8 +30,10 @@ from raft_tpu_torch.models.corr import build_corr_pyramid, corr_lookup
 from raft_tpu_torch.models.encoders import BasicEncoder, SmallEncoder
 from raft_tpu_torch.models.layers import init_weights
 from raft_tpu_torch.models.update import BasicUpdateBlock, SmallUpdateBlock
-from raft_tpu_torch.ops.flow_ops import (convex_upsample, initialize_flow,
-                                         upflow8)
+from raft_tpu_torch.ops.flow_ops import (convex_upsample,
+                                         convex_upsample_batched_raw,
+                                         initialize_flow, subpixel_to_standard,
+                                         upflow8, upflow8_batched)
 
 
 class RAFT(nn.Module):
@@ -40,7 +49,7 @@ class RAFT(nn.Module):
         if config.mixed_precision:
             raise NotImplementedError(
                 "mixed_precision: bf16 compute with the fp32 corr island "
-                "is ROADMAP M8 of the port")
+                "is ROADMAP M8.4 of the port")
         if config.alternate_corr:
             raise NotImplementedError(
                 "alternate_corr: the on-the-fly correlation kernel is "
@@ -63,15 +72,27 @@ class RAFT(nn.Module):
 
     def forward(self, image1: torch.Tensor, image2: torch.Tensor,
                 iters: int = 12, flow_init: Optional[torch.Tensor] = None,
-                test_mode: bool = True):
+                test_mode: bool = True, train: bool = False,
+                freeze_bn: bool = False, raw_predictions: bool = False):
         """Estimate flow. Images: (B, H, W, 3) float in [0, 255] with
         H, W % 8 == 0 (pad with ``InputPadder``); ``flow_init``: (B, H/8,
-        W/8, 2). Returns ``(flow_low (B,H/8,W/8,2), flow_up (B,H,W,2))``."""
-        if not test_mode:
-            raise NotImplementedError(
-                "train mode (the per-iteration prediction stack) is ROADMAP "
-                "M8 of the port; call with test_mode=True")
+        W/8, 2). Test mode returns ``(flow_low (B,H/8,W/8,2), flow_up
+        (B,H,W,2))``; train mode the upsampled flow of every iteration,
+        (iters, B, H, W, 2), or with ``raw_predictions`` (basic model) the
+        subpixel-domain stack (iters, B, 2, 64, H/8·W/8)."""
         cfg = self.config
+        if not test_mode:
+            if cfg.remat:
+                raise NotImplementedError(
+                    "remat (recomputing the refinement step in the "
+                    "backward) is ROADMAP M8.5 of the port")
+            if train and cfg.dropout > 0:
+                raise NotImplementedError(
+                    "dropout in train mode is ROADMAP M8.6 of the port")
+            if raw_predictions and cfg.small:
+                raise ValueError(
+                    "raw_predictions applies to the learned convex "
+                    "upsampler; the small model upsamples bilinearly")
         B, H, W, _ = image1.shape
         if H % 8 or W % 8:
             raise ValueError(f"image size {H}x{W}: pad inputs to a multiple "
@@ -83,9 +104,10 @@ class RAFT(nn.Module):
         x1, x2 = x1.contiguous(), x2.contiguous()
 
         if cfg.split_encode:
-            fmap1, fmap2 = self.fnet(x1), self.fnet(x2)
+            fmap1 = self.fnet(x1, train, freeze_bn)
+            fmap2 = self.fnet(x2, train, freeze_bn)
         else:
-            fmaps = self.fnet(torch.cat([x1, x2], 0))
+            fmaps = self.fnet(torch.cat([x1, x2], 0), train, freeze_bn)
             fmap1, fmap2 = fmaps[:B], fmaps[B:]
         pyramid = build_corr_pyramid(fmap1.permute(0, 2, 3, 1),
                                      fmap2.permute(0, 2, 3, 1),
@@ -94,7 +116,7 @@ class RAFT(nn.Module):
             pyramid = [v.to(torch.bfloat16) for v in pyramid]
 
         # context network (core/raft.py:110-114)
-        cnet = self.cnet(x1)
+        cnet = self.cnet(x1, train, freeze_bn)
         net = torch.tanh(cnet[:, :cfg.hidden_dim])
         inp = torch.relu(cnet[:, cfg.hidden_dim:])
 
@@ -102,6 +124,7 @@ class RAFT(nn.Module):
         if flow_init is not None:
             coords1 = coords1 + flow_init
         up_mask = None
+        flows, masks = [], []
         for _ in range(iters):
             coords1 = coords1.detach().contiguous()
             corr = corr_lookup(pyramid, coords1, cfg.corr_radius,
@@ -111,11 +134,24 @@ class RAFT(nn.Module):
                 net, inp, corr.permute(0, 3, 1, 2).contiguous(),
                 flow.permute(0, 3, 1, 2).contiguous())
             coords1 = coords1 + delta.permute(0, 2, 3, 1)
+            if not test_mode:
+                flows.append(coords1 - coords0)
+                if not cfg.small:
+                    masks.append(up_mask.permute(0, 2, 3, 1))
 
-        flow_lr = coords1 - coords0
+        if test_mode:
+            flow_lr = coords1 - coords0
+            if cfg.small:
+                return flow_lr, upflow8(flow_lr)
+            return flow_lr, convex_upsample(flow_lr,
+                                            up_mask.permute(0, 2, 3, 1))
+        flows = torch.stack(flows)
         if cfg.small:
-            return flow_lr, upflow8(flow_lr)
-        return flow_lr, convex_upsample(flow_lr, up_mask.permute(0, 2, 3, 1))
+            return upflow8_batched(flows)
+        up = convex_upsample_batched_raw(flows, torch.stack(masks))
+        if raw_predictions:
+            return up
+        return subpixel_to_standard(up, H // 8, W // 8)
 
     def forward_cached(self, *args, **kwargs):
         raise NotImplementedError(

@@ -1,7 +1,9 @@
 """Flow-field ops (NHWC), port of ``raft_tpu/ops/flow_ops.py``.
 
 Initialization, align-corners bilinear resize, ``upflow8`` and the learned
-convex upsampler (``core/raft.py:63-83``, ``core/utils/utils.py:80-82``).
+convex upsampler (``core/raft.py:63-83``, ``core/utils/utils.py:80-82``),
+with the batched forms train mode uses on the per-iteration stack and the
+subpixel-domain transforms of the fused sequence loss.
 """
 
 from __future__ import annotations
@@ -48,15 +50,59 @@ def convex_upsample(flow: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     sub-rows, 8 sub-cols), the 9 neighbors run over the 3x3 window row-major
     with zero padding, and the softmax over them runs in fp32. Output pixel
     (8h+i, 8w+j) = sum_k softmax(mask)[k,i,j] · 8·flow[h+dy_k, w+dx_k],
-    accumulated over k in order as the JAX package does.
+    accumulated over k in order as the JAX package does (one frame of
+    :func:`convex_upsample_batched_raw`, as there).
     """
     B, H, W, _ = flow.shape
-    w9 = torch.softmax(mask.float().reshape(B, H, W, 9, 64), dim=3)
+    return subpixel_to_standard(
+        convex_upsample_batched_raw(flow[None], mask[None]), H, W)[0]
+
+
+def convex_upsample_batched_raw(flow: torch.Tensor,
+                                mask: torch.Tensor) -> torch.Tensor:
+    """Convex 8x upsample of a stack of iterations, in the subpixel domain:
+    flow (T, B, H, W, 2) fp32, mask (T, B, H, W, 576) -> (T, B, 2, 64, H*W)
+    fp32, subpixel s = 8i + j on dim 3 and n = W·h + w on dim 4.
+    :func:`subpixel_to_standard` finishes the layout; the fused sequence
+    loss meets the stack here, so the (T, B, 8H, 8W, 2) stack never
+    materializes. The convex combination is 9 shifted multiply-adds, in the
+    JAX package's order."""
+    T, B, H, W, _ = flow.shape
+    HW = H * W
+    m = mask.float().reshape(T, B, HW, 9, 64).permute(0, 1, 3, 4, 2)
+    w9 = torch.softmax(m, dim=2)                          # (T,B,9,64,HW)
     fp = F.pad(8.0 * flow.float(), (0, 0, 1, 1, 1, 1))
-    up = torch.zeros(B, H, W, 64, 2, dtype=torch.float32, device=flow.device)
+    up = None
     for k in range(9):
         dy, dx = divmod(k, 3)
-        sh = fp[:, dy:dy + H, dx:dx + W, :]                 # (B, H, W, 2)
-        up = up + w9[:, :, :, k, :, None] * sh[:, :, :, None, :]
-    up = up.reshape(B, H, W, 8, 8, 2).permute(0, 1, 3, 2, 4, 5)
-    return up.reshape(B, 8 * H, 8 * W, 2)
+        sh = fp[:, :, dy:dy + H, dx:dx + W, :]            # (T,B,H,W,2)
+        sh = sh.permute(0, 1, 4, 2, 3).reshape(T, B, 2, 1, HW)
+        term = w9[:, :, k, None] * sh
+        up = term if up is None else up + term
+    return up
+
+
+def subpixel_to_standard(up: torch.Tensor, H: int, W: int) -> torch.Tensor:
+    """(T, B, 2, 64, H*W) subpixel-domain stack -> (T, B, 8H, 8W, 2)."""
+    T, B = up.shape[:2]
+    up = up.reshape(T, B, 2, 8, 8, H, W)
+    up = up.permute(0, 1, 5, 3, 6, 4, 2)        # (t,b,h,i,w,j,c)
+    return up.reshape(T, B, 8 * H, 8 * W, 2)
+
+
+def standard_to_subpixel(x: torch.Tensor) -> torch.Tensor:
+    """(B, 8H, 8W, C) -> (B, C, 64, H*W), the inverse image-side transform
+    of :func:`subpixel_to_standard`, for targets and masks that meet the
+    upsampler's raw output in its own domain (the fused loss)."""
+    B, H8, W8, C = x.shape
+    H, W = H8 // 8, W8 // 8
+    x = x.reshape(B, H, 8, W, 8, C)             # (b,h,i,w,j,c)
+    x = x.permute(0, 5, 2, 4, 1, 3)             # (b,c,i,j,h,w)
+    return x.reshape(B, C, 64, H * W)
+
+
+def upflow8_batched(flow: torch.Tensor) -> torch.Tensor:
+    """:func:`upflow8` over a (T, B, H, W, 2) iteration stack at once."""
+    T, B, H, W, _ = flow.shape
+    out = upflow8(flow.reshape(T * B, H, W, 2))
+    return out.reshape(T, B, 8 * H, 8 * W, 2)

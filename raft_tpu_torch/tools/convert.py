@@ -13,12 +13,17 @@ key mapping of ``raft_tpu/tools/convert.py`` (lines 34-57) run in reverse:
   ``downsample.1`` (torch registers the one module under both names,
   extractor.py:44-45,103-104).
 
+:func:`save_pth` writes the port's weights back out in the reference's
+format, which ``load_pth`` here and ``raft_tpu.tools.convert.load_pth``
+read.
+
 ``.msgpack`` files need flax's serialization, which the port may not
 import; loading them is queued in ROADMAP.md.
 """
 
 from __future__ import annotations
 
+import os
 import re
 from typing import Any, Dict, Iterator, Mapping, Tuple
 
@@ -94,6 +99,17 @@ def load_pth(path: str, config: RAFTConfig) -> RAFT:
     model = RAFT(config)
     model.load_state_dict(state_dict, strict=True)
     return model
+
+
+def save_pth(model: RAFT, path: str) -> None:
+    """``model``'s weights as a reference-format ``.pth``: its
+    ``state_dict`` (the reference's key names) on the CPU, written to a
+    temporary file and renamed into place."""
+    state_dict = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    torch.save(state_dict, tmp)
+    os.replace(tmp, path)
 
 
 def load_weights(path: str, config: RAFTConfig) -> RAFT:

@@ -1,0 +1,118 @@
+"""One train step, port of ``raft_tpu/training/train_step.py``.
+
+The step runs the model in train mode (batch norms trained unless the
+stage freezes them, ``freeze_bn = stage != "chairs"`` as train.py:147-148),
+the sequence loss (fused into the upsampler's subpixel domain for the basic
+model by default), the backward, the optax-form clip and AdamW with
+OneCycle. The JAX step is a pure function of the state; here the state
+holds the model, optimizer and scheduler, which the step updates in place.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import warnings
+from typing import Dict
+
+import numpy as np
+import torch
+
+from raft_tpu_torch.config import RAFTConfig, TrainConfig
+from raft_tpu_torch.models.raft import RAFT
+from raft_tpu_torch.training.loss import sequence_loss, sequence_loss_subpixel
+from raft_tpu_torch.training.optim import clip_by_global_norm_, make_optimizer
+
+METRICS = ("loss", "epe", "1px", "3px", "5px", "grad_norm")
+
+
+@dataclasses.dataclass
+class TrainState:
+    model: RAFT
+    optimizer: torch.optim.Optimizer
+    scheduler: torch.optim.lr_scheduler.LRScheduler
+    step: int = 0
+
+
+def create_train_state(model: RAFT, train_cfg: TrainConfig) -> TrainState:
+    """A fresh optimizer and schedule for ``model``, on its device."""
+    opt, sched = make_optimizer(model.parameters(), train_cfg.lr,
+                                train_cfg.num_steps, train_cfg.wdecay,
+                                train_cfg.epsilon)
+    return TrainState(model, opt, sched)
+
+
+def _as_float(x, device) -> torch.Tensor:
+    """A batch field (numpy or tensor, uint8 or float32) as float32 on
+    ``device``; the uint8 wire format casts losslessly on the device."""
+    if isinstance(x, np.ndarray):
+        x = torch.from_numpy(np.ascontiguousarray(x))
+    return x.to(device, non_blocking=True).float()
+
+
+def noise_generator(seed: int, step: int, device) -> torch.Generator:
+    """The generator of step ``step``'s image noise, seeded from (seed,
+    step), so a resumed run replays the stream. Its numbers are not JAX's."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed((seed << 32) + step)
+    return gen
+
+
+def add_noise(image1, image2, gen: torch.Generator):
+    """train.py:167-170: one stdv ~ U[0, 5) for the pair, then Gaussian
+    noise of that stdv on each image, clipped to [0, 255]."""
+    dev = image1.device
+    stdv = 5.0 * torch.rand((), generator=gen, device=dev)
+    return tuple((im + stdv * torch.randn(im.shape, generator=gen, device=dev))
+                 .clamp(0.0, 255.0) for im in (image1, image2))
+
+
+def make_train_step(model_cfg: RAFTConfig, train_cfg: TrainConfig):
+    """``step(state, batch) -> metrics``: batch holds image1/image2
+    (B,H,W,3) and valid (B,H,W), uint8 or float32, and flow (B,H,W,2)
+    float32, on any device; metrics are the 0-dim tensors
+    :data:`METRICS` on the model's device (nothing waits for the card).
+    ``grad_norm`` is the global norm before the clip."""
+    freeze_bn = train_cfg.stage != "chairs"
+    fused = (train_cfg.fused_loss is not False) and not model_cfg.small
+    if train_cfg.fused_loss is True and model_cfg.small:
+        warnings.warn(
+            "fused_loss requested with the small model, which has no fused "
+            "path (its upsampling is a plain 8x interpolate, not the learned "
+            "convex mask the fusion rides on) — falling back to the "
+            "standard sequence loss", stacklevel=2)
+    loss_impl = sequence_loss_subpixel if fused else sequence_loss
+
+    def train_step(state: TrainState, batch: Dict) -> Dict[str, torch.Tensor]:
+        model = state.model
+        if model.config != model_cfg:
+            raise ValueError("the state's model was built for another "
+                             "RAFTConfig")
+        dev = next(model.parameters()).device
+        image1 = _as_float(batch["image1"], dev)
+        image2 = _as_float(batch["image2"], dev)
+        valid = _as_float(batch["valid"], dev)
+        flow = _as_float(batch["flow"], dev)
+        if train_cfg.add_noise:
+            image1, image2 = add_noise(
+                image1, image2, noise_generator(train_cfg.seed, state.step,
+                                                dev))
+        model.train()
+        preds = model(image1, image2, iters=train_cfg.iters, test_mode=False,
+                      train=True, freeze_bn=freeze_bn, raw_predictions=fused)
+        loss, metrics = loss_impl(preds, flow, valid, train_cfg.gamma)
+        state.optimizer.zero_grad()
+        loss.backward()
+        params = list(model.parameters())
+        for p in params:   # optax updates every leaf; a missing grad is 0
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        grad_norm = clip_by_global_norm_([p.grad for p in params],
+                                         train_cfg.clip)
+        state.optimizer.step()
+        state.scheduler.step()
+        state.step += 1
+        out = {k: v.detach() for k, v in metrics.items()}
+        out.update(loss=loss.detach(), grad_norm=grad_norm)
+        return out
+
+    return train_step

@@ -3,8 +3,9 @@
 - The trained small fixture loads into identical port tensors through the
   ``.pth`` directly and through JAX's ``.msgpack`` loader followed by
   ``state_dict_from_flax``; JAX-initialised variables load ``strict=True``.
-- ``raft_tpu_torch`` and ``chip_smoke`` import with ``jax``, ``flax`` and
-  ``raft_tpu`` blocked (a subprocess; ``raft_tpu_torch`` itself must pass).
+- ``raft_tpu_torch`` (its ``training`` modules included), ``chip_smoke``
+  and ``profile_train_convs`` import with ``jax``, ``flax`` and ``raft_tpu`` blocked (a
+  subprocess; ``raft_tpu_torch`` itself must pass).
 - Entry points run on the card unless asked for the CPU, and raise without
   one; configuration validation matches the JAX package's.
 """
@@ -95,7 +96,10 @@ names = [m.name for m in pkgutil.walk_packages(raft_tpu_torch.__path__,
                                                "raft_tpu_torch.")]
 for n in names:
     importlib.import_module(n)
-import chip_smoke
+for n in ("training.loss", "training.optim", "training.train_step",
+          "training.logger", "training.trainer"):
+    assert "raft_tpu_torch." + n in names, n
+import chip_smoke, profile_train_convs
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 print(len(names), "modules")
@@ -106,7 +110,7 @@ def test_port_and_chip_smoke_import_with_jax_blocked():
     r = subprocess.run([sys.executable, "-c", _BLOCKER], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
-    assert int(r.stdout.split()[0]) >= 15
+    assert int(r.stdout.split()[0]) >= 21
 
 
 def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
@@ -152,10 +156,11 @@ def test_later_slices_raise_not_implemented(tmp_path):
         RAFT(RAFTConfig(mixed_precision=True))
     with pytest.raises(NotImplementedError, match="K5"):
         RAFT(RAFTConfig(alternate_corr=True))
-    model = RAFT(RAFTConfig(small=True))
+    # train mode is ported; dropout in it is not
+    model = RAFT(RAFTConfig(small=True, dropout=0.1))
     img = torch.zeros(1, 32, 32, 3)
     with pytest.raises(NotImplementedError, match="M8"):
-        model(img, img, iters=1, test_mode=False)
+        model(img, img, iters=1, test_mode=False, train=True)
     for fn in (model.forward_cached, model.forward_ragged):
         with pytest.raises(NotImplementedError, match="M10"):
             fn(img)

@@ -6,12 +6,19 @@ mode) and the gather formulation (``corr_lookup``) — at r=3 and r=4, on a
 non-square grid, with coords far outside the volume, for fp32 and bf16
 volumes. On the CPU the kernel wrapper and every ``corr_impl`` run that
 plain version and launch nothing.
+
+The backward of ``CorrLookup`` (on the CPU, ``corr_lookup_bwd_plain``, the
+VJP of the plain lookup) is held against the VJP of ``corr_lookup_pallas``
+(``_scatter_kernel``, interpret mode): within 1e-5 for fp32 volumes, and
+for bf16 volumes within one bf16 ulp (both round an fp32 sum, taken in
+another order, once to bf16).
 """
 
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from raft_tpu.kernels import corr_pallas
@@ -118,3 +125,60 @@ def test_empty_levels_read_as_zeros_like_jax(radius):
         want = np.asarray(jfn(jpyr, jnp.asarray(coords), radius))
         np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0,
                                    err_msg=jfn.__name__)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("radius", [4, 3])
+@pytest.mark.parametrize("grid", [(8, 12), (3, 5)])
+def test_lookup_backward_matches_jax_pallas_vjp(grid, radius, dtype):
+    """A non-square 8x12 grid and a 3x5 grid whose last two levels are
+    empty; a tenth of the queries 60 px out of range."""
+    h, w = grid
+    rng = np.random.RandomState(h * w + radius)
+    f1, f2 = [rng.randn(1, h, w, C).astype(np.float32) for _ in range(2)]
+    ys, xs = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    c = np.stack([xs, ys], -1)[None] + 3.0 * rng.randn(1, h, w, 2)
+    far = rng.rand(1, h, w, 1) < 0.1
+    coords = np.where(far, c + 60.0 * np.sign(rng.randn(1, h, w, 2)),
+                      c).astype(np.float32)
+    K2 = (2 * radius + 1) ** 2
+    g = rng.randn(1, h, w, 4 * K2).astype(np.float32)
+    jpyr = [v.astype(dtype) for v in jcorr.build_corr_pyramid(
+        jnp.asarray(f1), jnp.asarray(f2), 4)]
+    _, vjp = jax.vjp(lambda p: corr_pallas.corr_lookup_pallas(
+        p, jnp.asarray(coords), radius), jpyr)
+    want = [np.asarray(d.astype(jnp.float32)) for d in vjp(jnp.asarray(g))[0]]
+
+    pyr = [torch.tensor(np.asarray(v.astype(jnp.float32))).to(
+        getattr(torch, dtype)).requires_grad_() for v in jpyr]
+    before = kernels.launch_counts()
+    out = corr_lookup_cuda(pyr, torch.from_numpy(coords), radius)
+    out.backward(torch.from_numpy(g))
+    assert kernels.launch_counts() == before
+    assert sum(float(np.abs(x).sum()) for x in want) > 0
+    for v, wnt in zip(pyr, want):
+        assert v.grad.dtype == v.dtype and v.grad.shape == v.shape
+        got = v.grad.float().numpy()
+        if dtype == "float32":
+            np.testing.assert_allclose(got, wnt, atol=1e-5, rtol=0)
+        else:
+            assert (np.abs(got - wnt) <= 2 ** -7 * np.abs(wnt) + 1e-6).all()
+
+
+def test_coords_get_no_gradient_and_plain_bwd_is_the_gather_vjp():
+    """Coords get no gradient, as ``_lookup_bwd`` returns None for them;
+    ``corr_scatter_cuda`` on the CPU is the VJP of the plain lookup."""
+    from raft_tpu_torch.kernels.corr_lookup import corr_scatter_cuda
+
+    f1, f2 = _fmaps(5)
+    pyr = [v.requires_grad_() for v in corr.build_corr_pyramid(
+        torch.from_numpy(f1), torch.from_numpy(f2))]
+    coords = torch.from_numpy(_coords(6)).requires_grad_()
+    g = torch.randn(1, H, W, 4 * 81, generator=torch.Generator().manual_seed(0))
+    corr_lookup_cuda(pyr, coords, 4).backward(g)
+    assert coords.grad is None
+    want = torch.autograd.grad(
+        corr.corr_lookup_gather(pyr, coords.detach(), 4), pyr, g)
+    got = corr_scatter_cuda(g, pyr, coords.detach(), 4)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-6)

@@ -1,11 +1,15 @@
 """The plain GRU gate and blend tails against the JAX package's Pallas
 kernels (interpret mode), within 1e-6, and what the wrappers do on the CPU.
+The backward of ``GruGates`` and ``GruBlend`` (on the CPU, the plain
+formulas of ``_gates_bwd_kernel`` and ``_blend_bwd_kernel``) is held
+within 1e-6 of the VJPs of ``gru_pallas.gru_gates`` and ``gru_blend``.
 """
 
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from raft_tpu.kernels import gru_pallas
@@ -93,3 +97,51 @@ def test_operand_checks_take_batch_views_and_refuse_copies():
         gru._operands("gru_blend", h, h, h[:, :4])
     with pytest.raises(ValueError, match="device and dtype"):
         gru._operands("gru_blend", h, h.bfloat16(), h)
+
+
+@pytest.mark.parametrize("shape", [(2, 37, 16), (1, 600, 128)])
+def test_gates_and_blend_vjps_match_jax(shape):
+    """Pre-activations of spread 3, the state and cotangents of spread 1,
+    so every gradient is O(1), where 1e-6 is a few fp32 ulps."""
+    zl, rl, ql, *rest = _data(shape, 7, 3)
+    h, dz, drh, g = (a / 3 for a in rest)
+    jin = [jnp.asarray(a) for a in (zl, rl, h)]
+    _, vjp = jax.vjp(gru_pallas.gru_gates, *jin)
+    want_gates = vjp((jnp.asarray(dz), jnp.asarray(drh)))
+    zb = np.asarray(jax.nn.sigmoid(jin[0]))
+    _, vjp = jax.vjp(gru_pallas.gru_blend, jnp.asarray(zb), jin[2],
+                     jnp.asarray(ql))
+    want_blend = vjp(jnp.asarray(g))
+
+    t = [torch.from_numpy(a).requires_grad_() for a in (zl, rl, h)]
+    before = kernels.launch_counts()
+    z, rh = gru.gru_gates(*t)
+    torch.autograd.backward([z, rh], [torch.from_numpy(dz),
+                                      torch.from_numpy(drh)])
+    tb = [torch.from_numpy(a).requires_grad_() for a in (zb, h, ql)]
+    gru.gru_blend(*tb).backward(torch.from_numpy(g))
+    assert kernels.launch_counts() == before
+    for got, want in ((t, want_gates), (tb, want_blend)):
+        for a, w in zip(got, want):
+            np.testing.assert_allclose(a.grad.numpy(), np.asarray(w),
+                                       atol=1e-6, rtol=0)
+
+
+def test_backward_of_view_operands_assembles_the_parent_gradient():
+    """zl and rl are channel halves of one double-width conv output: each
+    half gets its own gradient and autograd assembles the parent's, with
+    nothing written through a view."""
+    zr = torch.randn(2, 16, 3, 5, requires_grad=True)
+    h = torch.randn(2, 8, 3, 5)
+    dz, drh = torch.randn(2, 8, 3, 5), torch.randn(2, 8, 3, 5)
+    z, rh = gru.gru_gates(zr[:, :8], zr[:, 8:], h)
+    torch.autograd.backward([z, rh], [dz, drh])
+    dzl, drl, _ = gru.gru_gates_bwd_plain(zr[:, :8].detach(),
+                                          zr[:, 8:].detach(), h, dz, drh)
+    torch.testing.assert_close(zr.grad, torch.cat([dzl, drl], 1), rtol=0,
+                               atol=0)
+    for fn, plain, n in ((gru.gru_gates_bwd, gru.gru_gates_bwd_plain, 5),
+                         (gru.gru_blend_bwd, gru.gru_blend_bwd_plain, 4)):
+        args = [torch.randn(2, 8, 3, 5) for _ in range(n)]
+        for a, b in zip(fn(*args), plain(*args)):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)

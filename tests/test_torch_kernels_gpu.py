@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card,
+forward and backward, and gradients through them.
 
 Imports no JAX (the card's machine has none); run there with
 
@@ -8,7 +9,10 @@ Every test asks the ``cuda`` fixture for the card, and skips when there is
 none, as on a CPU-only host. Tolerances: 1e-5 for the lookup (both versions
 lerp identical window values in fp32, in another order), 1e-6 for the fp32
 gates and blend (expf/tanhf against PyTorch's, about an ulp), one bf16 ulp
-for bf16 operands (the same fp32 value rounded once).
+for bf16 operands (the same fp32 value rounded once). The scatter (the
+lookup's backward) is held within 1e-5 of the plain VJP in fp32, and a bf16
+gradient volume within half a bf16 ulp (plus 1e-5) of the plain fp32 VJP,
+which it rounds once.
 """
 
 import numpy as np
@@ -17,10 +21,15 @@ import torch
 import torch.nn.functional as F
 
 from raft_tpu_torch import kernels
-from raft_tpu_torch.kernels.corr_lookup import corr_lookup_cuda
-from raft_tpu_torch.kernels.gru import (gru_blend, gru_blend_plain, gru_gates,
-                                        gru_gates_plain)
-from raft_tpu_torch.models.corr import corr_lookup_gather
+from raft_tpu_torch.kernels.corr_lookup import (corr_lookup_bwd_plain,
+                                                corr_lookup_cuda,
+                                                corr_scatter_cuda)
+from raft_tpu_torch.kernels.gru import (gru_blend, gru_blend_bwd,
+                                        gru_blend_bwd_plain, gru_blend_plain,
+                                        gru_gates, gru_gates_bwd,
+                                        gru_gates_bwd_plain, gru_gates_plain)
+from raft_tpu_torch.models.corr import (build_corr_pyramid, corr_lookup,
+                                        corr_lookup_gather)
 
 pytestmark = pytest.mark.gpu
 
@@ -113,8 +122,6 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
 def test_lookup_reads_empty_levels_as_zeros(cuda, radius):
     """A 3x5 grid pools to levels 3x5, 1x2, 0x1 and 0x0: the kernel masks
     every tap of an empty level, as the plain version reads it as zeros."""
-    from raft_tpu_torch.models.corr import build_corr_pyramid
-
     g = torch.Generator(device="cuda").manual_seed(radius)
     f1, f2 = (torch.randn((2, 3, 5, 32), generator=g, device=cuda)
               for _ in range(2))
@@ -126,3 +133,160 @@ def test_lookup_reads_empty_levels_as_zeros(cuda, radius):
     KK = (2 * radius + 1) ** 2
     assert not got[..., 2 * KK:].any()
     assert float((got - want).abs().max()) <= 1e-5
+
+
+def _bf16_close(got, want32):
+    """A bf16 value rounded once from ``want32``: within half a bf16 ulp
+    (2^-8 of its magnitude) plus 1e-5."""
+    return bool(((got.float() - want32).abs()
+                 <= 2 ** -8 * want32.abs() + 1e-5).all())
+
+
+@pytest.mark.parametrize("B,H,W,radius", [(1, 46, 62, 4), (2, 12, 20, 3),
+                                          (1, 9, 33, 4), (2, 3, 5, 4)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scatter_matches_plain_vjp(cuda, B, H, W, radius, dtype):
+    """A tenth of the queries 100 px out of range; the 3x5 grid has two
+    empty levels, whose gradients are empty."""
+    rng = np.random.RandomState(H * W + radius)
+    if min(H, W) >= 8:
+        pyr = _pyramid(rng, B, H, W, 4, dtype, cuda)
+    else:
+        f1, f2 = (torch.from_numpy(rng.randn(B, H, W, 32).astype(np.float32))
+                  .to(cuda) for _ in range(2))
+        pyr = [v.to(dtype) for v in build_corr_pyramid(f1, f2)]
+    coords = _coords(rng, B, H, W, 6.0, cuda)
+    K2 = (2 * radius + 1) ** 2
+    g = torch.from_numpy(rng.randn(B, H, W, 4 * K2).astype(np.float32)).to(cuda)
+    before = kernels.launch_counts()["corr_scatter"]
+    got = corr_scatter_cuda(g, pyr, coords, radius)
+    again = corr_scatter_cuda(g, pyr, coords, radius)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["corr_scatter"] == before + 2
+    want = corr_lookup_bwd_plain(g, [v.float() for v in pyr], coords, radius)
+    for a, b, w, v in zip(got, again, want, pyr):
+        assert a.shape == v.shape and a.dtype == dtype
+        assert torch.equal(a, b)      # no atomics: bitwise run to run
+        if a.numel() == 0:
+            continue
+        if dtype == torch.float32:
+            assert float((a - w).abs().max()) <= 1e-5
+        else:
+            assert _bf16_close(a, w)
+    plain = corr_lookup_bwd_plain(g, pyr, coords, radius)
+    assert [p.dtype for p in plain] == [dtype] * 4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", [1, 2])
+def test_gru_backward_kernels_match_plain(cuda, dtype, B):
+    """zl and rl are the halves of a double-width conv output (not
+    contiguous when B > 1), as on the main path."""
+    g = torch.Generator(device="cuda").manual_seed(10 + B)
+
+    def rand(*shape):
+        return (3 * torch.randn(shape, generator=g, device=cuda)).to(dtype)
+
+    zr = rand(B, 256, 46, 62)
+    zl, rl = zr[:, :128], zr[:, 128:]
+    h, dz, drh, z, ql, go = (rand(B, 128, 46, 62) for _ in range(6))
+    z = torch.sigmoid(z.float()).to(dtype)
+    pairs = ((gru_gates_bwd(zl, rl, h, dz, drh),
+              gru_gates_bwd_plain(zl, rl, h, dz, drh)),
+             (gru_blend_bwd(z, h, ql, go), gru_blend_bwd_plain(z, h, ql, go)))
+    torch.cuda.synchronize()
+    for got, want in pairs:
+        for a, w in zip(got, want):
+            assert a.dtype == dtype and a.shape == w.shape and a.is_contiguous()
+            diff = (a.float() - w.float()).abs()
+            if dtype == torch.float32:
+                assert float(diff.max()) <= 1e-6 * max(1.0, float(w.abs().max()))
+            else:
+                assert bool((diff <= 2 ** -7 * w.float().abs().clamp(min=1)).all())
+
+
+def test_gradients_flow_through_the_forward_kernels(cuda):
+    """A backward through the lookup kernel and the fused SepConvGRU gives
+    the gradients of the plain versions (1e-5 of the largest for the
+    lookup, 1e-4 for the GRU's convs and inputs, whose fp32 sums take
+    another order), and launches the backward kernels."""
+    from raft_tpu_torch.models.update import SepConvGRU
+
+    rng = np.random.RandomState(0)
+    base = _pyramid(rng, 2, 12, 20, 4, torch.float32, cuda)
+    coords = _coords(rng, 2, 12, 20, 4.0, cuda)
+    G = torch.from_numpy(rng.randn(2, 12, 20, 324).astype(np.float32)).to(cuda)
+    grads = {}
+    for impl in ("pallas", "gather"):
+        pyr = [v.clone().requires_grad_() for v in base]
+        out = corr_lookup(pyr, coords, 4, impl)
+        assert out.grad_fn is not None
+        (out * G).sum().backward()
+        grads[impl] = [v.grad for v in pyr]
+    for a, b in zip(grads["pallas"], grads["gather"]):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+    torch.manual_seed(0)
+    fused = SepConvGRU(128, 256, fused=True).to(cuda)
+    plain = SepConvGRU(128, 256, fused=False).to(cuda)
+    plain.load_state_dict(fused.state_dict())
+    h0 = torch.randn(2, 128, 23, 31, device=cuda)
+    x0 = torch.randn(2, 256, 23, 31, device=cuda)
+    Gh = torch.randn(2, 128, 23, 31, device=cuda)
+    before = kernels.launch_counts()
+    res = {}
+    for name, mod in (("fused", fused), ("plain", plain)):
+        h, x = h0.clone().requires_grad_(), x0.clone().requires_grad_()
+        out = mod(h, x)
+        assert out.grad_fn is not None
+        (out * Gh).sum().backward()
+        res[name] = [h.grad, x.grad] + [p.grad for p in mod.parameters()]
+    after = kernels.launch_counts()
+    assert after["gru_gates_bwd"] - before["gru_gates_bwd"] == 2
+    assert after["gru_blend_bwd"] - before["gru_blend_bwd"] == 2
+    for a, b in zip(res["fused"], res["plain"]):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+def test_train_mode_gradients_kernels_match_plain(cuda, monkeypatch):
+    """One train step's loss and gradients through ``RAFT`` at iters=1,
+    ``pallas``+``fused`` against ``gather``+``xla`` from the same weights
+    and batch (cuDNN deterministic, TF32 off): the loss within 1e-5
+    relative; each parameter's gradient within 1e-3 of its largest (plus
+    1e-6 of the model's largest; a ReLU input within rounding of 0 may
+    switch and its norm spreads it over a channel), and their median
+    within 1e-5."""
+    from raft_tpu_torch.config import RAFTConfig, TrainConfig
+    from raft_tpu_torch.models import RAFT
+    from raft_tpu_torch.training.train_step import (create_train_state,
+                                                    make_train_step)
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    rng = np.random.RandomState(1)
+    im1 = (rng.rand(2, 128, 160, 3) * 255).astype(np.float32)
+    batch = {"image1": im1, "image2": np.roll(im1, (3, 5), axis=(1, 2)),
+             "flow": (3 * rng.randn(2, 128, 160, 2)).astype(np.float32),
+             "valid": np.ones((2, 128, 160), np.float32)}
+    tc = TrainConfig(batch_size=2, image_size=(128, 160), iters=1)
+    weights = RAFT(RAFTConfig()).state_dict()
+    out = {}
+    for kw in (dict(corr_impl="pallas", gru_impl="fused"),
+               dict(corr_impl="gather", gru_impl="xla")):
+        cfg = RAFTConfig(**kw)
+        model = RAFT(cfg)
+        model.load_state_dict(weights)
+        state = create_train_state(model.to(cuda), tc)
+        metrics = make_train_step(cfg, tc)(state, batch)
+        out[kw["corr_impl"]] = (float(metrics["loss"]),
+                                {k: p.grad for k, p in model.named_parameters()})
+    (lk, gk), (lp, gp) = out["pallas"], out["gather"]
+    assert abs(lk - lp) <= 1e-5 * abs(lp)
+    gmax = max(float(g.abs().max()) for g in gp.values())
+    rel = []
+    for k in gp:
+        scale = float(gp[k].abs().max())
+        err = float((gk[k] - gp[k]).abs().max())
+        assert err <= 1e-3 * scale + 1e-6 * gmax, (k, err, scale)
+        if scale > 1e-4 * gmax:
+            rel.append(err / scale)
+    assert float(np.median(rel)) <= 1e-5
