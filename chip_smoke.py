@@ -49,7 +49,43 @@ Phases, each of which fails loudly (nothing is caught):
    basic model at iters=1, and the trained small fixture at iters=12
    (kernel lookup against plain lookup); then the basic model at iters=12
    to 10x that gap, a witness that random weights make unable to fail;
-9. print the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
+9. hold K5, the on-the-fly lookup of ``alternate_corr``, against its plain
+   version at the two KITTI geometries: ``validate_kitti``'s (phase 10's
+   path: a 375x1242 frame padded to 376x1248 and bucketed to 384x1280, so
+   the 1/8 grid is 48x160, N = 7,680, fmap2 levels 48x160, 24x80, 12x40,
+   6x20) and the unbucketed submission writer's (grid 47x156, N = 7,332);
+   C=256 r=4 and C=128 r=3; a tenth of the queries 150 px out, which must
+   give exact zeros; two calls bitwise equal; against the materialized
+   path on the same fmaps (the all-pairs volume, its pooling and K1, K1
+   itself against its plain version there); its gradients against plain
+   autograd, and the GRU kernels (K2) at the path's (1,128,48,160); time
+   K5 at the validator's geometry as in phase 4, with the materialized
+   path's build and K1 beside it;
+10. evaluate through ``cli/evaluate.main --dataset kitti --alternate_corr
+   --corr_impl pallas --gru_impl fused``: the basic model at full width
+   with seeded random weights saved as a ``.pth``, over a KITTI-layout
+   dataset written under a temporary directory (4 seeded synthetic
+   375x1242 pairs shifted by a known flow, 16-bit flow PNGs with a valid
+   mask): ms per pair, peak memory, launches (24 K5 a pair, no K1); then
+   the materialized path; the two held to each other after one step, and
+   with the small trained fixture at iters=24;
+11. the Sintel submission with warm start over ``demo-frames/`` in a
+   ``test/{clean,final}/<scene>/`` layout, read with the port's PNG codec:
+   the small fixture with K5 against the materialized path with K1, the
+   written ``.flo`` files read back and compared: cold pairs within 5e-4
+   px; each warm pair run again by each path from the other's init, each
+   within 5e-4 px of the other path from that init; the chained gap
+   (each pair starts from the last one's flow, so the gap feeds forward)
+   held to the materialized path's own response to the two inits plus
+   5e-4 px;
+12. memory at 1080x1920: the basic model at iters=20, alternate path
+   against materialized, peak ``max_memory_allocated`` and ms per pair
+   (``profile_hd_pair.py`` profiles such a pair); K1 against its plain
+   version at that size (N^2 = 1.05e9 indices) and K5 against K1, both
+   timed (the median of 5 profiler sessions, with their spread);
+13. the demo CLI (``cli/demo.main``) over ``demo-frames/`` with the small
+   fixture, its PNGs read back;
+14. print the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
    the ``{"ok": true, "device": ...}`` line.
 
 Exits non-zero, printing no result, when there is no CUDA device.
@@ -58,8 +94,11 @@ Exits non-zero, printing no result, when there is no CUDA device.
 from __future__ import annotations
 
 import functools
+import glob
+import inspect
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -95,10 +134,27 @@ SCATTER_TOL = 1e-5              # fp32: the same taps summed in another order
 # median of those over the parameters. The kernels change only the order
 # of fp32 sums, a perturbation of the same size as one ulp of input.
 STEP_LOSS_TOL = 1e-5
+KITTI_HW = (375, 1242)          # KITTI-15 frames
+# 1/8 grid of the 376x1248 padded frame, unbucketed (the submission
+# writer's); validate_kitti's bucketed grid comes from kitti_eval_grid()
+KITTI_GRID = (47, 156)
+KITTI_PAIRS = 4
+KITTI_ITERS = 24                # ITERS_EVAL["kitti"]
+KITTI_FLOW = (-3.0, -2.0)       # synthetic_frames' shift
+# K5 against its plain version: the same fp32 products summed over C in
+# another order (and interpolate-then-dot against dot-then-interpolate)
+ALT_ATOL = ALT_RTOL = 1e-5
+ALT_MAT_TOL = 1e-4              # K5 vs the materialized path, of max |out|
+HD_HW = (1080, 1920)            # the memory regime alternate_corr is for
+HD_ITERS = 20
+
+
+_T0 = time.perf_counter()
 
 
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """One line of the run's log, ending in the seconds since the start."""
+    print(f"{msg} (+{time.perf_counter() - _T0:.1f} s)", flush=True)
 
 
 def cuda_ms(fn, reps: int = 100, warmup: int = 10) -> float:
@@ -168,6 +224,13 @@ def kernel_ms(fn, reps: int = 50, flush=None):
     raise RuntimeError("torch.profiler recorded no device time")
 
 
+def median_kernel_ms(fn, reps: int, sessions: int, flush=None):
+    """(median, least, most) of ``sessions`` ``kernel_ms`` readings, for a
+    call whose time spreads from one session to the next."""
+    ms = sorted(kernel_ms(fn, reps, flush=flush) for _ in range(sessions))
+    return float(np.median(ms)), ms[0], ms[-1]
+
+
 def bound_ms(nbytes: float, ops: float):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_FLOPS_PER_S * 1e3
@@ -204,18 +267,21 @@ def hold_gru(tag: str, pairs, dtype, shape: str, err, err_bf16) -> None:
             raise RuntimeError(f"{name} disagrees with its plain version")
 
 
+def l2_flusher():
+    """A 128 MB device-to-device copy, more than the 50 MB L2: run before a
+    call, it leaves the L2 cold (``kernel_ms`` leaves its time out)."""
+    src = torch.empty(32 * 2 ** 20, device="cuda")
+    dst = torch.empty_like(src)
+    return lambda: dst.copy_(src)
+
+
 def time_kernels(tag: str, work, smi: str, reps: int, plain_reps: int,
                  where: str = ""):
     """Phases 4 and 6: for each ``name: (kernel, plain, library or None,
     bytes, operations)``, device times L2 cold (a 128 MB copy, more than
     the 50 MB L2, before each call; the copies' own time left out) and,
     for the kernel, L2 warm, beside the bound; logged with the card."""
-    src = torch.empty(32 * 2 ** 20, device="cuda")
-    dst = torch.empty_like(src)
-
-    def flush():
-        dst.copy_(src)
-
+    flush = l2_flusher()
     times = {}
     for name, (kern, plain, library, nb, ops) in work.items():
         t = times[name] = dict(
@@ -284,6 +350,19 @@ def lookup_grid_sample(pyramid, coords, radius: int) -> torch.Tensor:
     return torch.cat(out, -1)
 
 
+def in_range_taps(coords, level: int, Hl: int, Wl: int, radius: int):
+    """Per query, how many taps of its (2r+2)² window at ``level`` lie
+    inside the Hl x Wl level (coords clamped as the kernels clamp them)."""
+    K = 2 * radius + 1
+
+    def span(c, size):
+        c = (c / 2 ** level).clamp(-(radius + 2.0), size + radius + 1.0)
+        lo = torch.floor(c) - radius
+        return ((lo + K).clamp(max=size - 1) - lo.clamp(min=0) + 1).clamp(min=0)
+
+    return span(coords[..., 0], Wl) * span(coords[..., 1], Hl)
+
+
 def lookup_bytes(pyramid, coords, radius: int) -> float:
     """Bytes this run's lookup must move: the in-range part of every
     (2r+2)² window read once, coords read once, the output written once."""
@@ -291,13 +370,7 @@ def lookup_bytes(pyramid, coords, radius: int) -> float:
     total = coords.numel() * 4 + coords[..., 0].numel() * len(pyramid) * K * K * 4
     for i, vol in enumerate(pyramid):
         Hl, Wl = vol.shape[-2:]
-
-        def span(c, size):
-            c = (c / 2 ** i).clamp(-(radius + 2.0), size + radius + 1.0)
-            lo = torch.floor(c) - radius
-            return ((lo + K).clamp(max=size - 1) - lo.clamp(min=0) + 1).clamp(min=0)
-
-        taps = span(coords[..., 0], Wl) * span(coords[..., 1], Hl)
+        taps = in_range_taps(coords, i, Hl, Wl, radius)
         total += float(taps.sum()) * vol.element_size()
     return total
 
@@ -361,16 +434,17 @@ def scatter_bytes(pyramid, coords, radius: int) -> float:
             + sum(v.numel() * v.element_size() for v in pyramid))
 
 
-def gru_bwd_inputs(gen: torch.Generator, dtype: torch.dtype):
-    """The training path's GRU operands, (10, 128, 46, 62), forward and
-    backward: zl and rl as the strided channel halves of a double-width
-    conv output, as the update block hands them at batch 10."""
-    shape = (TRAIN_B, 128) + TRAIN_GRID
+def gru_bwd_inputs(gen: torch.Generator, dtype: torch.dtype, B: int = TRAIN_B,
+                   grid=TRAIN_GRID):
+    """A path's GRU operands, forward and backward, by default the training
+    path's (10, 128, 46, 62): zl and rl as the strided channel halves of a
+    double-width conv output, as the update block hands them."""
+    shape = (B, 128) + tuple(grid)
 
     def rand(*s):
-        return (3 * torch.randn(s, generator=gen, device="cuda")).to(dtype)
+        return (3 * torch.randn(s, generator=gen, device=gen.device)).to(dtype)
 
-    zr = rand(TRAIN_B, 256, *TRAIN_GRID)
+    zr = rand(B, 256, *grid)
     h, ql, dz, drh, g = (rand(*shape) / 3 for _ in range(5))
     z = torch.sigmoid(rand(*shape).float()).to(dtype)
     return zr[:, :128], zr[:, 128:], h, ql, dz, drh, g, z
@@ -467,14 +541,303 @@ def check_step(name, plain, kernels, ulp):
         raise RuntimeError(f"{name}: kernels disagree with plain: {bad[:5]}")
 
 
+# ---------------------------------------------------------------------------
+# phases 9-13: the alternate path (K5) and evaluation
+# ---------------------------------------------------------------------------
+
+def alt_inputs(gen: torch.Generator, C: int, radius: int, grid,
+               levels: int = 4):
+    """K5's operands at a path's 1/8 grid, on ``gen``'s device: fmap1 (1,
+    H, W, C), the NHWC fmap2 pyramid pooled from a random fmap2, and coords
+    = grid + random flow with a tenth of the queries 150 px out and the
+    first query's window straddling the top-left corner."""
+    from raft_tpu_torch.models.corr import AlternateCorrBlock
+
+    H, W = grid
+    dev = gen.device
+    f1, f2 = (torch.randn((1, H, W, C), generator=gen, device=dev)
+              for _ in range(2))
+    block = AlternateCorrBlock(f1, f2, levels, radius)
+    ys, xs = torch.meshgrid(torch.arange(H, device=dev, dtype=torch.float32),
+                            torch.arange(W, device=dev, dtype=torch.float32),
+                            indexing="ij")
+    coords = torch.stack([xs, ys], -1)[None]
+    coords = coords + 12.0 * torch.randn(coords.shape, generator=gen,
+                                         device=dev)
+    far = torch.rand((1, H, W, 1), generator=gen, device=dev) < 0.1
+    coords = torch.where(far, coords + 150.0 * torch.sign(
+        torch.randn(coords.shape, generator=gen, device=dev)), coords)
+    coords[0, 0, 0] = torch.tensor([-0.5, -1.5])
+    return block.fmap1, block.fmap2_pyramid, coords.contiguous()
+
+
+def kitti_bucket():
+    """``validate_kitti``'s default ``shape_bucket``."""
+    from raft_tpu_torch.evaluation.evaluate import validate_kitti
+
+    return inspect.signature(validate_kitti).parameters["shape_bucket"].default
+
+
+def kitti_eval_grid():
+    """The 1/8 grid that ``validate_kitti`` hands the model for a KITTI
+    frame: padded to a multiple of 8, then edge-filled to its default
+    ``shape_bucket`` (375x1242 -> 384x1280, grid 48x160)."""
+    from raft_tpu_torch.evaluation.evaluate import _to_device_pair
+
+    frame = np.zeros(KITTI_HW + (3,), np.float32)
+    i1, _, _, _ = _to_device_pair(frame, frame, "kitti", kitti_bucket(),
+                                  device="cpu")
+    return i1.shape[1] // 8, i1.shape[2] // 8
+
+
+def check_alt(gen: torch.Generator, grid, C: int, radius: int, where: str):
+    """Phase 9 at one geometry: K5 against its plain version (ALT_ATOL +
+    ALT_RTOL, exact zeros for the far-out queries, two calls bitwise
+    equal), and against the materialized path on the same fmaps, whose K1
+    is held against its plain version too. Returns (K5's error, K1's)."""
+    from raft_tpu_torch.kernels.corr_alt import alt_corr_lookup_cuda
+    from raft_tpu_torch.kernels.corr_lookup import corr_lookup_cuda
+    from raft_tpu_torch.models.corr import (alt_corr_lookup,
+                                            build_corr_pyramid,
+                                            corr_lookup_gather)
+
+    f1, pyr, coords = alt_inputs(gen, C, radius, grid)
+    got = alt_corr_lookup_cuda(f1, pyr, coords, radius)
+    again = alt_corr_lookup_cuda(f1, pyr, coords, radius)
+    want = alt_corr_lookup(f1, pyr, coords, radius)
+    diff = (got - want).abs()
+    e = float(diff.max())
+    within = bool((diff <= ALT_ATOL + ALT_RTOL * want.abs()).all())
+    far = far_queries(coords, radius)
+    zeros = bool(far.any()) and not bool(got[far].any())
+    bitwise = torch.equal(got, again)
+    shape = f"C={C} r={radius}, grid {grid[0]}x{grid[1]} ({where})"
+    log(f"[9] corr_alt {shape}: max abs err {e:.3e} vs the plain version "
+        f"(tol {ALT_ATOL:g} + {ALT_RTOL:g} relative); {int(far.sum())} "
+        f"far-out queries exact zeros: {zeros}; two calls bitwise equal: "
+        f"{bitwise}")
+    if not (within and zeros and bitwise):
+        raise RuntimeError("corr_alt disagrees with its plain version")
+    mat_pyr = build_corr_pyramid(f1, pyr[0])
+    mat = corr_lookup_cuda(mat_pyr, coords, radius)
+    e_k1 = max_err(mat, corr_lookup_gather(mat_pyr, coords, radius))
+    e_mat, scale = max_err(got, mat), float(mat.abs().max())
+    log(f"[9] corr_alt {shape} vs the materialized path (volume + pooling "
+        f"+ corr_lookup): max abs err {e_mat:.3e}, {e_mat / scale:.3e} of "
+        f"the largest output {scale:.3f} (tol {ALT_MAT_TOL:g}); that "
+        f"corr_lookup vs its plain version {e_k1:.3e} (tol {LOOKUP_TOL:g})")
+    if not e_mat <= ALT_MAT_TOL * scale:
+        raise RuntimeError("corr_alt disagrees with the materialized path")
+    if not e_k1 <= LOOKUP_TOL:
+        raise RuntimeError("corr_lookup disagrees with its plain version")
+    return e, e_k1
+
+
+def alt_cost(fmap1, pyramid, coords, radius: int):
+    """(bytes, operations) this run's K5 call needs: fmap1, the pyramid and
+    coords read once and the output written once; 2·C operations for each
+    in-range tap of each (2r+2)² window (out-of-range taps are not dotted)
+    and 10 for each output's lerp and scale."""
+    C = fmap1.shape[-1]
+    K = 2 * radius + 1
+    n = coords[..., 0].numel()
+    taps = sum(float(in_range_taps(coords, i, v.shape[1], v.shape[2],
+                                   radius).sum())
+               for i, v in enumerate(pyramid))
+    nbytes = 4 * (fmap1.numel() + sum(v.numel() for v in pyramid)
+                  + coords.numel() + n * len(pyramid) * K * K)
+    return nbytes, taps * 2 * C + n * len(pyramid) * K * K * 10
+
+
+def far_queries(coords, radius: int, levels: int = 4):
+    """Queries whose windows miss every level: more than (r+1)·2^(L-1) px
+    outside the level-0 grid."""
+    _, H, W, _ = coords.shape
+    m = (radius + 1) * 2 ** (levels - 1) + 1
+    x, y = coords[..., 0], coords[..., 1]
+    return (x < -m) | (x > W - 1 + m) | (y < -m) | (y > H - 1 + m)
+
+
+def write_kitti(root: str, n: int = KITTI_PAIRS):
+    """A KITTI-15 training split in its on-disk layout: ``n`` pairs of
+    seeded synthetic 375x1242 frames (``image_2/*_10.png``, ``*_11.png``),
+    the second shifted by KITTI_FLOW, and 16-bit flow PNGs
+    (``flow_occ/*_10.png``: (u, v, valid) with a third of the pixels
+    invalid, as KITTI's sparse ground truth)."""
+    from raft_tpu_torch.data.png import write_png
+
+    for d in ("image_2", "flow_occ"):
+        os.makedirs(os.path.join(root, "training", d), exist_ok=True)
+    rng = np.random.RandomState(7)
+    H, W = KITTI_HW
+    for i in range(n):
+        f1, f2 = (np.round(f).astype(np.uint8)
+                  for f in synthetic_frames(10 + i, 2, KITTI_HW))
+        write_png(os.path.join(root, "training", "image_2", f"{i:06d}_10.png"), f1)
+        write_png(os.path.join(root, "training", "image_2", f"{i:06d}_11.png"), f2)
+        uv = np.broadcast_to(np.float32(KITTI_FLOW), (H, W, 2))
+        valid = (rng.rand(H, W, 1) > 1 / 3).astype(np.float64)
+        px = np.concatenate([64.0 * uv + 2 ** 15, valid], -1).astype(np.uint16)
+        write_png(os.path.join(root, "training", "flow_occ", f"{i:06d}_10.png"), px)
+
+
+def kitti_flows(model, config, root: str, iters: int):
+    """The validator's flows over the KITTI split under ``root``, pair by
+    pair (bucketed and cropped as ``validate_kitti`` does)."""
+    from raft_tpu_torch.data.datasets import KITTI
+    from raft_tpu_torch.evaluation.evaluate import (_crop, _to_device_pair,
+                                                    make_forward)
+
+    fwd, _ = make_forward(config, iters, device="cuda")
+    val = KITTI(split="training", root=os.path.join(root, "KITTI"))
+    out = []
+    for i in range(len(val)):     # indexing wraps around: no iteration
+        img1, img2, _, _ = val[i]
+        i1, i2, padder, crop = _to_device_pair(img1, img2, "kitti",
+                                               kitti_bucket())
+        out.append(padder.unpad(_crop(fwd(model, i1, i2)[1], crop))[0]
+                   .cpu().numpy())
+    return out
+
+
+def run_evaluate(argv, pairs: int):
+    """One timed ``cli/evaluate.main`` run: (metrics, ms per pair with the
+    frames' decoding, peak MiB, launches)."""
+    from raft_tpu_torch import kernels
+    from raft_tpu_torch.cli.evaluate import main as evaluate_main
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    metrics = evaluate_main(argv)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / pairs
+    return (metrics, ms, torch.cuda.max_memory_allocated() / 2 ** 20,
+            kernels.launch_counts())
+
+
+def expected_launches(**counts):
+    """Every kernel's launch count: those given, 0 for the rest."""
+    names = ("corr_lookup", "corr_scatter", "gru_gates", "gru_blend",
+             "gru_gates_bwd", "gru_blend_bwd", "corr_alt")
+    return {k: counts.get(k, 0) for k in names}
+
+
+def sintel_submission(model, config, root: str, out: str,
+                      device: str = "cuda"):
+    """``create_sintel_submission`` with warm start over the Sintel test
+    layout under ``root``; returns the written flows by path (relative to
+    ``out``) and, per pair, the (low-res flow, forward-interpolated init)
+    that ``forward_interpolate`` saw and gave."""
+    from raft_tpu_torch.data.frame_utils import read_flow
+    from raft_tpu_torch.evaluation import evaluate as ev
+
+    warps = []
+    interp = ev.forward_interpolate
+
+    def recording(flow):
+        init = interp(flow)
+        warps.append((flow, init))
+        return init
+
+    ev.forward_interpolate = recording
+    try:
+        ev.create_sintel_submission(model, config, warm_start=True,
+                                    output_path=out, data_root=root,
+                                    device=device)
+    finally:
+        ev.forward_interpolate = interp
+    flows = {}
+    for d, _, files in sorted(os.walk(out)):
+        for f in sorted(files):
+            flows[os.path.relpath(os.path.join(d, f), out)] = read_flow(
+                os.path.join(d, f))
+    return flows, warps
+
+
+def check_sintel_chain(subs, frames, models) -> None:
+    """Phase 11: the two paths' warm-started submissions over one scene of
+    ``frames`` in clean and final. ``subs`` maps "alternate" and
+    "materialized" to ``sintel_submission``'s result, ``models`` each to
+    its (``fwd_init``, model).
+
+    A cold pair is held within SMALL_TOL. A warm pair starts from the last
+    pair's low-res flow, forward-interpolated, so the two paths start from
+    inits that differ by the last link's gap. Each warm pair is run again
+    by each path from the other's init: from one init, only the lookups
+    differ, and each path is held within SMALL_TOL of the other there (the
+    gates). The chained gap is then at most the gate plus the materialized
+    path's own response to the inits' gap (the triangle inequality), and
+    is held to that; the response, K1 alone from two inits, shows how the
+    warm-start chain feeds a gap forward, link by link."""
+    (flows_a, warps_a), (flows_m, warps_m) = (subs["alternate"],
+                                              subs["materialized"])
+    pairs = len(frames) - 1
+    if sorted(flows_a) != sorted(flows_m) or len(flows_a) != 2 * pairs:
+        raise RuntimeError(f"submissions wrote {sorted(flows_a)} and "
+                           f"{sorted(flows_m)}")
+    from raft_tpu_torch.evaluation.evaluate import _to_device_pair
+
+    (fwd_a, model_a), (fwd_m, model_m) = (models["alternate"],
+                                          models["materialized"])
+    device = next(model_m.parameters()).device.type
+    for k, key in enumerate(sorted(flows_a)):
+        j = k % pairs                     # the pair's index in its scene
+        a, m = flows_a[key], flows_m[key]
+        d = float(np.abs(a - m).max())
+        if a.shape != frames[0].shape[:2] + (2,) or not np.isfinite(a).all():
+            raise RuntimeError(f"{key}: bad flow")
+        if j == 0:
+            log(f"[11] {key} (cold): max |flow diff| alternate vs "
+                f"materialized {d:.3e} px (tol {SMALL_TOL:g})")
+            if not d <= SMALL_TOL:
+                raise RuntimeError(f"{key}: alternate disagrees")
+            continue
+        (low_a, init_a), (low_m, init_m) = warps_a[k - 1], warps_m[k - 1]
+        d_low = float(np.abs(low_a - low_m).max())
+        d_init = float(np.abs(init_a - init_m).max())
+        i1, i2, padder, _ = _to_device_pair(frames[j], frames[j + 1],
+                                            "sintel", device=device)
+
+        def run(fwd, model, init):
+            flow = fwd(model, i1, i2, init[None])[1]
+            return padder.unpad(flow)[0].cpu().numpy()
+
+        m_from_a = run(fwd_m, model_m, init_a)
+        a_from_m = run(fwd_a, model_a, init_m)
+        gate_a = float(np.abs(a - m_from_a).max())
+        gate_m = float(np.abs(a_from_m - m).max())
+        d_resp = float(np.abs(m_from_a - m).max())
+        # griddata's nearest neighbour copies flow values, so without a
+        # flipped neighbour the inits differ by at most the low-res flows
+        flipped = d_init > d_low
+        log(f"[11] {key} (warm, link {j}): from one init, alternate vs "
+            f"materialized {gate_a:.3e} px (the alternate's init) and "
+            f"{gate_m:.3e} px (the materialized's) (tol {SMALL_TOL:g}); "
+            f"chained {d:.3e} px, bound {d_resp + SMALL_TOL:.3e}: the "
+            f"materialized path's response to the inits' gap {d_resp:.3e} px "
+            f"+ {SMALL_TOL:g} (low-res flows in {d_low:.3e}, their "
+            f"forward-interpolated inits {d_init:.3e}, gain "
+            f"{d_resp / max(d_init, 1e-30):.1f}"
+            f"{', a nearest neighbour flipped' if flipped else ''})")
+        if not (gate_a <= SMALL_TOL and gate_m <= SMALL_TOL
+                and d <= d_resp + SMALL_TOL):
+            raise RuntimeError(f"{key}: alternate disagrees")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
         return 2
     from raft_tpu_torch import kernels
+    from raft_tpu_torch.cli.demo import main as demo_main
     from raft_tpu_torch.config import RAFTConfig
+    from raft_tpu_torch.data.png import read_png
+    from raft_tpu_torch.evaluation.evaluate import make_forward
     from raft_tpu_torch.kernels import _build
+    from raft_tpu_torch.kernels.corr_alt import alt_corr_lookup_cuda
     from raft_tpu_torch.kernels.corr_lookup import (corr_lookup_bwd_plain,
                                                     corr_lookup_cuda,
                                                     corr_scatter_cuda)
@@ -485,8 +848,10 @@ def main() -> int:
                                             gru_gates_bwd_plain,
                                             gru_gates_plain)
     from raft_tpu_torch.models import RAFT
-    from raft_tpu_torch.models.corr import corr_lookup_gather
-    from raft_tpu_torch.tools.convert import load_pth
+    from raft_tpu_torch.models.corr import (alt_corr_lookup,
+                                            build_corr_pyramid,
+                                            corr_lookup_gather)
+    from raft_tpu_torch.tools.convert import load_pth, save_pth
     from raft_tpu_torch.training.train_step import make_train_step
     from raft_tpu_torch.training.trainer import train
 
@@ -511,10 +876,10 @@ def main() -> int:
             log(f"[2]   {line.strip()}")
     # ptxas reports static shared memory only; the lookup's is dynamic
     smem = {r: 8 * (2 * r + 2) ** 2 * 4 for r in (4, 3)}
-    log(f"[2] dynamic shared memory per 256-thread block: corr_lookup "
-        f"{smem[4]} B at r=4, {smem[3]} B at r=3 (8 warps x (2r+2)^2 fp32 "
-        f"windows); corr_scatter {8 * 81 * 4} B at r=4 (8 warps x (2r+1)^2 "
-        "fp32 cotangents); the GRU kernels none")
+    log(f"[2] dynamic shared memory per 256-thread block: corr_lookup and "
+        f"corr_alt {smem[4]} B at r=4, {smem[3]} B at r=3 (8 warps x (2r+2)^2 "
+        f"fp32 windows); corr_scatter {8 * 81 * 4} B at r=4 (8 warps x "
+        "(2r+1)^2 fp32 cotangents); the GRU kernels none")
 
     # -- 3. kernels against their plain versions ----------------------------
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -584,9 +949,8 @@ def main() -> int:
     log(f"[5] basic model, pallas+fused, iters={ITERS}: {ms_k:.2f} ms/pair, "
         f"peak {peak_k:.0f} MiB, launches {launches} over {PAIRS} pairs, "
         f"{per_pair} per pair; {smi}")
-    want = {"corr_lookup": ITERS * PAIRS, "corr_scatter": 0,
-            "gru_gates": 2 * ITERS * PAIRS, "gru_blend": 2 * ITERS * PAIRS,
-            "gru_gates_bwd": 0, "gru_blend_bwd": 0}
+    want = expected_launches(corr_lookup=ITERS * PAIRS, gru_gates=2 * ITERS * PAIRS,
+                       gru_blend=2 * ITERS * PAIRS)
     if launches != want:
         raise RuntimeError(f"main path launches {launches}, want {want}")
     from torch.profiler import ProfilerActivity, profile
@@ -710,7 +1074,8 @@ def main() -> int:
     n = h.numel()
     train_work = {
         "corr_lookup": (lambda: corr_lookup_cuda(pyramid, coords, 4),
-                        lambda: corr_lookup_gather(pyramid, coords, 4), None,
+                        lambda: corr_lookup_gather(pyramid, coords, 4),
+                        lambda: lookup_grid_sample(pyramid, coords, 4),
                         lookup_bytes(pyramid, coords, 4),
                         coords[..., 0].numel() * 4 * 81 * 9),
         "corr_scatter": (lambda: corr_scatter_cuda(g, pyramid, coords, 4),
@@ -760,10 +1125,10 @@ def main() -> int:
             f"all {', '.join(f'{x:.2f}' for x in step_ms)} ms), "
             f"{TRAIN_B / ms_step * 1e3:.2f} pairs/s, peak {peak_train:.0f} "
             f"MiB; launches {train_launches}, {per_step} per step; {smi}")
-        want = {"corr_lookup": TRAIN_ITERS, "corr_scatter": TRAIN_ITERS,
-                "gru_gates": 2 * TRAIN_ITERS, "gru_blend": 2 * TRAIN_ITERS,
-                "gru_gates_bwd": 2 * TRAIN_ITERS,
-                "gru_blend_bwd": 2 * TRAIN_ITERS}
+        want = expected_launches(corr_lookup=TRAIN_ITERS, corr_scatter=TRAIN_ITERS,
+                           gru_gates=2 * TRAIN_ITERS, gru_blend=2 * TRAIN_ITERS,
+                           gru_gates_bwd=2 * TRAIN_ITERS,
+                           gru_blend_bwd=2 * TRAIN_ITERS)
         if per_step != want:
             raise RuntimeError(f"training launches {per_step} per step, "
                                f"want {want}")
@@ -829,7 +1194,228 @@ def main() -> int:
                            f"{TRAIN_ITERS} exceeds 10x what 1 ulp of input "
                            "gives")
 
-    # -- 9. result -----------------------------------------------------------
+    torch.backends.cudnn.deterministic = False
+    del plain, weights, batch, ulp, small_w
+
+    # -- 9. K5, the on-the-fly lookup, at the KITTI geometries ---------------
+    eval_grid = kitti_eval_grid()
+    err["corr_alt"] = 0.0
+    for grid, where in ((eval_grid, "validate_kitti's, bucketed"),
+                        (KITTI_GRID, "the submission writer's")):
+        for C, radius in ((256, 4), (128, 3)):
+            e, e_k1 = check_alt(gen, grid, C, radius, where)
+            err["corr_alt"] = max(err["corr_alt"], e)
+            err["corr_lookup"] = max(err["corr_lookup"], e_k1)
+    zl, rl, h, ql, _, _, _, z = gru_bwd_inputs(gen, torch.float32, 1, eval_grid)
+    hold_gru("9", {"gru_gates": (gru_gates(zl, rl, h),
+                                 gru_gates_plain(zl, rl, h)),
+                   "gru_blend": ((gru_blend(z, h, ql),),
+                                 (gru_blend_plain(z, h, ql),))},
+             torch.float32, f"{tuple(h.shape)} (validate_kitti's)", err,
+             err_bf16)
+    del zl, rl, h, ql, z
+    f1, pyr, coords = alt_inputs(gen, 256, 4, eval_grid)
+    g = torch.randn((1, *eval_grid, 4 * 81), generator=gen, device="cuda")
+    grads = {}
+    for name, fn in (("kernel", alt_corr_lookup_cuda),
+                     ("plain", alt_corr_lookup)):
+        leaves = [t.clone().requires_grad_() for t in [f1, coords, *pyr]]
+        grads[name] = torch.autograd.grad(fn(leaves[0], leaves[2:], leaves[1],
+                                             4), leaves, g)
+    e = max(max_err(a, b) / float(b.abs().max())
+            for a, b in zip(grads["kernel"], grads["plain"]))
+    log(f"[9] AltCorrLookup gradients (fmap1, 4 levels, coords), grid "
+        f"{eval_grid[0]}x{eval_grid[1]}, vs plain autograd: largest gap "
+        f"{e:.3e} of each one's largest (tol 1e-5)")
+    if not e <= 1e-5:
+        raise RuntimeError("AltCorrLookup's gradients disagree with autograd")
+    del grads, leaves
+    nbytes, ops = alt_cost(f1, pyr, coords, 4)
+    alt_times = time_kernels(
+        "9", {"corr_alt": (lambda: alt_corr_lookup_cuda(f1, pyr, coords, 4),
+                           lambda: alt_corr_lookup(f1, pyr, coords, 4), None,
+                           nbytes, ops)},
+        smi, 50, 10, f" at validate_kitti's geometry (grid {eval_grid[0]}x"
+        f"{eval_grid[1]}, N = {eval_grid[0] * eval_grid[1]})")
+    flush = l2_flusher()
+    mat_pyr = build_corr_pyramid(f1, pyr[0])
+    alt_times["corr_alt"]["materialized_build_ms"] = kernel_ms(
+        lambda: build_corr_pyramid(f1, pyr[0]), 10, flush=flush)
+    alt_times["corr_alt"]["materialized_k1_ms"] = kernel_ms(
+        lambda: corr_lookup_cuda(mat_pyr, coords, 4), 50, flush=flush)
+    log(f"[9] the materialized path K5 replaces, same fmaps: all-pairs "
+        f"volume and pooling "
+        f"{alt_times['corr_alt']['materialized_build_ms']:.4f} ms once per "
+        f"pair, corr_lookup {alt_times['corr_alt']['materialized_k1_ms']:.4f}"
+        f" ms per step (profiler, L2 cold); {ops / 1e9:.3f} GFLOP and "
+        f"{nbytes / 1e6:.2f} MB for K5; {smi}")
+    del f1, pyr, coords, mat_pyr
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # -- 10. evaluation through cli/evaluate.main, KITTI layout ----------
+        write_kitti(os.path.join(tmp, "KITTI"))
+        weights_path = os.path.join(tmp, "basic-seed0.pth")
+        save_pth(RAFT(RAFTConfig(), torch.Generator().manual_seed(0)),
+                 weights_path)
+        argv = ["--model", weights_path, "--dataset", "kitti", "--data_root",
+                tmp, "--corr_impl", "pallas", "--gru_impl", "fused"]
+        n_steps = KITTI_ITERS * KITTI_PAIRS
+        evals = {}
+        for name, extra, want in (
+                ("alternate", ["--alternate_corr"],
+                 expected_launches(corr_alt=n_steps, gru_gates=2 * n_steps,
+                             gru_blend=2 * n_steps)),
+                ("materialized", [],
+                 expected_launches(corr_lookup=n_steps, gru_gates=2 * n_steps,
+                             gru_blend=2 * n_steps))):
+            run_evaluate(argv + extra, KITTI_PAIRS)           # warm-up
+            metrics, ms, peak, counts = evals[name] = run_evaluate(
+                argv + extra, KITTI_PAIRS)
+            log(f"[10] cli/evaluate.main --dataset kitti {' '.join(extra)} "
+                f"--corr_impl pallas --gru_impl fused, basic model (seeded "
+                f"random weights), {KITTI_PAIRS} pairs 375x1242 (bucketed to "
+                f"{8 * eval_grid[0]}x{8 * eval_grid[1]}), iters={KITTI_ITERS}: "
+                f"{ms:.2f} ms/pair (PNG "
+                f"decoding and weight loading included), peak {peak:.0f} "
+                f"MiB, launches {counts}; metrics {metrics}; {smi}")
+            if counts != want:
+                raise RuntimeError(f"{name} path launches {counts}, want {want}")
+            if not all(np.isfinite(v) for v in metrics.values()):
+                raise RuntimeError(f"{name} path: metrics not finite")
+        cfg_ka = RAFTConfig(alternate_corr=True, corr_impl="pallas",
+                            gru_impl="fused")
+        cfg_km = RAFTConfig(corr_impl="pallas", gru_impl="fused")
+        basic = {c: load_pth(weights_path, c).cuda() for c in (cfg_ka, cfg_km)}
+        fwd_ms = {}
+        for name, c in (("alternate", cfg_ka), ("materialized", cfg_km)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            kitti_flows(basic[c], c, tmp, KITTI_ITERS)
+            torch.cuda.synchronize()
+            fwd_ms[name] = (time.perf_counter() - t0) * 1e3 / KITTI_PAIRS
+        d = flow_diff(*(kitti_flows(basic[c], c, tmp, 1)
+                        for c in (cfg_ka, cfg_km)))
+        log(f"[10] validator flows, forward and copy only: alternate "
+            f"{fwd_ms['alternate']:.2f} ms/pair, materialized "
+            f"{fwd_ms['materialized']:.2f} ms/pair (iters={KITTI_ITERS}); "
+            f"basic model after one step, alternate vs materialized: max "
+            f"|flow diff| {d:.3e} px (tol {BASIC_STEP_TOL:g})")
+        if not d <= BASIC_STEP_TOL:
+            raise RuntimeError("alternate path disagrees with materialized")
+        del basic
+        cfg_sa = RAFTConfig(small=True, alternate_corr=True,
+                            corr_impl="pallas")
+        cfg_sm = RAFTConfig(small=True, corr_impl="pallas")
+        d = flow_diff(*(kitti_flows(load_pth(fixture, c).cuda(), c, tmp,
+                                    KITTI_ITERS) for c in (cfg_sa, cfg_sm)))
+        log(f"[10] small model (trained fixture), iters={KITTI_ITERS}, "
+            f"alternate (K5) vs materialized (K1): max |flow diff| {d:.3e} px "
+            f"(tol {SMALL_TOL:g})")
+        if not d <= SMALL_TOL:
+            raise RuntimeError("small model: alternate disagrees with "
+                               "materialized")
+
+        # -- 11. Sintel submission with warm start over demo-frames ----------
+        demo = sorted(glob.glob(os.path.join(REPO, "demo-frames", "*.png")))
+        for dstype in ("clean", "final"):
+            scene = os.path.join(tmp, "Sintel", "test", dstype, "demo")
+            os.makedirs(scene)
+            for f in demo:
+                shutil.copy(f, scene)
+        subs = {}
+        for name, c in (("alternate", cfg_sa), ("materialized", cfg_sm)):
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            subs[name] = sintel_submission(
+                load_pth(fixture, c).cuda(), c, tmp,
+                os.path.join(tmp, "sub-" + name))
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / (2 * (len(demo) - 1))
+            counts = kernels.launch_counts()
+            log(f"[11] create_sintel_submission(warm_start=True), small "
+                f"fixture, {name}: {ms:.2f} ms/pair with PNG decoding, "
+                f"{len(subs[name][0])} .flo files, launches {counts}")
+            n_steps = 32 * 2 * (len(demo) - 1)
+            want = (expected_launches(corr_alt=n_steps) if name == "alternate"
+                    else expected_launches(corr_lookup=n_steps))
+            if counts != want:
+                raise RuntimeError(f"{name} submission launches {counts}")
+        frames = [read_png(f).astype(np.float32) for f in demo]
+        check_sintel_chain(subs, frames, {
+            name: (make_forward(c, 32, device="cuda")[1],
+                   load_pth(fixture, c).cuda())
+            for name, c in (("alternate", cfg_sa), ("materialized", cfg_sm))})
+
+    # -- 12. memory at 1080x1920 ---------------------------------------------
+    hd_frames = synthetic_frames(3, 2, HD_HW)
+    cfg_ha = RAFTConfig(alternate_corr=True, corr_impl="pallas",
+                        gru_impl="fused")
+    cfg_hm = RAFTConfig(corr_impl="pallas", gru_impl="fused")
+    hd = {}
+    for name, c in (("alternate", cfg_ha), ("materialized", cfg_hm)):
+        model = RAFT(c, torch.Generator().manual_seed(0)).cuda()
+        run_pairs(model, c, hd_frames, HD_ITERS)              # warm-up
+        kernels.reset_launch_counts()
+        _, ms, peak = hd[name] = run_pairs(model, c, hd_frames, HD_ITERS)
+        counts = kernels.launch_counts()
+        log(f"[12] basic model, 1080x1920, iters={HD_ITERS}, {name}: "
+            f"{ms:.2f} ms/pair, peak max_memory_allocated {peak:.0f} MiB, "
+            f"launches {counts}; {smi}")
+        key = "corr_alt" if name == "alternate" else "corr_lookup"
+        if counts[key] != HD_ITERS or counts["corr_alt" if key == "corr_lookup"
+                                             else "corr_lookup"]:
+            raise RuntimeError(f"1080p {name} launches {counts}")
+        del model
+    grid_hd = (HD_HW[0] // 8, HD_HW[1] // 8)
+    f1, pyr, coords = alt_inputs(gen, 256, 4, grid_hd)
+    mat_pyr = build_corr_pyramid(f1, pyr[0])
+    k1 = corr_lookup_cuda(mat_pyr, coords, 4)
+    e_k1 = max_err(k1, corr_lookup_gather(mat_pyr, coords, 4))
+    k5 = alt_corr_lookup_cuda(f1, pyr, coords, 4)
+    e_k5 = max_err(k5, k1) / float(k1.abs().max())
+    hd_bytes, hd_ops = alt_cost(f1, pyr, coords, 4)
+    hd_k5_ms = median_kernel_ms(
+        lambda: alt_corr_lookup_cuda(f1, pyr, coords, 4), 20, 5, flush=flush)
+    hd_k1_ms = median_kernel_ms(
+        lambda: corr_lookup_cuda(mat_pyr, coords, 4), 20, 5, flush=flush)
+    log(f"[12] 1080x1920 grid {grid_hd[0]}x{grid_hd[1]} (N = "
+        f"{grid_hd[0] * grid_hd[1]}, N^2 = {(grid_hd[0] * grid_hd[1]) ** 2:.3e};"
+        f" volume pyramid {sum(v.numel() for v in mat_pyr) * 4 / 2 ** 30:.2f} "
+        f"GiB, fmap2 pyramid {sum(v.numel() for v in pyr) * 4 / 2 ** 20:.1f} "
+        f"MiB): corr_lookup vs plain {e_k1:.3e} (tol {LOOKUP_TOL:g}); "
+        f"corr_alt vs corr_lookup {e_k5:.3e} of the largest (tol "
+        f"{ALT_MAT_TOL:g}); corr_alt {hd_k5_ms[0]:.4f} ms ({hd_k5_ms[1]:.4f}"
+        f"-{hd_k5_ms[2]:.4f}; bound {bound_ms(hd_bytes, hd_ops)[0]:.4f} ms by "
+        f"{bound_ms(hd_bytes, hd_ops)[1]}), corr_lookup {hd_k1_ms[0]:.4f} ms "
+        f"({hd_k1_ms[1]:.4f}-{hd_k1_ms[2]:.4f}) (profiler, L2 cold, the "
+        f"median of 5 sessions of 20 calls and their range); {smi}")
+    if not (e_k1 <= LOOKUP_TOL and e_k5 <= ALT_MAT_TOL):
+        raise RuntimeError("the lookups disagree at 1080x1920")
+    del f1, pyr, coords, mat_pyr, k1, k5
+
+    # -- 13. the demo CLI on demo-frames, with the port's PNG codec ----------
+    t0 = time.perf_counter()
+    frame0 = read_png(demo[0])
+    decode_ms = (time.perf_counter() - t0) * 1e3
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        demo_main(["--model", fixture, "--small", "--path",
+                   os.path.join(REPO, "demo-frames"), "--out", tmp,
+                   "--corr_impl", "pallas"])
+        demo_s = time.perf_counter() - t0
+        outs = sorted(glob.glob(os.path.join(tmp, "*.png")))
+        back = read_png(outs[0])
+        log(f"[13] python -m raft_tpu_torch.cli.demo --path demo-frames "
+            f"--small: {len(outs)} flow PNGs in {demo_s:.2f} s, each "
+            f"{back.shape} {back.dtype}; one 436x1024 frame decodes in "
+            f"{decode_ms:.1f} ms on the host (Paeth rows)")
+        if len(outs) != len(demo) - 1 or back.shape != (2 * FRAME_HW[0],
+                                                        FRAME_HW[1], 3):
+            raise RuntimeError("the demo wrote the wrong images")
+        if not np.array_equal(back[:FRAME_HW[0]], frame0):
+            raise RuntimeError("the demo's PNG does not hold its frame")
+
+    # -- 14. result ----------------------------------------------------------
     sources = {"corr_lookup": ("raft_tpu_torch/csrc/corr_lookup.cu",
                                "raft_tpu/kernels/corr_pallas.py:177"),
                "gru_gates": ("raft_tpu_torch/csrc/gru.cu",
@@ -866,6 +1452,25 @@ def main() -> int:
         if name in err_bf16:
             row["max_abs_err_bf16"] = err_bf16[name]
         rows.append(row)
+    # K5: launches from the evaluation path's run (phase 10), times at that
+    # path's geometry (phase 9), with the materialized path beside them
+    t = alt_times["corr_alt"]
+    rows.append({"name": "corr_alt", "route": "cuda",
+                 "source": "raft_tpu_torch/csrc/corr_alt.cu",
+                 "replaces": "raft_tpu/kernels/corr_alt_pallas.py:95",
+                 "launches": evals["alternate"][3]["corr_alt"],
+                 "max_abs_err": err["corr_alt"], "ms": t["ms"],
+                 "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
+                 "bound_by": t["bound"][1], "library_ms": None,
+                 "ms_l2_warm": t["ms_l2_warm"], "mbytes": t["mbytes"],
+                 "grid": list(eval_grid),
+                 "materialized_build_ms": t["materialized_build_ms"],
+                 "materialized_k1_ms": t["materialized_k1_ms"],
+                 "hd_1080x1920": {"ms_median_range": list(hd_k5_ms),
+                                  "bound_ms": bound_ms(hd_bytes, hd_ops)[0],
+                                  "k1_ms_median_range": list(hd_k1_ms),
+                                  "ms_per_pair": {k: v[1] for k, v in hd.items()},
+                                  "peak_mib": {k: v[2] for k, v in hd.items()}}})
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -3,8 +3,9 @@
 Globs a frame directory, runs consecutive-pair flow at ``iters=20``
 (demo.py:62) and writes side-by-side image/flow PNGs, with the fork's fixed
 color normalization (rad=3). Same flags as the JAX demo, plus ``--device``
-(the card by default). The work over numpy frames is :func:`flow_pairs`, so
-callers without PIL can drive it; PIL is imported by :func:`main` only.
+(the card by default). Frames are read and written with the port's own PNG
+codec (``data.png``), since the card's machine has no PIL; the work over
+numpy frames is :func:`flow_pairs`.
 
     python -m raft_tpu_torch.cli.demo --model raft-small.pth --small \\
         --path demo-frames --out demo_out [--device cpu]
@@ -21,7 +22,10 @@ from typing import Callable, List, Sequence
 import numpy as np
 import torch
 
+from raft_tpu_torch.cli._args import add_corr_args, corr_overrides
 from raft_tpu_torch.config import ITERS_DEMO, RAFTConfig
+from raft_tpu_torch.data.frame_utils import read_gen
+from raft_tpu_torch.data.png import write_png
 from raft_tpu_torch.ops.padding import InputPadder
 from raft_tpu_torch.utils.flow_viz import flow_to_image
 
@@ -41,8 +45,6 @@ def flow_pairs(fwd: Callable, frames: Sequence[np.ndarray]) -> List[np.ndarray]:
 
 
 def main(argv=None):
-    from PIL import Image
-
     from raft_tpu_torch.evaluation.evaluate import make_forward
     from raft_tpu_torch.tools.convert import load_weights
 
@@ -53,45 +55,29 @@ def main(argv=None):
     p.add_argument("--small", action="store_true")
     p.add_argument("--mixed_precision", action="store_true")
     p.add_argument("--alternate_corr", action="store_true")
-    p.add_argument("--corr_impl", "--corr-impl", default=None,
-                   choices=["gather", "onehot", "onehot_t", "softsel",
-                            "softsel_t", "pallas"],
-                   help="lookup: 'gather' is the plain version, every other "
-                        "name the CUDA kernel (see RAFTConfig)")
-    p.add_argument("--corr_dtype", "--corr-dtype", default=None,
-                   choices=["float32", "bfloat16"],
-                   help="correlation-pyramid storage dtype")
-    p.add_argument("--scan_unroll", "--scan-unroll", type=int, default=None,
-                   help="accepted for compatibility; the loop is not unrolled")
-    p.add_argument("--gru_impl", "--gru-impl", default=None,
-                   choices=["xla", "fused"],
-                   help="'fused' runs the GRU tails in the CUDA kernels")
+    add_corr_args(p)
     p.add_argument("--iters", type=int, default=ITERS_DEMO)
     p.add_argument("--device", default="cuda",
                    help="torch device; the card unless 'cpu' is asked for")
     args = p.parse_args(argv)
 
-    overrides = {k: v for k, v in (("corr_impl", args.corr_impl),
-                                   ("corr_dtype", args.corr_dtype),
-                                   ("scan_unroll", args.scan_unroll),
-                                   ("gru_impl", args.gru_impl))
-                 if v is not None}
     cfg = RAFTConfig(small=args.small, mixed_precision=args.mixed_precision,
-                     alternate_corr=args.alternate_corr, **overrides)
+                     alternate_corr=args.alternate_corr,
+                     **corr_overrides(args))
     fwd, _ = make_forward(cfg, args.iters, args.device)
     model = load_weights(args.model, cfg)
 
     images = sorted(glob.glob(os.path.join(args.path, "*.png"))
                     + glob.glob(os.path.join(args.path, "*.jpg")))
     os.makedirs(args.out, exist_ok=True)
-    frames = [np.array(Image.open(f)).astype(np.uint8) for f in images]
+    frames = [read_gen(f).astype(np.uint8) for f in images]
     flows = flow_pairs(functools.partial(fwd, model), frames)
 
     for imfile, frame, flow in zip(images, frames, flows):
         # side-by-side frame/flow, the viz() analog (demo.py:26-39)
         pair = np.concatenate([frame, flow_to_image(flow)], axis=0)
         name = os.path.splitext(os.path.basename(imfile))[0] + "_flow.png"
-        Image.fromarray(pair).save(os.path.join(args.out, name))
+        write_png(os.path.join(args.out, name), pair)
         print(f"{imfile} -> {os.path.join(args.out, name)}", flush=True)
 
 

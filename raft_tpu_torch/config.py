@@ -11,6 +11,11 @@ What a field selects differs where the hardware differs:
   hand-written CUDA lookup kernel (``kernels.corr_lookup``) on a CUDA
   tensor. The four XLA names are formulations that exist only to avoid
   gathers on the TPU; a GPU gathers natively, so they share the kernel.
+  With ``alternate_corr=True`` the same rule picks the on-the-fly lookup:
+  ``"gather"`` runs the plain ``models.corr.alt_corr_lookup``, every other
+  name the CUDA kernel of ``kernels.corr_alt`` (K5). The JAX package routes
+  only ``"pallas"`` to its kernel and the rest to its XLA formulation; the
+  two compute the same function within 1e-5.
 - ``gru_impl``: ``"fused"`` runs the SepConvGRU's gate and blend tails in
   the CUDA kernels of ``kernels.gru``; ``"xla"`` runs the plain
   elementwise PyTorch math.

@@ -8,7 +8,9 @@ module's ``launches`` dict of plain integers; :func:`launch_counts` reads
 them and :func:`reset_launch_counts` sets them to 0.
 """
 
-from raft_tpu_torch.kernels import corr_lookup, gru
+from raft_tpu_torch.kernels import corr_alt, corr_lookup, gru
+from raft_tpu_torch.kernels.corr_alt import (  # noqa: F401
+    AltCorrLookup, alt_corr_lookup_cuda)
 from raft_tpu_torch.kernels.corr_lookup import (  # noqa: F401
     CorrLookup, corr_lookup_bwd_plain, corr_lookup_cuda, corr_scatter_cuda)
 from raft_tpu_torch.kernels.gru import (  # noqa: F401
@@ -16,13 +18,15 @@ from raft_tpu_torch.kernels.gru import (  # noqa: F401
     gru_blend_plain, gru_gates, gru_gates_bwd, gru_gates_bwd_plain,
     gru_gates_plain)
 
+_COUNTS = (corr_lookup.launches, gru.launches, corr_alt.launches)
+
 
 def launch_counts() -> dict:
     """Launches of each kernel since the counts were last set to 0."""
-    return {**corr_lookup.launches, **gru.launches}
+    return {k: v for counts in _COUNTS for k, v in counts.items()}
 
 
 def reset_launch_counts() -> None:
-    for counts in (corr_lookup.launches, gru.launches):
+    for counts in _COUNTS:
         for k in counts:
             counts[k] = 0

@@ -32,6 +32,7 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
+_F = ctypes.c_float
 
 # argtypes of every exported function: pointers and the stream as c_void_p
 # (ctypes would otherwise pass them as 32-bit ints and cut them)
@@ -44,6 +45,7 @@ SIGNATURES = {
                              _LL, _LL, _LL, _LL, _I, _P],
     "gru_blend_bwd_launch": [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _LL, _LL,
                              _LL, _LL, _I, _P],
+    "corr_alt_launch": [_P, _P, _P, _I, _P, _P, _P, _LL, _LL, _I, _I, _F, _P],
 }
 
 

@@ -1,5 +1,7 @@
 from raft_tpu_torch.models.corr import (  # noqa: F401
+    AlternateCorrBlock,
     all_pairs_correlation,
+    alt_corr_lookup,
     build_corr_pyramid,
     corr_lookup,
     corr_lookup_gather,

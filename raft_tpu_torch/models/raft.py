@@ -12,21 +12,26 @@ stack once after the loop, as the JAX model does; ``train=True`` trains
 the batch norms unless ``freeze_bn``. ``raw_predictions=True`` returns the
 basic model's stack in the upsampler's subpixel domain for the fused loss.
 
+``alternate_corr=True`` takes the memory-efficient path: only the fmap2
+pyramid is built, and each step computes its windows on the fly (K5, or
+the plain ``alt_corr_lookup`` under ``corr_impl="gather"``).
+
 The paths of later slices raise ``NotImplementedError`` naming their
 ROADMAP item: ``mixed_precision`` (M8.4), ``remat`` (M8.5) and
-``dropout > 0`` (M8.6) in train mode, ``alternate_corr`` (K5),
-``forward_cached`` and ``forward_ragged`` (M10).
+``dropout > 0`` (M8.6) in train mode, ``forward_cached`` and
+``forward_ragged`` (M10).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 from torch import nn
 
 from raft_tpu_torch.config import RAFTConfig
-from raft_tpu_torch.models.corr import build_corr_pyramid, corr_lookup
+from raft_tpu_torch.models.corr import (AlternateCorrBlock, build_corr_pyramid,
+                                        corr_lookup)
 from raft_tpu_torch.models.encoders import BasicEncoder, SmallEncoder
 from raft_tpu_torch.models.layers import init_weights
 from raft_tpu_torch.models.update import BasicUpdateBlock, SmallUpdateBlock
@@ -50,10 +55,6 @@ class RAFT(nn.Module):
             raise NotImplementedError(
                 "mixed_precision: bf16 compute with the fp32 corr island "
                 "is ROADMAP M8.4 of the port")
-        if config.alternate_corr:
-            raise NotImplementedError(
-                "alternate_corr: the on-the-fly correlation kernel is "
-                "ROADMAP K5 of the port")
         self.config = cfg = config
         if cfg.small:
             self.fnet = SmallEncoder(cfg.fnet_dim, cfg.fnet_norm)
@@ -69,6 +70,27 @@ class RAFT(nn.Module):
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         init_weights(self, generator)
+
+    def _corr_setup(self, fmap1: torch.Tensor, fmap2: torch.Tensor
+                    ) -> Callable[[torch.Tensor], torch.Tensor]:
+        """The ``corr_impl`` dispatch for an fp32 NHWC fmap pair: builds the
+        correlation state once and returns ``lookup(coords) -> (B, H, W,
+        levels·K²)`` for each refinement step (``raft.py:80-143`` in the
+        JAX package, which ``forward_cached`` will share)."""
+        cfg = self.config
+        r = cfg.corr_radius
+        if cfg.alternate_corr:
+            block = AlternateCorrBlock(fmap1, fmap2, cfg.corr_levels, r)
+            if cfg.corr_impl == "gather":
+                return block
+            from raft_tpu_torch.kernels.corr_alt import alt_corr_lookup_cuda
+
+            return lambda coords: alt_corr_lookup_cuda(
+                block.fmap1, block.fmap2_pyramid, coords, r)
+        pyramid = build_corr_pyramid(fmap1, fmap2, cfg.corr_levels)
+        if cfg.corr_dtype == "bfloat16":
+            pyramid = [v.to(torch.bfloat16) for v in pyramid]
+        return lambda coords: corr_lookup(pyramid, coords, r, cfg.corr_impl)
 
     def forward(self, image1: torch.Tensor, image2: torch.Tensor,
                 iters: int = 12, flow_init: Optional[torch.Tensor] = None,
@@ -109,11 +131,8 @@ class RAFT(nn.Module):
         else:
             fmaps = self.fnet(torch.cat([x1, x2], 0), train, freeze_bn)
             fmap1, fmap2 = fmaps[:B], fmaps[B:]
-        pyramid = build_corr_pyramid(fmap1.permute(0, 2, 3, 1),
-                                     fmap2.permute(0, 2, 3, 1),
-                                     cfg.corr_levels)
-        if cfg.corr_dtype == "bfloat16":
-            pyramid = [v.to(torch.bfloat16) for v in pyramid]
+        lookup = self._corr_setup(fmap1.permute(0, 2, 3, 1),
+                                  fmap2.permute(0, 2, 3, 1))
 
         # context network (core/raft.py:110-114)
         cnet = self.cnet(x1, train, freeze_bn)
@@ -127,8 +146,7 @@ class RAFT(nn.Module):
         flows, masks = [], []
         for _ in range(iters):
             coords1 = coords1.detach().contiguous()
-            corr = corr_lookup(pyramid, coords1, cfg.corr_radius,
-                               cfg.corr_impl)
+            corr = lookup(coords1)
             flow = coords1 - coords0
             net, up_mask, delta = self.update_block(
                 net, inp, corr.permute(0, 3, 1, 2).contiguous(),

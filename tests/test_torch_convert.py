@@ -3,9 +3,12 @@
 - The trained small fixture loads into identical port tensors through the
   ``.pth`` directly and through JAX's ``.msgpack`` loader followed by
   ``state_dict_from_flax``; JAX-initialised variables load ``strict=True``.
-- ``raft_tpu_torch`` (its ``training`` modules included), ``chip_smoke``
-  and ``profile_train_convs`` import with ``jax``, ``flax`` and ``raft_tpu`` blocked (a
-  subprocess; ``raft_tpu_torch`` itself must pass).
+- ``raft_tpu_torch`` (its ``training``, ``data`` and evaluation modules
+  included), ``chip_smoke``, ``profile_hd_pair`` and
+  ``profile_train_convs`` import with
+  ``jax``, ``flax``, ``raft_tpu``, ``PIL`` and ``cv2`` blocked (a
+  subprocess; ``raft_tpu_torch`` itself must pass): the card's machine has
+  none of them.
 - Entry points run on the card unless asked for the CPU, and raise without
   one; configuration validation matches the JAX package's.
 """
@@ -84,7 +87,7 @@ def test_jax_init_variables_load_strict(small):
 
 _BLOCKER = """
 import importlib, pkgutil, sys
-BLOCKED = ("jax", "flax", "raft_tpu")
+BLOCKED = ("jax", "flax", "raft_tpu", "PIL", "cv2")
 class Blocker:
     def find_spec(self, name, path=None, target=None):
         if name.split(".")[0] in BLOCKED:
@@ -97,9 +100,11 @@ names = [m.name for m in pkgutil.walk_packages(raft_tpu_torch.__path__,
 for n in names:
     importlib.import_module(n)
 for n in ("training.loss", "training.optim", "training.train_step",
-          "training.logger", "training.trainer"):
+          "training.logger", "training.trainer", "kernels.corr_alt",
+          "data.png", "data.frame_utils", "data.datasets", "ops.interp",
+          "evaluation.evaluate", "cli.evaluate", "cli._args"):
     assert "raft_tpu_torch." + n in names, n
-import chip_smoke, profile_train_convs
+import chip_smoke, profile_hd_pair, profile_train_convs
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 print(len(names), "modules")
@@ -110,7 +115,7 @@ def test_port_and_chip_smoke_import_with_jax_blocked():
     r = subprocess.run([sys.executable, "-c", _BLOCKER], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
-    assert int(r.stdout.split()[0]) >= 21
+    assert int(r.stdout.split()[0]) >= 38
 
 
 def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
@@ -152,10 +157,17 @@ def test_config_validation_matches_jax(kw):
 
 
 def test_later_slices_raise_not_implemented(tmp_path):
+    from raft_tpu_torch.data.datasets import MpiSintel
+    from raft_tpu_torch.ops.interp import forward_interpolate_device
+
     with pytest.raises(NotImplementedError, match="M8"):
         RAFT(RAFTConfig(mixed_precision=True))
-    with pytest.raises(NotImplementedError, match="K5"):
-        RAFT(RAFTConfig(alternate_corr=True))
+    # alternate_corr is ported; training's augmentation and the serving
+    # layer's on-device warm start are not
+    with pytest.raises(NotImplementedError, match="M13"):
+        MpiSintel(aug_params={"crop_size": (368, 768)}, root=str(tmp_path))
+    with pytest.raises(NotImplementedError, match="M11"):
+        forward_interpolate_device(torch.zeros(8, 8, 2))
     # train mode is ported; dropout in it is not
     model = RAFT(RAFTConfig(small=True, dropout=0.1))
     img = torch.zeros(1, 32, 32, 3)

@@ -12,7 +12,9 @@ gates and blend (expf/tanhf against PyTorch's, about an ulp), one bf16 ulp
 for bf16 operands (the same fp32 value rounded once). The scatter (the
 lookup's backward) is held within 1e-5 of the plain VJP in fp32, and a bf16
 gradient volume within half a bf16 ulp (plus 1e-5) of the plain fp32 VJP,
-which it rounds once.
+which it rounds once. The on-the-fly lookup (K5) is held within 1e-5 plus
+1e-5 relative of ``alt_corr_lookup`` (the same products summed over C in
+another order), with exact zeros for far-out queries and empty levels.
 """
 
 import numpy as np
@@ -246,6 +248,119 @@ def test_gradients_flow_through_the_forward_kernels(cuda):
     assert after["gru_blend_bwd"] - before["gru_blend_bwd"] == 2
     for a, b in zip(res["fused"], res["plain"]):
         assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+def _alt_inputs(rng, B, H, W, C, levels, dev):
+    """fmap1, an NHWC fmap2 pyramid pooled from a random fmap2 (levels may
+    come out empty), and coords with a tenth of the queries 100 px out and
+    one window straddling the top-left edge."""
+    from raft_tpu_torch.models.corr import AlternateCorrBlock
+
+    f1, f2 = (torch.from_numpy(rng.randn(B, H, W, C).astype(np.float32))
+              .to(dev) for _ in range(2))
+    block = AlternateCorrBlock(f1, f2, levels)
+    coords = _coords(rng, B, H, W, 3.0, dev)
+    coords[0, 0, 0] = torch.tensor([-0.5, -1.5])
+    return block.fmap1, block.fmap2_pyramid, coords.contiguous()
+
+
+@pytest.mark.parametrize("B,H,W,C,radius", [(1, 47, 156, 256, 4),
+                                            (1, 55, 128, 128, 3),
+                                            (2, 12, 20, 16, 2),
+                                            (2, 3, 5, 36, 4)])
+def test_alt_lookup_matches_plain(cuda, B, H, W, C, radius):
+    """K5 against ``alt_corr_lookup`` within 1e-5 + 1e-5 relative (the same
+    products summed over C in another order); far-out queries exact zeros;
+    two calls bitwise equal. The 3x5 grid's last two levels are empty."""
+    from raft_tpu_torch.kernels.corr_alt import alt_corr_lookup_cuda
+    from raft_tpu_torch.models.corr import alt_corr_lookup
+
+    rng = np.random.RandomState(C + radius)
+    f1, pyr, coords = _alt_inputs(rng, B, H, W, C, 4, cuda)
+    before = kernels.launch_counts()["corr_alt"]
+    got = alt_corr_lookup_cuda(f1, pyr, coords, radius)
+    again = alt_corr_lookup_cuda(f1, pyr, coords, radius)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["corr_alt"] == before + 2
+    want = alt_corr_lookup(f1, pyr, coords, radius)
+    assert got.shape == want.shape and torch.equal(got, again)
+    assert bool(((got - want).abs() <= 1e-5 + 1e-5 * want.abs()).all())
+    # outside every level's window reach: (r+1)·2^3 px past the image
+    m = (radius + 1) * 8 + 1
+    x, y = coords[..., 0], coords[..., 1]
+    far = (x < -m) | (x > W - 1 + m) | (y < -m) | (y > H - 1 + m)
+    assert bool(far.any()) and not got[far].any()
+    for v, lvl in zip(pyr, got.split((2 * radius + 1) ** 2, dim=-1)):
+        if v.numel() == 0:
+            assert not lvl.any()
+
+
+def test_alt_lookup_gradients_match_plain_autograd(cuda):
+    """``AltCorrLookup``'s backward (the plain version's VJP) gives the
+    gradients of plain autograd for fmap1, every level and the coords,
+    within 1e-5 of each one's largest (``index_put`` accumulates in another
+    order)."""
+    from raft_tpu_torch.kernels.corr_alt import alt_corr_lookup_cuda
+    from raft_tpu_torch.models.corr import alt_corr_lookup
+
+    rng = np.random.RandomState(3)
+    f1, pyr, coords = _alt_inputs(rng, 2, 12, 20, 64, 4, cuda)
+    g = torch.from_numpy(rng.randn(2, 12, 20, 4 * 81).astype(np.float32)).to(cuda)
+    res = {}
+    for name, fn in (("kernel", alt_corr_lookup_cuda), ("plain", alt_corr_lookup)):
+        leaves = [t.clone().requires_grad_() for t in [f1, coords, *pyr]]
+        out = fn(leaves[0], leaves[2:], leaves[1], 4)
+        res[name] = torch.autograd.grad(out, leaves, g)
+    for a, b in zip(res["kernel"], res["plain"]):
+        assert float(b.abs().max()) > 0
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+def test_alt_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    from raft_tpu_torch.kernels.corr_alt import alt_corr_lookup_cuda
+
+    f1 = torch.randn((1, 4, 4, 8), device=cuda)
+    coords = torch.zeros((1, 4, 4, 2), device=cuda)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        alt_corr_lookup_cuda(f1[..., :6], [f1[..., :6]], coords, 3)
+    with pytest.raises(ValueError, match="float32"):
+        alt_corr_lookup_cuda(f1.double(), [f1.double()], coords, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        alt_corr_lookup_cuda(f1, [f1.transpose(1, 2)], coords, 3)
+    with pytest.raises(ValueError, match="radius"):
+        alt_corr_lookup_cuda(f1, [f1], coords, 17)
+    with pytest.raises(ValueError, match="levels"):
+        alt_corr_lookup_cuda(f1, [f1] * 9, coords, 3)
+
+
+def test_alternate_corr_model_runs_through_k5(cuda):
+    """``RAFT(alternate_corr=True)`` on the card: one K5 launch per step and
+    no K1, within 2e-3 px of the plain alternate path and of the
+    materialized path after one step (64x96, random weights; the bound
+    ``chip_smoke.py`` holds K1 to after one step: the correlations differ
+    by fp32 rounding, which random weights amplify)."""
+    from raft_tpu_torch.config import RAFTConfig
+    from raft_tpu_torch.models import RAFT
+
+    rng = np.random.RandomState(5)
+    im1 = torch.from_numpy((rng.rand(1, 64, 96, 3) * 255).astype(np.float32))
+    im2 = torch.roll(im1, (2, 3), dims=(1, 2))
+    im1, im2 = im1.to(cuda), im2.to(cuda)
+    weights = RAFT(RAFTConfig()).state_dict()
+    flows = {}
+    for name, kw in (("k5", dict(alternate_corr=True, corr_impl="pallas")),
+                     ("alt", dict(alternate_corr=True, corr_impl="gather")),
+                     ("k1", dict(corr_impl="pallas"))):
+        model = RAFT(RAFTConfig(**kw)).to(cuda).eval()
+        model.load_state_dict(weights)
+        kernels.reset_launch_counts()
+        with torch.no_grad():
+            flows[name] = model(im1, im2, iters=1)[1]
+        counts = kernels.launch_counts()
+        if name == "k5":
+            assert counts["corr_alt"] == 1 and counts["corr_lookup"] == 0
+    for name in ("alt", "k1"):
+        assert float((flows["k5"] - flows[name]).abs().max()) <= 2e-3, name
 
 
 def test_train_mode_gradients_kernels_match_plain(cuda, monkeypatch):
