@@ -7,8 +7,9 @@ Phases, each of which fails loudly (nothing is caught):
 
 1. the device: name, count, and ``nvidia-smi``'s name and power limit;
    TF32 is turned off for cuDNN convs and matmuls, so fp32 means fp32;
-2. build the kernels from ``raft_tpu_torch/csrc`` (seconds, and
-   ``-Xptxas -v``'s register and shared-memory use);
+2. build the kernels from ``raft_tpu_torch/csrc`` (seconds, ``-Xptxas
+   -v``'s registers, shared memory and spills, each kernel's dynamic shared
+   memory, and the tensor-core instructions in K5's SASS by ``cuobjdump``);
 3. hold each kernel against its plain PyTorch version at the main path's
    shapes (the Sintel demo geometry padded to 440x1024: the 1/8 grid is
    55x128, N = 7040, levels 55x128, 27x64, 13x32, 6x16);
@@ -18,7 +19,8 @@ Phases, each of which fails loudly (nothing is caught):
    the kernel), and a wrapper call's time with CUDA events (host
    included), beside its bound: the larger of its bytes at 3.35 TB/s and
    its operations at 67 TFLOP/s (the H100 SXM's HBM rate and fp32
-   non-tensor-core peak);
+   non-tensor-core peak); K1's in-range window rows also counted in whole
+   32-byte sectors;
 5. drive the main path through ``cli/demo.flow_pairs`` on 4 pairs of
    seeded synthetic 436x1024 frames at iters=20: the basic model at full
    width with seeded random weights (``corr_impl="pallas",
@@ -35,7 +37,7 @@ Phases, each of which fails loudly (nothing is caught):
    GRU's z/r halves strided views of a double-width conv output), two
    scatter calls bitwise equal, and time all six there as in phase 4,
    with the scatter's library yardstick, the backward of one
-   ``F.grid_sample`` per level;
+   ``F.grid_sample`` per level, and K1's sector bytes;
 7. train through ``training.trainer.train`` on the chairs recipe (basic
    model at full width, batch 10, 368x496, iters 12, lr 4e-4, fp32, batch
    norms trained, ``pallas``+``fused``) for 6 steps on seeded synthetic
@@ -54,24 +56,33 @@ Phases, each of which fails loudly (nothing is caught):
    path: a 375x1242 frame padded to 376x1248 and bucketed to 384x1280, so
    the 1/8 grid is 48x160, N = 7,680, fmap2 levels 48x160, 24x80, 12x40,
    6x20) and the unbucketed submission writer's (grid 47x156, N = 7,332);
-   C=256 r=4 and C=128 r=3; a tenth of the queries 150 px out, which must
-   give exact zeros; two calls bitwise equal; against the materialized
+   C=256 r=4 and C=128 r=3; on two coordinate fields (``FIELDS``: the
+   smooth flow a trained model gives, with one motion boundary, and i.i.d.
+   noise, the field the earlier K5 was timed on), each with a tenth of the
+   queries 150 px out, which must give exact zeros; at validate_kitti's
+   geometry also with fmaps three times unit variance (twice the model's); K5's branch counter read after each call (the smooth
+   field must tile at least SMOOTH_TILED_MIN of its tiles); two calls
+   bitwise equal; against the materialized
    path on the same fmaps (the all-pairs volume, its pooling and K1, K1
    itself against its plain version there); its gradients against plain
    autograd, and the GRU kernels (K2) at the path's (1,128,48,160); time
-   K5 at the validator's geometry as in phase 4, with the materialized
-   path's build and K1 beside it;
+   K5 at the validator's geometry on both fields as in phase 4, beside its
+   bound restated for tensor cores (bytes at 3.35 TB/s or the three TF32
+   products of the error-compensated split at 495 TFLOP/s) with the fp32
+   figure, and the materialized path's build and K1;
 10. evaluate through ``cli/evaluate.main --dataset kitti --alternate_corr
    --corr_impl pallas --gru_impl fused``: the basic model at full width
    with seeded random weights saved as a ``.pth``, over a KITTI-layout
    dataset written under a temporary directory (4 seeded synthetic
    375x1242 pairs shifted by a known flow, 16-bit flow PNGs with a valid
-   mask): ms per pair, peak memory, launches (24 K5 a pair, no K1); then
+   mask): ms per pair, peak memory, launches (24 K5 a pair, no K1), K5's
+   branch shares; then
    the materialized path; the two held to each other after one step, and
    with the small trained fixture at iters=24;
 11. the Sintel submission with warm start over ``demo-frames/`` in a
    ``test/{clean,final}/<scene>/`` layout, read with the port's PNG codec:
-   the small fixture with K5 against the materialized path with K1, the
+   the small fixture with K5 (its branch shares: a trained model's flow on
+   real frames) against the materialized path with K1, the
    written ``.flo`` files read back and compared: cold pairs within 5e-4
    px; each warm pair run again by each path from the other's init, each
    within 5e-4 px of the other path from that init; the chained gap
@@ -111,6 +122,8 @@ import torch.nn.functional as F
 REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
 FP32_FLOPS_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12       # H100 SXM TF32 on the tensor cores, dense
+SECTOR = 32                     # bytes the DRAM moves per access, at least
 GRID = (55, 128)                # 1/8 grid of the 440x1024 padded Sintel frame
 FRAME_HW = (436, 1024)
 PAIRS = 4
@@ -145,6 +158,15 @@ KITTI_FLOW = (-3.0, -2.0)       # synthetic_frames' shift
 # another order (and interpolate-then-dot against dot-then-interpolate)
 ALT_ATOL = ALT_RTOL = 1e-5
 ALT_MAT_TOL = 1e-4              # K5 vs the materialized path, of max |out|
+# K5's coordinate fields (phase 9): "iid" is grid + 12 px i.i.d. noise per
+# query (neighbouring windows unrelated: the worst case for a tiled kernel);
+# "smooth" is grid + KITTI_FLOW + a low-frequency flow of up to +-8 px (a
+# wavelength of the grid width) + one vertical motion boundary where the
+# flow jumps by SMOOTH_JUMP px; both with a tenth of the queries 150 px out
+FIELDS = ("smooth", "iid")
+SMOOTH_AMP = 8.0
+SMOOTH_JUMP = 20.0
+SMOOTH_TILED_MIN = 0.9          # share of K5 tiles the smooth field must tile
 HD_HW = (1080, 1920)            # the memory regime alternate_corr is for
 HD_ITERS = 20
 
@@ -196,32 +218,56 @@ def device_busy_ms(prof) -> float:
 
 
 def kernel_ms(fn, reps: int = 50, flush=None):
-    """Device milliseconds per call of ``fn``: the sum of the device time of
-    everything it ran on the card, from ``torch.profiler``, over ``reps``
-    calls after a warm-up. With ``flush`` (a device-to-device copy larger
-    than the 50 MB L2), each call finds the L2 cold; the copies' own time
-    is left out. A profiler session now and then comes back without its
-    device events (seen once on the card in some sixty sessions), so the
-    measurement is taken again, up to three times; raises if the profiler
-    sees no device time in any."""
+    """Device milliseconds per call of ``fn``: the device time of everything
+    it ran on the card, from ``torch.profiler``, over ``reps`` calls after a
+    warm-up, divided by the calls the profiler recorded. With ``flush`` (a
+    device-to-device copy larger than the 50 MB L2), each call finds the L2
+    cold; the copies' own time is left out.
+
+    A session can lose device events: two or three of a session of any
+    length (a one-call session of K5 recorded none, one of the materialized
+    build 2 of its 5 kernels, ten of it 48 of 50), once all of them, once
+    all but one of 20 calls. So each session starts and ends on eight small
+    device-to-device copies, left out like the flushes, and the calls
+    recorded are counted by the costliest kernel: its events over how many
+    one call runs (its events per call, rounded). A session that recorded
+    fewer than three quarters of its calls, or more than 5% over the calls
+    it made, is taken again, up to four times; raises if none was whole
+    enough."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    pad_src = torch.empty(2 ** 20, device="cuda")
+    pad_dst = torch.empty_like(pad_src)
+
+    def pad():
+        for _ in range(8):
+            pad_dst.copy_(pad_src)
+        torch.cuda.synchronize()
+
+    fn()  # warm-up: one-time set-up launches stay out of the count below
     torch.cuda.synchronize()
-    for attempt in range(3):
+    for attempt in range(4):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            pad()
             for _ in range(reps):
                 if flush is not None:
                     flush()
                 fn()
-            torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in device_events(prof)
-                 if not e.key.startswith("Memcpy DtoD"))
-        if us > 0:
-            return us / reps / 1e3
-        log(f"    torch.profiler recorded no device time (session "
-            f"{attempt + 1} of 3)")
-    raise RuntimeError("torch.profiler recorded no device time")
+            pad()
+        evs = {e.key: (e.self_device_time_total, e.count)
+               for e in device_events(prof)
+               if not e.key.startswith("Memcpy DtoD")}
+        us = sum(t for t, _ in evs.values())
+        key, (_, n) = max(evs.items(), key=lambda kv: kv[1][0],
+                          default=(None, (0.0, 0)))
+        per_call = round(n / reps)
+        calls = n / per_call if per_call else 0.0
+        if us > 0 and 0.75 * reps <= calls <= 1.05 * reps:
+            return us / calls / 1e3
+        log(f"    torch.profiler recorded {calls:.2f} of {reps} calls "
+            f"({sum(c for _, c in evs.values())} events, {n} of {key!r}; "
+            f"session {attempt + 1} of 4)")
+    raise RuntimeError("torch.profiler recorded too few or too many calls")
 
 
 def median_kernel_ms(fn, reps: int, sessions: int, flush=None):
@@ -231,9 +277,9 @@ def median_kernel_ms(fn, reps: int, sessions: int, flush=None):
     return float(np.median(ms)), ms[0], ms[-1]
 
 
-def bound_ms(nbytes: float, ops: float):
+def bound_ms(nbytes: float, ops: float, flops_per_s: float = FP32_FLOPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_FLOPS_PER_S * 1e3
+    t_ops = ops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -373,6 +419,50 @@ def lookup_bytes(pyramid, coords, radius: int) -> float:
         taps = in_range_taps(coords, i, Hl, Wl, radius)
         total += float(taps.sum()) * vol.element_size()
     return total
+
+
+def lookup_sector_bytes(pyramid, coords, radius: int) -> float:
+    """``lookup_bytes`` with each in-range window row counted in the whole
+    32-byte sectors it touches (the unit the DRAM moves; the levels are
+    allocated sector-aligned): the bytes a design that reads each window
+    row once still moves."""
+    B, H, W, _ = coords.shape
+    K = 2 * radius + 1
+    P = K + 1
+    n = B * H * W
+    total = coords.numel() * 4 + n * len(pyramid) * K * K * 4
+    q = torch.arange(n, device=coords.device, dtype=torch.float64)
+    for i, vol in enumerate(pyramid):
+        Hl, Wl = vol.shape[-2:]
+        es = vol.element_size()
+
+        def origin(c, size):
+            c = (c.reshape(-1) / 2 ** i).clamp(-(radius + 2.0), size + radius + 1.0)
+            return torch.floor(c).double() - radius
+
+        x0, y0 = origin(coords[..., 0], Wl), origin(coords[..., 1], Hl)
+        lo, hi = x0.clamp(min=0), (x0 + P - 1).clamp(max=Wl - 1)
+        for dy in range(P):
+            iy = y0 + dy
+            ok = (iy >= 0) & (iy < Hl) & (lo <= hi)
+            start = ((q * Hl + iy) * Wl + lo) * es
+            end = ((q * Hl + iy) * Wl + hi) * es + es - 1
+            sectors = torch.floor(end / SECTOR) - torch.floor(start / SECTOR) + 1
+            total += float(torch.where(ok, sectors, 0).sum()) * SECTOR
+    return total
+
+
+def note_sectors(tag: str, t: dict, pyramid, coords, smi: str) -> None:
+    """Phases 4 and 6: K1's bytes counted in whole 32-byte sectors beside
+    its bound, and the shares of each that its time reaches."""
+    sb = lookup_sector_bytes(pyramid, coords, 4)
+    t["sector_mbytes"] = sb / 1e6
+    t["sector_ms"] = sb / HBM_BYTES_PER_S * 1e3
+    log(f"[{tag}] corr_lookup: in-range window rows in whole 32-byte sectors "
+        f"{sb / 1e6:.2f} MB ({sb / (t['mbytes'] * 1e6):.2f}x the bound's "
+        f"{t['mbytes']:.2f} MB), {t['sector_ms']:.4f} ms at 3.35 TB/s; kernel "
+        f"at {t['bound'][0] / t['ms']:.1%} of its bound, "
+        f"{t['sector_ms'] / t['ms']:.1%} of the sector time; {smi}")
 
 
 # ---------------------------------------------------------------------------
@@ -545,25 +635,48 @@ def check_step(name, plain, kernels, ulp):
 # phases 9-13: the alternate path (K5) and evaluation
 # ---------------------------------------------------------------------------
 
+def smooth_flow(grid, device, amp: float = SMOOTH_AMP,
+                jump: float = SMOOTH_JUMP):
+    """(1, H, W, 2) flow like a trained model's: KITTI_FLOW, plus a
+    low-frequency field of up to +-``amp`` px whose wavelength is the grid
+    width, plus ``jump`` px in x right of a vertical motion boundary that
+    cuts a column of 8x8 tiles (at W/2 + 3)."""
+    H, W = grid
+    ys, xs = torch.meshgrid(torch.arange(H, device=device, dtype=torch.float32),
+                            torch.arange(W, device=device, dtype=torch.float32),
+                            indexing="ij")
+    u = KITTI_FLOW[0] + amp * torch.sin(2 * np.pi * (xs + ys) / W)
+    v = KITTI_FLOW[1] + amp * torch.cos(2 * np.pi * (xs - ys) / W)
+    u = u + jump * (xs >= W // 2 + 3)
+    return torch.stack([u, v], -1)[None]
+
+
 def alt_inputs(gen: torch.Generator, C: int, radius: int, grid,
-               levels: int = 4):
+               levels: int = 4, field: str = "iid", scale: float = 1.0):
     """K5's operands at a path's 1/8 grid, on ``gen``'s device: fmap1 (1,
-    H, W, C), the NHWC fmap2 pyramid pooled from a random fmap2, and coords
-    = grid + random flow with a tenth of the queries 150 px out and the
-    first query's window straddling the top-left corner."""
+    H, W, C) and the NHWC fmap2 pyramid pooled from a random fmap2, both
+    ``scale`` times unit variance, and coords
+    = grid + a flow (``field``: "iid", 12 px of i.i.d. noise per query, or
+    "smooth", ``smooth_flow``) with a tenth of the queries 150 px out and
+    the first query's window straddling the top-left corner."""
     from raft_tpu_torch.models.corr import AlternateCorrBlock
 
     H, W = grid
     dev = gen.device
-    f1, f2 = (torch.randn((1, H, W, C), generator=gen, device=dev)
+    f1, f2 = (scale * torch.randn((1, H, W, C), generator=gen, device=dev)
               for _ in range(2))
     block = AlternateCorrBlock(f1, f2, levels, radius)
     ys, xs = torch.meshgrid(torch.arange(H, device=dev, dtype=torch.float32),
                             torch.arange(W, device=dev, dtype=torch.float32),
                             indexing="ij")
     coords = torch.stack([xs, ys], -1)[None]
-    coords = coords + 12.0 * torch.randn(coords.shape, generator=gen,
-                                         device=dev)
+    if field == "iid":
+        coords = coords + 12.0 * torch.randn(coords.shape, generator=gen,
+                                             device=dev)
+    elif field == "smooth":
+        coords = coords + smooth_flow(grid, dev)
+    else:
+        raise ValueError(f"field {field!r}: one of {FIELDS}")
     far = torch.rand((1, H, W, 1), generator=gen, device=dev) < 0.1
     coords = torch.where(far, coords + 150.0 * torch.sign(
         torch.randn(coords.shape, generator=gen, device=dev)), coords)
@@ -590,32 +703,68 @@ def kitti_eval_grid():
     return i1.shape[1] // 8, i1.shape[2] // 8
 
 
-def check_alt(gen: torch.Generator, grid, C: int, radius: int, where: str):
-    """Phase 9 at one geometry: K5 against its plain version (ALT_ATOL +
-    ALT_RTOL, exact zeros for the far-out queries, two calls bitwise
-    equal), and against the materialized path on the same fmaps, whose K1
-    is held against its plain version too. Returns (K5's error, K1's)."""
+def k5_branches(fn, device):
+    """``fn()`` with K5's branch counters on ``device`` set to 0 just
+    before: (its result, (tiles on the tiled branch, tiles on the per-query
+    branch)). On the CPU, where the wrappers run the plain version, (0, 0)."""
+    from raft_tpu_torch.kernels.corr_alt import branch_counts
+
+    if torch.device(device).type != "cuda":
+        return fn(), (0, 0)
+    counts = branch_counts(device)
+    counts.zero_()
+    out = fn()
+    tiled, per_query = counts.tolist()
+    return out, (tiled, per_query)
+
+
+def branch_note(branches) -> str:
+    tiled, per_query = branches
+    n = tiled + per_query
+    if not n:
+        return "no corr_alt tiles"
+    return (f"{tiled} tiles tiled, {per_query} per-query ({tiled / n:.1%} "
+            "tiled)")
+
+
+def check_alt(gen: torch.Generator, grid, C: int, radius: int, where: str,
+              field: str = "iid", scale: float = 1.0):
+    """Phase 9 at one geometry, coordinate field and fmap magnitude
+    (``scale`` times unit variance): K5 against its plain version (ALT_ATOL
+    + ALT_RTOL, exact zeros for the far-out queries, two calls bitwise
+    equal; the error also logged as a fraction of sum |fmap1| |fmap2| /
+    sqrt(C), the scale of fp32 rounding in the dots), and against the
+    materialized path on the same fmaps, whose K1 is held against its plain
+    version too. Returns (K5's error, K1's, K5's (tiled, per-query)
+    tiles)."""
     from raft_tpu_torch.kernels.corr_alt import alt_corr_lookup_cuda
     from raft_tpu_torch.kernels.corr_lookup import corr_lookup_cuda
     from raft_tpu_torch.models.corr import (alt_corr_lookup,
                                             build_corr_pyramid,
                                             corr_lookup_gather)
 
-    f1, pyr, coords = alt_inputs(gen, C, radius, grid)
-    got = alt_corr_lookup_cuda(f1, pyr, coords, radius)
+    f1, pyr, coords = alt_inputs(gen, C, radius, grid, field=field,
+                                 scale=scale)
+    got, branches = k5_branches(
+        lambda: alt_corr_lookup_cuda(f1, pyr, coords, radius), coords.device)
     again = alt_corr_lookup_cuda(f1, pyr, coords, radius)
     want = alt_corr_lookup(f1, pyr, coords, radius)
     diff = (got - want).abs()
     e = float(diff.max())
     within = bool((diff <= ALT_ATOL + ALT_RTOL * want.abs()).all())
+    used = float((diff / (ALT_ATOL + ALT_RTOL * want.abs())).max())
+    mag = alt_corr_lookup(f1.abs(), [v.abs() for v in pyr], coords, radius)
+    frac = float((diff / mag.clamp(min=1e-30)).max())
     far = far_queries(coords, radius)
     zeros = bool(far.any()) and not bool(got[far].any())
     bitwise = torch.equal(got, again)
-    shape = f"C={C} r={radius}, grid {grid[0]}x{grid[1]} ({where})"
+    shape = (f"C={C} r={radius}, grid {grid[0]}x{grid[1]} ({where}), {field} "
+             f"field, fmaps {scale:g} x randn")
     log(f"[9] corr_alt {shape}: max abs err {e:.3e} vs the plain version "
-        f"(tol {ALT_ATOL:g} + {ALT_RTOL:g} relative); {int(far.sum())} "
+        f"(tol {ALT_ATOL:g} + {ALT_RTOL:g} relative: {used:.3f} of it used; "
+        f"{frac:.3e} of sum|fmap1||fmap2|/sqrt(C)); {int(far.sum())} "
         f"far-out queries exact zeros: {zeros}; two calls bitwise equal: "
-        f"{bitwise}")
+        f"{bitwise}; {branch_note(branches)}")
     if not (within and zeros and bitwise):
         raise RuntimeError("corr_alt disagrees with its plain version")
     mat_pyr = build_corr_pyramid(f1, pyr[0])
@@ -630,7 +779,36 @@ def check_alt(gen: torch.Generator, grid, C: int, radius: int, where: str):
         raise RuntimeError("corr_alt disagrees with the materialized path")
     if not e_k1 <= LOOKUP_TOL:
         raise RuntimeError("corr_lookup disagrees with its plain version")
-    return e, e_k1
+    return e, e_k1, branches
+
+
+def sass_mma_counts(lib_path: str) -> dict:
+    """Per kernel of the built library whose name holds "corr": how many
+    tensor-core matrix multiply instructions (HMMA, and HGMMA for wgmma) its
+    SASS has, read with the toolkit's ``cuobjdump -sass``."""
+    cuobjdump = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            if "corr" in name:
+                counts[name] = 0
+        elif name in counts and ("HMMA" in line or "HGMMA" in line):
+            counts[name] += 1
+    return counts
+
+
+def alt_bound(nbytes: float, ops: float):
+    """K5's bound, restated for tensor cores: the larger of its bytes at
+    3.35 TB/s and its operations done as three TF32 products each (the
+    error-compensated split) at 495 TFLOP/s; and the fp32 figure, the
+    operations at 67 TFLOP/s on the CUDA cores, which a tensor-core kernel
+    can beat."""
+    return (bound_ms(nbytes, 3 * ops, TF32_FLOPS_PER_S),
+            bound_ms(nbytes, ops, FP32_FLOPS_PER_S))
 
 
 def alt_cost(fmap1, pyramid, coords, radius: int):
@@ -874,12 +1052,22 @@ def main() -> int:
     for line in build.log.splitlines():
         if "ptxas info" in line:
             log(f"[2]   {line.strip()}")
-    # ptxas reports static shared memory only; the lookup's is dynamic
-    smem = {r: 8 * (2 * r + 2) ** 2 * 4 for r in (4, 3)}
-    log(f"[2] dynamic shared memory per 256-thread block: corr_lookup and "
-        f"corr_alt {smem[4]} B at r=4, {smem[3]} B at r=3 (8 warps x (2r+2)^2 "
-        f"fp32 windows); corr_scatter {8 * 81 * 4} B at r=4 (8 warps x "
-        "(2r+1)^2 fp32 cotangents); the GRU kernels none")
+    # ptxas reports static shared memory only; the lookups' is dynamic
+    alt_smem = {r: build.lib.corr_alt_smem_bytes(r) for r in (4, 3)}
+    log(f"[2] dynamic shared memory per block: corr_alt (512 threads, one "
+        f"block per SM) {alt_smem[4]} B at r=4, {alt_smem[3]} B at r=3 (a "
+        "2-stage cp.async ring of 320-row x 32-channel fp32 slabs in "
+        "core-matrix layout, the queries' big and small planes of one slab, "
+        f"64 (2r+2)^2 fp32 windows); corr_lookup {8 * 4 * 100 * 4} B per 8 warps at r=4 "
+        f"and 4 levels (each warp L x (2r+2)^2 fp32 windows); corr_scatter "
+        f"{8 * 81 * 4} B at r=4 (8 warps x (2r+1)^2 fp32 cotangents); the "
+        "GRU kernels none")
+    for name, n_mma in sass_mma_counts(build.path).items():
+        log(f"[2] SASS of {name}: {n_mma} tensor-core MMA instructions "
+            "(HMMA/HGMMA, by cuobjdump -sass)")
+        if "corr_alt" in name and not n_mma:
+            raise RuntimeError("corr_alt's products do not run on the "
+                               "tensor cores")
 
     # -- 3. kernels against their plain versions ----------------------------
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -928,6 +1116,7 @@ def main() -> int:
                           lambda: gru_blend_plain(z, h, ql), None,
                           4 * n * 4, 6 * n)}
     times = time_kernels("4", work, smi, 50, 50)
+    note_sectors("4", times["corr_lookup"], pyramid, coords, smi)
     for name, (kern, *_) in work.items():
         times[name]["call_ms"] = cuda_ms(kern, 200)
         log(f"[4] {name}: one wrapper call back-to-back "
@@ -1098,6 +1287,7 @@ def main() -> int:
                           7 * n * 4, 12 * n)}
     train_times = time_kernels("6", train_work, smi, 20, 10,
                                " at the training geometry")
+    note_sectors("6", train_times["corr_lookup"], pyramid, coords, smi)
     del pyramid, leaves, ref, zl, rl, h, ql, dz, drh, gz, z
 
     # -- 7. training through trainer.train -----------------------------------
@@ -1200,12 +1390,29 @@ def main() -> int:
     # -- 9. K5, the on-the-fly lookup, at the KITTI geometries ---------------
     eval_grid = kitti_eval_grid()
     err["corr_alt"] = 0.0
-    for grid, where in ((eval_grid, "validate_kitti's, bucketed"),
-                        (KITTI_GRID, "the submission writer's")):
-        for C, radius in ((256, 4), (128, 3)):
-            e, e_k1 = check_alt(gen, grid, C, radius, where)
-            err["corr_alt"] = max(err["corr_alt"], e)
-            err["corr_lookup"] = max(err["corr_lookup"], e_k1)
+    branches = {}
+    for field in FIELDS:
+        for grid, where in ((eval_grid, "validate_kitti's, bucketed"),
+                            (KITTI_GRID, "the submission writer's")):
+            for C, radius in ((256, 4), (128, 3)):
+                e, e_k1, br = check_alt(gen, grid, C, radius, where, field)
+                err["corr_alt"] = max(err["corr_alt"], e)
+                err["corr_lookup"] = max(err["corr_lookup"], e_k1)
+                if grid == eval_grid and (C, radius) == (256, 4):
+                    branches[field] = br
+    # fmaps at three times unit variance, twice the rms the model's encoders
+    # give K5 (1.4-1.5, profile_corr_alt.py): the tolerance's absolute part
+    # does not grow with them, the dots' rounding does
+    err_3x = 0.0
+    for field in FIELDS:
+        e, e_k1, _ = check_alt(gen, eval_grid, 256, 4,
+                               "validate_kitti's, bucketed", field, scale=3.0)
+        err_3x = max(err_3x, e)
+        err["corr_lookup"] = max(err["corr_lookup"], e_k1)
+    tiled, per_query = branches["smooth"]
+    if not tiled >= SMOOTH_TILED_MIN * (tiled + per_query):
+        raise RuntimeError(f"corr_alt tiled {branch_note(branches['smooth'])}"
+                           f" of the smooth field, under {SMOOTH_TILED_MIN:.0%}")
     zl, rl, h, ql, _, _, _, z = gru_bwd_inputs(gen, torch.float32, 1, eval_grid)
     hold_gru("9", {"gru_gates": (gru_gates(zl, rl, h),
                                  gru_gates_plain(zl, rl, h)),
@@ -1230,25 +1437,48 @@ def main() -> int:
     if not e <= 1e-5:
         raise RuntimeError("AltCorrLookup's gradients disagree with autograd")
     del grads, leaves
-    nbytes, ops = alt_cost(f1, pyr, coords, 4)
-    alt_times = time_kernels(
-        "9", {"corr_alt": (lambda: alt_corr_lookup_cuda(f1, pyr, coords, 4),
-                           lambda: alt_corr_lookup(f1, pyr, coords, 4), None,
-                           nbytes, ops)},
-        smi, 50, 10, f" at validate_kitti's geometry (grid {eval_grid[0]}x"
-        f"{eval_grid[1]}, N = {eval_grid[0] * eval_grid[1]})")
+    del f1, pyr, coords
+    alt_times = {}
+    for field in FIELDS:
+        f1, pyr, coords = alt_inputs(gen, 256, 4, eval_grid, field=field)
+        nbytes, ops = alt_cost(f1, pyr, coords, 4)
+        t = alt_times[field] = time_kernels(
+            "9", {"corr_alt": (lambda: alt_corr_lookup_cuda(f1, pyr, coords, 4),
+                               lambda: alt_corr_lookup(f1, pyr, coords, 4),
+                               None, nbytes, ops)},
+            smi, 50, 10, f" at validate_kitti's geometry (grid {eval_grid[0]}x"
+            f"{eval_grid[1]}, N = {eval_grid[0] * eval_grid[1]}), {field} "
+            "field")["corr_alt"]
+        t["bound"], t["bound_fp32"] = alt_bound(nbytes, ops)
+        t["branches"] = branches[field]
+        log(f"[9] corr_alt, {field} field: bound restated for tensor cores "
+            f"{t['bound'][0]:.4f} ms by {t['bound'][1]} ({nbytes / 1e6:.2f} MB "
+            f"at 3.35 TB/s; {3 * ops / 1e9:.3f} GFLOP of TF32 products at 495 "
+            f"TFLOP/s), fp32 figure {t['bound_fp32'][0]:.4f} ms ({ops / 1e9:.3f}"
+            f" GFLOP at 67 TFLOP/s); kernel {t['ms']:.4f} ms L2 cold, "
+            f"{t['bound'][0] / t['ms']:.1%} of the bound; "
+            f"{branch_note(t['branches'])}; {smi}")
+        del f1, pyr, coords
+    f1, pyr, coords = alt_inputs(gen, 256, 4, eval_grid)
     flush = l2_flusher()
     mat_pyr = build_corr_pyramid(f1, pyr[0])
-    alt_times["corr_alt"]["materialized_build_ms"] = kernel_ms(
-        lambda: build_corr_pyramid(f1, pyr[0]), 10, flush=flush)
-    alt_times["corr_alt"]["materialized_k1_ms"] = kernel_ms(
-        lambda: corr_lookup_cuda(mat_pyr, coords, 4), 50, flush=flush)
-    log(f"[9] the materialized path K5 replaces, same fmaps: all-pairs "
-        f"volume and pooling "
-        f"{alt_times['corr_alt']['materialized_build_ms']:.4f} ms once per "
-        f"pair, corr_lookup {alt_times['corr_alt']['materialized_k1_ms']:.4f}"
-        f" ms per step (profiler, L2 cold); {ops / 1e9:.3f} GFLOP and "
-        f"{nbytes / 1e6:.2f} MB for K5; {smi}")
+    mat_build_ms = kernel_ms(lambda: build_corr_pyramid(f1, pyr[0]), 10,
+                             flush=flush)
+    # the same by CUDA events around back-to-back calls, each after a flush,
+    # less the flushes alone: a reading that owes nothing to the profiler
+    mat_build_ev = (cuda_ms(lambda: (flush(), build_corr_pyramid(f1, pyr[0])),
+                            20, 3) - cuda_ms(flush, 20, 3))
+    mat_k1_ms = kernel_ms(lambda: corr_lookup_cuda(mat_pyr, coords, 4), 50,
+                          flush=flush)
+    log(f"[9] the materialized path K5 replaces, same fmaps (iid field): "
+        f"all-pairs volume and pooling {mat_build_ms:.4f} ms once per pair "
+        f"({mat_build_ev:.4f} ms by CUDA events less the flushes), "
+        f"corr_lookup {mat_k1_ms:.4f} ms per step (profiler, L2 cold); per "
+        f"KITTI pair at iters={KITTI_ITERS}: K5 {KITTI_ITERS} x "
+        f"{alt_times['smooth']['ms']:.4f} = "
+        f"{KITTI_ITERS * alt_times['smooth']['ms']:.3f} ms (smooth field), "
+        f"{KITTI_ITERS * alt_times['iid']['ms']:.3f} ms (iid), materialized "
+        f"{mat_build_ms + KITTI_ITERS * mat_k1_ms:.3f} ms; {smi}")
     del f1, pyr, coords, mat_pyr
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -1269,15 +1499,17 @@ def main() -> int:
                  expected_launches(corr_lookup=n_steps, gru_gates=2 * n_steps,
                              gru_blend=2 * n_steps))):
             run_evaluate(argv + extra, KITTI_PAIRS)           # warm-up
-            metrics, ms, peak, counts = evals[name] = run_evaluate(
-                argv + extra, KITTI_PAIRS)
+            evals[name], branches[name] = k5_branches(
+                lambda: run_evaluate(argv + extra, KITTI_PAIRS), "cuda")
+            metrics, ms, peak, counts = evals[name]
             log(f"[10] cli/evaluate.main --dataset kitti {' '.join(extra)} "
                 f"--corr_impl pallas --gru_impl fused, basic model (seeded "
                 f"random weights), {KITTI_PAIRS} pairs 375x1242 (bucketed to "
                 f"{8 * eval_grid[0]}x{8 * eval_grid[1]}), iters={KITTI_ITERS}: "
                 f"{ms:.2f} ms/pair (PNG "
                 f"decoding and weight loading included), peak {peak:.0f} "
-                f"MiB, launches {counts}; metrics {metrics}; {smi}")
+                f"MiB, launches {counts}; metrics {metrics}; corr_alt "
+                f"{branch_note(branches[name])}; {smi}")
             if counts != want:
                 raise RuntimeError(f"{name} path launches {counts}, want {want}")
             if not all(np.isfinite(v) for v in metrics.values()):
@@ -1326,15 +1558,18 @@ def main() -> int:
         for name, c in (("alternate", cfg_sa), ("materialized", cfg_sm)):
             kernels.reset_launch_counts()
             t0 = time.perf_counter()
-            subs[name] = sintel_submission(
-                load_pth(fixture, c).cuda(), c, tmp,
-                os.path.join(tmp, "sub-" + name))
+            subs[name], branches["sintel_" + name] = k5_branches(
+                lambda: sintel_submission(load_pth(fixture, c).cuda(), c, tmp,
+                                          os.path.join(tmp, "sub-" + name)),
+                "cuda")
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) * 1e3 / (2 * (len(demo) - 1))
             counts = kernels.launch_counts()
             log(f"[11] create_sintel_submission(warm_start=True), small "
                 f"fixture, {name}: {ms:.2f} ms/pair with PNG decoding, "
-                f"{len(subs[name][0])} .flo files, launches {counts}")
+                f"{len(subs[name][0])} .flo files, launches {counts}; "
+                f"corr_alt {branch_note(branches['sintel_' + name])} (the "
+                "trained model's flow on real Sintel frames)")
             n_steps = 32 * 2 * (len(demo) - 1)
             want = (expected_launches(corr_alt=n_steps) if name == "alternate"
                     else expected_launches(corr_lookup=n_steps))
@@ -1373,20 +1608,21 @@ def main() -> int:
     e_k1 = max_err(k1, corr_lookup_gather(mat_pyr, coords, 4))
     k5 = alt_corr_lookup_cuda(f1, pyr, coords, 4)
     e_k5 = max_err(k5, k1) / float(k1.abs().max())
-    hd_bytes, hd_ops = alt_cost(f1, pyr, coords, 4)
+    hd_bound, hd_bound_fp32 = alt_bound(*alt_cost(f1, pyr, coords, 4))
     hd_k5_ms = median_kernel_ms(
         lambda: alt_corr_lookup_cuda(f1, pyr, coords, 4), 20, 5, flush=flush)
     hd_k1_ms = median_kernel_ms(
         lambda: corr_lookup_cuda(mat_pyr, coords, 4), 20, 5, flush=flush)
     log(f"[12] 1080x1920 grid {grid_hd[0]}x{grid_hd[1]} (N = "
-        f"{grid_hd[0] * grid_hd[1]}, N^2 = {(grid_hd[0] * grid_hd[1]) ** 2:.3e};"
+        f"{grid_hd[0] * grid_hd[1]}, N^2 = {(grid_hd[0] * grid_hd[1]) ** 2:.3e}, "
+        f"iid field;"
         f" volume pyramid {sum(v.numel() for v in mat_pyr) * 4 / 2 ** 30:.2f} "
         f"GiB, fmap2 pyramid {sum(v.numel() for v in pyr) * 4 / 2 ** 20:.1f} "
         f"MiB): corr_lookup vs plain {e_k1:.3e} (tol {LOOKUP_TOL:g}); "
         f"corr_alt vs corr_lookup {e_k5:.3e} of the largest (tol "
         f"{ALT_MAT_TOL:g}); corr_alt {hd_k5_ms[0]:.4f} ms ({hd_k5_ms[1]:.4f}"
-        f"-{hd_k5_ms[2]:.4f}; bound {bound_ms(hd_bytes, hd_ops)[0]:.4f} ms by "
-        f"{bound_ms(hd_bytes, hd_ops)[1]}), corr_lookup {hd_k1_ms[0]:.4f} ms "
+        f"-{hd_k5_ms[2]:.4f}; bound {hd_bound[0]:.4f} ms by {hd_bound[1]}, "
+        f"fp32 figure {hd_bound_fp32[0]:.4f}), corr_lookup {hd_k1_ms[0]:.4f} ms "
         f"({hd_k1_ms[1]:.4f}-{hd_k1_ms[2]:.4f}) (profiler, L2 cold, the "
         f"median of 5 sessions of 20 calls and their range); {smi}")
     if not (e_k1 <= LOOKUP_TOL and e_k5 <= ALT_MAT_TOL):
@@ -1451,23 +1687,46 @@ def main() -> int:
             row["call_ms"] = t["call_ms"]
         if name in err_bf16:
             row["max_abs_err_bf16"] = err_bf16[name]
+        if name == "corr_lookup":
+            row.update(sector_mbytes=t["sector_mbytes"],
+                       sector_ms=t["sector_ms"])
+            row["train_geometry"].update(
+                sector_mbytes=tt["sector_mbytes"], sector_ms=tt["sector_ms"])
         rows.append(row)
     # K5: launches from the evaluation path's run (phase 10), times at that
-    # path's geometry (phase 9), with the materialized path beside them
-    t = alt_times["corr_alt"]
+    # path's geometry (phase 9) on the smooth field, the iid field's beside
+    # them, with the materialized path and the branch shares
+    t, ti = alt_times["smooth"], alt_times["iid"]
+
+    def share(br):
+        return br[0] / max(br[0] + br[1], 1)
+
     rows.append({"name": "corr_alt", "route": "cuda",
                  "source": "raft_tpu_torch/csrc/corr_alt.cu",
                  "replaces": "raft_tpu/kernels/corr_alt_pallas.py:95",
                  "launches": evals["alternate"][3]["corr_alt"],
-                 "max_abs_err": err["corr_alt"], "ms": t["ms"],
+                 "max_abs_err": err["corr_alt"],
+                 "max_abs_err_3x_fmaps": err_3x, "ms": t["ms"],
                  "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
                  "bound_by": t["bound"][1], "library_ms": None,
                  "ms_l2_warm": t["ms_l2_warm"], "mbytes": t["mbytes"],
-                 "grid": list(eval_grid),
-                 "materialized_build_ms": t["materialized_build_ms"],
-                 "materialized_k1_ms": t["materialized_k1_ms"],
+                 "field": "smooth", "grid": list(eval_grid),
+                 "bound_fp32_ms": t["bound_fp32"][0],
+                 "tiled_share": share(t["branches"]),
+                 "iid_field": {"ms": ti["ms"], "ms_l2_warm": ti["ms_l2_warm"],
+                               "plain_ms": ti["plain_ms"],
+                               "bound_ms": ti["bound"][0],
+                               "bound_by": ti["bound"][1],
+                               "bound_fp32_ms": ti["bound_fp32"][0],
+                               "tiled_share": share(ti["branches"])},
+                 "tiled_share_kitti_eval": share(branches["alternate"]),
+                 "tiled_share_sintel": share(branches["sintel_alternate"]),
+                 "materialized_build_ms": mat_build_ms,
+                 "materialized_build_ms_events": mat_build_ev,
+                 "materialized_k1_ms": mat_k1_ms,
                  "hd_1080x1920": {"ms_median_range": list(hd_k5_ms),
-                                  "bound_ms": bound_ms(hd_bytes, hd_ops)[0],
+                                  "bound_ms": hd_bound[0],
+                                  "bound_fp32_ms": hd_bound_fp32[0],
                                   "k1_ms_median_range": list(hd_k1_ms),
                                   "ms_per_pair": {k: v[1] for k, v in hd.items()},
                                   "peak_mib": {k: v[2] for k, v in hd.items()}}})

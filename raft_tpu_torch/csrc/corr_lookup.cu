@@ -9,32 +9,45 @@
 // the x-major order c = l*K^2 + x_idx*K + y_idx (K = 2r+1).
 //
 // What bounds it on this card: bytes. Each (query, level) reads at most a
-// (K+1)^2 window of the volume and writes K^2 fp32 outputs, doing ~9 flops
-// per output, far below the H100's ~20 flops/byte balance point. At the
-// Sintel demo geometry (55x128 grid, r=4, fp32) that is ~20 MB, ~6 us at
-// 3.35 TB/s.
+// (K+1)^2 window of its own slice -- values no other query reads -- and
+// writes K^2 fp32 outputs, ~9 flops per output, far below the H100's ~20
+// flops/byte balance point: 58.7 MB at the chairs training geometry (B=10,
+// 46x62 grid, r=4, fp32), 17.5 us at 3.35 TB/s. The window rows are 10
+// values at arbitrary offsets, so the DRAM moves whole 32-byte sectors:
+// more than the bound's bytes, a cost of access granularity no design
+// removes. The first design (a warp per (query, level)) ran at ~5.5x the
+// bound: two dependent round trips per item (coords, then window), at most
+// four loads in flight per lane, and a per-item overhead paid even by the
+// mostly out-of-range windows of the coarse levels.
 //
-// Design (the simple one that is right first):
-// - One warp per (query, level) item, items walked grid-stride. The warp
-//   stages the (K+1)^2 integer window in shared memory (one read of each
-//   window value instead of the four a 4-corner gather makes), then applies
-//   the separable 2-tap lerp, y first then x, in fp32 -- the order of
-//   models/corr.py::_separable_lerp in the JAX package.
+// Design:
+// - One warp per query, covering every level. The coords are read once
+//   (and the next query's are prefetched while this one's window is
+//   lerped). The lanes split into one group per level (8 lanes each at 4
+//   levels) and each group issues its level's in-range window loads, eight
+//   per lane per round, before it stores any: at r=4 and 4 levels a lane
+//   has ~13 independent loads, two rounds, instead of <=4 behind the
+//   coords. Out-of-range taps are masked to zero and never read.
+// - The (K+1)^2 windows of all levels, and each level's fractions, go to
+//   the warp's shared memory; the separable 2-tap lerp, y first then x, in
+//   fp32 -- the order of models/corr.py::_separable_lerp in the JAX
+//   package -- then writes the query's L*K^2 contiguous output channels as
+//   one coalesced run.
+// - Persistent blocks: as many as fit on the card at once, each warp
+//   walking queries grid-stride.
 // - The volume is read unpadded. The TPU kernel's 2r+3 zero margin, the
 //   rounding of N up to _QMAX, the iota mask-select and the (1,Q,1,1)
-//   scalar blocks existed only for the TPU's tiling and VMEM; here each tap
-//   masks its out-of-range corner to zero instead. An empty level (Hl or
-//   Wl 0, pooled from a grid under 8 px a side) masks every tap and is
-//   never read, so it gives zeros, as in the JAX package.
+//   scalar blocks existed only for the TPU's tiling and VMEM. An empty
+//   level (Hl or Wl 0, pooled from a grid under 8 px a side) masks every
+//   tap and is never read, so it gives zeros, as in the JAX package.
 // - Coords are clamped to [-(r+2), S+r+1] before floor, as _prep_coords
 //   does; that leaves the result unchanged and keeps the int conversion
 //   defined.
 // - All levels go in one launch: their pointers and sizes ride in a small
-//   struct passed as a __grid_constant__ kernel parameter (indexed by level
-//   without a local copy).
-// - The volume may be fp32 or bf16; the lerp is fp32 either way.
-// Items are ordered query-major, so the warps of one block write one
-// query's L*K^2 contiguous output channels.
+//   struct passed as a __grid_constant__ kernel parameter.
+// - The volume may be fp32 or bf16; the lerp is fp32 either way. Each
+//   output is computed from the same values in the same order whatever the
+//   launch shape, so two calls give the same bits.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -47,14 +60,25 @@ struct Levels {
   int w[RAFT_MAX_LEVELS];
 };
 
-__device__ __forceinline__ float load_as_float(const float* p) { return *p; }
-__device__ __forceinline__ float load_as_float(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
+__device__ __forceinline__ float load_as_float(const float* p) {
+  return __ldg(p);
 }
+__device__ __forceinline__ float load_as_float(const __nv_bfloat16* p) {
+  return __bfloat162float(__ldg(p));
+}
+
+// floor(i / d) for 0 <= i < 2^20 through one float multiply: (i + 0.5) / d
+// lies at least 0.5 / d away from an integer, and the multiply by the
+// rounded 1/d is off by under (i + 0.5) / d * 2^-22, which is less.
+__device__ __forceinline__ int div_small(int i, float inv_d) {
+  return (int)(((float)i + 0.5f) * inv_d);
+}
+
+constexpr int LOOKUP_UNROLL = 8;  // window loads in flight per lane per round
 
 template <typename T>
 __global__ void corr_lookup_kernel(const __grid_constant__ Levels lv,
-                                   int levels,
+                                   int levels, int group_shift,
                                    const float* __restrict__ coords,
                                    float* __restrict__ out,
                                    long long queries, int radius) {
@@ -62,54 +86,128 @@ __global__ void corr_lookup_kernel(const __grid_constant__ Levels lv,
   const int K = 2 * radius + 1;
   const int P = K + 1;
   const int KK = K * K;
+  const int PP = P * P;
+  const float inv_p = 1.0f / (float)P;
+  const float inv_k = 1.0f / (float)K;
+  const float inv_kk = 1.0f / (float)KK;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int warps = blockDim.x >> 5;
-  float* win = smem + warp * P * P;
-  const long long items = queries * levels;
-  const long long channels = (long long)levels * KK;
+  float* win = smem + (long long)warp * (levels * PP + 2 * RAFT_MAX_LEVELS);
+  float* frac = win + levels * PP;  // [level][x, y] bilinear fractions
+  const int group = 1 << group_shift;  // lanes per level
+  const int my_level = lane >> group_shift;
+  const int sub = lane & (group - 1);
+  const int channels = levels * KK;
+  const long long stride = (long long)gridDim.x * warps;
 
-  for (long long item = (long long)blockIdx.x * warps + warp; item < items;
-       item += (long long)gridDim.x * warps) {
-    const long long q = item / levels;
-    const int l = (int)(item - q * levels);
-    const int H = lv.h[l];
-    const int W = lv.w[l];
-    const float scale = 1.0f / (float)(1 << l);  // exact: a power of two
-    float x = coords[2 * q] * scale;
-    float y = coords[2 * q + 1] * scale;
-    x = fminf(fmaxf(x, -(radius + 2.0f)), (float)W + radius + 1.0f);
-    y = fminf(fmaxf(y, -(radius + 2.0f)), (float)H + radius + 1.0f);
-    const float xf = floorf(x);
-    const float yf = floorf(y);
-    const int x0 = (int)xf - radius;
-    const int y0 = (int)yf - radius;
-    const float wx = x - xf;
-    const float wy = y - yf;
-
-    const T* v = static_cast<const T*>(lv.vol[l]) + q * (long long)H * W;
-    for (int i = lane; i < P * P; i += 32) {
-      const int iy = y0 + i / P;
-      const int ix = x0 + i % P;
-      float val = 0.0f;
-      if (iy >= 0 && iy < H && ix >= 0 && ix < W) {
-        val = load_as_float(v + (long long)iy * W + ix);
+  long long q = (long long)blockIdx.x * warps + warp;
+  float cx = 0.0f, cy = 0.0f;
+  if (q < queries) {
+    cx = coords[2 * q];
+    cy = coords[2 * q + 1];
+  }
+  for (; q < queries; q += stride) {
+    const long long qn = q + stride;  // prefetch the next query's coords
+    float nx = 0.0f, ny = 0.0f;
+    if (qn < queries) {
+      nx = coords[2 * qn];
+      ny = coords[2 * qn + 1];
+    }
+    if (my_level < levels) {
+      const int l = my_level;
+      const int H = lv.h[l];
+      const int W = lv.w[l];
+      const float scale = 1.0f / (float)(1 << l);  // exact: a power of two
+      float x = cx * scale;
+      float y = cy * scale;
+      x = fminf(fmaxf(x, -(radius + 2.0f)), (float)W + radius + 1.0f);
+      y = fminf(fmaxf(y, -(radius + 2.0f)), (float)H + radius + 1.0f);
+      const float xf = floorf(x);
+      const float yf = floorf(y);
+      const int x0 = (int)xf - radius;
+      const int y0 = (int)yf - radius;
+      if (sub == 0) {
+        frac[2 * l] = x - xf;
+        frac[2 * l + 1] = y - yf;
       }
-      win[i] = val;  // win is [y][x], P x P
+      const T* v = static_cast<const T*>(lv.vol[l]) + q * (long long)H * W;
+      float* wl = win + l * PP;
+      for (int i0 = sub; i0 < PP; i0 += group * LOOKUP_UNROLL) {
+        float val[LOOKUP_UNROLL];
+#pragma unroll
+        for (int u = 0; u < LOOKUP_UNROLL; ++u) {
+          const int i = i0 + u * group;
+          const int py = div_small(i, inv_p);
+          const int iy = y0 + py;
+          const int ix = x0 + i - py * P;
+          val[u] = 0.0f;
+          if (i < PP && iy >= 0 && iy < H && ix >= 0 && ix < W) {
+            val[u] = load_as_float(v + (long long)iy * W + ix);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < LOOKUP_UNROLL; ++u) {
+          const int i = i0 + u * group;
+          if (i < PP) wl[i] = val[u];
+        }
+      }
     }
     __syncwarp();
 
-    float* o = out + q * channels + (long long)l * KK;
-    for (int t = lane; t < KK; t += 32) {
-      const int xi = t / K;  // x-major: the x offset is the outer index
-      const int yi = t - xi * K;
-      const float* r0 = win + yi * P + xi;
+    float* o = out + q * channels;
+    for (int t = lane; t < channels; t += 32) {
+      const int l = div_small(t, inv_kk);
+      const int tap = t - l * KK;
+      const int xi = div_small(tap, inv_k);  // x-major: x is the outer index
+      const int yi = tap - xi * K;
+      const float wx = frac[2 * l];
+      const float wy = frac[2 * l + 1];
+      const float* r0 = win + l * PP + yi * P + xi;
       const float a = (1.0f - wy) * r0[0] + wy * r0[P];
       const float b = (1.0f - wy) * r0[1] + wy * r0[P + 1];
       o[t] = (1.0f - wx) * a + wx * b;
     }
-    __syncwarp();  // the window is rewritten by the next item
+    __syncwarp();  // the windows are rewritten for the next query
+    cx = nx;
+    cy = ny;
   }
+}
+
+template <typename T>
+static int lookup_launch(const Levels& lv, int levels, const float* coords,
+                         float* out, long long queries, int radius,
+                         cudaStream_t s) {
+  const int P = 2 * radius + 2;
+  const long long warp_bytes =
+      ((long long)levels * P * P + 2 * RAFT_MAX_LEVELS) * sizeof(float);
+  int dev = 0, optin = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int warps = 8;
+  while (warps > 1 && warps * warp_bytes > optin) --warps;
+  const long long smem = warps * warp_bytes;
+  if (smem > optin) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      corr_lookup_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, corr_lookup_kernel<T>, warps * 32, (size_t)smem);
+  if (err != cudaSuccess) return (int)err;
+  long long blocks = (queries + warps - 1) / warps;
+  const long long resident = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  if (blocks > resident) blocks = resident;  // grid-stride covers the rest
+  int lp = 1;  // lanes split into a power-of-two number of level groups
+  while (lp < levels) lp <<= 1;
+  int shift = 0;
+  while ((32 >> shift) > lp) ++shift;  // 32 / lp == 1 << shift
+  corr_lookup_kernel<T><<<(unsigned)blocks, warps * 32, smem, s>>>(
+      lv, levels, shift, coords, out, queries, radius);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int corr_lookup_launch(const void* const* vols, const int* hs,
@@ -126,26 +224,15 @@ extern "C" int corr_lookup_launch(const void* const* vols, const int* hs,
     lv.h[l] = l < levels ? hs[l] : 0;
     lv.w[l] = l < levels ? ws[l] : 0;
   }
-  const int threads = 256;
-  const int warps = threads / 32;
-  const int P = 2 * radius + 2;
-  const size_t smem = (size_t)warps * P * P * sizeof(float);
-  long long blocks = (queries * levels + warps - 1) / warps;
-  if (blocks == 0) return 0;
-  if (blocks > (1LL << 30)) blocks = 1LL << 30;  // grid-stride covers the rest
+  if (queries == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* c = static_cast<const float*>(coords);
   float* o = static_cast<float*>(out);
-  if (dtype == 0) {
-    corr_lookup_kernel<float><<<(unsigned)blocks, threads, smem, s>>>(
-        lv, levels, c, o, queries, radius);
-  } else if (dtype == 1) {
-    corr_lookup_kernel<__nv_bfloat16><<<(unsigned)blocks, threads, smem, s>>>(
-        lv, levels, c, o, queries, radius);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  if (dtype == 0) return lookup_launch<float>(lv, levels, c, o, queries,
+                                              radius, s);
+  if (dtype == 1) return lookup_launch<__nv_bfloat16>(lv, levels, c, o,
+                                                      queries, radius, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // ---------------------------------------------------------------------------

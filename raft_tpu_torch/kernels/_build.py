@@ -45,7 +45,8 @@ SIGNATURES = {
                              _LL, _LL, _LL, _LL, _I, _P],
     "gru_blend_bwd_launch": [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _LL, _LL,
                              _LL, _LL, _I, _P],
-    "corr_alt_launch": [_P, _P, _P, _I, _P, _P, _P, _LL, _LL, _I, _I, _F, _P],
+    "corr_alt_launch": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                        _P, _P],
 }
 
 
@@ -152,6 +153,8 @@ def library() -> Build:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+        lib.corr_alt_smem_bytes.argtypes = [_I]
+        lib.corr_alt_smem_bytes.restype = _LL
         lib.raft_kernels_error_string.argtypes = [ctypes.c_int]
         lib.raft_kernels_error_string.restype = ctypes.c_char_p
         _build = Build(lib, path, seconds, log)

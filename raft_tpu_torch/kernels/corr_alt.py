@@ -15,6 +15,12 @@ package has no backward kernel for K5). Coords get a real gradient: the
 alternate path is a drop-in lookup. :func:`alt_corr_lookup_cuda` takes the
 plain version only for CPU tensors; for CUDA tensors it launches the kernel
 or raises.
+
+The kernel takes one of two branches for each (tile of 8x8 queries, level):
+the tensor-core product of the tile against the box its windows cover, or
+a per-query dot loop where that box is too large. Each launch adds the
+count of each to :func:`branch_counts` on the device, which the path never
+reads (reading it synchronises).
 """
 
 from __future__ import annotations
@@ -30,10 +36,29 @@ from raft_tpu_torch.kernels._build import check, library, stream
 from raft_tpu_torch.models.corr import alt_corr_lookup
 
 MAX_LEVELS = 8      # RAFT_ALT_MAX_LEVELS in csrc/corr_alt.cu
-MAX_RADIUS = 16     # keeps 8 warps' (2r+2)² fp32 windows under 48 KB smem
+# A block holds its 64 queries' (2r+2)² fp32 windows beside its copy ring and
+# query planes (csrc/corr_alt.cu, corr_alt_smem_bytes); at r=10 that is
+# 223,264 B of the 232,448 a block may opt into on the H100, at r=11 too much.
+MAX_RADIUS = 10
 
 #: kernel launches since the counts were last set to 0
 launches = {"corr_alt": 0}
+
+#: per CUDA device, an int64 tensor there: the tiles that took the tiled
+#: branch and the per-query branch, summed by the kernel over its launches
+_branches = {}
+
+
+def branch_counts(device) -> torch.Tensor:
+    """The (2,) int64 tensor on ``device`` into which every launch there
+    adds its tiles that took the tiled branch and the per-query branch.
+    Reading it synchronises; the path never does. ``.zero_()`` resets it."""
+    device = torch.device(device)
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    if device not in _branches:
+        _branches[device] = torch.zeros(2, dtype=torch.int64, device=device)
+    return _branches[device]
 
 
 def _validate(fmap1, pyramid, coords, radius):
@@ -77,8 +102,9 @@ def _alt_launch(fmap1, pyramid, coords, radius) -> torch.Tensor:
         (ctypes.c_void_p * L)(*[v.data_ptr() for v in pyramid]),
         (ctypes.c_int * L)(*[v.shape[1] for v in pyramid]),
         (ctypes.c_int * L)(*[v.shape[2] for v in pyramid]),
-        L, fmap1.data_ptr(), coords.data_ptr(), out.data_ptr(), B * H * W,
-        H * W, C, radius, math.sqrt(C), stream(coords))
+        L, fmap1.data_ptr(), coords.data_ptr(), out.data_ptr(), B, H, W, C,
+        radius, math.sqrt(C), branch_counts(coords.device).data_ptr(),
+        stream(coords))
     check(code, "corr_alt")
     launches["corr_alt"] += 1
     return out

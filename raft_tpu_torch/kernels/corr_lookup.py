@@ -27,7 +27,10 @@ from raft_tpu_torch.kernels._build import check, dtype_code, library, stream
 from raft_tpu_torch.models.corr import corr_lookup_gather
 
 MAX_LEVELS = 8      # RAFT_MAX_LEVELS in csrc/corr_lookup.cu
-MAX_RADIUS = 16     # keeps 8 warps' (2r+2)² fp32 windows under 48 KB smem
+# The scatter's 8 warps' (2r+1)² fp32 cotangents stay under the 48 KB of
+# shared memory a block has without opting in up to r=19 (48,672 B); the
+# lookup sizes its blocks to its warps' levels·(2r+2)² fp32 windows.
+MAX_RADIUS = 19
 
 #: kernel launches since the counts were last set to 0
 launches = {"corr_lookup": 0, "corr_scatter": 0}

@@ -4,8 +4,8 @@
   ``.pth`` directly and through JAX's ``.msgpack`` loader followed by
   ``state_dict_from_flax``; JAX-initialised variables load ``strict=True``.
 - ``raft_tpu_torch`` (its ``training``, ``data`` and evaluation modules
-  included), ``chip_smoke``, ``profile_hd_pair`` and
-  ``profile_train_convs`` import with
+  included), ``chip_smoke``, ``profile_corr_alt``, ``profile_hd_pair``
+  and ``profile_train_convs`` import with
   ``jax``, ``flax``, ``raft_tpu``, ``PIL`` and ``cv2`` blocked (a
   subprocess; ``raft_tpu_torch`` itself must pass): the card's machine has
   none of them.
@@ -104,7 +104,7 @@ for n in ("training.loss", "training.optim", "training.train_step",
           "data.png", "data.frame_utils", "data.datasets", "ops.interp",
           "evaluation.evaluate", "cli.evaluate", "cli._args"):
     assert "raft_tpu_torch." + n in names, n
-import chip_smoke, profile_hd_pair, profile_train_convs
+import chip_smoke, profile_corr_alt, profile_hd_pair, profile_train_convs
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 print(len(names), "modules")

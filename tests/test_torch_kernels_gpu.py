@@ -53,19 +53,23 @@ def _pyramid(rng, B, H, W, levels, dtype, dev):
     return [v.to(dtype).contiguous() for v in pyr]
 
 
-def _coords(rng, B, H, W, spread, dev):
+def _coords(rng, B, H, W, spread, dev, out=100):
+    """grid + ``spread`` px of noise, a tenth of the queries ``out`` px out"""
     ys, xs = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
     grid = np.stack([xs, ys], -1)[None].astype(np.float32)
     c = grid + spread * rng.randn(B, H, W, 2).astype(np.float32)
     far = rng.rand(B, H, W, 1) < 0.1
-    c = np.where(far, c + 100 * np.sign(rng.randn(B, H, W, 2)), c)
+    c = np.where(far, c + out * np.sign(rng.randn(B, H, W, 2)), c)
     return torch.from_numpy(c.astype(np.float32)).to(dev)
 
 
 @pytest.mark.parametrize("B,H,W,radius", [(1, 55, 128, 4), (2, 12, 20, 3),
-                                          (1, 9, 33, 4), (2, 16, 16, 1)])
+                                          (1, 9, 33, 4), (2, 16, 16, 1),
+                                          (10, 46, 62, 4), (1, 5, 7, 19)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_lookup_matches_plain(cuda, B, H, W, radius, dtype):
+    """The inference (1,55,128) and training (10,46,62) geometries among
+    them, and the largest radius the wrappers take."""
     rng = np.random.RandomState(H * W + radius)
     pyr = _pyramid(rng, B, H, W, 4 if min(H, W) >= 8 else 2, dtype, cuda)
     coords = _coords(rng, B, H, W, 6.0, cuda)
@@ -118,6 +122,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         corr_lookup_cuda([pyr[0][:, :8]], coords, 3)
     with pytest.raises(ValueError, match="radius"):
         corr_lookup_cuda(pyr, coords, 0)
+    with pytest.raises(ValueError, match="radius"):
+        corr_lookup_cuda(pyr, coords, 20)       # MAX_RADIUS is 19
 
 
 @pytest.mark.parametrize("radius", [4, 3])
@@ -145,11 +151,13 @@ def _bf16_close(got, want32):
 
 
 @pytest.mark.parametrize("B,H,W,radius", [(1, 46, 62, 4), (2, 12, 20, 3),
-                                          (1, 9, 33, 4), (2, 3, 5, 4)])
+                                          (1, 9, 33, 4), (2, 3, 5, 4),
+                                          (1, 5, 7, 19)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_scatter_matches_plain_vjp(cuda, B, H, W, radius, dtype):
     """A tenth of the queries 100 px out of range; the 3x5 grid has two
-    empty levels, whose gradients are empty."""
+    empty levels, whose gradients are empty; r=19 is the largest radius
+    the wrapper takes."""
     rng = np.random.RandomState(H * W + radius)
     if min(H, W) >= 8:
         pyr = _pyramid(rng, B, H, W, 4, dtype, cuda)
@@ -250,38 +258,119 @@ def test_gradients_flow_through_the_forward_kernels(cuda):
         assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
 
 
-def _alt_inputs(rng, B, H, W, C, levels, dev):
-    """fmap1, an NHWC fmap2 pyramid pooled from a random fmap2 (levels may
-    come out empty), and coords with a tenth of the queries 100 px out and
-    one window straddling the top-left edge."""
+def _field_coords(rng, B, H, W, field, dev, out=100):
+    """Coords of one of K5's fields, with a tenth of the queries ``out`` px
+    out:
+    "iid" (3 px of noise per query); "smooth" (a flow of (-3, -2) plus up
+    to +-8 px whose wavelength is the grid width, and a 20 px jump in x at
+    a vertical boundary through a column of 8x8 tiles: every tile's box
+    stays small); "boundary" (the same with a 60 px jump: the boundary's
+    tiles have boxes over the kernel's limit); "edges" (the grid spread by
+    1.3 about its centre: windows straddle every edge of every level)."""
+    if field == "iid":
+        return _coords(rng, B, H, W, 3.0, dev, out)
+    ys, xs = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
+    xs, ys = xs.astype(np.float32), ys.astype(np.float32)
+    if field == "edges":
+        c = np.stack([(xs - W / 2) * 1.3 + W / 2, (ys - H / 2) * 1.3 + H / 2], -1)
+    else:
+        jump = {"smooth": 20.0, "boundary": 60.0}[field]
+        u = -3 + 8 * np.sin(2 * np.pi * (xs + ys) / W) + jump * (xs >= W // 2 + 3)
+        v = -2 + 8 * np.cos(2 * np.pi * (xs - ys) / W)
+        c = np.stack([xs + u, ys + v], -1)
+    c = np.broadcast_to(c, (B, H, W, 2))
+    far = rng.rand(B, H, W, 1) < 0.1
+    c = np.where(far, c + out * np.sign(rng.randn(B, H, W, 2)), c)
+    return torch.from_numpy(c.astype(np.float32)).to(dev)
+
+
+def _alt_inputs(rng, B, H, W, C, levels, dev, field="iid", out=100,
+                scale=1.0):
+    """fmap1, an NHWC fmap2 pyramid pooled from a random fmap2 (both
+    ``scale`` times unit variance; levels may come out empty), and coords
+    of ``field`` with one window straddling the top-left edge."""
     from raft_tpu_torch.models.corr import AlternateCorrBlock
 
-    f1, f2 = (torch.from_numpy(rng.randn(B, H, W, C).astype(np.float32))
-              .to(dev) for _ in range(2))
+    f1, f2 = (torch.from_numpy((scale * rng.randn(B, H, W, C))
+                               .astype(np.float32)).to(dev) for _ in range(2))
     block = AlternateCorrBlock(f1, f2, levels)
-    coords = _coords(rng, B, H, W, 3.0, dev)
+    coords = _field_coords(rng, B, H, W, field, dev, out)
     coords[0, 0, 0] = torch.tensor([-0.5, -1.5])
     return block.fmap1, block.fmap2_pyramid, coords.contiguous()
 
 
-@pytest.mark.parametrize("B,H,W,C,radius", [(1, 47, 156, 256, 4),
-                                            (1, 55, 128, 128, 3),
-                                            (2, 12, 20, 16, 2),
-                                            (2, 3, 5, 36, 4)])
-def test_alt_lookup_matches_plain(cuda, B, H, W, C, radius):
+def _straddled_edges(coords, pyr, radius):
+    """Per non-empty level, which of its four edges some query's
+    (2r+2)² window straddles (part in, part out)."""
+    P = 2 * radius + 2
+    out = []
+    for i, v in enumerate(pyr):
+        Hl, Wl = v.shape[1:3]
+        if v.numel() == 0:
+            continue
+        edges = set()
+        for axis, size, lo, hi in ((0, Wl, "left", "right"),
+                                   (1, Hl, "top", "bottom")):
+            c = (coords[..., axis] / 2 ** i).clamp(-(radius + 2.0),
+                                                   size + radius + 1.0)
+            o = torch.floor(c) - radius
+            if bool(((o < 0) & (o + P - 1 >= 0)).any()):
+                edges.add(lo)
+            if bool(((o <= size - 1) & (o + P - 1 > size - 1)).any()):
+                edges.add(hi)
+        out.append(edges)
+    return out
+
+
+@pytest.mark.parametrize("field,B,H,W,C,radius", [
+    ("iid", 1, 47, 156, 256, 4), ("iid", 1, 55, 128, 128, 3),
+    ("iid", 2, 12, 20, 16, 2), ("iid", 2, 3, 5, 36, 4),
+    ("smooth", 1, 48, 160, 256, 4), ("smooth", 2, 20, 30, 132, 3),
+    ("boundary", 1, 48, 160, 256, 4), ("edges", 1, 47, 156, 128, 3),
+    ("edges", 2, 13, 21, 132, 4), ("iid", 1, 9, 11, 8, 10),
+    ("smooth x3", 1, 48, 160, 256, 4), ("iid x3", 1, 48, 160, 256, 4),
+    ("boundary x3", 1, 48, 160, 256, 4)])
+def test_alt_lookup_matches_plain(cuda, field, B, H, W, C, radius):
     """K5 against ``alt_corr_lookup`` within 1e-5 + 1e-5 relative (the same
-    products summed over C in another order); far-out queries exact zeros;
-    two calls bitwise equal. The 3x5 grid's last two levels are empty."""
-    from raft_tpu_torch.kernels.corr_alt import alt_corr_lookup_cuda
+    products summed over C in another order, on the tensor cores through
+    the error-compensated TF32 split or on the CUDA cores); far-out queries
+    exact zeros; two calls bitwise equal. Grids whose sides are not
+    multiples of the 8x8 tile, B = 2, C = 132 (a multiple of 4, not of 8)
+    and the largest radius the wrapper takes; the 3x5 grid's last two
+    levels are empty. "x3" makes the fmaps three times unit variance, twice
+    the rms the model's encoders give K5 (1.4-1.5): the tolerance's
+    absolute part does not grow with them while the dots' rounding does. The branch counter shows which branch the tiles
+    took: at least 90% tiled on the smooth field, both across the 60 px
+    boundary, and the "edges" field's windows straddle every edge of every
+    level."""
+    from raft_tpu_torch.kernels.corr_alt import (alt_corr_lookup_cuda,
+                                                 branch_counts)
     from raft_tpu_torch.models.corr import alt_corr_lookup
 
     rng = np.random.RandomState(C + radius)
-    f1, pyr, coords = _alt_inputs(rng, B, H, W, C, 4, cuda)
+    field, _, times = field.partition(" x")
+    # far-out queries beyond every level's reach, (r+1)·2^3 px
+    f1, pyr, coords = _alt_inputs(rng, B, H, W, C, 4, cuda, field,
+                                  max(100, 8 * (radius + 2)),
+                                  float(times or 1))
     before = kernels.launch_counts()["corr_alt"]
+    branch_counts(cuda).zero_()
     got = alt_corr_lookup_cuda(f1, pyr, coords, radius)
+    tiled, per_query = branch_counts(cuda).tolist()
     again = alt_corr_lookup_cuda(f1, pyr, coords, radius)
     torch.cuda.synchronize()
     assert kernels.launch_counts()["corr_alt"] == before + 2
+    tiles = B * -(-H // 8) * -(-W // 8) * len(pyr)
+    assert tiled + per_query == tiles
+    if field == "smooth":
+        # tiles holding a far-out query that lands back in a coarse level
+        # may have boxes over the limit
+        assert tiled >= 0.9 * tiles
+    if field == "boundary":
+        assert tiled > 0 and per_query > 0
+    if field == "edges":
+        assert all(e == {"left", "right", "top", "bottom"}
+                   for e in _straddled_edges(coords, pyr, radius))
     want = alt_corr_lookup(f1, pyr, coords, radius)
     assert got.shape == want.shape and torch.equal(got, again)
     assert bool(((got - want).abs() <= 1e-5 + 1e-5 * want.abs()).all())
@@ -328,7 +417,7 @@ def test_alt_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         alt_corr_lookup_cuda(f1, [f1.transpose(1, 2)], coords, 3)
     with pytest.raises(ValueError, match="radius"):
-        alt_corr_lookup_cuda(f1, [f1], coords, 17)
+        alt_corr_lookup_cuda(f1, [f1], coords, 11)   # MAX_RADIUS is 10
     with pytest.raises(ValueError, match="levels"):
         alt_corr_lookup_cuda(f1, [f1] * 9, coords, 3)
 
