@@ -16,7 +16,8 @@ Phases, each of which fails loudly (nothing is caught):
 4. time each kernel, its plain version and, for the lookup, the reference's
    formulation (one ``F.grid_sample`` per level): device time from
    ``torch.profiler`` with the L2 flushed before each call (and warm, for
-   the kernel), and a wrapper call's time with CUDA events (host
+   the kernel; for the GRU tails the median and range of five sessions),
+   and a wrapper call's time with CUDA events (host
    included), beside its bound: the larger of its bytes at 3.35 TB/s and
    its operations at 67 TFLOP/s (the H100 SXM's HBM rate and fp32
    non-tensor-core peak); K1's in-range window rows also counted in whole
@@ -89,14 +90,33 @@ Phases, each of which fails loudly (nothing is caught):
    (each pair starts from the last one's flow, so the gap feeds forward)
    held to the materialized path's own response to the two inits plus
    5e-4 px;
-12. memory at 1080x1920: the basic model at iters=20, alternate path
+12. train from the command line, ``cli/train.main --stage chairs
+   --mixed_schedule --mixed_precision --synthetic 40 --num_steps 6
+   --val_freq 3 --validation kitti --num_workers 4 --corr_impl pallas
+   --gru_impl fused`` (the basic model at full width on the
+   ``train_mixed.sh`` chairs recipe: batch 8, 368x496, iters 12, lr
+   2.5e-4; 40 seeded 384x512 chairs-shaped pairs written with the port's
+   PPM and ``.flo`` writers, augmented and batched by the port's loader;
+   phase 10's KITTI split as the validation data): every kernel's launches
+   and the dtype each ran in (K2 and K4 in bf16 on every iteration), the
+   loader's share of the loop, peak memory, the KITTI metrics in the log,
+   the final ``.pth`` loading with ``strict=True``; the full state saved,
+   restored bitwise, then ``--resume --num_steps 8`` continuing the step
+   count and the learning rate; ms per step and pairs per second at batch
+   8 in bf16 and in fp32 (in turns), one profiled step of each (idle share,
+   top device ops, the FFT convolutions' time); one bf16 step's loss and
+   gradients, kernels against the plain configuration, held to the gap
+   one bf16 ulp of input opens in the plain bf16 path; and ``remat=True``
+   against ``remat=False`` at iters 12, gradients within the same kind of
+   gap, with peak memory and time;
+13. memory at 1080x1920: the basic model at iters=20, alternate path
    against materialized, peak ``max_memory_allocated`` and ms per pair
    (``profile_hd_pair.py`` profiles such a pair); K1 against its plain
    version at that size (N^2 = 1.05e9 indices) and K5 against K1, both
    timed (the median of 5 profiler sessions, with their spread);
-13. the demo CLI (``cli/demo.main``) over ``demo-frames/`` with the small
+14. the demo CLI (``cli/demo.main``) over ``demo-frames/`` with the small
    fixture, its PNGs read back;
-14. print the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
+15. print the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
    the ``{"ok": true, "device": ...}`` line.
 
 Exits non-zero, printing no result, when there is no CUDA device.
@@ -169,6 +189,11 @@ SMOOTH_JUMP = 20.0
 SMOOTH_TILED_MIN = 0.9          # share of K5 tiles the smooth field must tile
 HD_HW = (1080, 1920)            # the memory regime alternate_corr is for
 HD_ITERS = 20
+CLI_PAIRS = 40                  # phase 12's synthetic chairs samples
+CLI_STEPS = 6
+CLI_RESUME_STEPS = 8
+CLI_VAL_FREQ = 3
+MIXED_B = 8                     # train_mixed.sh's chairs batch
 
 
 _T0 = time.perf_counter()
@@ -613,22 +638,132 @@ def step_gap(a, b):
     return abs(la - lb) / abs(lb), max(rel), float(np.median(rel)), worst, gmax
 
 
-def check_step(name, plain, kernels, ulp):
-    """Phase 8: one step's kernels-vs-plain gap against STEP_LOSS_TOL for
-    the loss and, for the gradients, the gap that the plain path opens
-    against itself on inputs moved by one ulp (``ulp``): each parameter's
-    within the largest relative one-ulp gap of the model (plus 1e-6 of its
-    largest gradient), and the median within the one-ulp median."""
+def check_step(name, plain, kernels, ulp, tag="8", bf16=False):
+    """Phases 8 and 12: one step's kernels-vs-plain gap against the plain
+    path's gap against itself on inputs moved by one ulp (``ulp``). For the
+    gradients: each parameter's within the largest relative one-ulp gap of
+    the model plus an absolute floor, and the median within the one-ulp
+    median. In fp32 (phase 8) the loss is held to STEP_LOSS_TOL and the
+    floor is 1e-6 of the model's largest gradient. In bf16 (phase 12) the
+    loss is held to the one-ulp loss gap, and the floor is the largest
+    one-ulp gap among the parameters under 1e-4 of the model's largest
+    gradient: conv biases in front of a norm that subtracts the batch's or
+    the instance's mean, whose gradient is zero in exact arithmetic and
+    rounding noise in bf16 (2^-8 relative to the terms that cancel, not
+    to the tiny result)."""
     dl, worst_rel, median, worst, gmax = step_gap(kernels, plain)
-    _, grad_tol, median_tol, _, _ = step_gap(ulp, plain)
+    ulp_loss, grad_tol, median_tol, ulp_worst, _ = step_gap(ulp, plain)
+    loss_tol, floor = STEP_LOSS_TOL, 1e-6 * gmax
+    if bf16:
+        loss_tol = ulp_loss
+        floor = max([floor] + [e for e, s in ulp_worst.values()
+                               if s <= 1e-4 * gmax])
     bad = [(k, e, s) for k, (e, s) in worst.items()
-           if not e <= grad_tol * s + 1e-6 * gmax]
-    log(f"[8] {name}: loss gap {dl:.3e} (tol {STEP_LOSS_TOL:g}), gradient "
+           if not e <= grad_tol * s + floor]
+    log(f"[{tag}] {name}: loss gap {dl:.3e} (tol {loss_tol:.3e}), gradient "
         f"gap largest {worst_rel:.3e} of a parameter's largest (bound: one "
-        f"ulp of input, {grad_tol:.3e}, + 1e-6 of the model's), median "
-        f"{median:.3e} (bound: one ulp of input, {median_tol:.3e})")
-    if not (dl <= STEP_LOSS_TOL and not bad and median <= median_tol):
+        f"ulp of input, {grad_tol:.3e}, + {floor:.3e}, "
+        f"{floor / gmax:.2e} of the model's largest), median {median:.3e} "
+        f"(bound: one ulp of input, {median_tol:.3e})")
+    if not (dl <= loss_tol and not bad and median <= median_tol):
         raise RuntimeError(f"{name}: kernels disagree with plain: {bad[:5]}")
+
+
+def bf16_ulp_batch(batch):
+    """``batch`` with every image pixel moved so that the normalized input
+    2·img/255 − 1 that the bf16 convs read moves by one bf16 ulp: one ulp
+    of input in the precision the mixed path computes in."""
+    out = dict(batch)
+    for k in ("image1", "image2"):
+        x = torch.from_numpy(2.0 * (batch[k] / np.float32(255.0)) - 1.0)
+        up = torch.nextafter(x.to(torch.bfloat16),
+                             torch.tensor(np.inf, dtype=torch.bfloat16))
+        out[k] = ((up.float() + 1.0) * 127.5).numpy().astype(np.float32)
+    return out
+
+
+def full_state(state):
+    """A train state's parameters, buffers, AdamW state, schedule and step,
+    copied to the host."""
+    def host(tree):
+        if isinstance(tree, torch.Tensor):
+            return tree.detach().cpu().clone()
+        if isinstance(tree, dict):
+            return {k: host(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(host(v) for v in tree)
+        return tree
+
+    return host({"model": state.model.state_dict(),
+                 "optimizer": state.optimizer.state_dict(),
+                 "scheduler": state.scheduler.state_dict(),
+                 "step": state.step})
+
+
+def same_tree(a, b, path="") -> str:
+    """'' when ``a`` and ``b`` are bitwise equal, else the first path that
+    differs."""
+    if isinstance(a, torch.Tensor):
+        ok = (isinstance(b, torch.Tensor) and a.dtype == b.dtype
+              and torch.equal(a, b))
+        return "" if ok else path
+    if isinstance(a, dict):
+        if not isinstance(b, dict) or sorted(a) != sorted(b):
+            return path
+        return next((p for k in a
+                     for p in [same_tree(a[k], b[k], f"{path}/{k}")] if p), "")
+    if isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            return path
+        return next((p for i, (x, y) in enumerate(zip(a, b))
+                     for p in [same_tree(x, y, f"{path}/{i}")] if p), "")
+    return "" if a == b else path
+
+
+def timed_steps(state, step_fn, batches):
+    """ms of each step of ``step_fn`` over ``batches`` (device batches),
+    the device synchronised around each."""
+    ms = []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step_fn(state, b)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return ms
+
+
+def fft_conv_ms(evs) -> float:
+    """Device ms of cuDNN's FFT convolutions among ``evs``: the FFT kernels
+    and the complex GEMMs between them."""
+    return sum(e.self_device_time_total for e in evs
+               if "fft" in e.key.lower() or "cf32" in e.key.lower()) / 1e3
+
+
+def profile_step(step_fn, state, batch):
+    """One step under the profiler: (wall ms, device busy ms, device
+    events)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn(state, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    return wall, device_busy_ms(prof), device_events(prof)
+
+
+def grads_with_peak(config, weights, batch, iters: int):
+    """``step_grads`` with the peak device memory (MiB) and wall ms of the
+    step."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = step_grads(config, weights, batch, iters)
+    torch.cuda.synchronize()
+    return (out, torch.cuda.max_memory_allocated() / 2 ** 20,
+            (time.perf_counter() - t0) * 1e3)
 
 
 # ---------------------------------------------------------------------------
@@ -1004,6 +1139,219 @@ def check_sintel_chain(subs, frames, models) -> None:
             raise RuntimeError(f"{key}: alternate disagrees")
 
 
+def train_cli_phase(tmp: str, smi: str) -> dict:
+    """Phase 12 (see the module's notes): the training CLI on the mixed
+    chairs recipe, resume, bf16 against fp32, the kernels against plain in
+    bf16, and remat. ``tmp`` holds phase 10's KITTI split. Returns the
+    CLI run's launches and dtypes and the phase's numbers."""
+    from raft_tpu_torch import kernels
+    from raft_tpu_torch.cli.train import main as train_main
+    from raft_tpu_torch.cli.train import synthetic_loader
+    from raft_tpu_torch.config import RAFTConfig, stage_config
+    from raft_tpu_torch.models import RAFT
+    from raft_tpu_torch.tools.convert import load_pth
+    from raft_tpu_torch.training import checkpoint as ckpt_lib
+    from raft_tpu_torch.training.optim import make_optimizer
+    from raft_tpu_torch.training.train_step import (create_train_state,
+                                                    make_train_step)
+
+    cfg_mk = RAFTConfig(mixed_precision=True, corr_impl="pallas",
+                        gru_impl="fused")
+    cfg_mp = RAFTConfig(mixed_precision=True, corr_impl="gather",
+                        gru_impl="xla")
+    cfg_fk = RAFTConfig(corr_impl="pallas", gru_impl="fused")
+    out_dir = os.path.join(tmp, "train-cli")
+    ckpt_dir = os.path.join(out_dir, "ckpt")
+    log_dir = os.path.join(out_dir, "runs")
+    argv = ["--name", "chip-cli", "--stage", "chairs", "--mixed_schedule",
+            "--mixed_precision", "--synthetic", str(CLI_PAIRS),
+            "--synthetic_dir", os.path.join(tmp, "synthetic_chairs"),
+            "--val_freq", str(CLI_VAL_FREQ), "--validation", "kitti",
+            "--num_workers", "4", "--corr_impl", "pallas", "--gru_impl",
+            "fused", "--data_root", tmp, "--checkpoint_dir", ckpt_dir,
+            "--log_dir", log_dir]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    state = train_main(argv + ["--num_steps", str(CLI_STEPS)])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches, dtypes = kernels.launch_counts(), kernels.launch_dtypes()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    with open(os.path.join(log_dir, "chip-cli", "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    vals = [r for r in records if "kitti-epe" in r]
+    loop = [r for r in records if "train_loop_s" in r][-1]
+    steps_s = loop["train_loop_s"] - loop["validation_s"]
+    wait_share = loop["loader_wait_s"] / steps_s
+    n_val = sum(1 for i in range(1, CLI_STEPS + 1)
+                if i % CLI_VAL_FREQ == CLI_VAL_FREQ - 1)
+    val_steps = n_val * KITTI_PAIRS * KITTI_ITERS
+    train_steps = CLI_STEPS * TRAIN_ITERS
+    want = expected_launches(
+        corr_lookup=train_steps + val_steps, corr_scatter=train_steps,
+        gru_gates=2 * (train_steps + val_steps),
+        gru_blend=2 * (train_steps + val_steps),
+        gru_gates_bwd=2 * train_steps, gru_blend_bwd=2 * train_steps)
+    val_launches = expected_launches(corr_lookup=val_steps,
+                                     gru_gates=2 * val_steps,
+                                     gru_blend=2 * val_steps)
+    per_step = {k: (launches[k] - val_launches[k]) / CLI_STEPS
+                for k in launches}
+    log(f"[12] cli/train.main {' '.join(argv[:20])} ... --num_steps "
+        f"{CLI_STEPS}: {run_s:.2f} s in all (the {CLI_PAIRS} samples' "
+        f"writing, {n_val} KITTI validations and the saves included); the "
+        f"loop's steps {1e3 * steps_s / CLI_STEPS:.2f} ms each with the "
+        f"loader, which the host waited {loop['loader_wait_s']:.3f} s of "
+        f"{steps_s:.3f} s for (share {wait_share:.3f}); checkpoints and "
+        f"validation {loop['validation_s']:.3f} s; peak {peak:.0f} MiB; "
+        f"launches {launches}, by dtype {dtypes}: per training step "
+        f"{per_step}, and {val_launches} in the {n_val} validations of "
+        f"{KITTI_PAIRS} pairs x {KITTI_ITERS} steps; {smi}")
+    bf16_only = all(set(dtypes.get(k, {})) == {"bfloat16"} for k in
+                    ("gru_gates", "gru_blend", "gru_gates_bwd",
+                     "gru_blend_bwd"))
+    fp32_volume = all(set(dtypes.get(k, {})) == {"float32"} for k in
+                      ("corr_lookup", "corr_scatter"))
+    if launches != want or not (bf16_only and fp32_volume):
+        raise RuntimeError(f"training CLI launches {launches} {dtypes}, "
+                           f"want {want}, K2/K4 in bf16, K1/K3 on fp32")
+    log(f"[12] the KITTI validation in the log: {vals}")
+    if len(vals) != n_val or not all(np.isfinite(r["kitti-epe"])
+                                     for r in vals):
+        raise RuntimeError("the validation metrics are not in the log")
+    final = load_pth(os.path.join(ckpt_dir, "chip-cli.pth"), cfg_mk)
+    bad = same_tree(final.state_dict(),
+                    {k: v.cpu() for k, v in state.model.state_dict().items()})
+    if bad:
+        raise RuntimeError(f"the final .pth differs from the model at {bad}")
+    log("[12] the final .pth loads with strict=True and equals the model")
+
+    # full state: saved, restored bitwise, resumed
+    stage_dir = os.path.join(ckpt_dir, "chip-cli", "chairs")
+    tc = stage_config("chairs", mixed=True, num_steps=CLI_STEPS,
+                      validation=())
+    ckpt_lib.save_train_state(stage_dir, state)
+    saved = full_state(state)
+    fresh = create_train_state(RAFT(cfg_mk).cuda(), tc)
+    ckpt_lib.restore_train_state(stage_dir, fresh)
+    bad = same_tree(full_state(fresh), saved)
+    log(f"[12] full state saved at step {state.step} and restored: "
+        f"{'bitwise equal' if not bad else 'differs at ' + bad} (parameters,"
+        f" batch-norm buffers, AdamW moments, schedule, step)")
+    if bad:
+        raise RuntimeError(f"the restored state differs at {bad}")
+    del fresh
+    kernels.reset_launch_counts()
+    resumed = train_main(argv + ["--num_steps", str(CLI_RESUME_STEPS),
+                                 "--resume"])
+    torch.cuda.synchronize()
+    resume_launches = kernels.launch_counts()
+    p = torch.nn.Parameter(torch.zeros(1))
+    opt, sched = make_optimizer([p], tc.lr, CLI_STEPS)
+    for _ in range(CLI_RESUME_STEPS):
+        opt.step()
+        sched.step()
+    lr = resumed.scheduler.get_last_lr()[0]
+    log(f"[12] --resume --num_steps {CLI_RESUME_STEPS}: step "
+        f"{resumed.step}, schedule epoch {resumed.scheduler.last_epoch}, lr "
+        f"{lr:.6e} (the first run's schedule at step {CLI_RESUME_STEPS}: "
+        f"{sched.get_last_lr()[0]:.6e}); launches {resume_launches}")
+    if not (resumed.step == CLI_RESUME_STEPS
+            and resumed.scheduler.last_epoch == CLI_RESUME_STEPS
+            and lr == sched.get_last_lr()[0]
+            and resume_launches["corr_scatter"]
+            == (CLI_RESUME_STEPS - CLI_STEPS) * TRAIN_ITERS):
+        raise RuntimeError("the resumed run does not continue the state")
+    del state, resumed
+
+    # bf16 against fp32 at batch 8, in turns, from the same weights
+    tc = stage_config("chairs", mixed=True, iters=TRAIN_ITERS, validation=())
+    loader = synthetic_loader(CLI_PAIRS, tc,
+                              os.path.join(tmp, "synthetic_chairs"))
+    host = [b for _, b in zip(range(4), loader)]
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in b.items()}
+               for b in host]
+    weights = RAFT(cfg_mk, torch.Generator().manual_seed(1)).state_dict()
+    runs = {}
+    for name, c in (("bf16", cfg_mk), ("fp32", cfg_fk)):
+        model = RAFT(c)
+        model.load_state_dict(weights)
+        st = create_train_state(model.cuda(), tc)
+        runs[name] = [st, make_train_step(c, tc), [], 0.0]
+        runs[name][1](st, batches[0])                       # warm-up
+    for name in ("bf16", "fp32", "fp32", "bf16"):
+        st, fn, ms, _ = runs[name]
+        torch.cuda.reset_peak_memory_stats()
+        ms += timed_steps(st, fn, batches[1:])
+        runs[name][3] = max(runs[name][3],
+                            torch.cuda.max_memory_allocated() / 2 ** 20)
+    prof = {}
+    for name, (st, fn, ms, pk) in runs.items():
+        wall, busy, evs = prof[name] = profile_step(fn, st, batches[1])
+        med = float(np.median(ms))
+        log(f"[12] train step, basic model, batch {MIXED_B}, "
+            f"{tc.image_size[0]}x{tc.image_size[1]}, iters={TRAIN_ITERS}, "
+            f"pallas+fused, {name}: {med:.2f} ms per step (median of "
+            f"{len(ms)}: {', '.join(f'{x:.2f}' for x in ms)}), "
+            f"{MIXED_B / med * 1e3:.2f} pairs/s, peak {pk:.0f} MiB; one "
+            f"step profiled: wall {wall:.2f} ms, device busy {busy:.2f} ms, "
+            f"idle share {1 - busy / wall:.3f}, FFT convolutions "
+            f"{fft_conv_ms(evs):.2f} ms; {smi}; top device time:")
+        for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:15]:
+            log(f"[12]   {e.self_device_time_total / 1e3:9.3f} ms  "
+                f"x{e.count:<5d} {e.key[:100]}")
+    numbers = {name: {"ms_per_step": float(np.median(ms)),
+                      "pairs_per_s": MIXED_B / float(np.median(ms)) * 1e3,
+                      "peak_mib": pk, "idle_share": 1 - prof[name][1]
+                      / prof[name][0], "fft_conv_ms": fft_conv_ms(
+                          prof[name][2])}
+               for name, (_, _, ms, pk) in runs.items()}
+    del runs, batches, prof
+
+    # one bf16 step, kernels against plain; remat against none
+    torch.backends.cudnn.deterministic = True
+    batch = {k: v.astype(np.float32) for k, v in host[0].items()}
+    ulp = bf16_ulp_batch(batch)
+    plain1 = step_grads(cfg_mp, weights, batch, 1)
+    check_step("mixed precision, basic model, iters=1, kernels vs plain "
+               "(both bf16)", plain1, step_grads(cfg_mk, weights, batch, 1),
+               step_grads(cfg_mp, weights, ulp, 1), tag="12", bf16=True)
+    # the witness phase 8 gates on, one fp32 ulp of input: logged only (in
+    # bf16 it may flip no rounding at all)
+    fp32_ulp = dict(batch, **{k: np.nextafter(batch[k], np.float32(np.inf))
+                              for k in ("image1", "image2")})
+    dl_f, worst_f, med_f, _, _ = step_gap(
+        step_grads(cfg_mp, weights, fp32_ulp, 1), plain1)
+    log(f"[12] plain bf16 path vs itself on frames moved by one fp32 ulp, "
+        f"iters=1: loss gap {dl_f:.3e}, gradient gap largest {worst_f:.3e} "
+        f"median {med_f:.3e} (not a gate)")
+    plain12 = step_grads(cfg_mp, weights, batch, TRAIN_ITERS)
+    _, ulp12, ulp12_med, _, _ = step_gap(
+        step_grads(cfg_mp, weights, ulp, TRAIN_ITERS), plain12)
+    base, base_peak, base_ms = grads_with_peak(cfg_mk, weights, batch,
+                                               TRAIN_ITERS)
+    cfg_remat = RAFTConfig(mixed_precision=True, corr_impl="pallas",
+                           gru_impl="fused", remat=True)
+    remat, remat_peak, remat_ms = grads_with_peak(cfg_remat, weights, batch,
+                                                  TRAIN_ITERS)
+    dl, worst, med, _, _ = step_gap(remat, base)
+    log(f"[12] remat=True vs remat=False, bf16, pallas+fused, iters="
+        f"{TRAIN_ITERS}: loss gap {dl:.3e}, gradient gap largest {worst:.3e} "
+        f"median {med:.3e} (bound: one bf16 ulp of input in the plain path, "
+        f"{ulp12:.3e} and {ulp12_med:.3e}); peak {remat_peak:.0f} MiB "
+        f"against {base_peak:.0f}, step {remat_ms:.2f} ms against "
+        f"{base_ms:.2f} (one step each, the model's set-up included); {smi}")
+    torch.backends.cudnn.deterministic = False
+    if not (worst <= ulp12 and med <= ulp12_med):
+        raise RuntimeError("remat changes the gradients")
+    numbers.update(remat={"peak_mib": remat_peak, "ms": remat_ms},
+                   no_remat={"peak_mib": base_peak, "ms": base_ms},
+                   loader_wait_share=wait_share, cli_peak_mib=peak)
+    return {"launches": launches, "dtypes": dtypes, "numbers": numbers}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -1116,6 +1464,20 @@ def main() -> int:
                           lambda: gru_blend_plain(z, h, ql), None,
                           4 * n * 4, 6 * n)}
     times = time_kernels("4", work, smi, 50, 50)
+    # the GRU tails' single readings spread from call to call: the median
+    # and range of five sessions, L2 cold and warm
+    flush = l2_flusher()
+    for name in ("gru_gates", "gru_blend"):
+        t = times[name]
+        cold = median_kernel_ms(work[name][0], 50, 5, flush=flush)
+        warm = median_kernel_ms(work[name][0], 50, 5)
+        t.update(ms=cold[0], ms_range=list(cold[1:]), ms_l2_warm=warm[0],
+                 ms_l2_warm_range=list(warm[1:]))
+        log(f"[4] {name}: the median of 5 sessions of 50 calls: L2 cold "
+            f"{cold[0]:.4f} ms ({cold[1]:.4f}-{cold[2]:.4f}), L2 warm "
+            f"{warm[0]:.4f} ms ({warm[1]:.4f}-{warm[2]:.4f}); bound "
+            f"{t['bound'][0]:.4f} ms: {t['bound'][0] / cold[0]:.1%} of it "
+            f"cold, {t['bound'][0] / warm[0]:.1%} warm; {smi}")
     note_sectors("4", times["corr_lookup"], pyramid, coords, smi)
     for name, (kern, *_) in work.items():
         times[name]["call_ms"] = cuda_ms(kern, 200)
@@ -1581,7 +1943,11 @@ def main() -> int:
                    load_pth(fixture, c).cuda())
             for name, c in (("alternate", cfg_sa), ("materialized", cfg_sm))})
 
-    # -- 12. memory at 1080x1920 ---------------------------------------------
+        # -- 12. training from the command line, mixed precision ----------
+        cli = train_cli_phase(tmp, smi)
+        cli_launches = cli["launches"]
+
+    # -- 13. memory at 1080x1920 ---------------------------------------------
     hd_frames = synthetic_frames(3, 2, HD_HW)
     cfg_ha = RAFTConfig(alternate_corr=True, corr_impl="pallas",
                         gru_impl="fused")
@@ -1593,7 +1959,7 @@ def main() -> int:
         kernels.reset_launch_counts()
         _, ms, peak = hd[name] = run_pairs(model, c, hd_frames, HD_ITERS)
         counts = kernels.launch_counts()
-        log(f"[12] basic model, 1080x1920, iters={HD_ITERS}, {name}: "
+        log(f"[13] basic model, 1080x1920, iters={HD_ITERS}, {name}: "
             f"{ms:.2f} ms/pair, peak max_memory_allocated {peak:.0f} MiB, "
             f"launches {counts}; {smi}")
         key = "corr_alt" if name == "alternate" else "corr_lookup"
@@ -1613,7 +1979,7 @@ def main() -> int:
         lambda: alt_corr_lookup_cuda(f1, pyr, coords, 4), 20, 5, flush=flush)
     hd_k1_ms = median_kernel_ms(
         lambda: corr_lookup_cuda(mat_pyr, coords, 4), 20, 5, flush=flush)
-    log(f"[12] 1080x1920 grid {grid_hd[0]}x{grid_hd[1]} (N = "
+    log(f"[13] 1080x1920 grid {grid_hd[0]}x{grid_hd[1]} (N = "
         f"{grid_hd[0] * grid_hd[1]}, N^2 = {(grid_hd[0] * grid_hd[1]) ** 2:.3e}, "
         f"iid field;"
         f" volume pyramid {sum(v.numel() for v in mat_pyr) * 4 / 2 ** 30:.2f} "
@@ -1629,7 +1995,7 @@ def main() -> int:
         raise RuntimeError("the lookups disagree at 1080x1920")
     del f1, pyr, coords, mat_pyr, k1, k5
 
-    # -- 13. the demo CLI on demo-frames, with the port's PNG codec ----------
+    # -- 14. the demo CLI on demo-frames, with the port's PNG codec ----------
     t0 = time.perf_counter()
     frame0 = read_png(demo[0])
     decode_ms = (time.perf_counter() - t0) * 1e3
@@ -1641,7 +2007,7 @@ def main() -> int:
         demo_s = time.perf_counter() - t0
         outs = sorted(glob.glob(os.path.join(tmp, "*.png")))
         back = read_png(outs[0])
-        log(f"[13] python -m raft_tpu_torch.cli.demo --path demo-frames "
+        log(f"[14] python -m raft_tpu_torch.cli.demo --path demo-frames "
             f"--small: {len(outs)} flow PNGs in {demo_s:.2f} s, each "
             f"{back.shape} {back.dtype}; one 436x1024 frame decodes in "
             f"{decode_ms:.1f} ms on the host (Paeth rows)")
@@ -1651,7 +2017,7 @@ def main() -> int:
         if not np.array_equal(back[:FRAME_HW[0]], frame0):
             raise RuntimeError("the demo's PNG does not hold its frame")
 
-    # -- 14. result ----------------------------------------------------------
+    # -- 15. result ----------------------------------------------------------
     sources = {"corr_lookup": ("raft_tpu_torch/csrc/corr_lookup.cu",
                                "raft_tpu/kernels/corr_pallas.py:177"),
                "gru_gates": ("raft_tpu_torch/csrc/gru.cu",
@@ -1685,6 +2051,12 @@ def main() -> int:
         if name in times:
             row["launches_inference"] = launches[name]
             row["call_ms"] = t["call_ms"]
+        if "ms_range" in t:
+            row.update(ms_range=t["ms_range"],
+                       ms_l2_warm_range=t["ms_l2_warm_range"])
+        # phase 12's mixed-precision training through cli/train
+        row["launches_train_cli"] = cli_launches[name]
+        row["dtypes_train_cli"] = cli["dtypes"].get(name, {})
         if name in err_bf16:
             row["max_abs_err_bf16"] = err_bf16[name]
         if name == "corr_lookup":

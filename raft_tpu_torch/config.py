@@ -150,11 +150,8 @@ class TrainConfig:
     """One curriculum stage (see ``raft_tpu.config.TrainConfig``). Defaults
     follow the reference's ``train.py:217-239``.
 
-    The port's trainer (``training.trainer.train``) refuses, naming their
-    ROADMAP item, what it does not do yet: a ``validation`` list (M7),
-    ``profile_steps`` (M8.7), ``hang_s > 0`` (M8.2), and ``num_workers``,
-    ``data_root``, ``on_bad_sample`` or ``stall_s`` away from their
-    defaults (they configure the data pipeline, M13).
+    The port's trainer (``training.trainer.train``) refuses ``hang_s > 0``
+    (the no-progress watchdog, ROADMAP M8.2).
     """
 
     name: str = "raft"

@@ -113,7 +113,7 @@ def read_gen(path: str):
     if ext in (".jpeg", ".jpg"):
         raise NotImplementedError(
             f"{path}: the port reads PNG and PPM frames; JPEG decoding is "
-            "ROADMAP M13 of the port")
+            "ROADMAP M14 of the port (no stage mix reads JPEG frames)")
     if ext in (".bin", ".raw"):
         return np.load(path)
     if ext == ".flo":

@@ -8,7 +8,8 @@ cv2, which the card's machine does not have.
   the array. Palette and interlaced images, and depths under 8, raise
   ``ValueError``.
 - :func:`write_png` encodes such an array with filter 0 (none) on every row.
-- :func:`read_ppm` reads a binary PPM (P6), the FlyingChairs frames.
+- :func:`read_ppm` reads a binary PPM (P6), the FlyingChairs frames, and
+  :func:`write_ppm` writes one.
 
 Decoding is off the timed path. The Average and Paeth filters depend on the
 reconstructed pixel to the left and the row above, so a pixel depends on
@@ -170,3 +171,15 @@ def read_ppm(path: str) -> np.ndarray:
     n = h * w * 3
     pixels = np.frombuffer(data, dtype, count=n, offset=pos + 1)
     return pixels.astype(dtype.newbyteorder("=")).reshape(h, w, 3)
+
+
+def write_ppm(path: str, img: np.ndarray) -> None:
+    """(H, W, 3) uint8 -> binary PPM (P6), the FlyingChairs frame format."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f"PPM frames are (H, W, 3) uint8, got "
+                         f"{img.shape} {img.dtype}")
+    h, w, _ = img.shape
+    with open(path, "wb") as f:
+        f.write(b"P6\n%d %d\n255\n" % (w, h))
+        f.write(np.ascontiguousarray(img).tobytes())

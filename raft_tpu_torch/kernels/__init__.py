@@ -5,10 +5,11 @@ Sources live in ``raft_tpu_torch/csrc/`` and are built at first use by
 ``kernels._build`` (nothing is built or imported from a GPU toolchain when
 this package is imported). Each wrapper counts its launches in its
 module's ``launches`` dict of plain integers; :func:`launch_counts` reads
-them and :func:`reset_launch_counts` sets them to 0.
+them, :func:`launch_dtypes` the same counts by operand dtype, and
+:func:`reset_launch_counts` sets both to 0.
 """
 
-from raft_tpu_torch.kernels import corr_alt, corr_lookup, gru
+from raft_tpu_torch.kernels import _build, corr_alt, corr_lookup, gru
 from raft_tpu_torch.kernels.corr_alt import (  # noqa: F401
     AltCorrLookup, alt_corr_lookup_cuda)
 from raft_tpu_torch.kernels.corr_lookup import (  # noqa: F401
@@ -26,7 +27,18 @@ def launch_counts() -> dict:
     return {k: v for counts in _COUNTS for k, v in counts.items()}
 
 
+def launch_dtypes() -> dict:
+    """``{kernel: {dtype: launches}}`` since the counts were last set to 0
+    (the dtype of the operands each launch read: the volume for the
+    lookup and its scatter, the fmaps for K5, the GRU tensors)."""
+    out: dict = {}
+    for (name, dtype), n in _build.dtype_launches.items():
+        out.setdefault(name, {})[dtype] = n
+    return out
+
+
 def reset_launch_counts() -> None:
     for counts in _COUNTS:
         for k in counts:
             counts[k] = 0
+    _build.dtype_launches.clear()

@@ -181,3 +181,16 @@ def check(code: int, what: str) -> None:
         msg = library().lib.raft_kernels_error_string(code).decode()
         raise RuntimeError(f"{what} failed to launch: CUDA error {code} "
                            f"({msg})")
+
+
+#: launches by (kernel, operand dtype) since the counts were last set to 0;
+#: ``kernels.launch_dtypes`` reads them
+dtype_launches: dict = {}
+
+
+def count_launch(launches: dict, name: str, dtype) -> None:
+    """One launch of kernel ``name`` on operands of ``dtype``: its module's
+    count and the count by dtype."""
+    launches[name] += 1
+    key = (name, str(dtype).removeprefix("torch."))
+    dtype_launches[key] = dtype_launches.get(key, 0) + 1

@@ -32,7 +32,8 @@ from typing import Sequence
 import torch
 from torch.autograd.function import once_differentiable
 
-from raft_tpu_torch.kernels._build import check, library, stream
+from raft_tpu_torch.kernels._build import (check, count_launch, library,
+                                           stream)
 from raft_tpu_torch.models.corr import alt_corr_lookup
 
 MAX_LEVELS = 8      # RAFT_ALT_MAX_LEVELS in csrc/corr_alt.cu
@@ -106,7 +107,7 @@ def _alt_launch(fmap1, pyramid, coords, radius) -> torch.Tensor:
         radius, math.sqrt(C), branch_counts(coords.device).data_ptr(),
         stream(coords))
     check(code, "corr_alt")
-    launches["corr_alt"] += 1
+    count_launch(launches, "corr_alt", fmap1.dtype)
     return out
 
 

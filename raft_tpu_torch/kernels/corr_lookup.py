@@ -23,7 +23,8 @@ from typing import List, Sequence
 import torch
 from torch.autograd.function import once_differentiable
 
-from raft_tpu_torch.kernels._build import check, dtype_code, library, stream
+from raft_tpu_torch.kernels._build import (check, count_launch,
+                                           dtype_code, library, stream)
 from raft_tpu_torch.models.corr import corr_lookup_gather
 
 MAX_LEVELS = 8      # RAFT_MAX_LEVELS in csrc/corr_lookup.cu
@@ -80,7 +81,7 @@ def _lookup_launch(pyramid, coords, radius) -> torch.Tensor:
         *_levels(pyramid), L, coords.data_ptr(), out.data_ptr(), B * H * W,
         radius, dtype_code(pyramid[0].dtype), stream(coords))
     check(code, "corr_lookup")
-    launches["corr_lookup"] += 1
+    count_launch(launches, "corr_lookup", pyramid[0].dtype)
     return out
 
 
@@ -129,7 +130,7 @@ def corr_scatter_cuda(grad: torch.Tensor, pyramid: Sequence[torch.Tensor],
         *_levels(dvol), L, coords.data_ptr(), grad.data_ptr(), B * H * W,
         radius, dtype_code(pyramid[0].dtype), stream(coords))
     check(code, "corr_scatter")
-    launches["corr_scatter"] += 1
+    count_launch(launches, "corr_scatter", pyramid[0].dtype)
     return dvol
 
 

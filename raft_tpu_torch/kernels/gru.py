@@ -34,7 +34,8 @@ import torch
 
 from torch.autograd.function import once_differentiable
 
-from raft_tpu_torch.kernels._build import check, dtype_code, library, stream
+from raft_tpu_torch.kernels._build import (check, count_launch,
+                                           dtype_code, library, stream)
 
 #: kernel launches since the counts were last set to 0
 launches = {"gru_gates": 0, "gru_blend": 0, "gru_gates_bwd": 0,
@@ -126,7 +127,7 @@ def _launch(name, plain, n_out, *ts):
             *(t.data_ptr() for t in ts), *(o.data_ptr() for o in outs),
             inner, batch, *strides, code, stream(t0))
         check(err, name)
-        launches[name] += 1
+        count_launch(launches, name, t0.dtype)
     return outs[0] if n_out == 1 else outs
 
 

@@ -4,12 +4,19 @@
 3-stage residual CNNs with total stride 8, NCHW. ``forward(x, train=False,
 freeze_bn=False)`` normalizes with the batch's statistics (and updates the
 running ones) only when ``train`` and not ``freeze_bn``, as the JAX
-encoders' ``use_running_average = not train or freeze_bn``. Dropout is a
-training-only layer (``Dropout2d`` has no parameters); ``RAFT`` refuses
-``dropout > 0`` in train mode, so the port leaves it out.
+encoders' ``use_running_average = not train or freeze_bn``.
+
+``dropout > 0`` drops whole channels of the output in train mode only, as
+flax's ``Dropout(broadcast_dims=(1, 2))`` (torch's ``Dropout2d``,
+extractor.py:146-148): one keep draw per (sample, channel) broadcast over H
+and W, kept channels scaled by 1/(1-p). The draws come from the
+``generator`` the caller passes (the trainer seeds it from (seed, step));
+their numbers are not JAX's.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
@@ -18,21 +25,36 @@ from raft_tpu_torch.models.layers import (BottleneckBlock, ResidualBlock,
                                           apply_norm, conv, norm_layer)
 
 
-def _encode(enc: nn.Module, x: torch.Tensor, train: bool,
-            freeze_bn: bool) -> torch.Tensor:
+def channel_dropout(x: torch.Tensor, p: float,
+                    generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``Dropout(p, broadcast_dims=(1, 2))`` on NCHW: each (sample,
+    channel) kept with probability 1-p, kept ones divided by it."""
+    keep_prob = 1.0 - p
+    draw = torch.rand(x.shape[:2] + (1, 1), generator=generator,
+                      device=x.device)
+    return torch.where(draw < keep_prob, x / keep_prob, torch.zeros_like(x))
+
+
+def _encode(enc: nn.Module, x: torch.Tensor, train: bool, freeze_bn: bool,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
     ura = (not train) or freeze_bn
     x = enc.relu1(apply_norm(enc.norm1, enc.conv1(x), ura))
     for layer in (enc.layer1, enc.layer2, enc.layer3):
         for block in layer:
             x = block(x, ura)
-    return enc.conv2(x)
+    x = enc.conv2(x)
+    if train and enc.dropout > 0:
+        x = channel_dropout(x, enc.dropout, generator)
+    return x
 
 
 class BasicEncoder(nn.Module):
     """64 -> 64 -> 96 -> 128 residual encoder + 1x1 head (extractor.py:118)."""
 
-    def __init__(self, output_dim: int = 128, norm_fn: str = "batch"):
+    def __init__(self, output_dim: int = 128, norm_fn: str = "batch",
+                 dropout: float = 0.0):
         super().__init__()
+        self.dropout = dropout
         self.conv1 = conv(3, 64, 7, 2, 3)
         # stem GroupNorm uses 8 groups, not 64//8 (extractor.py:124)
         self.norm1 = norm_layer(norm_fn, 64, num_groups=8)
@@ -48,15 +70,18 @@ class BasicEncoder(nn.Module):
                              ResidualBlock(dim, dim, norm_fn, 1))
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                freeze_bn: bool = False) -> torch.Tensor:
-        return _encode(self, x, train, freeze_bn)
+                freeze_bn: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return _encode(self, x, train, freeze_bn, generator)
 
 
 class SmallEncoder(nn.Module):
     """32 -> 32 -> 64 -> 96 bottleneck encoder + 1x1 head (extractor.py:195)."""
 
-    def __init__(self, output_dim: int = 128, norm_fn: str = "batch"):
+    def __init__(self, output_dim: int = 128, norm_fn: str = "batch",
+                 dropout: float = 0.0):
         super().__init__()
+        self.dropout = dropout
         self.conv1 = conv(3, 32, 7, 2, 3)
         self.norm1 = norm_layer(norm_fn, 32, num_groups=8)
         self.relu1 = nn.ReLU()
@@ -72,5 +97,6 @@ class SmallEncoder(nn.Module):
             BottleneckBlock(dim, dim, norm_fn, 1))
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                freeze_bn: bool = False) -> torch.Tensor:
-        return _encode(self, x, train, freeze_bn)
+                freeze_bn: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return _encode(self, x, train, freeze_bn, generator)

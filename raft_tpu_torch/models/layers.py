@@ -17,6 +17,12 @@ Norm parity notes (torch defaults the reference relies on):
 Every block's ``forward(x, use_running_average=True)`` hands the switch to
 its batch norms (the JAX model's ``use_running_average``: ``True`` in test
 mode and under ``freeze_bn``, ``False`` when training them).
+
+Mixed precision follows the JAX layers' casts: each :class:`Conv2d` casts
+its input, kernel and bias to its ``compute_dtype`` (bf16 under
+``mixed_precision``; the parameters stay fp32), the batch and group norms
+compute in fp32 and return fp32, and the instance norm computes in fp32
+and returns its input's dtype.
 """
 
 from __future__ import annotations
@@ -63,9 +69,14 @@ class BatchNorm2d(nn.BatchNorm2d):
 def apply_norm(norm: nn.Module, x: torch.Tensor,
                use_running_average: bool) -> torch.Tensor:
     """``norm(x)``, handing the switch to a batch norm (the other norms
-    have no running statistics)."""
+    have no running statistics), in the JAX layers' dtypes: batch and group
+    norms fp32 out, instance norm in fp32 and back to ``x``'s dtype."""
     if isinstance(norm, BatchNorm2d):
-        return norm(x, use_running_average)
+        return norm(x.float(), use_running_average)
+    if isinstance(norm, nn.GroupNorm):
+        return norm(x.float())
+    if isinstance(norm, nn.InstanceNorm2d):
+        return norm(x.float()).to(x.dtype)
     return norm(x)
 
 
@@ -85,9 +96,28 @@ def norm_layer(norm_fn: str, features: int,
                      "or none")
 
 
-def conv(cin: int, cout: int, kernel, stride=1, padding=0) -> nn.Conv2d:
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` computing in ``compute_dtype`` (the JAX ``TorchConv``'s
+    ``dtype``): input, kernel and bias cast to it, fp32 parameters kept."""
+
+    compute_dtype = torch.float32
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        return self._conv_forward(x.to(dt), self.weight.to(dt),
+                                  self.bias.to(dt))
+
+
+def set_compute_dtype(module: nn.Module, dtype: torch.dtype) -> None:
+    """Every :class:`Conv2d` under ``module`` computes in ``dtype``."""
+    for m in module.modules():
+        if isinstance(m, Conv2d):
+            m.compute_dtype = dtype
+
+
+def conv(cin: int, cout: int, kernel, stride=1, padding=0) -> Conv2d:
     """torch ``Conv2d``: symmetric padding, as the JAX ``TorchConv`` mimics."""
-    return nn.Conv2d(cin, cout, kernel, stride=stride, padding=padding)
+    return Conv2d(cin, cout, kernel, stride=stride, padding=padding)
 
 
 class ResidualBlock(nn.Module):

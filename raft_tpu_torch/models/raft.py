@@ -16,29 +16,56 @@ basic model's stack in the upsampler's subpixel domain for the fused loss.
 pyramid is built, and each step computes its windows on the fly (K5, or
 the plain ``alt_corr_lookup`` under ``corr_impl="gather"``).
 
-The paths of later slices raise ``NotImplementedError`` naming their
-ROADMAP item: ``mixed_precision`` (M8.4), ``remat`` (M8.5) and
-``dropout > 0`` (M8.6) in train mode, ``forward_cached`` and
-``forward_ragged`` (M10).
+``mixed_precision`` follows the JAX model's casts (``compute_dtype``
+bf16): fp32 master weights, convs in bf16 and norms in fp32 (see
+``models.layers``), the fmaps cast to fp32 for the correlation island,
+``net``/``inp`` in bf16, the lookup's output and the flow cast to bf16 into
+the update block and ``delta`` back to fp32; coords stay fp32 throughout.
+The GRU tails run their kernels (K2/K4) in bf16; the lookup runs on the
+fp32 volume, or a bf16 one with ``corr_dtype="bfloat16"``. No autocast and
+no loss scaling, as in JAX.
+
+``remat`` recomputes each refinement step in the backward
+(``torch.utils.checkpoint``, non-reentrant): ``remat_policy="full"`` saves
+nothing inside the step, ``"dots"`` saves the convolutions' and matmuls'
+outputs (the JAX ``checkpoint_dots`` policy). ``dropout > 0`` drops encoder
+channels in train mode, drawn from the ``generator`` passed to ``forward``.
+
+``forward_cached`` and ``forward_ragged`` raise ``NotImplementedError``
+naming ROADMAP M10.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from raft_tpu_torch.config import RAFTConfig
 from raft_tpu_torch.models.corr import (AlternateCorrBlock, build_corr_pyramid,
                                         corr_lookup)
 from raft_tpu_torch.models.encoders import BasicEncoder, SmallEncoder
-from raft_tpu_torch.models.layers import init_weights
+from raft_tpu_torch.models.layers import init_weights, set_compute_dtype
 from raft_tpu_torch.models.update import BasicUpdateBlock, SmallUpdateBlock
 from raft_tpu_torch.ops.flow_ops import (convex_upsample,
                                          convex_upsample_batched_raw,
                                          initialize_flow, subpixel_to_standard,
                                          upflow8, upflow8_batched)
+
+
+_DOTS = (torch.ops.aten.convolution.default, torch.ops.aten.mm.default,
+         torch.ops.aten.bmm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """``remat_policy="dots"``: keep the convolutions' and matmuls' outputs,
+    recompute the rest (``jax.checkpoint_policies.checkpoint_dots``)."""
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
 class RAFT(nn.Module):
@@ -51,25 +78,22 @@ class RAFT(nn.Module):
     def __init__(self, config: RAFTConfig = RAFTConfig(),
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if config.mixed_precision:
-            raise NotImplementedError(
-                "mixed_precision: bf16 compute with the fp32 corr island "
-                "is ROADMAP M8.4 of the port")
         self.config = cfg = config
         if cfg.small:
-            self.fnet = SmallEncoder(cfg.fnet_dim, cfg.fnet_norm)
-            self.cnet = SmallEncoder(cfg.cnet_dim, cfg.cnet_norm)
+            self.fnet = SmallEncoder(cfg.fnet_dim, cfg.fnet_norm, cfg.dropout)
+            self.cnet = SmallEncoder(cfg.cnet_dim, cfg.cnet_norm, cfg.dropout)
             self.update_block = SmallUpdateBlock(cfg.corr_planes,
                                                  cfg.hidden_dim)
         else:
-            self.fnet = BasicEncoder(cfg.fnet_dim, cfg.fnet_norm)
-            self.cnet = BasicEncoder(cfg.cnet_dim, cfg.cnet_norm)
+            self.fnet = BasicEncoder(cfg.fnet_dim, cfg.fnet_norm, cfg.dropout)
+            self.cnet = BasicEncoder(cfg.cnet_dim, cfg.cnet_norm, cfg.dropout)
             self.update_block = BasicUpdateBlock(
                 cfg.corr_planes, cfg.hidden_dim,
                 fused=cfg.gru_impl == "fused")
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         init_weights(self, generator)
+        set_compute_dtype(self, cfg.compute_dtype)
 
     def _corr_setup(self, fmap1: torch.Tensor, fmap2: torch.Tensor
                     ) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -92,29 +116,38 @@ class RAFT(nn.Module):
             pyramid = [v.to(torch.bfloat16) for v in pyramid]
         return lambda coords: corr_lookup(pyramid, coords, r, cfg.corr_impl)
 
+    def _step(self, lookup, net, inp, coords0, coords1):
+        """One refinement step (the JAX model's scan body): lookup, update
+        block in the compute dtype, ``delta`` added in fp32. Returns
+        ``(net, coords1)`` and, for the basic model, the upsampling mask."""
+        dt = self.config.compute_dtype
+        corr = lookup(coords1)
+        flow = coords1 - coords0
+        net, up_mask, delta = self.update_block(
+            net, inp, corr.to(dt).permute(0, 3, 1, 2).contiguous(),
+            flow.to(dt).permute(0, 3, 1, 2).contiguous())
+        coords1 = coords1 + delta.permute(0, 2, 3, 1).float()
+        return (net, coords1) if up_mask is None else (net, coords1, up_mask)
+
     def forward(self, image1: torch.Tensor, image2: torch.Tensor,
                 iters: int = 12, flow_init: Optional[torch.Tensor] = None,
                 test_mode: bool = True, train: bool = False,
-                freeze_bn: bool = False, raw_predictions: bool = False):
+                freeze_bn: bool = False, raw_predictions: bool = False,
+                generator: Optional[torch.Generator] = None):
         """Estimate flow. Images: (B, H, W, 3) float in [0, 255] with
         H, W % 8 == 0 (pad with ``InputPadder``); ``flow_init``: (B, H/8,
         W/8, 2). Test mode returns ``(flow_low (B,H/8,W/8,2), flow_up
         (B,H,W,2))``; train mode the upsampled flow of every iteration,
         (iters, B, H, W, 2), or with ``raw_predictions`` (basic model) the
-        subpixel-domain stack (iters, B, 2, 64, H/8·W/8)."""
+        subpixel-domain stack (iters, B, 2, 64, H/8·W/8). ``generator``
+        draws the encoders' dropout masks when ``train`` and ``dropout >
+        0`` (torch's default generator when it is None)."""
         cfg = self.config
-        if not test_mode:
-            if cfg.remat:
-                raise NotImplementedError(
-                    "remat (recomputing the refinement step in the "
-                    "backward) is ROADMAP M8.5 of the port")
-            if train and cfg.dropout > 0:
-                raise NotImplementedError(
-                    "dropout in train mode is ROADMAP M8.6 of the port")
-            if raw_predictions and cfg.small:
-                raise ValueError(
-                    "raw_predictions applies to the learned convex "
-                    "upsampler; the small model upsamples bilinearly")
+        dt = cfg.compute_dtype
+        if not test_mode and raw_predictions and cfg.small:
+            raise ValueError(
+                "raw_predictions applies to the learned convex "
+                "upsampler; the small model upsamples bilinearly")
         B, H, W, _ = image1.shape
         if H % 8 or W % 8:
             raise ValueError(f"image size {H}x{W}: pad inputs to a multiple "
@@ -126,36 +159,44 @@ class RAFT(nn.Module):
         x1, x2 = x1.contiguous(), x2.contiguous()
 
         if cfg.split_encode:
-            fmap1 = self.fnet(x1, train, freeze_bn)
-            fmap2 = self.fnet(x2, train, freeze_bn)
+            fmap1 = self.fnet(x1, train, freeze_bn, generator)
+            fmap2 = self.fnet(x2, train, freeze_bn, generator)
         else:
-            fmaps = self.fnet(torch.cat([x1, x2], 0), train, freeze_bn)
+            fmaps = self.fnet(torch.cat([x1, x2], 0), train, freeze_bn,
+                              generator)
             fmap1, fmap2 = fmaps[:B], fmaps[B:]
-        lookup = self._corr_setup(fmap1.permute(0, 2, 3, 1),
-                                  fmap2.permute(0, 2, 3, 1))
+        # the fp32 island for the correlation (raft.py:263-264 in JAX)
+        lookup = self._corr_setup(fmap1.float().permute(0, 2, 3, 1),
+                                  fmap2.float().permute(0, 2, 3, 1))
 
         # context network (core/raft.py:110-114)
-        cnet = self.cnet(x1, train, freeze_bn)
-        net = torch.tanh(cnet[:, :cfg.hidden_dim])
-        inp = torch.relu(cnet[:, cfg.hidden_dim:])
+        cnet = self.cnet(x1, train, freeze_bn, generator)
+        net = torch.tanh(cnet[:, :cfg.hidden_dim]).to(dt)
+        inp = torch.relu(cnet[:, cfg.hidden_dim:]).to(dt)
 
         coords0, coords1 = initialize_flow(B, H // 8, W // 8, image1.device)
         if flow_init is not None:
             coords1 = coords1 + flow_init
+        step = functools.partial(self._step, lookup)
+        if cfg.remat and torch.is_grad_enabled():
+            kw = {}
+            if cfg.remat_policy == "dots":
+                kw["context_fn"] = functools.partial(
+                    create_selective_checkpoint_contexts, _save_dots)
+            step = functools.partial(checkpoint, step, use_reentrant=False,
+                                     **kw)
         up_mask = None
         flows, masks = [], []
         for _ in range(iters):
-            coords1 = coords1.detach().contiguous()
-            corr = lookup(coords1)
-            flow = coords1 - coords0
-            net, up_mask, delta = self.update_block(
-                net, inp, corr.permute(0, 3, 1, 2).contiguous(),
-                flow.permute(0, 3, 1, 2).contiguous())
-            coords1 = coords1 + delta.permute(0, 2, 3, 1)
+            # stop_gradient on the coordinate chain (core/raft.py:123)
+            out = step(net, inp, coords0, coords1.detach().contiguous())
+            net, coords1 = out[:2]
             if not test_mode:
                 flows.append(coords1 - coords0)
                 if not cfg.small:
-                    masks.append(up_mask.permute(0, 2, 3, 1))
+                    masks.append(out[2].permute(0, 2, 3, 1))
+            elif not cfg.small:
+                up_mask = out[2]
 
         if test_mode:
             flow_lr = coords1 - coords0

@@ -9,7 +9,9 @@ as the JAX package leaves them to XLA outside Pallas.
 Each GRU half computes its z and r pre-activations as one double-width conv
 over the shared input (the weights of ``convz*`` and ``convr*``
 concatenated; identical values, one conv call instead of two) and hands
-the two halves of its output, as views, to the gate tail.
+the two halves of its output, as views, to the gate tail. Under mixed
+precision every conv here computes in bf16 and the blocks take and give
+bf16, so the gate and blend kernels run in bf16.
 """
 
 from __future__ import annotations
@@ -24,11 +26,13 @@ from raft_tpu_torch.models.layers import conv
 
 
 def _pair_conv(conv_a: nn.Conv2d, conv_b: nn.Conv2d, x: torch.Tensor):
-    """Two same-geometry convs over the same input as one double-width conv;
-    returns the two outputs as channel-slice views of it."""
-    w = torch.cat([conv_a.weight, conv_b.weight], 0)
-    b = torch.cat([conv_a.bias, conv_b.bias], 0)
-    y = F.conv2d(x, w, b, padding=conv_a.padding)
+    """Two same-geometry convs over the same input as one double-width conv
+    in their compute dtype; returns the two outputs as channel-slice views
+    of it."""
+    dt = conv_a.compute_dtype
+    w = torch.cat([conv_a.weight, conv_b.weight], 0).to(dt)
+    b = torch.cat([conv_a.bias, conv_b.bias], 0).to(dt)
+    y = F.conv2d(x.to(dt), w, b, padding=conv_a.padding)
     n = conv_a.out_channels
     return y[:, :n], y[:, n:]
 

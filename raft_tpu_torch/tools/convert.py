@@ -15,7 +15,10 @@ key mapping of ``raft_tpu/tools/convert.py`` (lines 34-57) run in reverse:
 
 :func:`save_pth` writes the port's weights back out in the reference's
 format, which ``load_pth`` here and ``raft_tpu.tools.convert.load_pth``
-read.
+read: atomically (a temporary file, fsync'd, then ``os.replace``) with a
+sidecar sha256 manifest (``<path>.sha256``, ``<sha256hex>  <nbytes>``, the
+JAX package's format, raft_tpu/tools/convert.py:151-193) that
+:func:`load_pth` checks before it unpickles anything.
 
 ``.msgpack`` files need flax's serialization, which the port may not
 import; loading them is queued in ROADMAP.md.
@@ -23,6 +26,8 @@ import; loading them is queued in ROADMAP.md.
 
 from __future__ import annotations
 
+import hashlib
+import io
 import os
 import re
 from typing import Any, Dict, Iterator, Mapping, Tuple
@@ -91,10 +96,86 @@ def state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
     return sd
 
 
+class CorruptCheckpointError(RuntimeError):
+    """A checkpoint file failed its sidecar SHA-256 integrity check."""
+
+
+def manifest_path(path: str) -> str:
+    return path + ".sha256"
+
+
+def _write_atomic(path: str, data: bytes, mode: str = "wb") -> None:
+    """``data`` under a temporary name, fsync'd, then renamed to ``path``:
+    a crash leaves the old file or the new one, never a torn one."""
+    tmp = f"{path}.tmp.{os.getpid()}"
+    try:
+        with open(tmp, mode) as f:
+            f.write(data)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+    except BaseException:
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+        raise
+
+
+def write_manifest(path: str, data: bytes) -> None:
+    """Atomic sidecar integrity manifest: ``<sha256hex>  <nbytes>``."""
+    line = f"{hashlib.sha256(data).hexdigest()}  {len(data)}\n"
+    _write_atomic(manifest_path(path), line, "w")
+
+
+def verify_manifest(path: str, data: bytes) -> None:
+    """Raise :class:`CorruptCheckpointError` when ``path``'s sidecar
+    manifest mismatches ``data`` (flipped bytes, truncation, or a stale
+    manifest from an interrupted save). A missing sidecar passes: reference
+    ``.pth`` files have none."""
+    try:
+        with open(manifest_path(path), encoding="utf-8") as f:
+            want_digest, want_size = f.read().split()
+    except FileNotFoundError:
+        return
+    except ValueError as e:
+        raise CorruptCheckpointError(
+            f"unparsable integrity manifest {manifest_path(path)}: "
+            f"{e}") from e
+    got = hashlib.sha256(data).hexdigest()
+    if got != want_digest or len(data) != int(want_size):
+        raise CorruptCheckpointError(
+            f"{path} failed its integrity check (manifest "
+            f"{want_digest[:12]}…/{want_size}B vs actual "
+            f"{got[:12]}…/{len(data)}B): the file is corrupt or torn; "
+            "refusing to load it")
+
+
+def save_verified(obj, path: str) -> None:
+    """``torch.save(obj)`` to ``path`` atomically, then its manifest."""
+    buf = io.BytesIO()
+    torch.save(obj, buf)
+    data = buf.getvalue()
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    _write_atomic(path, data)
+    write_manifest(path, data)
+
+
+def load_verified(path: str):
+    """``torch.load(path, weights_only=True)`` on the CPU after the bytes
+    pass their manifest (:func:`verify_manifest`)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    verify_manifest(path, data)
+    return torch.load(io.BytesIO(data), map_location="cpu",
+                      weights_only=True)
+
+
 def load_pth(path: str, config: RAFTConfig) -> RAFT:
     """A reference ``.pth`` (``module.`` prefixes stripped) loaded into a
-    CPU ``RAFT`` with ``strict=True``."""
-    state_dict = torch.load(path, map_location="cpu", weights_only=True)
+    CPU ``RAFT`` with ``strict=True``, after its manifest where it has
+    one."""
+    state_dict = load_verified(path)
     state_dict = {k.removeprefix("module."): v for k, v in state_dict.items()}
     model = RAFT(config)
     model.load_state_dict(state_dict, strict=True)
@@ -103,13 +184,10 @@ def load_pth(path: str, config: RAFTConfig) -> RAFT:
 
 def save_pth(model: RAFT, path: str) -> None:
     """``model``'s weights as a reference-format ``.pth``: its
-    ``state_dict`` (the reference's key names) on the CPU, written to a
-    temporary file and renamed into place."""
-    state_dict = {k: v.detach().cpu() for k, v in model.state_dict().items()}
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    torch.save(state_dict, tmp)
-    os.replace(tmp, path)
+    ``state_dict`` (the reference's key names) on the CPU, written
+    atomically with its sha256 manifest."""
+    save_verified({k: v.detach().cpu() for k, v in model.state_dict().items()},
+                  path)
 
 
 def load_weights(path: str, config: RAFTConfig) -> RAFT:

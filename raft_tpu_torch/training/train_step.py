@@ -6,6 +6,13 @@ the sequence loss (fused into the upsampler's subpixel domain for the basic
 model by default), the backward, the optax-form clip and AdamW with
 OneCycle. The JAX step is a pure function of the state; here the state
 holds the model, optimizer and scheduler, which the step updates in place.
+
+Under ``mixed_precision`` the model computes in bf16 on the fp32
+parameters (no loss scaling, as in JAX); the loss, the optimizer and the
+parameters stay fp32. The step's random draws (image noise, then the
+encoders' dropout masks) come from one generator seeded from (seed, step),
+the analog of JAX's per-step key ``fold_in(rng, step)`` (train_step.py:107),
+so a resumed run replays them.
 """
 
 from __future__ import annotations
@@ -49,11 +56,15 @@ def _as_float(x, device) -> torch.Tensor:
     return x.to(device, non_blocking=True).float()
 
 
-def noise_generator(seed: int, step: int, device) -> torch.Generator:
-    """The generator of step ``step``'s image noise, seeded from (seed,
-    step), so a resumed run replays the stream. Its numbers are not JAX's."""
+def step_generator(seed: int, step: int, device) -> torch.Generator:
+    """The generator of step ``step``'s random draws (image noise, dropout),
+    seeded from (seed, step), so a resumed run replays the stream. Its
+    numbers are not JAX's. The seed is a hash of both: the CPU generator
+    keeps only the low 32 bits of its seed, so ``(seed << 32) + step``
+    would ignore ``seed`` there."""
     gen = torch.Generator(device=device)
-    gen.manual_seed((seed << 32) + step)
+    gen.manual_seed(int(np.random.SeedSequence([seed, step]).generate_state(
+        1, np.uint64)[0]))
     return gen
 
 
@@ -92,13 +103,13 @@ def make_train_step(model_cfg: RAFTConfig, train_cfg: TrainConfig):
         image2 = _as_float(batch["image2"], dev)
         valid = _as_float(batch["valid"], dev)
         flow = _as_float(batch["flow"], dev)
+        gen = step_generator(train_cfg.seed, state.step, dev)
         if train_cfg.add_noise:
-            image1, image2 = add_noise(
-                image1, image2, noise_generator(train_cfg.seed, state.step,
-                                                dev))
+            image1, image2 = add_noise(image1, image2, gen)
         model.train()
         preds = model(image1, image2, iters=train_cfg.iters, test_mode=False,
-                      train=True, freeze_bn=freeze_bn, raw_predictions=fused)
+                      train=True, freeze_bn=freeze_bn, raw_predictions=fused,
+                      generator=gen)
         loss, metrics = loss_impl(preds, flow, valid, train_cfg.gamma)
         state.optimizer.zero_grad()
         loss.backward()

@@ -2,89 +2,154 @@
 (the reference's ``train``, train.py:136-214).
 
 :func:`train` runs one curriculum stage on the card (or on the CPU when
-asked) over an iterable of batches: the train step of
-``training.train_step``, metrics summed on the device and fetched once per
-``sum_freq`` window, weights-only ``<step+1>_<name>.pth`` every
-``val_freq`` steps and ``<name>.pth`` at the end, in the reference's
-``state_dict`` format (train.py:185-187, 211-212).
+asked): batches from the stage's ``PrefetchLoader`` (``loader=None``) or
+from an iterable the caller passes, moved to the device through pinned
+memory two batches ahead; the train step of ``training.train_step``;
+metrics summed on the device and fetched once per ``sum_freq`` window; every
+``val_freq`` steps a full-state checkpoint under
+``<checkpoint_dir>/<name>/<stage>/``, the weights as ``<step+1>_<name>.pth``
+(train.py:185-187) and the validators of ``train_cfg.validation``, whose
+results go to the log; ``<name>.pth`` at the end (train.py:211-212).
+``resume=True`` restores the newest intact full state of the stage.
+``profile_steps=(a, b)`` traces steps a..b-1 with ``torch.profiler`` into
+``<log_dir>/<name>``.
 
-What the JAX trainer does beyond this raises ``NotImplementedError``
-naming its ROADMAP item: the data pipeline behind ``loader=None`` and its
-knobs ``num_workers``, ``data_root``, ``on_bad_sample``, ``stall_s`` (M13),
-full-state checkpoints and ``resume=True`` (M8.1), the no-progress
-watchdog ``hang_s`` (M8.2), ``profile_steps`` (M8.7) and validation (M7).
+:func:`train_curriculum` chains stages (train_standard.sh:3-6), skipping a
+stage whose final weights exist and pass their manifest.
+
+``hang_s`` (the no-progress watchdog) raises ``NotImplementedError``: it
+waits with the supervisor, ROADMAP M8.2.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Iterable, Optional
+import time
+from collections import deque
+from typing import Dict, Iterable, Optional
 
+import numpy as np
 import torch
 
-from raft_tpu_torch.config import RAFTConfig, TrainConfig
-from raft_tpu_torch.evaluation.evaluate import resolve_device
+from raft_tpu_torch.config import RAFTConfig, TrainConfig, stage_config
+from raft_tpu_torch.evaluation import evaluate as ev
 from raft_tpu_torch.models.raft import RAFT
-from raft_tpu_torch.tools.convert import load_weights, save_pth
+from raft_tpu_torch.tools.convert import (CorruptCheckpointError,
+                                          load_weights, manifest_path,
+                                          verify_manifest)
+from raft_tpu_torch.training import checkpoint as ckpt_lib
 from raft_tpu_torch.training.logger import Logger
 from raft_tpu_torch.training.train_step import (TrainState,
                                                 create_train_state,
                                                 make_train_step)
+from raft_tpu_torch.utils.ckpt_scan import (latest_step_on_disk,
+                                            quarantine_path)
 
 LOGGED = ("loss", "epe", "1px", "3px", "5px")
 
 
-def _refuse_later_slices(train_cfg: TrainConfig, resume: bool, loader):
-    if loader is None:
-        raise NotImplementedError(
-            "loader=None: the data pipeline (the datasets and their "
-            "augmentation, without cv2 and PIL) is ROADMAP M13 of the port; "
-            "pass an iterable of batches")
-    if resume:
-        raise NotImplementedError(
-            "resume=True: full-state checkpoints (sha256 manifest, "
-            "quarantine) are ROADMAP M8.1 of the port")
-    if train_cfg.validation:
-        raise NotImplementedError(
-            f"validation={train_cfg.validation!r}: the validators are "
-            "ROADMAP M7 of the port; pass validation=()")
-    if train_cfg.profile_steps:
-        raise NotImplementedError(
-            "profile_steps: a trace over a step range is ROADMAP M8.7 of "
-            "the port")
-    if train_cfg.hang_s > 0:
-        raise NotImplementedError(
-            "hang_s: the no-progress watchdog is ROADMAP M8.2 of the port")
-    # the data pipeline's knobs: the loader passed in does what they would
-    default = TrainConfig()
-    for knob in ("num_workers", "data_root", "on_bad_sample", "stall_s"):
-        if getattr(train_cfg, knob) != getattr(default, knob):
-            raise NotImplementedError(
-                f"{knob}={getattr(train_cfg, knob)!r}: the data pipeline is "
-                "ROADMAP M13 of the port; leave it at its default")
+def run_validation(model, model_cfg: RAFTConfig, names, data_root: str,
+                   device: str = "cuda") -> Dict[str, float]:
+    """The validators of ``names`` on ``device``; a dataset that is not
+    staged is skipped with a message, as the JAX trainer does."""
+    results: Dict[str, float] = {}
+    for name in names:
+        try:
+            results.update(ev.VALIDATORS[name](model, model_cfg,
+                                               data_root=data_root,
+                                               device=device))
+        except FileNotFoundError as e:
+            print(f"validation '{name}' skipped: {e}", flush=True)
+    return results
+
+
+class DeviceBatches:
+    """Each host batch of ``loader`` on ``device``, ``depth`` batches ahead
+    of use: pinned host copies and ``non_blocking`` transfers, so the copy
+    of batch N+1 overlaps the step on batch N (the JAX trainer's
+    ``device_batches``). ``wait_s`` sums the host's seconds waiting for the
+    loader."""
+
+    def __init__(self, loader: Iterable, device: torch.device,
+                 depth: int = 2):
+        self.loader, self.device, self.depth = loader, device, depth
+        self.wait_s = 0.0
+
+    def _put(self, batch):
+        out = {}
+        for k, v in batch.items():
+            t = (torch.from_numpy(np.ascontiguousarray(v))
+                 if isinstance(v, np.ndarray) else v)
+            if self.device.type == "cuda" and t.device.type == "cpu":
+                t = t.pin_memory()
+            out[k] = t.to(self.device, non_blocking=True)
+        return out
+
+    def __iter__(self):
+        buf = deque()
+        it = iter(self.loader)
+        try:
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    host = next(it)
+                except StopIteration:
+                    break
+                self.wait_s += time.perf_counter() - t0
+                buf.append(self._put(host))
+                if len(buf) >= self.depth:
+                    yield buf.popleft()
+            while buf:
+                yield buf.popleft()
+        finally:
+            # a loop that stops early stops the loader's workers now
+            if hasattr(it, "close"):
+                it.close()
 
 
 def train(model_cfg: RAFTConfig, train_cfg: TrainConfig, resume: bool = False,
           loader: Optional[Iterable] = None, device: str = "cuda"
           ) -> TrainState:
-    """Run one stage for ``train_cfg.num_steps`` steps over ``loader`` (an
-    iterable of batch dicts, re-iterated until the steps are done) on
-    ``device``; returns the final state. Weights start from
-    ``restore_ckpt`` (a reference ``.pth``) or from ``RAFT``'s init seeded
-    with ``train_cfg.seed``."""
-    _refuse_later_slices(train_cfg, resume, loader)
-    dev = resolve_device(device)
+    """Run one stage for ``train_cfg.num_steps`` steps on ``device``; returns
+    the final state. Weights start from ``restore_ckpt`` (a reference
+    ``.pth``, a fresh schedule) or from ``RAFT``'s init seeded with
+    ``train_cfg.seed``; ``resume`` then restores the stage's newest intact
+    full state, schedule and step included. ``loader`` is an iterable of
+    batch dicts, re-iterated until the steps are done; None builds the
+    stage's mix under ``data_root`` (``data.loader.fetch_dataloader``)."""
+    if train_cfg.hang_s > 0:
+        raise NotImplementedError(
+            "hang_s: the no-progress watchdog is ROADMAP M8.2 of the port")
+    dev = ev.resolve_device(device)
+    np.random.seed(train_cfg.seed)  # train.py:241-242
+    torch.manual_seed(train_cfg.seed)
+    stage_dir = os.path.join(train_cfg.checkpoint_dir, train_cfg.name,
+                             train_cfg.stage)
+    os.makedirs(stage_dir, exist_ok=True)
     if train_cfg.restore_ckpt:
         model = load_weights(train_cfg.restore_ckpt, model_cfg)
     else:
         model = RAFT(model_cfg, torch.Generator().manual_seed(train_cfg.seed))
     state = create_train_state(model.to(dev), train_cfg)
+    if resume and latest_step_on_disk(stage_dir) is not None:
+        ckpt_lib.restore_train_state(stage_dir, state)
+        print(f"resumed from step {state.step}", flush=True)
+    if loader is None:
+        from raft_tpu_torch.data.loader import fetch_dataloader
+
+        loader = fetch_dataloader(
+            train_cfg.stage, train_cfg.image_size, train_cfg.batch_size,
+            data_root=train_cfg.data_root, num_workers=train_cfg.num_workers,
+            seed=train_cfg.seed, wire_dtype="uint8",
+            on_bad_sample=train_cfg.on_bad_sample, stall_s=train_cfg.stall_s)
     step_fn = make_train_step(model_cfg, train_cfg)
-    os.makedirs(train_cfg.checkpoint_dir, exist_ok=True)
     logger = Logger(os.path.join(train_cfg.log_dir, train_cfg.name),
                     lr_fn=lambda _: state.scheduler.get_last_lr()[0])
     logger.start_at(state.step)
+    prof, profiler = train_cfg.profile_steps, None
     sums, n = None, 0
+    batches = DeviceBatches(loader, dev)
+    first_step, t_loop, val_s = state.step, time.perf_counter(), 0.0
 
     def flush():
         # one device-to-host fetch per window
@@ -94,11 +159,24 @@ def train(model_cfg: RAFTConfig, train_cfg: TrainConfig, resume: bool = False,
             logger.push_sums(dict(zip(LOGGED, values)), n)
             sums, n = None, 0
 
+    def stop_profiler():
+        nonlocal profiler
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        profiler.stop()
+        profiler = None
+
     try:
         while state.step < train_cfg.num_steps:
             start = state.step
-            for batch in loader:
+            for batch in batches:
+                if (prof and profiler is None
+                        and prof[0] <= state.step < prof[1]):
+                    profiler = _start_profiler(
+                        os.path.join(train_cfg.log_dir, train_cfg.name), dev)
                 metrics = step_fn(state, batch)
+                if profiler is not None and state.step >= prof[1]:
+                    stop_profiler()
                 sums = (metrics if sums is None
                         else {k: sums[k] + v for k, v in metrics.items()})
                 n += 1
@@ -106,18 +184,116 @@ def train(model_cfg: RAFTConfig, train_cfg: TrainConfig, resume: bool = False,
                 if state.step % train_cfg.sum_freq == train_cfg.sum_freq - 1:
                     flush()
                 if state.step % train_cfg.val_freq == train_cfg.val_freq - 1:
-                    flush()
-                    save_pth(model, os.path.join(
+                    flush()  # the window's record precedes validation
+                    t_val = time.perf_counter()
+                    ckpt_lib.save_train_state(stage_dir, state)
+                    ckpt_lib.save_weights(os.path.join(
                         train_cfg.checkpoint_dir,
-                        f"{state.step + 1}_{train_cfg.name}.pth"))
+                        f"{state.step + 1}_{train_cfg.name}.pth"), model)
+                    results = run_validation(model, model_cfg,
+                                             train_cfg.validation,
+                                             train_cfg.data_root, str(dev))
+                    if results:
+                        logger.write_dict(results)
+                    val_s += time.perf_counter() - t_val
                 if state.step >= train_cfg.num_steps:
                     break
             if state.step == start:
                 raise ValueError("the loader yielded no batch")
         flush()
+        if profiler is not None:
+            stop_profiler()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        # the host's wait for batches, against the loop less its
+        # checkpoints and validation
+        loop_s = time.perf_counter() - t_loop
+        steps = state.step - first_step
+        logger.write_dict({"loader_wait_s": batches.wait_s,
+                           "train_loop_s": loop_s, "validation_s": val_s,
+                           "train_loop_steps": steps})
+        print(f"loader: the host waited {batches.wait_s:.3f} s for batches "
+              f"in {loop_s - val_s:.3f} s of {steps} steps (the loop "
+              f"{loop_s:.3f} s with {val_s:.3f} s of checkpoints and "
+              "validation)", flush=True)
         final = os.path.join(train_cfg.checkpoint_dir, f"{train_cfg.name}.pth")
-        save_pth(model, final)
+        ckpt_lib.save_weights(final, model)
         print(f"saved final weights to {final}", flush=True)
     finally:
+        if profiler is not None:
+            profiler.stop()
         logger.close()
     return state
+
+
+def _start_profiler(trace_dir: str, dev: torch.device):
+    """A ``torch.profiler`` session (the card's activity too, on the card)
+    whose trace lands in ``trace_dir`` when it stops."""
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+
+    acts = [ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    p = profile(activities=acts,
+                on_trace_ready=tensorboard_trace_handler(trace_dir))
+    p.start()
+    return p
+
+
+def _final_intact(final: str) -> bool:
+    """Whether a stage's final ``.pth`` may be skipped to: it must pass its
+    manifest (a missing sidecar passes, as in ``verify_manifest``). A
+    failing final is quarantined aside with its sidecar so the stage
+    retrains and rewrites it; a read error other than a missing file
+    propagates (it says nothing against the file)."""
+    try:
+        with open(final, "rb") as fh:
+            data = fh.read()
+    except FileNotFoundError:
+        return False
+    try:
+        verify_manifest(final, data)
+        return True
+    except CorruptCheckpointError as exc:
+        dst = quarantine_path(final)
+        try:
+            os.rename(final, dst)
+            if os.path.exists(manifest_path(final)):
+                os.rename(manifest_path(final), manifest_path(dst))
+        except OSError:
+            pass  # vanished mid-quarantine: retraining overwrites it
+        print(f"existing final at {final} fails its integrity check "
+              f"({type(exc).__name__}: {exc}) — quarantined to {dst}; "
+              "retraining the stage", flush=True)
+        return False
+
+
+def train_curriculum(stages, model_cfg: RAFTConfig, name: str = "raft",
+                     mixed: bool = False, loader_factory=None,
+                     resume: bool = True, device: str = "cuda",
+                     **overrides) -> None:
+    """``train_standard.sh`` / ``train_mixed.sh``: chain stages, each
+    restoring the previous stage's final weights with a fresh schedule
+    (train_standard.sh:4-6). ``loader_factory(cfg)`` overrides each stage's
+    loader. With ``resume`` (the default), a stage whose final ``.pth``
+    exists and passes its manifest is skipped (its weights still chain into
+    the next), a corrupt one is quarantined and the stage retrained, and
+    the stage in progress resumes from its newest intact full state."""
+    prev_final: Optional[str] = None
+    for stage in stages:
+        cfg = stage_config(stage, mixed=mixed, name=f"{name}-{stage}",
+                           restore_ckpt=prev_final, **overrides)
+        final = os.path.join(cfg.checkpoint_dir, f"{cfg.name}.pth")
+        if resume and os.path.exists(final) and _final_intact(final):
+            print(f"stage {stage}: final weights already at {final} — "
+                  "skipping", flush=True)
+            prev_final = final
+            continue
+        t0 = time.perf_counter()
+        train(model_cfg, cfg, resume=resume,
+              loader=loader_factory(cfg) if loader_factory else None,
+              device=device)
+        print(f"stage {stage} done in {time.perf_counter() - t0:.0f}s",
+              flush=True)
+        prev_final = final

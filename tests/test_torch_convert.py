@@ -3,8 +3,8 @@
 - The trained small fixture loads into identical port tensors through the
   ``.pth`` directly and through JAX's ``.msgpack`` loader followed by
   ``state_dict_from_flax``; JAX-initialised variables load ``strict=True``.
-- ``raft_tpu_torch`` (its ``training``, ``data`` and evaluation modules
-  included), ``chip_smoke``, ``profile_corr_alt``, ``profile_hd_pair``
+- ``raft_tpu_torch`` (its ``training``, ``data`` and evaluation modules,
+  the augmentors, loader, checkpoints and training CLIs included), ``chip_smoke``, ``profile_corr_alt``, ``profile_hd_pair``
   and ``profile_train_convs`` import with
   ``jax``, ``flax``, ``raft_tpu``, ``PIL`` and ``cv2`` blocked (a
   subprocess; ``raft_tpu_torch`` itself must pass): the card's machine has
@@ -100,9 +100,11 @@ names = [m.name for m in pkgutil.walk_packages(raft_tpu_torch.__path__,
 for n in names:
     importlib.import_module(n)
 for n in ("training.loss", "training.optim", "training.train_step",
-          "training.logger", "training.trainer", "kernels.corr_alt",
-          "data.png", "data.frame_utils", "data.datasets", "ops.interp",
-          "evaluation.evaluate", "cli.evaluate", "cli._args"):
+          "training.logger", "training.trainer", "training.checkpoint",
+          "kernels.corr_alt", "data.png", "data.frame_utils",
+          "data.datasets", "data.augmentor", "data.loader", "ops.interp",
+          "utils.ckpt_scan", "evaluation.evaluate", "cli.evaluate",
+          "cli._args", "cli.train", "cli.curriculum"):
     assert "raft_tpu_torch." + n in names, n
 import chip_smoke, profile_corr_alt, profile_hd_pair, profile_train_convs
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
@@ -115,7 +117,7 @@ def test_port_and_chip_smoke_import_with_jax_blocked():
     r = subprocess.run([sys.executable, "-c", _BLOCKER], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
-    assert int(r.stdout.split()[0]) >= 38
+    assert int(r.stdout.split()[0]) >= 44
 
 
 def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
@@ -157,22 +159,19 @@ def test_config_validation_matches_jax(kw):
 
 
 def test_later_slices_raise_not_implemented(tmp_path):
-    from raft_tpu_torch.data.datasets import MpiSintel
+    from raft_tpu_torch.data.frame_utils import read_gen
     from raft_tpu_torch.ops.interp import forward_interpolate_device
 
-    with pytest.raises(NotImplementedError, match="M8"):
-        RAFT(RAFTConfig(mixed_precision=True))
-    # alternate_corr is ported; training's augmentation and the serving
-    # layer's on-device warm start are not
-    with pytest.raises(NotImplementedError, match="M13"):
-        MpiSintel(aug_params={"crop_size": (368, 768)}, root=str(tmp_path))
+    # mixed precision, dropout and training's augmentation are ported; JPEG
+    # frames and the serving layer's on-device warm start are not
+    RAFT(RAFTConfig(mixed_precision=True))
+    with pytest.raises(NotImplementedError, match="M14"):
+        read_gen(str(tmp_path / "frame.jpg"))
     with pytest.raises(NotImplementedError, match="M11"):
         forward_interpolate_device(torch.zeros(8, 8, 2))
-    # train mode is ported; dropout in it is not
     model = RAFT(RAFTConfig(small=True, dropout=0.1))
     img = torch.zeros(1, 32, 32, 3)
-    with pytest.raises(NotImplementedError, match="M8"):
-        model(img, img, iters=1, test_mode=False, train=True)
+    model(img, img, iters=1, test_mode=False, train=True)
     for fn in (model.forward_cached, model.forward_ragged):
         with pytest.raises(NotImplementedError, match="M10"):
             fn(img)

@@ -479,12 +479,18 @@ def test_unstaged_data_raises_file_not_found(tmp_path, fn, match):
         fn(None, SMALL, data_root=str(tmp_path), device="cpu")
 
 
-def test_training_data_waits_for_m13():
+def test_training_data_waits_for_m13(tmp_path):
+    """Training's data pipeline (M13) is ported: its datasets construct,
+    and an unstaged stage mix raises ``FileNotFoundError``. JPEG frames,
+    which no stage mix reads, wait as ROADMAP M14."""
     from raft_tpu_torch.data import datasets
 
-    with pytest.raises(NotImplementedError, match="M13"):
-        datasets.KITTI(aug_params={"crop_size": (64, 64)})
-    for fn in (datasets.FlyingThings3D, datasets.HD1K,
-               datasets.ConcatDataset, datasets.fetch_dataset):
-        with pytest.raises(NotImplementedError, match="M13"):
-            fn()
+    kitti = datasets.KITTI(aug_params={"crop_size": (64, 64)},
+                           root=str(tmp_path))
+    assert kitti.augmentor is not None and len(kitti) == 0
+    for cls in (datasets.FlyingThings3D, datasets.HD1K):
+        assert len(cls(root=str(tmp_path))) == 0
+    with pytest.raises(FileNotFoundError, match="not staged"):
+        datasets.fetch_dataset("chairs", (64, 64), data_root=str(tmp_path))
+    with pytest.raises(NotImplementedError, match="M14"):
+        fu.read_gen(str(tmp_path / "frame.jpg"))

@@ -50,7 +50,7 @@ from raft_tpu_torch.tools.convert import load_pth
 from raft_tpu_torch.training import loss, optim
 from raft_tpu_torch.training.train_step import (add_noise, create_train_state,
                                                 make_train_step,
-                                                noise_generator)
+                                                step_generator)
 from raft_tpu_torch.training.trainer import train
 
 REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
@@ -227,19 +227,21 @@ def test_adamw_and_clip_update_matches_optax(grad_scale):
 
 def test_noise_replays_by_seed_and_step():
     """The noise cannot match JAX's bits: the same (seed, step) gives the
-    same batch, another step another one, stdv within [0, 5] and pixels
-    clipped to [0, 255]."""
+    same batch, another step or another seed another one, stdv within
+    [0, 5] and pixels clipped to [0, 255]."""
     rng = np.random.RandomState(4)
     im = _t((rng.rand(2, 16, 16, 3) * 255).astype(np.float32))
-    a = add_noise(im, im, noise_generator(1234, 7, "cpu"))
-    b = add_noise(im, im, noise_generator(1234, 7, "cpu"))
-    c = add_noise(im, im, noise_generator(1234, 8, "cpu"))
+    a = add_noise(im, im, step_generator(1234, 7, "cpu"))
+    b = add_noise(im, im, step_generator(1234, 7, "cpu"))
+    c = add_noise(im, im, step_generator(1234, 8, "cpu"))
+    d = add_noise(im, im, step_generator(99, 7, "cpu"))
     for x, y in zip(a, b):
         torch.testing.assert_close(x, y, rtol=0, atol=0)
     assert not torch.equal(a[0], c[0]) and not torch.equal(a[0], a[1])
+    assert not torch.equal(a[0], d[0])
     for x in a + c:
         assert float(x.min()) >= 0 and float(x.max()) <= 255
-    stdv = 5 * torch.rand((), generator=noise_generator(1234, 7, "cpu"))
+    stdv = 5 * torch.rand((), generator=step_generator(1234, 7, "cpu"))
     assert 0 <= float(stdv) <= 5
     inner = (im > 30) & (im < 225)   # unclipped pixels carry the noise
     assert float((a[0] - im)[inner].std()) == pytest.approx(float(stdv),
@@ -323,29 +325,21 @@ def test_uint8_wire_gives_the_float_step():
 
 
 def test_trainer_refuses_what_later_slices_port(tmp_path, monkeypatch):
+    """The watchdog and the supervisor (M8.2) raise naming their item; every
+    other knob of the JAX trainer is ported. Without a card the trainer
+    raises before it writes anything."""
+    from raft_tpu_torch.cli.train import main as train_main
+
     cfg = RAFTConfig(small=True)
     base = dict(num_steps=1, validation=(), checkpoint_dir=str(tmp_path),
                 log_dir=str(tmp_path))
     loader = Loader()
-    cases = [(dict(), dict(loader=None), "M13"),
-             (dict(), dict(resume=True), "M8.1"),
-             (dict(validation=("chairs",)), {}, "M7"),
-             (dict(profile_steps=(0, 1)), {}, "M8.7"),
-             (dict(hang_s=60.0), {}, "M8.2"),
-             (dict(num_workers=8), {}, "M13"),
-             (dict(data_root="/data"), {}, "M13"),
-             (dict(on_bad_sample="skip"), {}, "M13"),
-             (dict(stall_s=30.0), {}, "M13")]
-    for tc_kw, kw, item in cases:
-        tc = TrainConfig(**{**base, **tc_kw})
-        with pytest.raises(NotImplementedError, match=item.replace(".", r"\.")):
-            train(cfg, tc, **{"loader": loader, "device": "cpu", **kw})
-    img = torch.zeros(1, 64, 64, 3)
-    for model_kw, item in ((dict(remat=True), "M8.5"),
-                           (dict(dropout=0.1), "M8.6")):
-        model = RAFT(RAFTConfig(small=True, **model_kw))
-        with pytest.raises(NotImplementedError, match=item.replace(".", r"\.")):
-            model(img, img, iters=1, test_mode=False, train=True)
+    with pytest.raises(NotImplementedError, match=r"M8\.2"):
+        train(cfg, TrainConfig(**base, hang_s=60.0), loader=loader,
+              device="cpu")
+    for flags in (["--supervise"], ["--max_restarts", "3"]):
+        with pytest.raises(NotImplementedError, match=r"M8\.2"):
+            train_main(["--device", "cpu", *flags])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train(cfg, TrainConfig(**base), loader=loader)
