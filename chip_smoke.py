@@ -116,8 +116,33 @@ Phases, each of which fails loudly (nothing is caught):
    timed (the median of 5 profiler sessions, with their spread);
 14. the demo CLI (``cli/demo.main``) over ``demo-frames/`` with the small
    fixture, its PNGs read back;
-15. print the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
-   the ``{"ok": true, "device": ...}`` line.
+15. the supervised drill: ``python -m raft_tpu_torch.cli.train --supervise
+   --hang_s 15 --num_workers 1`` (the basic model at full width, batch 2,
+   368x496, iters 12, fp32, ``pallas``+``fused``, 6 steps on 2 seeded
+   synthetic chairs samples, a full-state save every 2 steps) under a
+   fault plan that zero-fills the second save (step 3) and hangs the
+   fourth step of attempt 0: the watchdog's exit 3, the supervisor's
+   restart, the restore sandbox's exit 4 on step 3 and its quarantine, the
+   resume from step 1 and the run's end are required, with the recovered
+   run's launches of K1-K4 (from its ``metrics.jsonl``); its final weights
+   against an uninterrupted control run's, both with cuDNN deterministic
+   and TF32 off (set in the children by a ``sitecustomize``), bitwise or
+   within the gap between two control runs; restarts, the time from the
+   wedge to the restored state, the steps redone and the time lost;
+16. each measuring CLI once, in this process, the launch counts set to 0
+   before each and read after: ``cli/envelope`` (matmul peaks in bf16,
+   fp32 and TF32, the copy bandwidth over 2 GiB, the launch time),
+   ``cli/infer_bench`` at 440x1024 materialized and alternate,
+   ``cli/corr_bench --grad`` over ``gather``, ``pallas`` (K1/K3), ``alt``,
+   ``alt_pallas`` (K5) and the ``F.grid_sample`` yardstick, each within
+   CORR_BENCH_TOL of the first route of its kind, ``cli/profile_step
+   --trace-dir`` (bf16, batch 8) and ``cli/trace_summary`` on its trace
+   (the port's kernels must show), ``cli/loader_bench`` against the
+   profiled step's pairs/s; then each kernel's bound at the measured
+   envelope, and the GRU tails' share of it at the inference geometry;
+17. print the drill's and the envelope's numbers, the ``{"kernels": [...]}``
+   line, the ``nvidia-smi`` line, and last the ``{"ok": true, "device":
+   ...}`` line.
 
 Exits non-zero, printing no result, when there is no CUDA device.
 """
@@ -194,6 +219,8 @@ CLI_STEPS = 6
 CLI_RESUME_STEPS = 8
 CLI_VAL_FREQ = 3
 MIXED_B = 8                     # train_mixed.sh's chairs batch
+CORR_BENCH_TOL = 1e-4           # corr_bench --grad: each route vs its kind's
+                                # first, gradients as a share of the largest
 
 
 _T0 = time.perf_counter()
@@ -204,22 +231,6 @@ def log(msg: str) -> None:
     print(f"{msg} (+{time.perf_counter() - _T0:.1f} s)", flush=True)
 
 
-def cuda_ms(fn, reps: int = 100, warmup: int = 10) -> float:
-    """Mean milliseconds per call of ``fn`` over ``reps`` back-to-back calls,
-    by CUDA events, after ``warmup`` calls."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def device_events(prof):
     return [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -227,19 +238,16 @@ def device_events(prof):
 
 def device_busy_ms(prof) -> float:
     """Milliseconds in which at least one kernel or copy ran on the card:
-    the union of the device events' intervals (a sum of their times counts
-    twice what overlaps, as cuDNN's kernels on its own streams do)."""
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    busy, end = 0.0, float("-inf")
-    for a, b in spans:
-        if b > end:
-            busy += b - max(a, end)
-            end = b
+    the union of the device events' intervals (``cli.profile_step.busy_ms``;
+    a sum of their times counts twice what overlaps, as cuDNN's kernels on
+    its own streams do)."""
+    from raft_tpu_torch.cli.profile_step import busy_ms
+
+    busy = busy_ms([e for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA])
     if not busy > 0:
         raise RuntimeError("torch.profiler recorded no device intervals")
-    return busy / 1e3
+    return busy
 
 
 def kernel_ms(fn, reps: int = 50, flush=None):
@@ -361,7 +369,7 @@ def time_kernels(tag: str, work, smi: str, reps: int, plain_reps: int,
             plain_ms=kernel_ms(plain, plain_reps, flush=flush),
             library_ms=(None if library is None
                         else kernel_ms(library, plain_reps, flush=flush)),
-            bound=bound_ms(nb, ops), mbytes=nb / 1e6)
+            bound=bound_ms(nb, ops), mbytes=nb / 1e6, nbytes=nb, ops=ops)
         lib = ("" if t["library_ms"] is None
                else f", library {t['library_ms']:.4f} ms")
         log(f"[{tag}] {name}{where}: kernel {t['ms']:.4f} ms (profiler, L2 "
@@ -397,28 +405,6 @@ def lookup_inputs(gen: torch.Generator, dtype: torch.dtype, B: int = 1,
     coords = torch.where(far, coords + 150.0 * torch.sign(
         torch.randn(coords.shape, generator=gen, device="cuda")), coords)
     return pyramid, coords.contiguous()
-
-
-def lookup_grid_sample(pyramid, coords, radius: int) -> torch.Tensor:
-    """The reference's lookup (core/corr.py:29-50): one bilinear
-    ``F.grid_sample`` per level, zeros padding, align_corners=True. A
-    yardstick only; the port never calls it."""
-    B, H, W, _ = coords.shape
-    K = 2 * radius + 1
-    d = torch.arange(-radius, radius + 1, device=coords.device,
-                     dtype=torch.float32)
-    delta = torch.stack(torch.meshgrid(d, d, indexing="ij"), -1)  # (dx, dy)
-    out = []
-    for i, vol in enumerate(pyramid):
-        Hl, Wl = vol.shape[-2:]
-        pts = coords.reshape(B * H * W, 1, 1, 2) / 2 ** i + delta[None]
-        grid = torch.stack([2 * pts[..., 0] / (Wl - 1) - 1,
-                            2 * pts[..., 1] / (Hl - 1) - 1], -1)
-        img = vol.reshape(B * H * W, 1, Hl, Wl).float()
-        s = F.grid_sample(img, grid, mode="bilinear", padding_mode="zeros",
-                          align_corners=True)
-        out.append(s.reshape(B, H, W, K * K))
-    return torch.cat(out, -1)
 
 
 def in_range_taps(coords, level: int, Hl: int, Wl: int, radius: int):
@@ -1352,12 +1338,288 @@ def train_cli_phase(tmp: str, smi: str) -> dict:
     return {"launches": launches, "dtypes": dtypes, "numbers": numbers}
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the supervised drill; phase 16: the measuring CLIs
+# ---------------------------------------------------------------------------
+
+# the drill's children: cuDNN deterministic and TF32 off, as in phases 8 and
+# 12, set before the CLI runs (the CLI has no flag for them)
+DRILL_SITE = """import torch
+torch.backends.cudnn.deterministic = True
+torch.backends.cudnn.benchmark = False
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+"""
+DRILL_HANG_S = 15
+DRILL_TIMEOUT_S = 420
+DRILL_PLAN = [{"site": "ckpt.orbax_save", "at": 2, "kind": "corrupt",
+               "attempt": 0},
+              {"site": "trainer.step", "at": 4, "kind": "hang",
+               "attempt": 0}]
+TRAIN_KERNELS = ("corr_lookup", "corr_scatter", "gru_gates", "gru_blend",
+                 "gru_gates_bwd", "gru_blend_bwd")
+
+
+def run_logged(cmd, env, cwd, tag: str):
+    """``cmd`` in its own session, each output line logged with its arrival
+    time: (exit code, [(seconds since the start, line)], wall seconds).
+    Killed with every process it started after DRILL_TIMEOUT_S."""
+    import threading
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, env=env, cwd=cwd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    lines = []
+
+    def read():
+        for line in proc.stdout:
+            lines.append((time.perf_counter() - t0, line.rstrip()))
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    try:
+        rc = proc.wait(timeout=DRILL_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        proc.wait()
+        rc = None
+    reader.join(30)
+    wall = time.perf_counter() - t0
+    for t, line in lines:
+        if any(k in line for k in ("[supervisor]", "[watchdog]", "[faults]",
+                                   "resumed", "quarantined", "Error",
+                                   "saved final", "loader:")):
+            log(f"[{tag}]   +{t:6.2f} s  {line[:300]}")
+    if rc != 0:
+        for _, line in lines[-40:]:
+            log(f"[{tag}]   | {line[:300]}")
+        raise RuntimeError(f"{' '.join(cmd[3:8])} ... exited {rc}")
+    return rc, lines, wall
+
+
+def final_weights(path: str) -> dict:
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def weight_gap(a: dict, b: dict) -> float:
+    return max(float((a[k].double() - b[k].double()).abs().max()) for k in a)
+
+
+def supervised_drill_phase(tmp: str, smi: str) -> dict:
+    """Phase 15: ``python -m raft_tpu_torch.cli.train --supervise`` on the
+    card, the basic model at full width through K1-K4, with a plan that
+    corrupts the second full-state save (step 3) and hangs the fourth step
+    of attempt 0: the watchdog exits 3, the supervisor restarts with
+    ``--resume``, the restore sandbox fails on step 3 (exit 4) and it is
+    quarantined, the run resumes from step 1 and finishes; its final weights
+    against an uninterrupted control run's."""
+    site = os.path.join(tmp, "drill-site")
+    os.makedirs(site)
+    with open(os.path.join(site, "sitecustomize.py"), "w") as f:
+        f.write(DRILL_SITE)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (site, REPO, os.environ.get("PYTHONPATH")) if p))
+    env.pop("RAFT_FAULT_PLAN", None)
+    env.pop("RAFT_FAULT_PLAN_FILE", None)
+    runs = os.path.join(tmp, "drill-runs")
+    base = [sys.executable, "-m", "raft_tpu_torch.cli.train", "--stage",
+            "chairs", "--corr_impl", "pallas", "--gru_impl", "fused",
+            "--synthetic", "2", "--synthetic_dir",
+            os.path.join(tmp, "drill-syn"), "--batch_size", "2",
+            "--image_size", "368", "496", "--iters", str(TRAIN_ITERS),
+            "--num_steps", "6", "--val_freq", "2", "--num_workers", "1",
+            "--data_root", os.path.join(tmp, "drill-data"),
+            "--log_dir", runs]
+
+    def ctl(name):
+        _, _, wall = run_logged(base + ["--name", name, "--checkpoint_dir",
+                                        os.path.join(tmp, name)],
+                                env, tmp, "15")
+        return wall, final_weights(os.path.join(tmp, name, f"{name}.pth"))
+
+    ctl_s, ctl_w = ctl("drill-ctl")
+    log(f"[15] control: cli/train, basic model, batch 2, 368x496, iters "
+        f"{TRAIN_ITERS}, fp32, pallas+fused, 6 steps, one loader worker, "
+        f"cuDNN deterministic: {ctl_s:.2f} s")
+    sup_env = dict(env, RAFT_FAULT_PLAN=json.dumps(DRILL_PLAN))
+    sup_dir = os.path.join(tmp, "drill-sup")
+    _, lines, sup_s = run_logged(
+        base + ["--name", "drill-sup", "--checkpoint_dir", sup_dir,
+                "--supervise", "--max_restarts", "3",
+                "--hang_s", str(DRILL_HANG_S)], sup_env, tmp, "15")
+    text = "\n".join(line for _, line in lines)
+    stage = os.path.join(sup_dir, "drill-sup", "chairs")
+    left = sorted(os.listdir(stage))
+    events = [json.loads(line) for line in open(
+        os.path.join(runs, "drill-sup", "metrics.jsonl"))]
+    restarts = [e for e in events if e.get("event") == "supervisor_restart"]
+    ends = [e for e in events if "train_loop_s" in e]
+
+    def first(pattern, after=0.0):
+        return next((t for t, line in lines
+                     if pattern in line and t >= after), None)
+
+    t_fire = first("[watchdog] train loop")
+    t_wedge = first("child wedged (exit 3")
+    t_restored = first("resumed from step", after=t_wedge or 0.0)
+    resumed_at = [int(line.split()[-1]) for t, line in lines
+                  if line.startswith("resumed from step")
+                  and t >= (t_wedge or 0.0)]
+    ok = (restarts and restarts[0]["exit_class"] == "wedge"
+          and t_fire is not None and t_wedge is not None
+          and t_restored is not None and resumed_at and "(exit 4)" in text
+          and "3.corrupt" in left
+          and "resumed from fallback step 1 (skipped corrupt step(s) [3])"
+          in text and ends)
+    if not ok:
+        raise RuntimeError(f"the supervised drill did not recover as "
+                           f"planned: {left} {restarts}")
+    launches = {k: int(ends[-1][f"launches_{k}"]) for k in TRAIN_KERNELS}
+    if not all(launches.values()):
+        raise RuntimeError(f"the recovered run launched {launches}")
+    sup_w = final_weights(os.path.join(sup_dir, "drill-sup.pth"))
+    bitwise = all(torch.equal(ctl_w[k], sup_w[k]) for k in ctl_w)
+    out = {"restarts": len(restarts), "hang_s": DRILL_HANG_S,
+           "control_s": ctl_s, "supervised_s": sup_s,
+           "lost_s": sup_s - ctl_s, "fire_s": t_fire,
+           "recover_s": t_restored - t_wedge,
+           "resume_gap_steps": restarts[0]["restored_step"] - resumed_at[0],
+           "bitwise": bitwise, "launches_recovered_run": launches,
+           "stage_dir": left}
+    if not bitwise:
+        # is the gap the resume's, or the card's from one run to the next?
+        _, ctl2_w = ctl("drill-ctl2")
+        out["weight_gap"] = weight_gap(sup_w, ctl_w)
+        out["control_gap"] = weight_gap(ctl2_w, ctl_w)
+        log(f"[15] final weights: supervised vs control max |gap| "
+            f"{out['weight_gap']:.3e}; control vs a second control "
+            f"{out['control_gap']:.3e}")
+        if out["control_gap"] == 0 or out["weight_gap"] > 10 * out[
+                "control_gap"]:
+            raise RuntimeError("the supervised run's weights differ from "
+                               "the uninterrupted run's")
+    log(f"[15] cli/train --supervise --hang_s {DRILL_HANG_S}: exit 0 after "
+        f"{len(restarts)} restart(s) ({restarts[0]['exit_class']}, resume "
+        f"point step {restarts[0]['restored_step']}); the watchdog fired at "
+        f"+{t_fire:.2f} s, the supervisor saw exit 3 at +{t_wedge:.2f} s and "
+        f"the restarted child had restored its state {out['recover_s']:.2f} s "
+        f"later (backoff, start, the sandbox's two reads); step 3 "
+        f"quarantined by the sandbox (exit 4), resumed from step "
+        f"{resumed_at[0]}: "
+        f"{out['resume_gap_steps']} steps redone; {sup_s:.2f} s against the "
+        f"control's {ctl_s:.2f} s; the stage dir {left}; the recovered run's "
+        f"launches {launches}; final weights "
+        f"{'bitwise equal to the control run' if bitwise else 'within the run-to-run gap'}; "
+        f"{smi}")
+    return out
+
+
+def measuring_clis_phase(tmp: str, smi: str) -> dict:
+    """Phase 16: each measuring CLI once on the card, in this process, the
+    launch counts set to 0 before each and read after: ``envelope``,
+    ``infer_bench`` at 440x1024 (materialized and alternate),
+    ``corr_bench`` over the four routes and the yardstick with ``--grad``,
+    ``profile_step --trace-dir`` and ``trace_summary`` on its trace, and
+    ``loader_bench`` against the profiled step's pairs/s."""
+    from raft_tpu_torch import kernels
+    from raft_tpu_torch.cli import (corr_bench, envelope, infer_bench,
+                                    loader_bench, profile_step,
+                                    trace_summary)
+
+    launches = {}
+
+    def run(name, fn, argv, want=(), key=None):
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn(argv)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in kernels.launch_counts().items() if v}
+        launches[key or name] = counts
+        log(f"[16] {name} {' '.join(argv)}: {time.perf_counter() - t0:.2f} "
+            f"s, launches {counts}")
+        if not all(counts.get(k) for k in want):
+            raise RuntimeError(f"{name} launched {counts}, want {want}")
+        return out, counts
+
+    env, _ = run("envelope", envelope.main,
+                 ["--n", "8192", "--copy-mib", "2048", "--reps", "10"])
+    log(f"[16] envelope: matmul {env['matmul_tflops']} TFLOP/s, copy "
+        f"{env['copy_gbps']:.1f} GB/s, launch {env['launch_us']:.2f} us back "
+        f"to back, {env['launch_sync_us']:.2f} us with a synchronise; {smi}")
+    infer = {}
+    for name, extra, want in (
+            ("materialized", [], ("corr_lookup", "gru_gates", "gru_blend")),
+            ("alternate", ["--alternate_corr"], ("corr_alt", "gru_gates"))):
+        infer[name], _ = run(
+            "infer_bench", infer_bench.main,
+            ["--hw", "440", "1024", "--reps", "5", "--corr_impl", "pallas",
+             "--gru_impl", "fused", *extra], want, f"infer_bench_{name}")
+        lpf = infer[name]["launches_per_forward"]
+        if lpf.get("corr_alt" if extra else "corr_lookup") != ITERS:
+            raise RuntimeError(f"infer_bench {name}: {lpf}")
+    (rows, failed), _ = run(
+        "corr_bench", corr_bench.main,
+        ["--grad", "--iters", "10", "--impls", "gather", "pallas", "alt",
+         "alt_pallas", "grid_sample"],
+        ("corr_lookup", "corr_scatter", "corr_alt"))
+    bad = {n: r["max_abs_diff"] for n, r in rows.items()
+           if not (r["max_abs_diff"] <= CORR_BENCH_TOL
+                   and r.get("primal_rel_diff", 0.0) <= CORR_BENCH_TOL)}
+    if failed or bad or len(rows) != 5:
+        raise RuntimeError(f"corr_bench: failed {failed}, beyond "
+                           f"{CORR_BENCH_TOL:g}: {bad}")
+    trace_dir = os.path.join(tmp, "profile-step")
+    prof, _ = run("profile_step", profile_step.main,
+                  ["--batch", str(MIXED_B), "--steps", "3", "--warmup", "2",
+                   "--corr_impl", "pallas", "--gru_impl", "fused",
+                   "--trace-dir", trace_dir], TRAIN_KERNELS)
+    summary, _ = run("trace_summary", trace_summary.main, [trace_dir])
+    cats = summary["categories"]
+    if not all(k in cats for k in ("K1 corr_lookup", "K3 corr_scatter",
+                                   "K2 gru_gates", "K4 gru_blend_bwd")):
+        raise RuntimeError(f"trace_summary found no port kernels: {cats}")
+    loader, _ = run("loader_bench", loader_bench.main,
+                    ["--samples", "16", "--batch", str(MIXED_B), "--epochs",
+                     "1", "--step-pairs-per-sec",
+                     f"{prof['pairs_per_s']:.2f}"])
+    log(f"[16] infer_bench 440x1024 basic iters={ITERS}: "
+        f"{infer['materialized']['ms_per_pair']:.2f} ms/pair materialized, "
+        f"{infer['alternate']['ms_per_pair']:.2f} alternate; corr_bench "
+        f"--grad ms: { {n: round(r['ms'], 4) for n, r in rows.items()} }; "
+        f"profile_step bf16 batch {MIXED_B}: {prof['ms_per_step']:.2f} ms, "
+        f"idle {prof['idle_share']:.3f}, peak {prof['peak_mib']:.0f} MiB; "
+        f"trace_summary: {summary['events']} device events, "
+        f"{ {c: round(v['share'], 3) for c, v in cats.items()} }; "
+        f"loader_bench {loader['pairs_per_s']:.2f} pairs/s, "
+        f"{loader['ratio']:.2f}x the step; {smi}")
+    return {"launches": launches, "envelope": env, "infer_bench": infer,
+            "corr_bench": rows,
+            "profile_step": prof, "trace_summary": {
+                c: v["share"] for c, v in cats.items()},
+            "loader_bench": loader}
+
+
+def envelope_bound_ms(t: dict, env: dict, tf32: bool = False) -> tuple:
+    """A kernel's bound at the measured envelope: the larger of its bytes at
+    the measured copy rate and its operations at the measured matmul peak
+    (fp32 with TF32 off; TF32 for K5's split products)."""
+    t_bytes = t["nbytes"] / (env["copy_gbps"] * 1e9) * 1e3
+    rate = env["matmul_tflops"]["tf32" if tf32 else "fp32"] * 1e12
+    t_ops = t["ops"] / rate * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
         return 2
     from raft_tpu_torch import kernels
+    from raft_tpu_torch.cli._measure import elapsed_ms
+    from raft_tpu_torch.cli.corr_bench import \
+        grid_sample_lookup as lookup_grid_sample
     from raft_tpu_torch.cli.demo import main as demo_main
     from raft_tpu_torch.config import RAFTConfig
     from raft_tpu_torch.data.png import read_png
@@ -1382,6 +1644,7 @@ def main() -> int:
     from raft_tpu_torch.training.trainer import train
 
     # -- 1. device -----------------------------------------------------------
+    cuda = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     smi = subprocess.run(
@@ -1480,7 +1743,7 @@ def main() -> int:
             f"cold, {t['bound'][0] / warm[0]:.1%} warm; {smi}")
     note_sectors("4", times["corr_lookup"], pyramid, coords, smi)
     for name, (kern, *_) in work.items():
-        times[name]["call_ms"] = cuda_ms(kern, 200)
+        times[name]["call_ms"] = elapsed_ms(kern, 200, cuda, warmup=10)
         log(f"[4] {name}: one wrapper call back-to-back "
             f"{times[name]['call_ms']:.4f} ms (events, host included)")
     del pyramid
@@ -1812,6 +2075,7 @@ def main() -> int:
             f"{eval_grid[1]}, N = {eval_grid[0] * eval_grid[1]}), {field} "
             "field")["corr_alt"]
         t["bound"], t["bound_fp32"] = alt_bound(nbytes, ops)
+        t["ops"] = 3 * ops          # the split's three TF32 products
         t["branches"] = branches[field]
         log(f"[9] corr_alt, {field} field: bound restated for tensor cores "
             f"{t['bound'][0]:.4f} ms by {t['bound'][1]} ({nbytes / 1e6:.2f} MB "
@@ -1828,8 +2092,9 @@ def main() -> int:
                              flush=flush)
     # the same by CUDA events around back-to-back calls, each after a flush,
     # less the flushes alone: a reading that owes nothing to the profiler
-    mat_build_ev = (cuda_ms(lambda: (flush(), build_corr_pyramid(f1, pyr[0])),
-                            20, 3) - cuda_ms(flush, 20, 3))
+    mat_build_ev = (elapsed_ms(lambda: (flush(), build_corr_pyramid(
+        f1, pyr[0])), 20, cuda, warmup=3) - elapsed_ms(flush, 20, cuda,
+                                                       warmup=3))
     mat_k1_ms = kernel_ms(lambda: corr_lookup_cuda(mat_pyr, coords, 4), 50,
                           flush=flush)
     log(f"[9] the materialized path K5 replaces, same fmaps (iid field): "
@@ -2017,7 +2282,21 @@ def main() -> int:
         if not np.array_equal(back[:FRAME_HW[0]], frame0):
             raise RuntimeError("the demo's PNG does not hold its frame")
 
-    # -- 15. result ----------------------------------------------------------
+    # -- 15. the supervised drill; 16. the measuring CLIs --------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        drill = supervised_drill_phase(tmp, smi)
+        clis = measuring_clis_phase(tmp, smi)
+    env = clis["envelope"]
+    for name, t in (("gru_gates", times["gru_gates"]),
+                    ("gru_blend", times["gru_blend"])):
+        b = envelope_bound_ms(t, env)
+        log(f"[16] {name} at the inference geometry (1,7040,128): bound at "
+            f"the measured envelope {b[0]:.4f} ms by {b[1]} ({t['nbytes'] / 1e6:.2f}"
+            f" MB at {env['copy_gbps']:.1f} GB/s), the median of 5 sessions "
+            f"{t['ms']:.4f} ms L2 cold: {b[0] / t['ms']:.1%} of it "
+            f"({t['bound'][0] / t['ms']:.1%} of the data sheet's); {smi}")
+
+    # -- 17. result ----------------------------------------------------------
     sources = {"corr_lookup": ("raft_tpu_torch/csrc/corr_lookup.cu",
                                "raft_tpu/kernels/corr_pallas.py:177"),
                "gru_gates": ("raft_tpu_torch/csrc/gru.cu",
@@ -2054,8 +2333,15 @@ def main() -> int:
         if "ms_range" in t:
             row.update(ms_range=t["ms_range"],
                        ms_l2_warm_range=t["ms_l2_warm_range"])
+        row["bound_envelope_ms"] = envelope_bound_ms(t, env)[0]
+        row["train_geometry"]["bound_envelope_ms"] = envelope_bound_ms(
+            tt, env)[0]
         # phase 12's mixed-precision training through cli/train
         row["launches_train_cli"] = cli_launches[name]
+        row["launches_supervised_drill"] = drill["launches_recovered_run"][
+            name]
+        row["launches_clis"] = {k: v[name] for k, v in
+                                clis["launches"].items() if name in v}
         row["dtypes_train_cli"] = cli["dtypes"].get(name, {})
         if name in err_bf16:
             row["max_abs_err_bf16"] = err_bf16[name]
@@ -2091,6 +2377,9 @@ def main() -> int:
                                "bound_by": ti["bound"][1],
                                "bound_fp32_ms": ti["bound_fp32"][0],
                                "tiled_share": share(ti["branches"])},
+                 "bound_envelope_ms": envelope_bound_ms(t, env, tf32=True)[0],
+                 "launches_clis": {k: v["corr_alt"] for k, v in
+                                   clis["launches"].items() if "corr_alt" in v},
                  "tiled_share_kitti_eval": share(branches["alternate"]),
                  "tiled_share_sintel": share(branches["sintel_alternate"]),
                  "materialized_build_ms": mat_build_ms,
@@ -2102,6 +2391,8 @@ def main() -> int:
                                   "k1_ms_median_range": list(hd_k1_ms),
                                   "ms_per_pair": {k: v[1] for k, v in hd.items()},
                                   "peak_mib": {k: v[2] for k, v in hd.items()}}})
+    print(json.dumps({"supervised_drill": drill, "envelope": env}),
+          flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -11,9 +11,19 @@ FlyingChairs-shaped ``.ppm``/``.flo`` pairs with the port's own writers
 (into ``--synthetic_dir``, by default ``<checkpoint_dir>/synthetic_chairs_N``,
 kept for a later ``--resume``) and trains on them through a chairs-stage
 ``FlowDataset`` and the ``PrefetchLoader``: decode, augmentation and collate
-are the real pipeline. ``--supervise``, ``--max_restarts`` and
-``--hang_s`` raise ``NotImplementedError``: the supervisor and the
-watchdog are ROADMAP M8.2 of the port.
+are the real pipeline.
+
+``--supervise`` runs the training as a child process
+(``training.supervisor``) and relaunches it with ``--resume`` after a
+wedge (``--hang_s``'s watchdog exits 3), a signal or a crash, up to
+``--max_restarts`` times; it gives up on two crashes at the same restored
+step and never retries a usage error (exit 2). A fault plan in
+``$RAFT_FAULT_PLAN`` or ``$RAFT_FAULT_PLAN_FILE`` (``testing.faults``) is
+armed in each child::
+
+    RAFT_FAULT_PLAN='[{"site": "trainer.step", "at": 4, "kind": "hang",
+                       "attempt": 0}]' python -m raft_tpu_torch.cli.train \\
+        --supervise --hang_s 60 --synthetic 8 --batch_size 8 ...
 """
 
 from __future__ import annotations
@@ -21,16 +31,18 @@ from __future__ import annotations
 import argparse
 import os
 import os.path as osp
-
-import numpy as np
+import sys
 
 from raft_tpu_torch.cli._args import add_corr_args, corr_overrides
+from raft_tpu_torch.cli.loader_bench import (build_dataset,
+                                             make_synthetic_chairs)
 from raft_tpu_torch.config import RAFTConfig, TrainConfig, stage_config
-
-SYNTHETIC_HW = (384, 512)       # FlyingChairs frames
 
 
 def build_parser() -> argparse.ArgumentParser:
+    # no abbreviations: --supervise and --max_restarts are stripped from the
+    # child's argv by their exact names, and an abbreviation that survived
+    # the strip would start a supervisor in every child, without end
     p = argparse.ArgumentParser(description="Train RAFT on the GPU",
                                 allow_abbrev=False)
     p.add_argument("--name", default="raft", help="name your experiment")
@@ -71,7 +83,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--val_freq", type=int, default=None,
                    help="checkpoint + validation cadence in steps")
     p.add_argument("--hang_s", type=float, default=None,
-                   help="no-progress watchdog (ROADMAP M8.2: raises)")
+                   help="no-progress watchdog deadline in seconds (exit 3 "
+                        "when the loop stops); it must cover one step (the "
+                        "first with the loader's first batch), one "
+                        "checkpoint save and one validation pass; the "
+                        "kernels' nvcc build comes before the watch")
     p.add_argument("--on_bad_sample", choices=("raise", "skip"), default=None,
                    help="loader policy for a failing decode/augment: 'skip' "
                         "resamples with a counted warning")
@@ -79,9 +95,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="loader batch deadline in seconds: a hung decode "
                         "raises LoaderStallError (0 disables)")
     p.add_argument("--supervise", action="store_true",
-                   help="supervised child process (ROADMAP M8.2: raises)")
-    p.add_argument("--max_restarts", type=int, default=None,
-                   help="restart budget under --supervise (ROADMAP M8.2)")
+                   help="run training as a supervised child process: "
+                        "relaunch with --resume after a wedge (exit 3), a "
+                        "signal or a crash; give up on two deaths at the "
+                        "same restored step or after --max_restarts")
+    p.add_argument("--max_restarts", type=int, default=5,
+                   help="restart budget under --supervise")
     p.add_argument("--synthetic", type=int, default=None, metavar="N",
                    help="train on N generated chairs-shaped samples through "
                         "the real decode, augment and collate pipeline")
@@ -122,38 +141,6 @@ def configs_from_args(args) -> tuple[RAFTConfig, TrainConfig]:
     return model_cfg, train_cfg
 
 
-def make_synthetic_chairs(root: str, n: int, hw=SYNTHETIC_HW, seed: int = 0):
-    """Write ``n`` FlyingChairs-shaped samples under ``root``: uint8 noise
-    frames ``{i:05d}_img1.ppm``, ``_img2.ppm`` and N(0, 4²) flow
-    ``{i:05d}_flow.flo``, from ``np.random.RandomState(seed)``."""
-    from raft_tpu_torch.data import frame_utils
-    from raft_tpu_torch.data.png import write_ppm
-
-    rng = np.random.RandomState(seed)
-    h, w = hw
-    os.makedirs(root, exist_ok=True)
-    for i in range(n):
-        for k in (1, 2):
-            write_ppm(osp.join(root, f"{i:05d}_img{k}.ppm"),
-                      rng.randint(0, 256, (h, w, 3), np.uint8))
-        frame_utils.write_flow(osp.join(root, f"{i:05d}_flow.flo"),
-                               rng.randn(h, w, 2).astype(np.float32) * 4)
-
-
-def build_dataset(root: str, n: int, crop=(368, 496)):
-    """The samples of :func:`make_synthetic_chairs` behind a ``FlowDataset``
-    with the chairs stage's augmentation (datasets.py:202)."""
-    from raft_tpu_torch.data.datasets import FlowDataset
-
-    ds = FlowDataset({"crop_size": crop, "min_scale": -0.1, "max_scale": 1.0,
-                      "do_flip": True})
-    for i in range(n):
-        ds.image_list.append([osp.join(root, f"{i:05d}_img1.ppm"),
-                              osp.join(root, f"{i:05d}_img2.ppm")])
-        ds.flow_list.append(osp.join(root, f"{i:05d}_flow.flo"))
-    return ds
-
-
 def synthetic_loader(n: int, train_cfg: TrainConfig, root=None):
     """A ``PrefetchLoader`` over ``n`` synthetic chairs samples, written once
     into ``root`` (a ``.complete`` marker makes a later run reuse them)."""
@@ -177,16 +164,17 @@ def synthetic_loader(n: int, train_cfg: TrainConfig, root=None):
 
 
 def main(argv=None):
-    """Train one stage; returns the final ``TrainState``."""
+    """Train one stage; returns the final ``TrainState``. Under
+    ``--supervise`` it exits with the supervisor's code instead."""
     args = build_parser().parse_args(argv)
-    if args.supervise or args.max_restarts is not None:
-        raise NotImplementedError(
-            "--supervise/--max_restarts: the supervised restart loop is "
-            "ROADMAP M8.2 of the port")
+    if args.supervise:
+        sys.exit(_supervise(args, argv))
     from raft_tpu_torch.evaluation.evaluate import resolve_device
+    from raft_tpu_torch.testing import faults
     from raft_tpu_torch.training.trainer import train
 
     resolve_device(args.device)
+    faults.arm_from_env()
     model_cfg, train_cfg = configs_from_args(args)
     loader = None
     if args.synthetic:
@@ -194,6 +182,44 @@ def main(argv=None):
                                   args.synthetic_dir)
     return train(model_cfg, train_cfg, resume=args.resume, loader=loader,
                  device=args.device)
+
+
+def _strip_flag(argv, flag, nargs):
+    out, i = [], 0
+    while i < len(argv):
+        a = argv[i]
+        if a == flag:
+            i += 1 + nargs
+            continue
+        if nargs and a.startswith(flag + "="):
+            i += 1
+            continue
+        out.append(a)
+        i += 1
+    return out
+
+
+def _supervise(args, argv) -> int:
+    """Relaunch this CLI as a supervised child with ``--resume`` forced (a
+    restart must restore, not retrain) and the supervisor's own flags
+    stripped; restart events go to the trainer's ``metrics.jsonl``."""
+    from raft_tpu_torch.training.supervisor import Supervisor
+
+    _, train_cfg = configs_from_args(args)
+    stage_dir = os.path.join(train_cfg.checkpoint_dir, train_cfg.name,
+                             train_cfg.stage)
+    child = list(sys.argv[1:]) if argv is None else list(argv)
+    child = _strip_flag(child, "--supervise", nargs=0)
+    child = _strip_flag(child, "--max_restarts", nargs=1)
+    if "--resume" not in child:
+        child.append("--resume")
+    sup = Supervisor([sys.executable, "-m", "raft_tpu_torch.cli.train",
+                      *child],
+                     max_restarts=args.max_restarts, ckpt_dir=stage_dir,
+                     metrics_path=os.path.join(train_cfg.log_dir,
+                                               train_cfg.name,
+                                               "metrics.jsonl"))
+    return sup.run()
 
 
 if __name__ == "__main__":

@@ -149,9 +149,6 @@ ITERS_EXPORT = 20
 class TrainConfig:
     """One curriculum stage (see ``raft_tpu.config.TrainConfig``). Defaults
     follow the reference's ``train.py:217-239``.
-
-    The port's trainer (``training.trainer.train``) refuses ``hang_s > 0``
-    (the no-progress watchdog, ROADMAP M8.2).
     """
 
     name: str = "raft"
@@ -183,7 +180,10 @@ class TrainConfig:
     # silently); True = requested (warns for the small model); False = the
     # standard loss
     fused_loss: Optional[bool] = None
-    # no-progress watchdog deadline in seconds; 0 disables
+    # no-progress watchdog deadline in seconds; 0 disables. It must cover the
+    # longest gap between beats: one step (the first with the loader's first
+    # batch and cuDNN's set-up; the kernels' build comes before the watch),
+    # and a checkpoint save with its validation pass
     hang_s: float = 0.0
     on_bad_sample: str = "raise"
     stall_s: float = 0.0

@@ -23,6 +23,7 @@ from typing import Dict, Iterator
 import numpy as np
 
 from raft_tpu_torch.data.datasets import fetch_dataset
+from raft_tpu_torch.testing import faults
 
 #: on_bad_sample="skip" gives up after this many consecutive failures
 #: for ONE slot — a dataset where every draw fails is systematically
@@ -118,6 +119,7 @@ class PrefetchLoader:
         self.seed = seed
         self.prefetch = prefetch
         self.epoch = 0
+        self._skip = 0  # batches the next epoch leaves out (start_at)
 
     def __len__(self):
         n = len(self.dataset)
@@ -133,6 +135,7 @@ class PrefetchLoader:
         tries = 0
         while True:
             try:
+                faults.fault_point("loader.sample")
                 return self.dataset[index]
             except Exception as exc:
                 if self.on_bad_sample != "skip":
@@ -154,6 +157,16 @@ class PrefetchLoader:
                     f"({n} skipped so far)", stacklevel=2)
                 index = int(resample.randint(len(self.dataset)))
 
+    def start_at(self, step: int) -> None:
+        """Continue the batch sequence at global batch ``step``, as a run
+        resumed at that step needs: epoch ``step // len(self)``, whose first
+        ``step % len(self)`` batches are left out undrawn. The samples come
+        in the uninterrupted run's order. Their augmentation draws match it
+        at an epoch boundary with one worker: a worker reseeds the shared
+        augmentor once per epoch and then draws sample after sample (with
+        more workers the draws follow thread timing in any run)."""
+        self.epoch, self._skip = divmod(int(step), len(self))
+
     def _epoch_indices(self) -> np.ndarray:
         idx = np.arange(len(self.dataset))
         if self.shuffle:
@@ -166,6 +179,7 @@ class PrefetchLoader:
         indices = self._epoch_indices()
         batches = [indices[i:i + self.batch_size]
                    for i in range(0, len(indices), self.batch_size)]
+        batches, self._skip = batches[self._skip:], 0
         self.epoch += 1
 
         task_q: "queue.Queue" = queue.Queue()

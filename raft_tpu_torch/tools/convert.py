@@ -15,8 +15,9 @@ key mapping of ``raft_tpu/tools/convert.py`` (lines 34-57) run in reverse:
 
 :func:`save_pth` writes the port's weights back out in the reference's
 format, which ``load_pth`` here and ``raft_tpu.tools.convert.load_pth``
-read: atomically (a temporary file, fsync'd, then ``os.replace``) with a
-sidecar sha256 manifest (``<path>.sha256``, ``<sha256hex>  <nbytes>``, the
+read: atomically (a temporary file, fsync'd, then ``os.replace``; the fault
+site ``ckpt.msgpack_write`` sits between the two) with a sidecar sha256
+manifest (``<path>.sha256``, ``<sha256hex>  <nbytes>``, the
 JAX package's format, raft_tpu/tools/convert.py:151-193) that
 :func:`load_pth` checks before it unpickles anything.
 
@@ -30,13 +31,14 @@ import hashlib
 import io
 import os
 import re
-from typing import Any, Dict, Iterator, Mapping, Tuple
+from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
 from raft_tpu_torch.config import RAFTConfig
 from raft_tpu_torch.models.raft import RAFT
+from raft_tpu_torch.testing import faults
 
 
 def _flax_path_to_torch_key(path: Tuple[str, ...], collection: str) -> str:
@@ -104,15 +106,19 @@ def manifest_path(path: str) -> str:
     return path + ".sha256"
 
 
-def _write_atomic(path: str, data: bytes, mode: str = "wb") -> None:
+def _write_atomic(path: str, data: bytes, mode: str = "wb",
+                  site: Optional[str] = None) -> None:
     """``data`` under a temporary name, fsync'd, then renamed to ``path``:
-    a crash leaves the old file or the new one, never a torn one."""
+    a crash leaves the old file or the new one, never a torn one. ``site``
+    names the fault site armed in the window between the two."""
     tmp = f"{path}.tmp.{os.getpid()}"
     try:
         with open(tmp, mode) as f:
             f.write(data)
             f.flush()
             os.fsync(f.fileno())
+        if site is not None:
+            faults.fault_point(site)
         os.replace(tmp, path)
     except BaseException:
         try:
@@ -151,14 +157,18 @@ def verify_manifest(path: str, data: bytes) -> None:
             "refusing to load it")
 
 
-def save_verified(obj, path: str) -> None:
-    """``torch.save(obj)`` to ``path`` atomically, then its manifest."""
+def save_verified(obj, path: str, site: Optional[str] = None) -> None:
+    """``torch.save(obj)`` to ``path`` atomically, then its manifest.
+    ``site`` names a fault site: a point in the window before the rename,
+    and a corruption of the finished file."""
     buf = io.BytesIO()
     torch.save(obj, buf)
     data = buf.getvalue()
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    _write_atomic(path, data)
+    _write_atomic(path, data, site=site)
     write_manifest(path, data)
+    if site is not None:
+        faults.fault_file(site, path)
 
 
 def load_verified(path: str):
@@ -187,7 +197,7 @@ def save_pth(model: RAFT, path: str) -> None:
     ``state_dict`` (the reference's key names) on the CPU, written
     atomically with its sha256 manifest."""
     save_verified({k: v.detach().cpu() for k, v in model.state_dict().items()},
-                  path)
+                  path, site="ckpt.msgpack_write")
 
 
 def load_weights(path: str, config: RAFTConfig) -> RAFT:

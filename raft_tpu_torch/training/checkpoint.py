@@ -9,26 +9,31 @@ model's card). The per-step generator of noise and dropout is seeded from
 ``<ckpt_dir>/<step>/state.pt`` with a sha256 manifest, written under a
 temporary name and renamed into place whole; the newest 20 are kept.
 
-The JAX package reads Orbax steps in a subprocess
-(``restore_sandbox.py``) because tensorstore's reader can crash the process
-on damaged bytes. The port verifies the manifest before
-``torch.load(weights_only=True)`` sees a byte, so a damaged step fails as a
-Python error here; the sandbox waits with the supervisor (ROADMAP M8.2).
-Saves are synchronous, so there is nothing for the JAX package's
-``close_all`` to flush.
+A step is read the way the JAX package reads an Orbax step: in a throwaway
+process (``training.restore_sandbox``) that checks the manifest, runs
+``torch.load(weights_only=True)`` and writes a verified snapshot, which
+this process then loads. The sandbox's exit code decides what a failure
+means: the step is damaged (quarantine it and fall back to an older one)
+or the environment failed (raise, quarantine nothing). Saves are
+synchronous, so there is nothing for the JAX package's ``close_all`` to
+flush.
 """
 
 from __future__ import annotations
 
 import os
 import shutil
+import signal
+import subprocess
+import sys
 from typing import Optional
 
 import torch
 
-from raft_tpu_torch.tools.convert import (CorruptCheckpointError,
-                                          load_verified, save_pth,
-                                          save_verified)
+from raft_tpu_torch.testing import faults
+from raft_tpu_torch.tools.convert import (load_verified, manifest_path,
+                                          save_pth, save_verified)
+from raft_tpu_torch.training.restore_sandbox import STEP_UNREADABLE_EXIT
 from raft_tpu_torch.training.train_step import TrainState
 from raft_tpu_torch.utils.ckpt_scan import (STATE_FILE, latest_step_on_disk,
                                             preflight_step, quarantine_path,
@@ -39,9 +44,31 @@ MAX_TO_KEEP = 20
 
 
 class StepDamagedError(RuntimeError):
-    """A specific step is unreadable: torn, or failing its manifest. The
-    only failure the fallback path may quarantine; anything else (disk full,
-    a model of another shape) says nothing against the step's bytes."""
+    """A specific step is unreadable: torn, failing its manifest, or
+    crashing or hanging the process that reads it. The only failure the
+    fallback path may quarantine; anything else (disk full, a model of
+    another shape, the sandbox killed from outside) says nothing against the
+    step's bytes."""
+
+
+#: sandbox deaths that indict the step: the crash signals a damaged input
+#: can provoke in a reader. SIGKILL and SIGTERM are left out: the OOM killer
+#: and process managers send them for reasons that say nothing about the
+#: step, and quarantining on them would shred an intact history.
+_CRASH_SIGNALS = frozenset(int(s) for s in (
+    signal.SIGSEGV, signal.SIGABRT, signal.SIGBUS, signal.SIGILL,
+    signal.SIGFPE))
+
+#: seconds one sandbox read may take (0 disables); a read that hangs past
+#: it is treated as a damaged step. It runs before the trainer's watchdog
+#: is armed, so without it a hung read would wedge resume for good.
+_SANDBOX_TIMEOUT_ENV = "RAFT_RESTORE_TIMEOUT_S"
+_SANDBOX_TIMEOUT_DEFAULT_S = 900.0
+
+#: the directory that holds the package, so the sandbox finds it from any
+#: working directory
+_PKG_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
 
 
 def _device(state: TrainState) -> torch.device:
@@ -78,6 +105,13 @@ def save_train_state(ckpt_dir: str, state: TrainState,
     os.rename(tmp, final)
     for _, name in step_dirs(ckpt_dir)[MAX_TO_KEEP:]:
         shutil.rmtree(os.path.join(ckpt_dir, name))
+    if faults.armed("ckpt.orbax_save"):
+        # drills: damage the committed step (what the restore must catch),
+        # or die right after it
+        victim = faults.fault_file("ckpt.orbax_save", final)
+        if victim:
+            print(f"[faults] corrupted {victim}", flush=True)
+        faults.fault_point("ckpt.orbax_save")
     return final
 
 
@@ -97,14 +131,56 @@ def _quarantine_step(ckpt_dir: str, step: int) -> Optional[str]:
     return None
 
 
+def _sandbox_env() -> dict:
+    env = dict(os.environ)
+    # drills target the trainer's own sites, not the sandbox's writes
+    env.pop("RAFT_FAULT_PLAN", None)
+    env.pop("RAFT_FAULT_PLAN_FILE", None)
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (_PKG_ROOT, env.get("PYTHONPATH")) if p)
+    return env
+
+
 def _read_step(step_path: str) -> dict:
+    """The state tree of one step, read through the restore sandbox.
+    Raises :class:`StepDamagedError` for a step that is torn, fails its
+    manifest, crashes its reader or hangs past the deadline, and
+    ``RuntimeError`` for any other failure of the sandbox."""
     reason = preflight_step(step_path)
     if reason is not None:
         raise StepDamagedError(f"{step_path}: {reason}")
+    parent = os.path.dirname(step_path)
+    snap = os.path.join(parent, f"restore-snapshot.tmp.{os.getpid()}.pt")
+    timeout_s = float(os.environ.get(_SANDBOX_TIMEOUT_ENV,
+                                     _SANDBOX_TIMEOUT_DEFAULT_S))
     try:
-        return load_verified(os.path.join(step_path, STATE_FILE))
-    except CorruptCheckpointError as exc:
-        raise StepDamagedError(str(exc)) from exc
+        try:
+            proc = subprocess.run(
+                [sys.executable, "-m",
+                 "raft_tpu_torch.training.restore_sandbox", step_path, snap],
+                env=_sandbox_env(), capture_output=True, text=True,
+                timeout=timeout_s or None)
+        except subprocess.TimeoutExpired as exc:
+            # run() has killed the sandbox
+            raise StepDamagedError(
+                f"restore sandbox for {step_path} hung past {timeout_s:.0f}s "
+                f"({_SANDBOX_TIMEOUT_ENV}) and was killed — treating the step "
+                "as unreadable") from exc
+        if proc.returncode != 0:
+            msg = (f"restore sandbox failed for {step_path} (exit "
+                   f"{proc.returncode}): {proc.stderr.strip()[-500:]}")
+            if (proc.returncode == STEP_UNREADABLE_EXIT
+                    or -proc.returncode in _CRASH_SIGNALS):
+                raise StepDamagedError(msg)
+            raise RuntimeError(msg)
+        return load_verified(snap)
+    finally:
+        for p in (snap, manifest_path(snap)):
+            try:
+                os.unlink(p)
+            except OSError:
+                pass
 
 
 def _apply(state: TrainState, tree: dict) -> TrainState:

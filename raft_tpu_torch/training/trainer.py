@@ -12,13 +12,21 @@ metrics summed on the device and fetched once per ``sum_freq`` window; every
 results go to the log; ``<name>.pth`` at the end (train.py:211-212).
 ``resume=True`` restores the newest intact full state of the stage.
 ``profile_steps=(a, b)`` traces steps a..b-1 with ``torch.profiler`` into
-``<log_dir>/<name>``.
+``<log_dir>/<name>``. The run's last ``metrics.jsonl`` record holds the
+host's wait for the loader and each kernel's launches in the call.
 
 :func:`train_curriculum` chains stages (train_standard.sh:3-6), skipping a
 stage whose final weights exist and pass their manifest.
 
-``hang_s`` (the no-progress watchdog) raises ``NotImplementedError``: it
-waits with the supervisor, ROADMAP M8.2.
+``hang_s > 0`` arms the no-progress watchdog (``utils.watchdog.HangWatch``),
+beaten once a step and after each checkpoint and validation: a loop that
+stops for ``hang_s`` exits 3 for the supervisor (``training.supervisor``,
+``cli/train --supervise``) to restart with ``resume``. On the card the
+kernels are built and loaded before the watch is armed, so a first build
+with ``nvcc`` never counts against it. ``resume`` also moves a loader that
+has ``start_at`` (the ``PrefetchLoader``) to the restored step, so the run
+continues on the batches the uninterrupted run would have drawn. The fault
+site ``trainer.step`` sits at the top of the loop (``testing.faults``).
 """
 
 from __future__ import annotations
@@ -31,9 +39,11 @@ from typing import Dict, Iterable, Optional
 import numpy as np
 import torch
 
+from raft_tpu_torch import kernels
 from raft_tpu_torch.config import RAFTConfig, TrainConfig, stage_config
 from raft_tpu_torch.evaluation import evaluate as ev
 from raft_tpu_torch.models.raft import RAFT
+from raft_tpu_torch.testing import faults
 from raft_tpu_torch.tools.convert import (CorruptCheckpointError,
                                           load_weights, manifest_path,
                                           verify_manifest)
@@ -44,6 +54,7 @@ from raft_tpu_torch.training.train_step import (TrainState,
                                                 make_train_step)
 from raft_tpu_torch.utils.ckpt_scan import (latest_step_on_disk,
                                             quarantine_path)
+from raft_tpu_torch.utils.watchdog import HangWatch
 
 LOGGED = ("loss", "epe", "1px", "3px", "5px")
 
@@ -117,9 +128,6 @@ def train(model_cfg: RAFTConfig, train_cfg: TrainConfig, resume: bool = False,
     full state, schedule and step included. ``loader`` is an iterable of
     batch dicts, re-iterated until the steps are done; None builds the
     stage's mix under ``data_root`` (``data.loader.fetch_dataloader``)."""
-    if train_cfg.hang_s > 0:
-        raise NotImplementedError(
-            "hang_s: the no-progress watchdog is ROADMAP M8.2 of the port")
     dev = ev.resolve_device(device)
     np.random.seed(train_cfg.seed)  # train.py:241-242
     torch.manual_seed(train_cfg.seed)
@@ -142,7 +150,13 @@ def train(model_cfg: RAFTConfig, train_cfg: TrainConfig, resume: bool = False,
             data_root=train_cfg.data_root, num_workers=train_cfg.num_workers,
             seed=train_cfg.seed, wire_dtype="uint8",
             on_bad_sample=train_cfg.on_bad_sample, stall_s=train_cfg.stall_s)
+    if resume and hasattr(loader, "start_at"):
+        loader.start_at(state.step)
     step_fn = make_train_step(model_cfg, train_cfg)
+    if dev.type == "cuda" and _uses_kernels(model_cfg):
+        from raft_tpu_torch.kernels import _build
+
+        _build.library()  # nvcc at first use: before the watch is armed
     logger = Logger(os.path.join(train_cfg.log_dir, train_cfg.name),
                     lr_fn=lambda _: state.scheduler.get_last_lr()[0])
     logger.start_at(state.step)
@@ -150,6 +164,8 @@ def train(model_cfg: RAFTConfig, train_cfg: TrainConfig, resume: bool = False,
     sums, n = None, 0
     batches = DeviceBatches(loader, dev)
     first_step, t_loop, val_s = state.step, time.perf_counter(), 0.0
+    launches0 = kernels.launch_counts()
+    hang_watch = HangWatch(train_cfg.hang_s, label="train loop")
 
     def flush():
         # one device-to-host fetch per window
@@ -166,15 +182,20 @@ def train(model_cfg: RAFTConfig, train_cfg: TrainConfig, resume: bool = False,
         profiler.stop()
         profiler = None
 
+    hang_watch.start()
     try:
         while state.step < train_cfg.num_steps:
             start = state.step
             for batch in batches:
+                # drill site: a hang here is a wedged device to the watch,
+                # a crash a preemption in the middle of the run
+                faults.fault_point("trainer.step")
                 if (prof and profiler is None
                         and prof[0] <= state.step < prof[1]):
                     profiler = _start_profiler(
                         os.path.join(train_cfg.log_dir, train_cfg.name), dev)
                 metrics = step_fn(state, batch)
+                hang_watch.beat()
                 if profiler is not None and state.step >= prof[1]:
                     stop_profiler()
                 sums = (metrics if sums is None
@@ -196,6 +217,7 @@ def train(model_cfg: RAFTConfig, train_cfg: TrainConfig, resume: bool = False,
                     if results:
                         logger.write_dict(results)
                     val_s += time.perf_counter() - t_val
+                    hang_watch.beat()  # a long validation is no wedge
                 if state.step >= train_cfg.num_steps:
                     break
             if state.step == start:
@@ -209,21 +231,35 @@ def train(model_cfg: RAFTConfig, train_cfg: TrainConfig, resume: bool = False,
         # checkpoints and validation
         loop_s = time.perf_counter() - t_loop
         steps = state.step - first_step
+        # and each kernel's launches in this call, steps and validation
         logger.write_dict({"loader_wait_s": batches.wait_s,
                            "train_loop_s": loop_s, "validation_s": val_s,
-                           "train_loop_steps": steps})
+                           "train_loop_steps": steps, **{
+                               f"launches_{k}": v - launches0[k]
+                               for k, v in kernels.launch_counts().items()}})
         print(f"loader: the host waited {batches.wait_s:.3f} s for batches "
               f"in {loop_s - val_s:.3f} s of {steps} steps (the loop "
               f"{loop_s:.3f} s with {val_s:.3f} s of checkpoints and "
               "validation)", flush=True)
         final = os.path.join(train_cfg.checkpoint_dir, f"{train_cfg.name}.pth")
+        hang_watch.beat()
         ckpt_lib.save_weights(final, model)
         print(f"saved final weights to {final}", flush=True)
     finally:
+        # an in-process caller that catches an exception must not be
+        # killed later by a watch nobody beats
+        hang_watch.stop()
         if profiler is not None:
             profiler.stop()
         logger.close()
     return state
+
+
+def _uses_kernels(model_cfg: RAFTConfig) -> bool:
+    """Whether ``model_cfg`` runs any of the hand-written kernels: the
+    lookup (K1/K3 or, with ``alternate_corr``, K5) unless ``corr_impl`` is
+    the plain ``"gather"``, the GRU tails (K2/K4) with ``gru_impl="fused"``."""
+    return model_cfg.corr_impl != "gather" or model_cfg.gru_impl == "fused"
 
 
 def _start_profiler(trace_dir: str, dev: torch.device):

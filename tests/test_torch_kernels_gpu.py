@@ -494,3 +494,15 @@ def test_train_mode_gradients_kernels_match_plain(cuda, monkeypatch):
         if scale > 1e-4 * gmax:
             rel.append(err / scale)
     assert float(np.median(rel)) <= 1e-5
+
+
+def test_envelope_measures_the_card(cuda):
+    """``cli/envelope`` at small sizes: every rate positive and plausible
+    for a card, the device named."""
+    from raft_tpu_torch.cli import envelope
+
+    out = envelope.main(["--n", "2048", "--copy-mib", "256", "--reps", "5",
+                         "--launches", "200"])
+    assert all(v > 1 for v in out["matmul_tflops"].values())
+    assert out["copy_gbps"] > 100 and 0 < out["launch_us"] < 1000
+    assert out["device"] == torch.cuda.get_device_name(0)

@@ -24,6 +24,7 @@ import glob
 import json
 import os
 import os.path as osp
+import threading
 
 import numpy as np
 import pytest
@@ -325,22 +326,30 @@ def test_uint8_wire_gives_the_float_step():
 
 
 def test_trainer_refuses_what_later_slices_port(tmp_path, monkeypatch):
-    """The watchdog and the supervisor (M8.2) raise naming their item; every
-    other knob of the JAX trainer is ported. Without a card the trainer
-    raises before it writes anything."""
-    from raft_tpu_torch.cli.train import main as train_main
+    """No knob of the JAX trainer is left for a later slice: ``hang_s``
+    arms the watchdog, which is stopped when ``train`` returns, and
+    ``--max_restarts`` parses without ``--supervise`` (unused then, as in
+    the JAX CLI). Without a card the trainer raises before it writes
+    anything."""
+    from raft_tpu_torch.cli.train import build_parser
 
     cfg = RAFTConfig(small=True)
-    base = dict(num_steps=1, validation=(), checkpoint_dir=str(tmp_path),
-                log_dir=str(tmp_path))
     loader = Loader()
-    with pytest.raises(NotImplementedError, match=r"M8\.2"):
-        train(cfg, TrainConfig(**base, hang_s=60.0), loader=loader,
-              device="cpu")
-    for flags in (["--supervise"], ["--max_restarts", "3"]):
-        with pytest.raises(NotImplementedError, match=r"M8\.2"):
-            train_main(["--device", "cpu", *flags])
+    ran = tmp_path / "ran"
+    state = train(cfg, TrainConfig(num_steps=1, validation=(), hang_s=60.0,
+                                   checkpoint_dir=str(ran),
+                                   log_dir=str(ran)),
+                  loader=loader, device="cpu")
+    assert state.step == 1
+    assert not [t for t in threading.enumerate()
+                if t.name.startswith("HangWatch") and t.is_alive()]
+    args = build_parser().parse_args(["--max_restarts", "3"])
+    assert not args.supervise and args.max_restarts == 3
+    refused = tmp_path / "refused"
+    refused.mkdir()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        train(cfg, TrainConfig(**base), loader=loader)
-    assert not os.listdir(tmp_path)
+        train(cfg, TrainConfig(num_steps=1, validation=(),
+                               checkpoint_dir=str(refused),
+                               log_dir=str(refused)), loader=loader)
+    assert not os.listdir(refused)

@@ -12,7 +12,10 @@ in their on-disk layouts; and ``profile_steps`` writing a trace.
 - ``--resume --num_steps 5`` continues from the newest full state: the
   step count and the learning rate go on from it.
 - The curriculum trains chairs then kitti, each stage's final chained into
-  the next, and a second run skips both.
+  the next, and a second run skips both. Its KITTI frames are one pixel
+  larger than the kitti crop (288x960) each way: ``SparseFlowAugmentor``
+  skips its resize on a fifth of its draws, and a frame smaller than the
+  crop then raises, as the JAX package's does (pinned below).
 """
 
 import json
@@ -24,11 +27,13 @@ import pytest
 import torch
 
 from raft_tpu.config import RAFTConfig as JaxConfig
+from raft_tpu.data.augmentor import SparseFlowAugmentor as JaxSparseAugmentor
 from raft_tpu.tools.convert import load_pth as jax_load_pth
 from raft_tpu_torch.cli import curriculum
 from raft_tpu_torch.cli import train as train_cli
 from raft_tpu_torch.config import RAFTConfig, stage_config
 from raft_tpu_torch.data import frame_utils as fu
+from raft_tpu_torch.data.augmentor import SparseFlowAugmentor
 from raft_tpu_torch.data.png import write_png
 from raft_tpu_torch.tools.convert import load_pth
 from raft_tpu_torch.training.trainer import train
@@ -42,7 +47,12 @@ def _few_torch_threads():
     torch.set_num_threads(n)
 
 
-def write_kitti(root, n=2, hw=(64, 160)):
+KITTI_CROP = (288, 960)         # the kitti stage's crop (config.py)
+
+
+def write_kitti(root, n=2, hw=(KITTI_CROP[0] + 1, KITTI_CROP[1] + 1)):
+    """``n`` KITTI-layout pairs of ``hw`` frames; the default is one pixel
+    over the kitti crop each way, the least a kitti stage can train on."""
     rng = np.random.RandomState(7)
     d = osp.join(root, "KITTI", "training")
     os.makedirs(osp.join(d, "image_2"))
@@ -61,7 +71,8 @@ def _records(path):
 
 
 def test_cli_train_synthetic_then_resume(tmp_path):
-    write_kitti(str(tmp_path / "data"))
+    # validation only (never cropped): small frames keep it quick
+    write_kitti(str(tmp_path / "data"), hw=(64, 160))
     argv = ["--device", "cpu", "--small", "--name", "cli", "--synthetic", "4",
             "--batch_size", "2", "--image_size", "64", "96", "--iters", "2",
             "--num_workers", "2", "--val_freq", "2", "--validation", "kitti",
@@ -120,7 +131,32 @@ def write_chairs(root, n=2, hw=(384, 512)):
                       np.full((*hw, 2), rng.randn(), np.float32))
 
 
-def test_cli_curriculum_two_stages(tmp_path, capsys):
+@pytest.mark.parametrize("augmentor", [SparseFlowAugmentor,
+                                       JaxSparseAugmentor])
+def test_sparse_sample_smaller_than_the_crop_raises_without_resize(augmentor):
+    """With its resize skipped (``spatial_aug_prob`` 0), the sparse
+    augmentor crops the frame as it is: one smaller than the crop raises in
+    the crop's ``randint``, in both packages; one a pixel larger fits."""
+    aug = augmentor(KITTI_CROP, rng=np.random.RandomState(0))
+    aug.spatial_aug_prob = 0.0
+    rng = np.random.RandomState(1)
+
+    def sample(hw):
+        return (rng.randint(0, 256, (*hw, 3)).astype(np.uint8),
+                rng.randint(0, 256, (*hw, 3)).astype(np.uint8),
+                rng.randn(*hw, 2).astype(np.float32),
+                (rng.rand(*hw) > 0.3).astype(np.float32))
+
+    with pytest.raises(ValueError):
+        aug.spatial_transform(*sample((64, 160)))
+    out = aug.spatial_transform(*sample((KITTI_CROP[0] + 1,
+                                         KITTI_CROP[1] + 1)))
+    assert out[0].shape == (*KITTI_CROP, 3)
+
+
+def test_cli_curriculum_two_stages(tmp_path, capsys, monkeypatch):
+    # the curriculum CLI has no --log_dir: the stages log under ./runs
+    monkeypatch.chdir(tmp_path)
     data = str(tmp_path / "data")
     write_chairs(data)
     write_kitti(data)
