@@ -140,9 +140,28 @@ Phases, each of which fails loudly (nothing is caught):
    (the port's kernels must show), ``cli/loader_bench`` against the
    profiled step's pairs/s; then each kernel's bound at the measured
    envelope, and the GRU tails' share of it at the inference geometry;
-17. print the drill's and the envelope's numbers, the ``{"kernels": [...]}``
-   line, the ``nvidia-smi`` line, and last the ``{"ok": true, "device":
-   ...}`` line.
+17. the serving engine (``serving.engine.RAFTEngine``): engine A, the
+   basic model at full width with seeded random weights, ``pallas`` +
+   ``fused``, iters 20, u8 wire, warm start, buckets (1, 440, 1024) and (4,
+   440, 1024) and the ragged class (4, 440, 1024), each captured as a CUDA
+   graph (seconds each, peak memory); phase 5's pairs served singly and
+   four at a time, each replay against the eager ``RAFT.forward`` of the
+   same padded bucket inputs (within SERVE_TOL); ms a pair by host clock
+   and by CUDA events, replay against eager; one profiled dispatch's busy
+   and idle share and its K1/K2 launches by kernel name (20 K1, 40 gates,
+   40 blends a replay); one ragged replay of four request shapes against
+   the eager ``forward_ragged``, no new capture; the hot swap (one thread
+   dispatching, one swapping two seeded weight sets: every output bitwise
+   one set's, no new capture); engine B, the small fixture with the
+   feature cache over ``demo-frames/``, each warm pair within 5e-4 px of
+   the plain twin engine's with the same ``flow_init``, its H2D bytes and
+   encoder saving; ``export_program`` of the small fixture loaded in a
+   fresh process (batch 1 and 2 against eager, K1 in its profile); and
+   ``cli/parity`` over ``demo-frames/`` (within 5e-4 px);
+18. print the drill's, the envelope's and the serving phase's numbers, the
+   ``{"kernels": [...]}`` line (with ``launches_serving`` on K1 and K2),
+   the ``nvidia-smi`` line, and last the ``{"ok": true, "device": ...}``
+   line.
 
 Exits non-zero, printing no result, when there is no CUDA device.
 """
@@ -1600,6 +1619,531 @@ def measuring_clis_phase(tmp: str, smi: str) -> dict:
             "loader_bench": loader}
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the serving engine
+# ---------------------------------------------------------------------------
+
+SERVE_ENVELOPE = [(1, 440, 1024), (4, 440, 1024)]
+SERVE_CLASS = (4, 440, 1024)
+SERVE_TOL = 1e-5                # px, a replay against eager on its inputs
+RAGGED_SHAPES = [(436, 1024), (368, 496), (256, 256), (320, 640)]
+SWAP_DISPATCHES = 20
+SERVE_KERNELS = {"corr_lookup": "corr_lookup_kernel",
+                 "gru_gates": "gru_gates_kernel",
+                 "gru_blend": "gru_blend_kernel"}
+EXPORT_CHILD = """import json, sys, time
+import numpy as np, torch
+torch.backends.cudnn.allow_tf32 = False      # fp32, as the parent's eager
+torch.backends.cuda.matmul.allow_tf32 = False
+import raft_tpu_torch.kernels
+from raft_tpu_torch.serving.export import load_program
+from torch.profiler import ProfilerActivity, profile
+program = load_program(sys.argv[1])
+x = np.load(sys.argv[2])
+out, ms = {}, {}
+for b in (1, 2):
+    i1 = torch.from_numpy(x["i1"][:b]).cuda()
+    i2 = torch.from_numpy(x["i2"][:b]).cuda()
+    program(i1, i2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out[f"b{b}"] = program(i1, i2).cpu().numpy()
+    ms[b] = (time.perf_counter() - t0) * 1e3
+with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    program(torch.from_numpy(x["i1"][:1]).cuda(),
+            torch.from_numpy(x["i2"][:1]).cuda())
+    torch.cuda.synchronize()
+names = [e.name for e in prof.events()
+         if e.device_type == torch.autograd.DeviceType.CUDA]
+np.savez(sys.argv[3], **out)
+print(json.dumps({"ms": ms, "k1_events": sum("corr_lookup_kernel" in n
+                                             for n in names),
+                  "k1_names": sorted({n for n in names
+                                      if "corr_lookup" in n})}))
+"""
+
+
+def bucket_u8(frames1, frames2, bucket):
+    """The uint8 bucket inputs a u8-wire engine builds from (b, h, w, 3)
+    frames: cast, edge-padded to ÷8, zero-filled to ``bucket``."""
+    from raft_tpu_torch.ops.padding import pad_amounts
+
+    out = []
+    for f in (frames1, frames2):
+        f = np.asarray(f).astype(np.uint8)
+        b, h, w, _ = f.shape
+        left, right, top, bottom = pad_amounts(h, w)
+        bb, bh, bw = bucket
+        f = np.pad(f, ((0, 0), (top, bottom), (left, right), (0, 0)),
+                   mode="edge")
+        f = np.pad(f, ((0, bb - b), (0, bh - f.shape[1]),
+                       (0, bw - f.shape[2]), (0, 0)))
+        out.append(torch.from_numpy(f).cuda())
+    return out
+
+
+def ragged_box(pairs, bucket):
+    """The uint8 capacity box and extents a u8-wire ragged engine builds."""
+    from raft_tpu_torch.ops.padding import pad_amounts
+
+    bb, bh, bw = bucket
+    boxes = [np.zeros((bb, bh, bw, 3), np.uint8) for _ in range(2)]
+    vh = np.zeros(bb, np.int32)
+    vw = np.zeros(bb, np.int32)
+    crops = []
+    for i, pair in enumerate(pairs):
+        h, w = pair[0].shape[:2]
+        left, right, top, bottom = pad_amounts(h, w)
+        for box, f in zip(boxes, pair):
+            box[i, :h + top + bottom, :w + left + right] = np.pad(
+                f.astype(np.uint8), ((top, bottom), (left, right), (0, 0)),
+                mode="edge")
+        vh[i], vw[i] = (h + top + bottom) // 8, (w + left + right) // 8
+        crops.append((top, left, h, w))
+    return ([torch.from_numpy(b).cuda() for b in boxes]
+            + [torch.from_numpy(v).cuda() for v in (vh, vw)], crops)
+
+
+def events_ms(fn, reps: int) -> float:
+    """Milliseconds per call of ``fn`` by CUDA events around ``reps``
+    calls after one warm-up (host gaps between launches included)."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def host_ms(fn, reps: int) -> float:
+    """Median host milliseconds of ``fn`` (which ends in a host read)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def profiled_replay(fn, per_call: dict, tag: str):
+    """One call of ``fn`` under the profiler: (wall ms, busy ms, each
+    serving kernel's device launches). A session can lose device events
+    (``kernel_ms``), so up to four sessions are taken, until one holds
+    exactly ``per_call`` launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(4):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        counts = {k: sum(sub in n for n in names)
+                  for k, sub in SERVE_KERNELS.items()}
+        if counts == per_call:
+            return wall, device_busy_ms(prof), counts, prof
+        log(f"[17] {tag}: profiler session {attempt + 1} of 4 recorded "
+            f"{counts}, want {per_call}")
+    raise RuntimeError(f"{tag}: the profiler never recorded {per_call}")
+
+
+def serving_phase(smi: str) -> dict:
+    """Phase 17: the serving engine on the card (``serving.engine``,
+    ``serving.export``, ``cli/parity``); see the module docstring."""
+    import contextlib
+    import io
+    import threading
+
+    from raft_tpu_torch import kernels
+    from raft_tpu_torch.cli.parity import main as parity_main
+    from raft_tpu_torch.config import ITERS_EXPORT, RAFTConfig
+    from raft_tpu_torch.data.png import read_png
+    from raft_tpu_torch.models import RAFT
+    from raft_tpu_torch.serving import RAFTEngine
+    from raft_tpu_torch.serving.export import (export_program,
+                                               make_serving_fn)
+    from raft_tpu_torch.tools.convert import load_pth
+
+    iters = ITERS_EXPORT
+    per_replay = {"corr_lookup": iters, "gru_gates": 2 * iters,
+                  "gru_blend": 2 * iters}
+    cfg = RAFTConfig(corr_impl="pallas", gru_impl="fused")
+    weights_a = RAFT(cfg, torch.Generator().manual_seed(0)).state_dict()
+    weights_b = RAFT(cfg, torch.Generator().manual_seed(1)).state_dict()
+    out = {}
+
+    # -- engine A: two buckets and one ragged class captured, timed ----------
+    # Convolutions in TF32 (PyTorch's default), cuDNN deterministic: in fp32
+    # cuDNN takes FFT convolutions at the encoders' batch of 8 (see the fp32
+    # forward at batch 4 below); the matmuls, the correlation among them,
+    # stay fp32. Engine A0 below serves batch 1 in fp32, as section 5 ran.
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cudnn.deterministic = True
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    eng = RAFTEngine(weights_a, cfg, iters=iters, envelope=SERVE_ENVELOPE,
+                     precompile=False, wire="u8", warm_start=True,
+                     ragged=True, capacity_classes=[SERVE_CLASS])
+    weights_mib = sum(t.numel() * t.element_size()
+                      for t in eng.model.state_dict().values()) / 2 ** 20
+    capture_s = {}
+    for b, h, w in SERVE_ENVELOPE:
+        t0 = time.perf_counter()
+        eng.ensure_bucket(b, h, w)
+        capture_s[f"{b}x{h}x{w}"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eng.ensure_ragged(*SERVE_CLASS)
+    capture_s["ragged_" + "x".join(map(str, SERVE_CLASS))] = (
+        time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    captures = eng.capture_count
+    split = {f"{k[0]} {'x'.join(map(str, k[1]))}": {
+        n: round(v, 3) for n, v in d.items()}
+        for k, d in eng.capture_seconds.items()}
+    log(f"[17] engine A (basic, seeded weights, pallas+fused, iters={iters}, "
+        f"u8 wire, warm start; TF32 convolutions, cuDNN deterministic): "
+        f"captured {captures} graphs, seconds each "
+        f"{ {k: round(v, 3) for k, v in capture_s.items()} } (the eager "
+        f"warm-up and the capture: {split}); peak max_memory_allocated "
+        f"{peak:.0f} MiB with 2 buckets and 1 ragged class in one pool "
+        f"(weights {weights_mib:.0f} MiB); launch counts during the captures "
+        f"{kernels.launch_counts()} (warm-up and capture, one forward each); "
+        f"{smi}")
+    out.update(capture_s=capture_s, capture_split=split, peak_mib=peak,
+               weights_mib=weights_mib)
+
+    # -- replays against eager, bitwise --------------------------------------
+    frames = synthetic_frames(0, PAIRS + 1)
+    zero_init = {b: torch.zeros((b, 55, 128, 2), device="cuda")
+                 for b in (1, 4)}
+
+    def eager(b, f1, f2):
+        i1, i2 = bucket_u8(f1, f2, (b, 440, 1024))
+        with torch.no_grad():
+            return eng.model(i1, i2, iters=iters, flow_init=zero_init[b])[1]
+
+    gap = 0.0
+    kernels.reset_launch_counts()
+    eng_replays = dict(eng.replayed_launches())
+    for i in range(PAIRS):
+        got = eng.infer_batch(frames[i][None], frames[i + 1][None])
+        want = eager(1, frames[i][None], frames[i + 1][None])
+        gap = max(gap, float(np.abs(got - want[:, 2:438].cpu().numpy()).max()))
+    f1, f2 = np.stack(frames[:PAIRS]), np.stack(frames[1:])
+    got4 = eng.infer_batch(f1, f2)
+    gap4 = float(np.abs(got4 - eager(4, f1, f2)[:, 2:438].cpu().numpy()).max())
+    log(f"[17] the {PAIRS} 436x1024 pairs of phase 5 served singly (bucket "
+        f"1x440x1024) and {PAIRS} at a time (4x440x1024): each replay "
+        f"against the eager RAFT.forward of the same padded u8 bucket inputs: "
+        f"largest gap {gap:.3e} px singly, {gap4:.3e} px at batch 4 (fail "
+        f"above {SERVE_TOL:g})")
+    if not (gap <= SERVE_TOL and gap4 <= SERVE_TOL):
+        raise RuntimeError("a bucket replay disagrees with eager")
+    out.update(replay_gap_px=gap, replay_gap_b4_px=gap4)
+
+    # -- time: host clock request to flow, CUDA events replay against eager --
+    single = functools.partial(eng.infer_batch, frames[0][None],
+                               frames[1][None])
+    b1_eager = functools.partial(eager, 1, frames[0][None], frames[1][None])
+
+    def eager_host(b, f1, f2):
+        return eager(b, f1, f2)[:, 2:438].cpu().numpy()
+
+    prog1 = eng._programs[(1, 440, 1024)]
+    prog4 = eng._programs[(4, 440, 1024)]
+    t = {"replay_host_b1": host_ms(single, 5),
+         "eager_host_b1": host_ms(functools.partial(
+             eager_host, 1, frames[0][None], frames[1][None]), 5),
+         "replay_host_b4": host_ms(functools.partial(eng.infer_batch, f1, f2),
+                                   3) / PAIRS,
+         "eager_host_b4": host_ms(functools.partial(eager_host, 4, f1, f2),
+                                  3) / PAIRS,
+         "replay_events_b1": events_ms(prog1.graph.replay, 5),
+         "eager_events_b1": events_ms(b1_eager, 5),
+         "replay_events_b4": events_ms(prog4.graph.replay, 3) / PAIRS,
+         "eager_events_b4": events_ms(functools.partial(eager, 4, f1, f2),
+                                      3) / PAIRS}
+    log(f"[17] ms a pair, basic model 440x1024 iters={iters}: batch 1 replay "
+        f"{t['replay_host_b1']:.2f} (host clock, request to fetched flow) / "
+        f"{t['replay_events_b1']:.2f} (CUDA events, graph replay alone), eager "
+        f"{t['eager_host_b1']:.2f} / {t['eager_events_b1']:.2f}; batch 4 "
+        f"replay {t['replay_host_b4']:.2f} / {t['replay_events_b4']:.2f}, "
+        f"eager {t['eager_host_b4']:.2f} / {t['eager_events_b4']:.2f}; {smi}")
+    wall, busy, counts, prof = profiled_replay(single, per_replay,
+                                               "batch-1 replay")
+    evs = device_events(prof)
+    log(f"[17] one batch-1 dispatch under the profiler: wall {wall:.2f} ms, "
+        f"device busy {busy:.2f} ms, idle share {1 - busy / wall:.3f} (eager, "
+        f"PERF.md section 5: busy 53.06 of 100.07 ms, idle 0.470); device "
+        f"launches by kernel name {counts} (per replay, want {per_replay}); "
+        f"top device time:")
+    for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"[17]   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} "
+            f"{e.key[:100]}")
+    _, _, counts4, _ = profiled_replay(
+        functools.partial(eng.infer_batch, f1, f2), per_replay,
+        "batch-4 replay")
+    t.update(profiled_wall_ms=wall, profiled_busy_ms=busy,
+             idle_share=1 - busy / wall)
+    out.update(times=t, launches_per_replay=counts)
+
+    # -- ragged: one replay of the class carries four shapes ----------------
+    caps = eng.capture_count
+    ragged_frames = [(frames[i][:h, :w], frames[i + 1][:h, :w])
+                     for i, (h, w) in enumerate(RAGGED_SHAPES)]
+    rows = eng.infer_ragged(ragged_frames)
+    box, crops = ragged_box(ragged_frames, SERVE_CLASS)
+    with torch.no_grad():
+        _, up = eng.model.forward_ragged(
+            *box, torch.zeros((4, 55, 128, 2), device="cuda"), iters=iters)
+    up = up.cpu().numpy()
+    rgap = max(float(np.abs(r - up[i, top:top + h, left:left + w]).max())
+               for i, (r, (top, left, h, w)) in enumerate(zip(rows, crops)))
+    shapes_ok = [r.shape[:2] for r in rows] == RAGGED_SHAPES
+    log(f"[17] ragged class {SERVE_CLASS}: one replay carried "
+        f"{RAGGED_SHAPES}; flows {[r.shape for r in rows]}; captures "
+        f"{caps} -> {eng.capture_count}, ragged table {eng.ragged_classes()}; "
+        f"against the eager forward_ragged on the same box: {rgap:.3e} px "
+        f"(fail above {SERVE_TOL:g})")
+    if not (shapes_ok and eng.capture_count == caps and rgap <= SERVE_TOL):
+        raise RuntimeError("the ragged class disagrees or captured again")
+    t_ragged = events_ms(eng._programs_ragged[SERVE_CLASS].graph.replay, 3)
+    log(f"[17] ragged class replay {t_ragged:.2f} ms (CUDA events) against "
+        f"the batch-4 bucket's {t['replay_events_b4'] * PAIRS:.2f} ms")
+    out.update(ragged_gap_px=rgap, ragged_replay_ms=t_ragged)
+
+    # -- hot swap: dispatches against weight swaps, two threads --------------
+    want = {"a": single()}
+    eng.update_weights(weights_b)
+    want["b"] = single()
+    eng.update_weights(weights_a)
+    if np.array_equal(want["a"], want["b"]):
+        raise RuntimeError("the two weight sets give one flow")
+    caps = eng.capture_count
+    outs, errors, done = [], [], threading.Event()
+
+    def dispatch():
+        try:
+            for _ in range(SWAP_DISPATCHES):
+                outs.append(single())
+        except Exception as e:  # noqa: BLE001 - raised below
+            errors.append(e)
+        finally:
+            done.set()
+
+    swaps = 0
+
+    def swap():
+        nonlocal swaps
+        while not done.is_set():
+            eng.update_weights(weights_b if swaps % 2 == 0 else weights_a)
+            swaps += 1
+
+    threads = [threading.Thread(target=dispatch),
+               threading.Thread(target=swap)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+    swap_s = time.perf_counter() - t0
+    which = [next((k for k, w in want.items() if np.array_equal(o, w)), None)
+             for o in outs]
+    log(f"[17] hot swap: {len(outs)} dispatches against {swaps} weight swaps "
+        f"in {swap_s:.2f} s; outputs of set a {which.count('a')}, set b "
+        f"{which.count('b')}, neither {which.count(None)}; captures {caps} -> "
+        f"{eng.capture_count}")
+    if (errors or any(th.is_alive() for th in threads)
+            or len(outs) != SWAP_DISPATCHES or None in which
+            or eng.capture_count != caps):
+        raise RuntimeError(f"hot swap mixed weights or failed: {errors}")
+    out.update(swap={"dispatches": len(outs), "swaps": swaps,
+                     "a": which.count("a"), "b": which.count("b")})
+    eng_replays = {k: v - eng_replays.get(k, 0)
+                   for k, v in eng.replayed_launches().items()}
+    out["launches_serving"] = eng_replays
+    del eng
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = False
+
+    # -- engine A0: batch 1 in fp32, beside section 5's eager pair ----------
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eng = RAFTEngine(weights_a, cfg, iters=iters, envelope=[(1, 440, 1024)],
+                     wire="u8", warm_start=True)
+    peak0 = torch.cuda.max_memory_allocated() / 2 ** 20
+    cap0 = eng.capture_seconds[("plain", (1, 440, 1024))]
+    single = functools.partial(eng.infer_batch, frames[0][None],
+                               frames[1][None])
+    gap0 = float(np.abs(single() - eager(1, frames[0][None], frames[1][None])
+                        [:, 2:438].cpu().numpy()).max())
+    a0 = {"replay_host_b1": host_ms(single, 5),
+          "eager_host_b1": host_ms(functools.partial(
+              eager_host, 1, frames[0][None], frames[1][None]), 5),
+          "replay_events_b1": events_ms(
+              eng._programs[(1, 440, 1024)].graph.replay, 5),
+          "eager_events_b1": events_ms(functools.partial(
+              eager, 1, frames[0][None], frames[1][None]), 5)}
+    wall0, busy0, _, _ = profiled_replay(single, per_replay,
+                                         "fp32 batch-1 replay")
+    a0.update(profiled_wall_ms=wall0, profiled_busy_ms=busy0,
+              idle_share=1 - busy0 / wall0)
+    log(f"[17] engine A0, fp32 (TF32 off), bucket 1x440x1024: capture "
+        f"{cap0['warmup']:.3f} s warm-up + {cap0['capture']:.3f} s capture, "
+        f"peak {peak0:.0f} MiB; replay against eager {gap0:.3e} px (fail "
+        f"above {SERVE_TOL:g}); ms a pair replay {a0['replay_host_b1']:.2f} "
+        f"(host clock) / {a0['replay_events_b1']:.2f} (CUDA events), eager "
+        f"{a0['eager_host_b1']:.2f} / {a0['eager_events_b1']:.2f}; one "
+        f"profiled dispatch: wall {wall0:.2f} ms, busy {busy0:.2f} ms, idle "
+        f"share {1 - busy0 / wall0:.3f} (eager, section 5: 53.06 of 100.07 "
+        f"ms, 0.470); {smi}")
+    if not gap0 <= SERVE_TOL:
+        raise RuntimeError("the fp32 replay disagrees with eager")
+    del eng
+    # one eager forward at batch 4 in fp32: what engine A's TF32 avoids
+    i1, i2 = bucket_u8(f1, f2, (4, 440, 1024))
+    model_a = RAFT(cfg)
+    model_a.load_state_dict(weights_a)
+    model_a = model_a.cuda().eval()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tb = time.perf_counter()
+    with torch.no_grad():
+        model_a(i1, i2, iters=iters, flow_init=zero_init[4])
+    torch.cuda.synchronize()
+    fp32_b4 = time.perf_counter() - tb
+    peak4 = torch.cuda.max_memory_allocated() / 2 ** 20
+    log(f"[17] one eager forward at batch 4 in fp32 (TF32 off; cuDNN takes "
+        f"FFT convolutions at the encoders' batch of 8): {fp32_b4:.2f} s, "
+        f"peak {peak4:.0f} MiB, against engine A's "
+        f"{t['replay_events_b4'] * PAIRS:.2f} ms replay in TF32; {smi}")
+    a0.update(fp32_b4_eager_s=fp32_b4, fp32_b4_peak_mib=peak4,
+              capture=cap0, peak_mib=peak0, gap_px=gap0)
+    out["fp32_b1"] = a0
+    del model_a, i1, i2
+
+    # -- cached: engine B (small fixture, feature cache) against its twin ---
+    fixture = os.path.join(REPO, "tests", "fixtures",
+                           "raft-small-cputrained.pth")
+    cfg_s = RAFTConfig(small=True, corr_impl="pallas")
+    small = load_pth(fixture, cfg_s)
+    demo = [read_png(f) for f in
+            sorted(glob.glob(os.path.join(REPO, "demo-frames", "*.png")))]
+    cached = RAFTEngine(small, cfg_s, iters=iters, envelope=[(1, 440, 1024)],
+                        wire="u8", warm_start=True, feature_cache=True)
+    twin = RAFTEngine(small, cfg_s, iters=iters, envelope=[(1, 440, 1024)],
+                      wire="u8", warm_start=True)
+    _, _, fmap, cnet = cached.infer_cached(demo[0][None], [None])
+    init = None
+    cgap, h2d_c, h2d_p, ms_c, ms_p = 0.0, [], [], [], []
+    for prev, frame in zip(demo[:-1], demo[1:]):
+        slot = (fmap[0], cnet[0], None if init is None else init[0])
+        t0 = time.perf_counter()
+        pending = cached.infer_cached_async(frame[None], [slot])
+        flow_c, low_c, fmap, cnet = pending.fetch()
+        ms_c.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        plain = twin.infer_batch_async(prev[None], frame[None],
+                                       flow_init=init)
+        flow_p = plain.fetch()
+        ms_p.append((time.perf_counter() - t0) * 1e3)
+        h2d_c.append(pending.h2d_bytes)
+        h2d_p.append(plain.h2d_bytes)
+        cgap = max(cgap, float(np.abs(flow_c - flow_p).max()))
+        init = low_c
+    ev_c = events_ms(cached._programs_cached[(1, 440, 1024)].graph.replay, 5)
+    ev_p = events_ms(twin._programs[(1, 440, 1024)].graph.replay, 5)
+    log(f"[17] cached: engine B (small fixture, feature cache) over "
+        f"demo-frames, prime then {len(ms_c)} warm pairs, each against the "
+        f"plain twin engine with the same flow_init: largest gap {cgap:.3e} "
+        f"px (tol {SMALL_TOL:g}); H2D a warm pair {h2d_c[-1]} B against "
+        f"{h2d_p[-1]} B; ms a pair (host clock) cached {np.median(ms_c):.2f} "
+        f"against {np.median(ms_p):.2f}; replay alone (CUDA events) {ev_c:.2f} "
+        f"against {ev_p:.2f} ms: the encoder saving {1 - ev_c / ev_p:.1%}; "
+        f"{smi}")
+    if not cgap <= SMALL_TOL:
+        raise RuntimeError("the cached pair disagrees with the plain pair")
+    out.update(cached={"gap_px": cgap, "h2d_bytes": h2d_c[-1],
+                       "h2d_bytes_plain": h2d_p[-1],
+                       "ms": float(np.median(ms_c)),
+                       "ms_plain": float(np.median(ms_p)),
+                       "replay_ms": ev_c, "replay_ms_plain": ev_p})
+    del cached, twin
+
+    # -- export: the small fixture's .pt2, loaded in a fresh process --------
+    small = small.cuda().eval()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        program = export_program(small, cfg_s, iters, (440, 1024))
+        path = os.path.join(tmp, "small.pt2")
+        torch.export.save(program, path)
+        export_s = time.perf_counter() - t0
+        pad = ((0, 0), (2, 2), (0, 0), (0, 0))
+        i1 = np.pad(np.stack(demo[0:2]), pad, mode="edge").astype(np.float32)
+        i2 = np.pad(np.stack(demo[1:3]), pad, mode="edge").astype(np.float32)
+        np.savez(os.path.join(tmp, "in.npz"), i1=i1, i2=i2)
+        r = subprocess.run(
+            [sys.executable, "-c", EXPORT_CHILD, path,
+             os.path.join(tmp, "in.npz"), os.path.join(tmp, "out.npz")],
+            cwd=REPO, capture_output=True, text=True, timeout=600)
+        if r.returncode:
+            raise RuntimeError(f"the export's child failed:\n{r.stdout}\n"
+                               f"{r.stderr[-4000:]}")
+        child = json.loads(r.stdout.strip().splitlines()[-1])
+        got = np.load(os.path.join(tmp, "out.npz"))
+        serve = make_serving_fn(small, cfg_s, iters)
+        egap = {}
+        for b in (1, 2):
+            with torch.no_grad():
+                want_b = serve(torch.from_numpy(i1[:b]).cuda(),
+                               torch.from_numpy(i2[:b]).cuda()).cpu().numpy()
+            egap[b] = float(np.abs(got[f"b{b}"] - want_b).max())
+        eager_ms = host_ms(lambda: serve(torch.from_numpy(i1[:1]).cuda(),
+                                         torch.from_numpy(i2[:1]).cuda())
+                           .cpu(), 3)
+    log(f"[17] export: export_program of the small fixture at 440x1024, "
+        f"dynamic batch, saved, in {export_s:.2f} s; loaded in a fresh "
+        f"process: batch 1 gap {egap[1]:.3e} px, batch 2 {egap[2]:.3e} px "
+        f"against eager (fail above {SERVE_TOL:g}); ms batch 1 {child['ms']}, "
+        f"eager {eager_ms:.2f}; K1 device events in its profiled run "
+        f"{child['k1_events']} ({child['k1_names']})")
+    if not (max(egap.values()) <= SERVE_TOL and child["k1_events"] > 0):
+        raise RuntimeError("the loaded program disagrees or launched no K1")
+    out.update(export={"seconds": export_s, "gap_px": egap,
+                       "ms": child["ms"], "eager_ms": eager_ms,
+                       "k1_events": child["k1_events"]})
+
+    # -- the parity CLI over demo-frames -------------------------------------
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        parity_main(["--model", fixture, "--small", "--path",
+                     os.path.join(REPO, "demo-frames"), "--corr_impl",
+                     "pallas"])
+    par = json.loads(buf.getvalue().strip().splitlines()[-1])
+    log(f"[17] python -m raft_tpu_torch.cli.parity --small --path "
+        f"demo-frames: {par['pairs']} pairs, largest difference "
+        f"{par['max_diff_px']:.3e} px (tol {SMALL_TOL:g}); ms a pair "
+        f"(median of pairs 2-{par['pairs']}) plain {par['ms_plain_median']:.2f}, "
+        f"engine {par['ms_engine_median']:.2f}; captures {par['captures']}; "
+        f"{smi}")
+    if not par["max_diff_px"] <= SMALL_TOL:
+        raise RuntimeError("cli/parity: the engine disagrees with plain")
+    out["parity"] = {k: par[k] for k in ("pairs", "max_diff_px",
+                                         "ms_plain_median",
+                                         "ms_engine_median")}
+    return out
+
+
 def envelope_bound_ms(t: dict, env: dict, tf32: bool = False) -> tuple:
     """A kernel's bound at the measured envelope: the larger of its bytes at
     the measured copy rate and its operations at the measured matmul peak
@@ -2296,7 +2840,10 @@ def main() -> int:
             f"{t['ms']:.4f} ms L2 cold: {b[0] / t['ms']:.1%} of it "
             f"({t['bound'][0] / t['ms']:.1%} of the data sheet's); {smi}")
 
-    # -- 17. result ----------------------------------------------------------
+    # -- 17. the serving engine ----------------------------------------------
+    serving = serving_phase(smi)
+
+    # -- 18. result ----------------------------------------------------------
     sources = {"corr_lookup": ("raft_tpu_torch/csrc/corr_lookup.cu",
                                "raft_tpu/kernels/corr_pallas.py:177"),
                "gru_gates": ("raft_tpu_torch/csrc/gru.cu",
@@ -2342,6 +2889,12 @@ def main() -> int:
             name]
         row["launches_clis"] = {k: v[name] for k, v in
                                 clis["launches"].items() if name in v}
+        if name in SERVE_KERNELS:
+            # phase 17's dispatches: each replay's launches as its capture
+            # recorded them (held to the profiler's count of one replay)
+            row["launches_serving"] = serving["launches_serving"][name]
+            row["launches_serving_per_replay"] = serving[
+                "launches_per_replay"][name]
         row["dtypes_train_cli"] = cli["dtypes"].get(name, {})
         if name in err_bf16:
             row["max_abs_err_bf16"] = err_bf16[name]
@@ -2391,8 +2944,8 @@ def main() -> int:
                                   "k1_ms_median_range": list(hd_k1_ms),
                                   "ms_per_pair": {k: v[1] for k, v in hd.items()},
                                   "peak_mib": {k: v[2] for k, v in hd.items()}}})
-    print(json.dumps({"supervised_drill": drill, "envelope": env}),
-          flush=True)
+    print(json.dumps({"supervised_drill": drill, "envelope": env,
+                      "serving": serving}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

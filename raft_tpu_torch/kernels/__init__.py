@@ -7,6 +7,13 @@ this package is imported). Each wrapper counts its launches in its
 module's ``launches`` dict of plain integers; :func:`launch_counts` reads
 them, :func:`launch_dtypes` the same counts by operand dtype, and
 :func:`reset_launch_counts` sets both to 0.
+
+Importing this package also registers the serving forward kernels as
+``torch.library`` operators in the namespace ``raft_tpu_torch``
+(``corr_lookup``, ``gru_gates``, ``gru_blend``, ``alt_corr_lookup``), each
+with a fake implementation for tracing: a program that ``torch.export``
+traced through the wrappers holds them, and a process that loads it
+imports this package first.
 """
 
 from raft_tpu_torch.kernels import _build, corr_alt, corr_lookup, gru

@@ -175,6 +175,17 @@ def stream(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def tracing() -> bool:
+    """True while ``torch.export`` or ``torch.compile`` traces the caller.
+    The wrappers then call their ``torch.library`` operators (namespace
+    ``raft_tpu_torch``, registered when ``raft_tpu_torch.kernels`` is
+    imported), so a traced program carries the kernels; run eagerly they
+    skip the operator's dispatch, tens of microseconds a call."""
+    import torch
+
+    return torch.compiler.is_compiling() or torch.compiler.is_exporting()
+
+
 def check(code: int, what: str) -> None:
     """Raise if a launch returned a CUDA error code."""
     if code != 0:

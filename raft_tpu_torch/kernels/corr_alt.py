@@ -14,7 +14,9 @@ the coords, as ``_alt_bwd`` goes through the XLA formulation (the JAX
 package has no backward kernel for K5). Coords get a real gradient: the
 alternate path is a drop-in lookup. :func:`alt_corr_lookup_cuda` takes the
 plain version only for CPU tensors; for CUDA tensors it launches the kernel
-or raises.
+or raises. Traced by ``torch.export`` (or ``torch.compile``), it calls the
+operator ``torch.ops.raft_tpu_torch.alt_corr_lookup`` instead, the forward
+alone, with the same two routes.
 
 The kernel takes one of two branches for each (tile of 8x8 queries, level):
 the tensor-core product of the tile against the box its windows cover, or
@@ -33,7 +35,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from raft_tpu_torch.kernels._build import (check, count_launch, library,
-                                           stream)
+                                           stream, tracing)
 from raft_tpu_torch.models.corr import alt_corr_lookup
 
 MAX_LEVELS = 8      # RAFT_ALT_MAX_LEVELS in csrc/corr_alt.cu
@@ -145,6 +147,26 @@ class AltCorrLookup(torch.autograd.Function):
         return (grads[0], grads[1], None, *grads[2:])
 
 
+@torch.library.custom_op(
+    "raft_tpu_torch::alt_corr_lookup", mutates_args=(),
+    schema="(Tensor fmap1, Tensor[] pyramid, Tensor coords, int radius) "
+           "-> Tensor")
+def alt_corr_lookup_op(fmap1, pyramid, coords, radius):
+    """K5 as an operator a traced program can hold: the plain version on a
+    CPU tensor, the kernel on a CUDA one."""
+    if coords.device.type == "cpu":
+        return alt_corr_lookup(fmap1, pyramid, coords, radius)
+    return _alt_launch(fmap1, pyramid, coords, radius)
+
+
+@alt_corr_lookup_op.register_fake
+def _(fmap1, pyramid, coords, radius):
+    B, H, W, _ = fmap1.shape
+    K = 2 * radius + 1
+    return fmap1.new_empty((B, H, W, len(pyramid) * K * K),
+                           dtype=torch.float32)
+
+
 def alt_corr_lookup_cuda(fmap1: torch.Tensor, pyramid: Sequence[torch.Tensor],
                          coords: torch.Tensor, radius: int) -> torch.Tensor:
     """fmap1 (B, H, W, C) + fmap2 levels (B, Hl, Wl, C), fp32 and contiguous,
@@ -154,4 +176,7 @@ def alt_corr_lookup_cuda(fmap1: torch.Tensor, pyramid: Sequence[torch.Tensor],
     the levels and the coords through :class:`AltCorrLookup`."""
     if coords.device.type not in ("cpu", "cuda"):
         raise ValueError(f"alt_corr_lookup_cuda: no kernel for {coords.device}")
+    if tracing():
+        return torch.ops.raft_tpu_torch.alt_corr_lookup(fmap1, list(pyramid),
+                                                        coords, radius)
     return AltCorrLookup.apply(fmap1, coords, radius, *pyramid)

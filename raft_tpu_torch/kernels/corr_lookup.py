@@ -12,7 +12,10 @@ VJP by ``torch.autograd.grad``.
 the lookup forward, the scatter backward; coords get no gradient, as in
 ``_lookup_bwd``. :func:`corr_lookup_cuda` and :func:`corr_scatter_cuda` take
 the plain versions only for CPU tensors. For CUDA tensors they launch the
-kernel or raise; nothing falls back.
+kernel or raise; nothing falls back. Traced by ``torch.export`` (or
+``torch.compile``), :func:`corr_lookup_cuda` calls the operator
+``torch.ops.raft_tpu_torch.corr_lookup`` instead, the forward alone, with
+the same two routes.
 """
 
 from __future__ import annotations
@@ -24,7 +27,8 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from raft_tpu_torch.kernels._build import (check, count_launch,
-                                           dtype_code, library, stream)
+                                           dtype_code, library, stream,
+                                           tracing)
 from raft_tpu_torch.models.corr import corr_lookup_gather
 
 MAX_LEVELS = 8      # RAFT_MAX_LEVELS in csrc/corr_lookup.cu
@@ -157,6 +161,25 @@ class CorrLookup(torch.autograd.Function):
         return (None, None, *dvol)
 
 
+@torch.library.custom_op(
+    "raft_tpu_torch::corr_lookup", mutates_args=(),
+    schema="(Tensor coords, Tensor[] pyramid, int radius) -> Tensor")
+def corr_lookup_op(coords, pyramid, radius):
+    """K1 as an operator a traced program can hold: the plain version on a
+    CPU tensor, the kernel on a CUDA one."""
+    if coords.device.type == "cpu":
+        return corr_lookup_gather(pyramid, coords, radius)
+    return _lookup_launch(pyramid, coords, radius)
+
+
+@corr_lookup_op.register_fake
+def _(coords, pyramid, radius):
+    B, H, W, _ = coords.shape
+    K = 2 * radius + 1
+    return coords.new_empty((B, H, W, len(pyramid) * K * K),
+                            dtype=torch.float32)
+
+
 def corr_lookup_cuda(pyramid: Sequence[torch.Tensor], coords: torch.Tensor,
                      radius: int) -> torch.Tensor:
     """(B, N, Hl, Wl) levels (fp32 or bf16) + coords (B, H, W, 2) fp32 ->
@@ -166,4 +189,7 @@ def corr_lookup_cuda(pyramid: Sequence[torch.Tensor], coords: torch.Tensor,
     in the levels through :class:`CorrLookup`."""
     if coords.device.type not in ("cpu", "cuda"):
         raise ValueError(f"corr_lookup_cuda: no kernel for {coords.device}")
+    if tracing():
+        return torch.ops.raft_tpu_torch.corr_lookup(coords, list(pyramid),
+                                                    radius)
     return CorrLookup.apply(coords, radius, *pyramid)

@@ -23,7 +23,10 @@ version only for CPU tensors; for CUDA tensors it launches its kernel or
 raises. An input may be any strided view whose per-batch slices ``t[b]``
 are contiguous (the z and r halves of the double-width gate conv's NCHW
 output are such views when B > 1); the kernel reads it in place. Outputs
-are contiguous.
+are contiguous. Traced by ``torch.export`` (or ``torch.compile``),
+:func:`gru_gates` and :func:`gru_blend` call the operators
+``torch.ops.raft_tpu_torch.gru_gates`` and ``.gru_blend`` instead, the
+forwards alone, with the same two routes.
 """
 
 from __future__ import annotations
@@ -35,7 +38,8 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from raft_tpu_torch.kernels._build import (check, count_launch,
-                                           dtype_code, library, stream)
+                                           dtype_code, library, stream,
+                                           tracing)
 
 #: kernel launches since the counts were last set to 0
 launches = {"gru_gates": 0, "gru_blend": 0, "gru_gates_bwd": 0,
@@ -182,13 +186,44 @@ class GruBlend(torch.autograd.Function):
         return gru_blend_bwd(z, h, ql, _cotangent(g, h))
 
 
+@torch.library.custom_op(
+    "raft_tpu_torch::gru_gates", mutates_args=(),
+    schema="(Tensor zl, Tensor rl, Tensor h) -> (Tensor, Tensor)")
+def gru_gates_op(zl, rl, h):
+    """The K2 gates as an operator a traced program can hold."""
+    return _launch("gru_gates", gru_gates_plain, 2, zl, rl, h)
+
+
+@gru_gates_op.register_fake
+def _(zl, rl, h):
+    return (torch.empty(zl.shape, dtype=zl.dtype, device=zl.device),
+            torch.empty(zl.shape, dtype=zl.dtype, device=zl.device))
+
+
+@torch.library.custom_op(
+    "raft_tpu_torch::gru_blend", mutates_args=(),
+    schema="(Tensor z, Tensor h, Tensor ql) -> Tensor")
+def gru_blend_op(z, h, ql):
+    """The K2 blend as an operator a traced program can hold."""
+    return _launch("gru_blend", gru_blend_plain, 1, z, h, ql)
+
+
+@gru_blend_op.register_fake
+def _(z, h, ql):
+    return torch.empty(z.shape, dtype=z.dtype, device=z.device)
+
+
 def gru_gates(zl, rl, h) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused update/reset-gate tail: ``(σ(zl), σ(rl)·h)``; ``z`` feeds
     :func:`gru_blend`, ``r·h`` the candidate conv."""
+    if tracing():
+        return torch.ops.raft_tpu_torch.gru_gates(zl, rl, h)
     return GruGates.apply(zl, rl, h)
 
 
 def gru_blend(z, h, ql) -> torch.Tensor:
     """Fused candidate/blend tail: ``(1−z)·h + z·tanh(ql)``; ``ql`` is the
     candidate conv's pre-tanh output, so q never lands in memory."""
+    if tracing():
+        return torch.ops.raft_tpu_torch.gru_blend(z, h, ql)
     return GruBlend.apply(z, h, ql)

@@ -31,8 +31,11 @@ nothing inside the step, ``"dots"`` saves the convolutions' and matmuls'
 outputs (the JAX ``checkpoint_dots`` policy). ``dropout > 0`` drops encoder
 channels in train mode, drawn from the ``generator`` passed to ``forward``.
 
-``forward_cached`` and ``forward_ragged`` raise ``NotImplementedError``
-naming ROADMAP M10.
+The serving engine's two forwards share the refinement loop
+(:meth:`RAFT._refine`) with ``forward``: ``forward_ragged`` runs a capacity
+box of mixed request shapes with per-row valid extents (the masked
+correlation of ``serving.ragged``), ``forward_cached`` encodes only the new
+frame and takes the first frame's features from the caller.
 """
 
 from __future__ import annotations
@@ -100,7 +103,8 @@ class RAFT(nn.Module):
         """The ``corr_impl`` dispatch for an fp32 NHWC fmap pair: builds the
         correlation state once and returns ``lookup(coords) -> (B, H, W,
         levels·K²)`` for each refinement step (``raft.py:80-143`` in the
-        JAX package, which ``forward_cached`` will share)."""
+        JAX package); ``forward``, ``forward_ragged`` and
+        ``forward_cached`` share it."""
         cfg = self.config
         r = cfg.corr_radius
         if cfg.alternate_corr:
@@ -143,7 +147,6 @@ class RAFT(nn.Module):
         draws the encoders' dropout masks when ``train`` and ``dropout >
         0`` (torch's default generator when it is None)."""
         cfg = self.config
-        dt = cfg.compute_dtype
         if not test_mode and raw_predictions and cfg.small:
             raise ValueError(
                 "raw_predictions applies to the learned convex "
@@ -170,11 +173,20 @@ class RAFT(nn.Module):
                                   fmap2.float().permute(0, 2, 3, 1))
 
         # context network (core/raft.py:110-114)
-        cnet = self.cnet(x1, train, freeze_bn, generator)
-        net = torch.tanh(cnet[:, :cfg.hidden_dim]).to(dt)
-        inp = torch.relu(cnet[:, cfg.hidden_dim:]).to(dt)
+        net, inp = self._encode_context(
+            self.cnet(x1, train, freeze_bn, generator))
+        return self._refine(lookup, net, inp, B, H, W, iters, flow_init,
+                            test_mode, raw_predictions, image1.device)
 
-        coords0, coords1 = initialize_flow(B, H // 8, W // 8, image1.device)
+    def _refine(self, lookup, net, inp, B: int, H: int, W: int, iters: int,
+                flow_init: Optional[torch.Tensor], test_mode: bool,
+                raw_predictions: bool, device):
+        """The refinement recurrence and the upsampling tail, from the
+        lookup and the context split to the mode's return values (the JAX
+        model's ``_refine``, ``raft.py:145``), shared by ``forward``,
+        ``forward_ragged`` and ``forward_cached``."""
+        cfg = self.config
+        coords0, coords1 = initialize_flow(B, H // 8, W // 8, device)
         if flow_init is not None:
             coords1 = coords1 + flow_init
         step = functools.partial(self._step, lookup)
@@ -212,12 +224,86 @@ class RAFT(nn.Module):
             return up
         return subpixel_to_standard(up, H // 8, W // 8)
 
-    def forward_cached(self, *args, **kwargs):
-        raise NotImplementedError(
-            "forward_cached (cross-frame cached serving) is ROADMAP M10 of "
-            "the port")
+    def _encode_context(self, cnet: torch.Tensor):
+        """The context split (core/raft.py:110-114): ``(net, inp)`` in the
+        compute dtype from the context encoder's NCHW output."""
+        cfg = self.config
+        dt = cfg.compute_dtype
+        net = torch.tanh(cnet[:, :cfg.hidden_dim]).to(dt)
+        inp = torch.relu(cnet[:, cfg.hidden_dim:]).to(dt)
+        return net, inp
 
-    def forward_ragged(self, *args, **kwargs):
-        raise NotImplementedError(
-            "forward_ragged (ragged serving batches) is ROADMAP M10 of the "
-            "port")
+    def forward_ragged(self, image1: torch.Tensor, image2: torch.Tensor,
+                       valid_h8: torch.Tensor, valid_w8: torch.Tensor,
+                       flow_init: Optional[torch.Tensor] = None,
+                       iters: int = 12):
+        """Ragged serving: one program for mixed spatial shapes.
+
+        ``image1``/``image2``: (B, Hcap, Wcap, 3) in [0, 255], a capacity
+        box holding requests of different sizes (each row edge-padded to its
+        own ÷8 alignment, then zero-filled). ``valid_h8``/``valid_w8``: (B,)
+        int32 tensors, each row's valid extent at 1/8 resolution (0 for a
+        fill row). The encoders run over the whole box; both fmaps are then
+        masked in fp32 past each row's extent
+        (``serving.ragged.mask_features``), so each row's correlation volume
+        is its own smaller volume zero-embedded in the box. The extents are
+        tensors, never Python ints, so a captured graph serves every mix.
+
+        Returns the test-mode ``(flow_low, flow_up)`` at the box geometry;
+        the serving layer crops each row. A full-extent row is bitwise what
+        ``forward`` computes on the same padded batch.
+        """
+        from raft_tpu_torch.serving.ragged import mask_features
+
+        B, H, W, _ = image1.shape
+        if H % 8 or W % 8:
+            raise ValueError(f"capacity box {H}x{W}: boxes are ÷8-aligned")
+        x1 = (2.0 * (image1.float() / 255.0) - 1.0).permute(0, 3, 1, 2)
+        x2 = (2.0 * (image2.float() / 255.0) - 1.0).permute(0, 3, 1, 2)
+        x1, x2 = x1.contiguous(), x2.contiguous()
+        fmaps = self.fnet(torch.cat([x1, x2], 0))
+        fmap1 = mask_features(fmaps[:B].float().permute(0, 2, 3, 1),
+                              valid_h8, valid_w8)
+        fmap2 = mask_features(fmaps[B:].float().permute(0, 2, 3, 1),
+                              valid_h8, valid_w8)
+        lookup = self._corr_setup(fmap1, fmap2)
+        net, inp = self._encode_context(self.cnet(x1))
+        return self._refine(lookup, net, inp, B, H, W, iters, flow_init,
+                            True, False, image1.device)
+
+    def forward_cached(self, image2: torch.Tensor, fmap1: torch.Tensor,
+                       cnet1: torch.Tensor, flow_init: torch.Tensor,
+                       iters: int = 12):
+        """Cross-frame cached serving: encode only the new frame.
+
+        For consecutive video pairs the previous dispatch already encoded
+        this pair's first frame: its ``fmap2`` and a speculative context
+        encoding are this pair's ``fmap1`` and context. ``image2``: (B, H,
+        W, 3) in [0, 255], the new frame. ``fmap1``: (B, H/8, W/8,
+        fnet_dim) fp32, the previous call's ``fmap2``. ``cnet1``: (B, H/8,
+        W/8, cnet_dim) fp32, the previous call's ``cnet2``; it is cast back
+        to the encoder's dtype before the tanh/relu split, so the split sees
+        the bits ``forward`` would. ``flow_init``: (B, H/8, W/8, 2).
+
+        Returns ``(flow_low, flow_up, fmap2, cnet2)``, the last two NHWC
+        fp32. A zeroed fmap1/cnet1 row is the prime form of a cold start:
+        its flow is meaningless, its cache outputs are this frame's
+        features.
+        """
+        B, H, W, _ = image2.shape
+        if H % 8 or W % 8:
+            raise ValueError(f"image size {H}x{W}: pad inputs to a multiple "
+                             "of 8 with InputPadder first")
+        x2 = (2.0 * (image2.float() / 255.0) - 1.0).permute(0, 3, 1, 2)
+        x2 = x2.contiguous()
+        fmap2 = self.fnet(x2).float().permute(0, 2, 3, 1)
+        # speculative context for the next pair, whose first frame this is
+        cnet2 = self.cnet(x2)
+        lookup = self._corr_setup(fmap1.float(), fmap2)
+        cnet1 = cnet1.to(cnet2.dtype).permute(0, 3, 1, 2).contiguous()
+        net, inp = self._encode_context(cnet1)
+        flow_low, flow_up = self._refine(lookup, net, inp, B, H, W, iters,
+                                         flow_init, True, False,
+                                         image2.device)
+        return (flow_low, flow_up, fmap2.contiguous(),
+                cnet2.float().permute(0, 2, 3, 1).contiguous())

@@ -1,0 +1,1050 @@
+"""Shape-bucketed serving engine, port of ``raft_tpu/serving/engine.py``:
+the ``RAFTInferTRT`` analog.
+
+The reference builds a TensorRT engine over a dynamic-shape envelope
+(min/opt/max, ``cvt2trt.sh``) and binds I/O by name at run time
+(raft_trt.py:12-39). The JAX engine AOT-compiles one executable per shape
+bucket. Here each bucket is one CUDA graph on the card: the model's
+test-mode forward captured once per bucket (and per table: plain, cached,
+ragged), with static input buffers (the wire-dtype frames, ``flow_init``,
+the ragged extents, the cached features) and static outputs. A request
+routes to the smallest bucket that fits, is padded up on the host (batch
+and spatial) and replays the bucket's graph: K1 and K2 (K5 under
+``alternate_corr``) and every other launch of the forward, with no Python
+between them. Nothing falls back: a capture or launch that fails raises.
+
+On the CPU (``device="cpu"``, what the tests use) a bucket's program runs
+the same forward eagerly on the same static buffers; no graph is captured.
+
+A dispatch is one atom under the engine lock, on one stream the engine
+owns: the padded frames go through a pinned buffer into the static inputs
+(``non_blocking``), the graph replays, and the outputs the pending batch
+hands back are cloned, since the next replay of the bucket overwrites the
+static outputs. ``PendingBatch.fetch`` then waits on an event recorded
+after the clone. Captures run outside the engine lock (one at a time, all
+into one memory pool: safe because every replay is serialised on the
+engine's stream), as the JAX engine compiles outside its lock.
+
+``update_weights`` copies a checkpoint into the module's own parameter and
+buffer storage on the engine's stream, so every captured graph stays valid
+(the analog of "swapping a checkpoint reuses every executable"), and stream
+order makes each dispatch wholly old or wholly new.
+
+Like the fork's single-output ONNX export (test_trt.py:131 names only
+``flowup``), the engine returns only the upsampled flow unless
+``warm_start``; the iteration count is baked at 20 (ITERS_EXPORT).
+
+Not ported here: ``mesh=`` (ROADMAP M9) and ``aot_cache=`` (M11) raise
+``NotImplementedError``; ``spawn_replica``/``adopt_executables`` belong to
+the M11 fleet.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import threading
+import time
+from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from raft_tpu_torch.config import ITERS_EXPORT, RAFTConfig
+from raft_tpu_torch.evaluation.evaluate import resolve_device
+from raft_tpu_torch.models import RAFT
+from raft_tpu_torch.ops.padding import pad_amounts
+from raft_tpu_torch.testing.faults import fault_point
+
+# cvt2trt.sh:1 envelope (min 1x3x256x256 / opt 2x3x800x800 / max 8x3x1024x1024)
+SHAPE_ENVELOPE_LINUX: List[Tuple[int, int, int]] = [
+    (1, 256, 256), (2, 800, 800), (8, 1024, 1024)]
+# cvt2trt.bat:1 envelope (max 1x3x512x1024)
+SHAPE_ENVELOPE_WINDOWS: List[Tuple[int, int, int]] = [
+    (1, 256, 256), (1, 512, 800), (1, 512, 1024)]
+
+_KINDS = ("plain", "cached", "ragged")
+
+
+class StaleFeatureError(RuntimeError):
+    """A cached dispatch's feature rows were stamped with a weights
+    version the engine has since moved past (a live weight swap raced the
+    dispatch between cache assembly and the engine call). The batch fails
+    before the program runs: features computed by one checkpoint must
+    never feed a refinement running another. Streams recover by
+    re-priming."""
+
+
+def _handed(t: torch.Tensor) -> torch.Tensor:
+    """A device output handed to the caller: its memory, allocated on the
+    engine's stream, is not reused until the caller's stream is done."""
+    if t.is_cuda:
+        t.record_stream(torch.cuda.current_stream(t.device))
+    return t
+
+
+class PendingBatch:
+    """One in-flight engine dispatch (``infer_batch_async``).
+
+    The dispatch returns as soon as the bucket's program is queued on the
+    engine's stream. ``fetch()`` waits for it and returns what
+    ``infer_batch`` would: the flow (host numpy, cropped to the request),
+    or ``(flow, flow_low)`` with ``return_low`` (``flow_low`` cropped to
+    the ÷8-padded request, a device tensor with ``low_device``). A cached
+    dispatch returns ``(flow, flow_low, fmap2, cnet2)``, the last three
+    full-bucket device tensors. Two dispatches of one bucket may be in
+    flight at once: each holds its own clone of the outputs.
+
+    ``h2d_bytes``: host bytes shipped to the device (padded frames and any
+    host-built ``flow_init``). ``t_ready``: monotonic time the outputs were
+    known complete (set by ``fetch``).
+    """
+
+    __slots__ = ("bucket", "h2d_bytes", "t_ready", "_flow", "_flow_low",
+                 "_return_low", "_low_device", "_cache", "_event")
+
+    def __init__(self, flow, flow_low, bucket, h2d_bytes, return_low,
+                 low_device, event, cache=None):
+        self._flow = flow
+        self._flow_low = flow_low
+        self.bucket = bucket
+        self.h2d_bytes = h2d_bytes
+        self._return_low = return_low
+        self._low_device = low_device
+        self._event = event
+        self._cache = cache
+        self.t_ready: Optional[float] = None
+
+    def fetch(self):
+        """Wait for the device result and return it. One-shot."""
+        if self._flow is None:
+            raise RuntimeError("PendingBatch.fetch() already consumed")
+        # chaos site: a hang here models a device whose compute (or D2H)
+        # never completes
+        fault_point("serve.fetch")
+        if self._event is not None:
+            self._event.synchronize()
+        flow = self._flow.cpu().numpy()
+        if self._cache is not None:
+            fmap2, cnet2 = self._cache
+            out = (flow, _handed(self._flow_low), _handed(fmap2),
+                   _handed(cnet2))
+        elif self._return_low:
+            low = (_handed(self._flow_low) if self._low_device
+                   else self._flow_low.cpu().numpy())
+            out = (flow, low)
+        else:
+            out = flow
+        self._flow = self._flow_low = self._cache = None
+        self.t_ready = time.monotonic()
+        return out
+
+
+class RaggedPendingBatch:
+    """One in-flight ragged dispatch (``infer_ragged_async``): a
+    mixed-shape micro-batch in one capacity class. Same contract as
+    :class:`PendingBatch`, but ``fetch()`` returns a list of flows (and,
+    with ``return_low``, a list of ``flow_low``), each cropped to its own
+    request. ``real_px``/``padded_px``: request pixels against box
+    pixels."""
+
+    __slots__ = ("bucket", "h2d_bytes", "t_ready", "real_px", "padded_px",
+                 "_flows", "_lows", "_return_low", "_low_device", "_event")
+
+    def __init__(self, flows, lows, bucket, h2d_bytes, return_low,
+                 low_device, event, real_px=0, padded_px=0):
+        self._flows = flows
+        self._lows = lows
+        self.bucket = bucket
+        self.h2d_bytes = h2d_bytes
+        self._return_low = return_low
+        self._low_device = low_device
+        self._event = event
+        self.real_px = real_px
+        self.padded_px = padded_px
+        self.t_ready: Optional[float] = None
+
+    def fetch(self):
+        """Wait for the device result; ``[flow_i]`` or ``([flow_i],
+        [flow_low_i])`` with ``return_low``. One-shot."""
+        if self._flows is None:
+            raise RuntimeError("RaggedPendingBatch.fetch() already "
+                               "consumed")
+        fault_point("serve.fetch")
+        if self._event is not None:
+            self._event.synchronize()
+        out = [f.cpu().numpy() for f in self._flows]
+        if self._return_low:
+            lows = [_handed(lo) if self._low_device else lo.cpu().numpy()
+                    for lo in self._lows]
+            out = (out, lows)
+        self._flows = self._lows = None
+        self.t_ready = time.monotonic()
+        return out
+
+
+class _Program:
+    """One bucket's serving program: static input buffers, the forward
+    over them and, on the card, the CUDA graph that replays it into static
+    outputs. ``launches``: each kernel's launches in one run (what the
+    capture recorded into the graph)."""
+
+    __slots__ = ("inputs", "fn", "graph", "outputs", "launches")
+
+    def __init__(self, inputs, fn, graph=None, outputs=None, launches=None):
+        self.inputs = inputs
+        self.fn = fn
+        self.graph = graph
+        self.outputs = outputs
+        self.launches = launches or {}
+
+    def run(self):
+        if self.graph is None:
+            return self.fn(self.inputs)
+        self.graph.replay()
+        return self.outputs
+
+
+def _state_dict(weights) -> Dict[str, torch.Tensor]:
+    """A ``RAFT`` module's state dict, or the mapping of tensors given."""
+    if isinstance(weights, torch.nn.Module):
+        return weights.state_dict()
+    if not isinstance(weights, Mapping):
+        raise TypeError("weights: a RAFT module or a state dict of tensors")
+    return {k: torch.as_tensor(v) for k, v in weights.items()}
+
+
+class RAFTEngine:
+    """Shape-bucketed engine over a RAFT checkpoint: one captured CUDA
+    graph per bucket on the card, the eager forward on the CPU."""
+
+    def __init__(self, weights, config: RAFTConfig = RAFTConfig(),
+                 iters: int = ITERS_EXPORT,
+                 envelope: Sequence[Tuple[int, int, int]] = (),
+                 precompile: bool = True, mesh=None,
+                 exact_shapes: bool = False, warm_start: bool = False,
+                 wire: str = "f32", feature_cache: bool = False,
+                 ragged: bool = False,
+                 capacity_classes: Sequence[Tuple[int, int, int]] = (),
+                 ragged_grain: int = 64, aot_cache=None,
+                 device: str = "cuda"):
+        """``weights``: a ``RAFT`` module or its state dict (the
+        reference's key names), loaded with ``strict=True`` into the
+        engine's own module on ``device``.
+
+        ``envelope``: ``(B, H, W)`` buckets (H, W multiples of 8),
+        captured now with ``precompile``, else at first use.
+
+        ``exact_shapes``: never route to a spatially larger bucket; one
+        program per exact ÷8-padded request shape (batch may still fill up
+        to a same-spatial bucket). Spatial fill shifts the encoders'
+        instance-norm statistics; this mode removes that.
+
+        ``warm_start``: programs take a 1/8-resolution ``flow_init`` (a
+        zero row is a cold start) and return ``(flow_low, flow_up)``.
+
+        ``wire``: ``"f32"`` ships fp32 frames; ``"u8"`` ships uint8 frames
+        (4x fewer bytes) and the program converts them on the card (exact,
+        so integer frames give bitwise the f32 result).
+
+        ``feature_cache`` (needs ``warm_start``): a second table of cached
+        programs (``RAFT.forward_cached``) taking the new frame and
+        device-resident ``(fmap1, cnet1, flow_init)`` rows, one encoder
+        pass a pair.
+
+        ``ragged``: a third table, one program per capacity class ``(B,
+        Hcap, Wcap)`` (``capacity_classes``) serving any mix of request
+        shapes that fits (``RAFT.forward_ragged``); a request outside
+        every class rounds its box up to ``ragged_grain`` pixels.
+
+        ``device``: the card unless ``"cpu"`` is asked for; on the CPU the
+        programs run the eager forward. ``mesh`` and ``aot_cache`` are
+        not ported (ROADMAP M9, M11) and raise.
+        """
+        if wire not in ("f32", "u8"):
+            raise ValueError(f"wire={wire!r}: choose 'f32' or 'u8'")
+        if ragged and feature_cache:
+            raise ValueError(
+                "ragged=True with feature_cache=True is not supported "
+                "yet: the cached signature keeps its per-shape bucket "
+                "table. See ROADMAP 'Ragged serving, next bricks' (a) "
+                "— the per-row descriptor subsuming the cached "
+                "signature's bucket matrix is the next brick. Serve "
+                "ragged one-shot traffic and cached video from two "
+                "engines until it lands.")
+        if feature_cache and not warm_start:
+            raise ValueError("feature_cache=True needs warm_start=True "
+                             "(the cached program carries the "
+                             "flow_init/flow_low recurrence state)")
+        if feature_cache and mesh is not None:
+            raise ValueError("feature_cache is not supported under a "
+                             "mesh yet — per-stream cache rows assume "
+                             "single-device buckets")
+        if ragged and mesh is not None:
+            raise ValueError("ragged=True is not supported under a "
+                             "mesh yet — capacity classes assume "
+                             "single-device executables")
+        if ragged and (ragged_grain <= 0 or ragged_grain % 8):
+            raise ValueError(f"ragged_grain={ragged_grain}: must be a "
+                             "positive multiple of 8 (capacity boxes "
+                             "are ÷8-aligned)")
+        if capacity_classes and not ragged:
+            raise ValueError("capacity_classes given without "
+                             "ragged=True — they would compile nothing")
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh=: sharded serving is ROADMAP M9 of the port")
+        if aot_cache is not None:
+            raise NotImplementedError(
+                "aot_cache=: the store of serialized programs is ROADMAP "
+                "M11 of the port")
+        self.config = config
+        self.iters = iters
+        self.exact_shapes = exact_shapes
+        self.warm_start = warm_start
+        self.wire = wire
+        self.feature_cache = feature_cache
+        self.ragged = ragged
+        self.ragged_grain = int(ragged_grain)
+        dev = resolve_device(device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        self.device = dev
+        #: bumped on every update_weights (under the lock): cached rows are
+        #: stamped with the version that produced their features
+        self.weights_version = 0
+        self._wire_np = np.uint8 if wire == "u8" else np.float32
+        self._wire_torch = torch.uint8 if wire == "u8" else torch.float32
+        #: guards the tables, the counters and the weight storage: a
+        #: dispatch (copy in, run, clone out) and a weight swap are atoms
+        self._lock = threading.RLock()
+        #: one capture at a time: every capture shares one memory pool.
+        #: Taken before ``_lock``, which stays a leaf
+        self._capture_lock = threading.Lock()
+        self.model = RAFT(config)
+        self.model.load_state_dict(_state_dict(weights), strict=True)
+        self.model = self.model.to(dev).eval().requires_grad_(False)
+        if dev.type == "cuda":
+            self._stream = torch.cuda.Stream(dev)
+            self._capture_stream = torch.cuda.Stream(dev)
+            self._pool = torch.cuda.graph_pool_handle()
+        #: programs built (graphs captured on the card, eager programs on
+        #: the CPU); ``compile_count`` is its alias
+        self.capture_count = 0
+        #: ``(table, bucket) -> {"warmup": s, "capture": s}`` of each graph
+        #: captured: the eager warm-up run and the capture itself
+        self.capture_seconds: Dict[tuple, Dict[str, float]] = {}
+        self._replayed: Dict[str, int] = {}
+        self._tables: Dict[str, Dict[Tuple[int, int, int],
+                                     Optional[_Program]]] = {
+            k: {} for k in _KINDS}
+        self._programs = self._tables["plain"]
+        self._programs_cached = self._tables["cached"]
+        self._programs_ragged = self._tables["ragged"]
+
+        for shape in envelope:
+            if precompile:
+                self._get_program(shape)
+                if feature_cache:
+                    self._get_program(shape, "cached")
+            else:
+                self._programs.setdefault(shape, None)
+        for cls in capacity_classes:
+            b, ch, cw = cls
+            if ch % 8 or cw % 8:
+                raise ValueError(f"capacity class {cls}: Hcap/Wcap "
+                                 "must be multiples of 8")
+            if precompile:
+                self._get_program((b, ch, cw), "ragged")
+            else:
+                self._programs_ragged.setdefault((b, ch, cw), None)
+
+    @property
+    def compile_count(self) -> int:
+        """Alias of :attr:`capture_count` under the JAX engine's name."""
+        return self.capture_count
+
+    # -- weights -------------------------------------------------------------
+
+    def _check_weights(self, state: Mapping[str, torch.Tensor]) -> None:
+        """Raise ``ValueError`` unless ``state`` has the engine's keys and
+        each tensor's shape and dtype."""
+        old = {k: (tuple(v.shape), v.dtype)
+               for k, v in self.model.state_dict().items()}
+        new = {k: (tuple(v.shape), v.dtype) for k, v in state.items()}
+        if old.keys() != new.keys():
+            missing = sorted(old.keys() - new.keys())
+            extra = sorted(new.keys() - old.keys())
+            raise ValueError(
+                "checkpoint structure mismatch: keys differ (missing "
+                f"{missing[:3]}, unexpected {extra[:3]})")
+        if old != new:
+            diff = [f"{k}: {new[k]} vs engine's {old[k]}"
+                    for k in old if old[k] != new[k]]
+            raise ValueError(
+                "checkpoint structure mismatch: " + "; ".join(diff[:5]))
+
+    def compatible_weights(self, weights) -> bool:
+        """True iff ``weights`` could be swapped in live with
+        :meth:`update_weights` (same keys, shapes and dtypes)."""
+        try:
+            self._check_weights(_state_dict(weights))
+        except ValueError:
+            return False
+        return True
+
+    def update_weights(self, weights) -> None:
+        """Swap checkpoints without invalidating a captured program.
+
+        The new tensors are staged on the card outside the lock; under it
+        they are copied into the module's own parameter and buffer storage
+        on the engine's stream, where every captured graph reads them, and
+        ``weights_version`` is bumped. A dispatch queued before the copy
+        runs wholly on the old weights, one queued after wholly on the
+        new."""
+        state = _state_dict(weights)
+        self._check_weights(state)
+        staged = {k: v.detach().to(self.device) for k, v in state.items()}
+        with self._lock:
+            with self._on_stream(), torch.no_grad():
+                for k, t in self.model.state_dict().items():
+                    src = staged[k]
+                    t.copy_(src)
+                    if src.is_cuda:
+                        src.record_stream(self._stream)
+            self.weights_version += 1
+
+    # -- programs ------------------------------------------------------------
+
+    @contextlib.contextmanager
+    def _on_stream(self):
+        """The engine's stream, after the caller's stream's queued work (a
+        device-resident input may come from it); nothing on the CPU."""
+        if self.device.type != "cuda":
+            yield
+            return
+        self._stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(self._stream):
+            yield
+
+    def _static_inputs(self, shape, kind: str) -> Dict[str, torch.Tensor]:
+        b, h, w = shape
+        dev = self.device
+
+        def frames():
+            return torch.zeros((b, h, w, 3), dtype=self._wire_torch,
+                               device=dev)
+
+        def low(c):
+            return torch.zeros((b, h // 8, w // 8, c), dtype=torch.float32,
+                               device=dev)
+
+        if kind == "cached":
+            return {"image2": frames(), "fmap1": low(self.config.fnet_dim),
+                    "cnet1": low(self.config.cnet_dim), "flow_init": low(2)}
+        inputs = {"image1": frames(), "image2": frames()}
+        if kind == "ragged":
+            inputs["valid_h8"] = torch.zeros(b, dtype=torch.int32, device=dev)
+            inputs["valid_w8"] = torch.zeros(b, dtype=torch.int32, device=dev)
+        if self.warm_start:
+            inputs["flow_init"] = low(2)
+        return inputs
+
+    def _forward(self, kind: str) -> Callable[[Dict], tuple]:
+        model, iters = self.model, self.iters
+        if kind == "cached":
+            return lambda x: model.forward_cached(
+                x["image2"], x["fmap1"], x["cnet1"], x["flow_init"],
+                iters=iters)
+        if kind == "ragged":
+            return lambda x: model.forward_ragged(
+                x["image1"], x["image2"], x["valid_h8"], x["valid_w8"],
+                x.get("flow_init"), iters=iters)
+        return lambda x: model(x["image1"], x["image2"], iters=iters,
+                               flow_init=x.get("flow_init"), test_mode=True)
+
+    def _build(self, shape, kind: str) -> _Program:
+        """A bucket's program. On the card: one warm-up run on the capture
+        stream (it builds the kernel library and the cuDNN and cuBLAS
+        state, so nothing of that happens inside the capture), then the
+        capture into the engine's shared pool."""
+        inputs = self._static_inputs(shape, kind)
+        fn = self._forward(kind)
+        if self.device.type != "cuda":
+            return _Program(inputs, torch.no_grad()(fn))
+        from raft_tpu_torch import kernels
+
+        side = self._capture_stream
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        t0 = time.perf_counter()
+        with torch.no_grad(), torch.cuda.stream(side):
+            fn(inputs)
+        side.synchronize()
+        t1 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        before = kernels.launch_counts()
+        with torch.no_grad(), torch.cuda.graph(
+                graph, pool=self._pool, stream=side,
+                capture_error_mode="thread_local"):
+            outputs = fn(inputs)
+        launches = {k: n - before[k]
+                    for k, n in kernels.launch_counts().items()
+                    if n != before[k]}
+        with self._lock:
+            self.capture_seconds[(kind, shape)] = {
+                "warmup": t1 - t0, "capture": time.perf_counter() - t1}
+        return _Program(inputs, fn, graph, outputs, launches)
+
+    def _get_program(self, shape: Tuple[int, int, int],
+                     kind: str = "plain") -> _Program:
+        """The bucket's program, built on a miss outside the engine lock
+        (the analog of the JAX engine's ``_get_executable``)."""
+        table = self._tables[kind]
+        with self._lock:
+            prog = table.get(shape)
+        if prog is not None:
+            return prog
+        with self._capture_lock:
+            with self._lock:
+                prog = table.get(shape)
+            if prog is not None:
+                return prog
+            # chaos site: "raise" models an uncapturable shape, "hang" a
+            # capture that never returns
+            fault_point("engine.compile")
+            with self._lock:
+                self.capture_count += 1
+            prog = self._build(shape, kind)
+            with self._lock:
+                # a precompile=False placeholder (None) is filled
+                cur = table.get(shape)
+                if cur is None:
+                    table[shape] = cur = prog
+        return cur
+
+    def _dispatch(self, prog: _Program, host: Dict[str, np.ndarray],
+                  keep: Callable[[tuple], tuple],
+                  on_device: Optional[Callable[[Dict], None]] = None,
+                  expect_version: Optional[int] = None):
+        """One dispatch atom under the lock: the host arrays into the
+        program's static inputs (through pinned buffers on the card),
+        ``on_device`` for device-resident inputs, the run, and ``keep``'s
+        clones of the outputs; returns them and the event after them."""
+        cuda = self.device.type == "cuda"
+        staged = {k: torch.from_numpy(np.ascontiguousarray(a))
+                  for k, a in host.items()}
+        if cuda:
+            staged = {k: t.pin_memory() for k, t in staged.items()}
+        with self._lock:
+            if (expect_version is not None
+                    and self.weights_version != expect_version):
+                raise StaleFeatureError(
+                    f"cache rows stamped weights_version="
+                    f"{expect_version} but the engine is at "
+                    f"{self.weights_version} — a weight swap raced "
+                    "this dispatch; streams re-prime")
+            with self._on_stream(), torch.no_grad():
+                for k, t in staged.items():
+                    prog.inputs[k].copy_(t, non_blocking=cuda)
+                if on_device is not None:
+                    on_device(prog.inputs)
+                kept = keep(prog.run())
+                event = None
+                if cuda:
+                    event = torch.cuda.Event()
+                    event.record(self._stream)
+            for k, n in prog.launches.items():
+                self._replayed[k] = self._replayed.get(k, 0) + n
+        return kept, event
+
+    def _device_tensor(self, t) -> torch.Tensor:
+        """A caller's device-resident input on the engine's device, kept
+        alive for the engine's stream."""
+        t = torch.as_tensor(t).to(self.device, torch.float32)
+        if t.is_cuda:
+            t.record_stream(self._stream)
+        return t
+
+    def replayed_launches(self) -> Dict[str, int]:
+        """Kernel launches the engine's dispatches ran: per program, the
+        launches its capture recorded, times its runs. (Replays do not
+        move ``kernels.launch_counts``, which count Python calls of the
+        wrappers: each capture adds its graph's launches once, and on the
+        CPU, where the programs run eagerly, the plain versions count
+        none.)"""
+        with self._lock:
+            return dict(self._replayed)
+
+    def aot_stats(self) -> Dict[str, int]:
+        """The JAX engine's serialized-cache counters: no store exists
+        here (ROADMAP M11), so all are 0 but ``compiles``, the programs
+        built."""
+        with self._lock:
+            return {"enabled": 0, "aot_hits": 0, "aot_misses": 0,
+                    "compiles": self.capture_count, "compiles_avoided": 0}
+
+    # -- shape routing -------------------------------------------------------
+
+    def bucket_shapes(self) -> List[Tuple[int, int, int]]:
+        """Sorted bucket shapes this engine owns (built or
+        ``precompile=False`` placeholders)."""
+        with self._lock:
+            return sorted(self._programs)
+
+    def _select_bucket(self, b: int, h: int, w: int,
+                       cached: bool = False
+                       ) -> Optional[Tuple[int, int, int]]:
+        table = self._programs_cached if cached else self._programs
+        if self.exact_shapes:
+            # exact spatially; batch fill is per-sample neutral
+            fits = [s for s in table
+                    if s[0] >= b and s[1] == h and s[2] == w]
+            return min(fits, key=lambda s: s[0]) if fits else None
+        fits = [s for s in table
+                if s[0] >= b and s[1] >= h and s[2] >= w]
+        if not fits:
+            return None
+        return min(fits, key=lambda s: s[0] * s[1] * s[2])
+
+    def _route(self, b: int, hp: int, wp: int,
+               cached: bool = False) -> Tuple[int, int, int]:
+        """Bucket a ÷8-padded ``(b, hp, wp)`` request uses: the smallest
+        fit, else the exact build-on-miss bucket."""
+        with self._lock:
+            bucket = self._select_bucket(b, hp, wp, cached=cached)
+        return bucket if bucket is not None else (b, hp, wp)
+
+    def _padded(self, h: int, w: int) -> Tuple[int, int]:
+        left, right, top, bottom = pad_amounts(h, w)
+        return h + top + bottom, w + left + right
+
+    def route_bucket(self, b: int, h: int, w: int,
+                     cached: bool = False) -> Tuple[int, int, int]:
+        """The bucket ``infer_batch`` would use for a raw ``(b, h, w)``
+        request — builds nothing."""
+        hp, wp = self._padded(h, w)
+        return self._route(b, hp, wp, cached=cached)
+
+    def bucket_capacity(self, h: int, w: int,
+                        cached: bool = False) -> Optional[int]:
+        """Largest batch a bucket can carry for an ``(h, w)`` request, or
+        None when no bucket spatially fits."""
+        hp, wp = self._padded(h, w)
+        table = self._programs_cached if cached else self._programs
+        with self._lock:
+            if self.exact_shapes:
+                fits = [s[0] for s in table if s[1] == hp and s[2] == wp]
+            else:
+                fits = [s[0] for s in table if s[1] >= hp and s[2] >= wp]
+        return max(fits) if fits else None
+
+    def drop_bucket(self, shape: Tuple[int, int, int],
+                    cached: bool = False, ragged: bool = False) -> bool:
+        """Forget one bucket's program (a wedge verdict indicts it); the
+        next dispatch or ``ensure_bucket`` builds it again. True when it
+        was present (placeholders count)."""
+        kind = "ragged" if ragged else ("cached" if cached else "plain")
+        missing = object()
+        with self._lock:
+            return self._tables[kind].pop(shape, missing) is not missing
+
+    def ensure_bucket(self, batch: int, h: int, w: int,
+                      cached: bool = False) -> Tuple[int, int, int]:
+        """Build (if missing) and return the bucket that serves a
+        ``(batch, h, w)`` request."""
+        hp, wp = self._padded(h, w)
+        bucket = self._route(batch, hp, wp, cached=cached)
+        self._get_program(bucket, "cached" if cached else "plain")
+        return bucket
+
+    def executable_count(self) -> int:
+        """Buckets across all three tables (built or ``precompile=False``
+        placeholders), as the JAX engine counts them."""
+        with self._lock:
+            return sum(len(t) for t in self._tables.values())
+
+    # -- ragged routing ------------------------------------------------------
+
+    def ragged_classes(self) -> List[Tuple[int, int, int]]:
+        """Sorted capacity classes this engine owns."""
+        with self._lock:
+            return sorted(self._programs_ragged)
+
+    def _select_class(self, b: int, hp: int,
+                      wp: int) -> Optional[Tuple[int, int, int]]:
+        """Smallest capacity class fitting ``(b, hp, wp)`` (caller holds
+        the lock)."""
+        fits = [s for s in self._programs_ragged
+                if s[0] >= b and s[1] >= hp and s[2] >= wp]
+        if not fits:
+            return None
+        return min(fits, key=lambda s: s[0] * s[1] * s[2])
+
+    def _route_ragged(self, b: int, hp: int,
+                      wp: int) -> Tuple[int, int, int]:
+        """Capacity class a ÷8-padded ``(b, hp, wp)`` dispatch uses: the
+        smallest fitting class, else a declared class's box with a grown
+        batch, else a ``ragged_grain``-rounded box."""
+        with self._lock:
+            cls = self._select_class(b, hp, wp)
+            if cls is None:
+                sp = [s for s in self._programs_ragged
+                      if s[1] >= hp and s[2] >= wp]
+                if sp:
+                    s = min(sp, key=lambda s: s[1] * s[2])
+                    cls = (b, s[1], s[2])
+        if cls is None:
+            g = self.ragged_grain
+            cls = (b, -(-hp // g) * g, -(-wp // g) * g)
+        return cls
+
+    def ragged_class_for(self, h: int, w: int) -> Tuple[int, int]:
+        """The ``(Hcap, Wcap)`` box a raw ``(h, w)`` request coalesces
+        under. Builds nothing."""
+        hp, wp = self._padded(h, w)
+        with self._lock:
+            sp = [s for s in self._programs_ragged
+                  if s[1] >= hp and s[2] >= wp]
+        if sp:
+            s = min(sp, key=lambda s: (s[1] * s[2], s[0]))
+            return s[1], s[2]
+        g = self.ragged_grain
+        return -(-hp // g) * g, -(-wp // g) * g
+
+    def route_ragged(self, b: int, h: int, w: int) -> Tuple[int, int, int]:
+        """The capacity class ``infer_ragged_async`` would use for ``b``
+        rows whose padded extents fit ``(h, w)`` — builds nothing."""
+        hp, wp = self._padded(h, w)
+        return self._route_ragged(b, hp, wp)
+
+    def ragged_capacity(self, h: int, w: int) -> Optional[int]:
+        """Largest batch a class at the ``(h, w)`` request's box can
+        carry, or None when no class spatially fits."""
+        hp, wp = self._padded(h, w)
+        with self._lock:
+            fits = [s[0] for s in self._programs_ragged
+                    if s[1] >= hp and s[2] >= wp]
+        return max(fits) if fits else None
+
+    def ensure_ragged(self, batch: int, h: int, w: int
+                      ) -> Tuple[int, int, int]:
+        """Build (if missing) and return the capacity class serving a
+        ``(batch, h, w)`` box; no grain fallback."""
+        hp, wp = self._padded(h, w)
+        with self._lock:
+            cls = self._select_class(batch, hp, wp)
+        if cls is None:
+            cls = (batch, hp, wp)
+        self._get_program(cls, "ragged")
+        return cls
+
+    # -- inference -----------------------------------------------------------
+
+    def _wire(self, a) -> np.ndarray:
+        a = a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+        return a if a.dtype == self._wire_np else a.astype(self._wire_np)
+
+    def infer_batch_async(self, image1, image2, flow_init=None,
+                          return_low: bool = False,
+                          low_device: bool = False) -> PendingBatch:
+        """Non-blocking dispatch: route, pad (in the wire dtype), ship and
+        run the bucket's program; ``fetch()`` on the returned
+        :class:`PendingBatch` waits for the result.
+
+        ``flow_init`` (warm_start engines): a host array of shape ``(B,
+        hp//8, wp//8, 2)``, embedded into the bucket on the host, or a
+        tensor (that shape, or the full bucket's), embedded on the
+        device. ``low_device=True`` leaves the returned ``flow_low`` on
+        the device."""
+        if (flow_init is not None or return_low) and not self.warm_start:
+            raise ValueError(
+                "flow_init/return_low need a warm_start=True engine — "
+                "this engine compiled the single-output serving fn")
+        image1 = self._wire(image1)
+        image2 = self._wire(image2)
+        b, h, w, _ = image1.shape
+        left, right, top, bottom = pad_amounts(h, w)
+        hp, wp = h + top + bottom, w + left + right
+        bucket = self._route(b, hp, wp)
+        prog = self._get_program(bucket)
+        bb, bh, bw = bucket
+        # edge-pad to stride alignment (InputPadder), zero-fill the bucket
+        align = ((0, 0), (top, bottom), (left, right), (0, 0))
+        fill = ((0, bb - b), (0, bh - hp), (0, bw - wp), (0, 0))
+        host = {"image1": np.pad(np.pad(image1, align, mode="edge"), fill),
+                "image2": np.pad(np.pad(image2, align, mode="edge"), fill)}
+        h2d = host["image1"].nbytes + host["image2"].nbytes
+        on_device = None
+        if self.warm_start:
+            want = (b, hp // 8, wp // 8, 2)
+            full = (bb, bh // 8, bw // 8, 2)
+            if isinstance(flow_init, torch.Tensor):
+                if tuple(flow_init.shape) not in (want, full):
+                    raise ValueError(
+                        f"flow_init shape {tuple(flow_init.shape)} != "
+                        f"{want} (1/8 of the ÷8-padded request)")
+                fi = flow_init
+
+                def on_device(inputs):
+                    t = self._device_tensor(fi)
+                    if tuple(t.shape) == full:
+                        inputs["flow_init"].copy_(t)
+                    else:
+                        inputs["flow_init"].zero_()
+                        inputs["flow_init"][:b, :hp // 8, :wp // 8].copy_(t)
+            else:
+                finit = np.zeros(full, np.float32)
+                if flow_init is not None:
+                    fi = np.asarray(flow_init, np.float32)
+                    if fi.shape != want:
+                        raise ValueError(
+                            f"flow_init shape {fi.shape} != {want} "
+                            "(1/8 of the ÷8-padded request)")
+                    finit[:b, :hp // 8, :wp // 8, :] = fi
+                host["flow_init"] = finit
+                h2d += finit.nbytes
+
+        def keep(out):
+            low, up = out
+            return (up[:b, top:top + h, left:left + w].clone(),
+                    low[:b, :hp // 8, :wp // 8].clone() if return_low
+                    else None)
+
+        (flow, low), event = self._dispatch(prog, host, keep, on_device)
+        return PendingBatch(flow, low, bucket, h2d, return_low, low_device,
+                            event)
+
+    def infer_batch(self, image1, image2, flow_init=None,
+                    return_low: bool = False):
+        """(B,H,W,3) [0,255] -> (B,H,W,2) flow: ``infer_batch_async(...)
+        .fetch()``. Routes to a bucket, padding up; builds an exact-shape
+        program outside the envelope.
+
+        Accuracy note: bucket fill beyond the ÷8 pad shifts the encoders'
+        instance-norm statistics, which couple every output pixel to the
+        fill; an envelope bucket per deployed shape (or ``exact_shapes``)
+        avoids it."""
+        return self.infer_batch_async(image1, image2, flow_init=flow_init,
+                                      return_low=return_low).fetch()
+
+    def infer_ragged_async(self, pairs, flow_inits=None,
+                           return_low: bool = False,
+                           low_device: bool = False,
+                           box: Optional[Tuple[int, int]] = None
+                           ) -> RaggedPendingBatch:
+        """Non-blocking mixed-shape dispatch through one capacity class.
+
+        ``pairs``: per-request ``(image1, image2)`` frames, each ``(h_i,
+        w_i, 3)``. Each row is edge-padded to its own ÷8 alignment and
+        zero-embedded in the class box; the per-row extents ride as static
+        inputs of the class's program, so every mix replays one graph.
+        ``flow_inits`` (warm_start): per-row ``(hp_i/8, wp_i/8, 2)`` (host
+        array or tensor) or None. ``box``: the ``(Hcap, Wcap)`` the caller
+        routed under. ``fetch()`` returns per-row flows cropped to each
+        request."""
+        if not self.ragged:
+            raise ValueError("infer_ragged_async needs a ragged=True "
+                             "engine")
+        n = len(pairs)
+        if n == 0:
+            raise ValueError("empty ragged micro-batch")
+        if (flow_inits is not None or return_low) and not self.warm_start:
+            raise ValueError(
+                "flow_inits/return_low need a warm_start=True engine")
+        rows = []
+        imgs = []
+        for i1, i2 in pairs:
+            i1 = self._wire(i1)
+            i2 = self._wire(i2)
+            if i1.ndim != 3 or i1.shape[-1] != 3:
+                raise ValueError(f"ragged rows are (H, W, 3) frame "
+                                 f"pairs, got {i1.shape}")
+            if i1.shape != i2.shape:
+                raise ValueError(f"frame shapes differ: {i1.shape} vs "
+                                 f"{i2.shape}")
+            h, w = i1.shape[:2]
+            left, right, top, bottom = pad_amounts(h, w)
+            rows.append((h, w, top, left, h + top + bottom,
+                         w + left + right))
+            imgs.append((i1, i2))
+        hpmax = max(r[4] for r in rows)
+        wpmax = max(r[5] for r in rows)
+        if box is not None:
+            if box[0] < hpmax or box[1] < wpmax:
+                raise ValueError(
+                    f"box {box} does not fit the batch's padded "
+                    f"extents ({hpmax}, {wpmax})")
+            bucket = self._route_ragged(n, box[0], box[1])
+        else:
+            bucket = self._route_ragged(n, hpmax, wpmax)
+        bb, bh, bw = bucket
+        prog = self._get_program(bucket, "ragged")
+        i1b = np.zeros((bb, bh, bw, 3), self._wire_np)
+        i2b = np.zeros_like(i1b)
+        # 0 for batch-fill rows: the mask zeroes their features whole
+        vh8 = np.zeros((bb,), np.int32)
+        vw8 = np.zeros((bb,), np.int32)
+        for i, ((h, w, top, left, hp, wp), (a, b2)) in enumerate(
+                zip(rows, imgs)):
+            align = ((top, hp - h - top), (left, wp - w - left), (0, 0))
+            i1b[i, :hp, :wp] = np.pad(a, align, mode="edge")
+            i2b[i, :hp, :wp] = np.pad(b2, align, mode="edge")
+            vh8[i] = hp // 8
+            vw8[i] = wp // 8
+        host = {"image1": i1b, "image2": i2b, "valid_h8": vh8,
+                "valid_w8": vw8}
+        h2d = i1b.nbytes + i2b.nbytes + vh8.nbytes + vw8.nbytes
+        on_device = None
+        if self.warm_start:
+            full = (bb, bh // 8, bw // 8, 2)
+            finits = list(flow_inits) if flow_inits is not None else []
+            if len(finits) > n:
+                raise ValueError(f"{len(finits)} flow_inits for "
+                                 f"{n} rows")
+            for i, fi in enumerate(finits):
+                if fi is None:
+                    continue
+                _, _, _, _, hp, wp = rows[i]
+                want = (hp // 8, wp // 8, 2)
+                if tuple(fi.shape) != want:
+                    raise ValueError(
+                        f"row {i} flow_init shape {tuple(fi.shape)} "
+                        f"!= {want} (1/8 of the ÷8-padded request)")
+            if any(isinstance(fi, torch.Tensor) for fi in finits):
+                # embed on the device: device-resident rows never touch
+                # the host; host rows mixed in still cross the wire
+                h2d += sum(np.asarray(fi).nbytes for fi in finits
+                           if fi is not None
+                           and not isinstance(fi, torch.Tensor))
+
+                def on_device(inputs):
+                    inputs["flow_init"].zero_()
+                    for i, fi in enumerate(finits):
+                        if fi is not None:
+                            _, _, _, _, hp, wp = rows[i]
+                            inputs["flow_init"][i, :hp // 8, :wp // 8] \
+                                .copy_(self._device_tensor(fi))
+            else:
+                finit = np.zeros(full, np.float32)
+                for i, fi in enumerate(finits):
+                    if fi is not None:
+                        _, _, _, _, hp, wp = rows[i]
+                        finit[i, :hp // 8, :wp // 8, :] = np.asarray(
+                            fi, np.float32)
+                host["flow_init"] = finit
+                h2d += finit.nbytes
+
+        def keep(out):
+            low, up = out
+            flows = [up[i, top:top + h, left:left + w].clone()
+                     for i, (h, w, top, left, _, _) in enumerate(rows)]
+            lows = ([low[i, :hp // 8, :wp // 8].clone()
+                     for i, (_, _, _, _, hp, wp) in enumerate(rows)]
+                    if return_low else None)
+            return flows, lows
+
+        (flows, lows), event = self._dispatch(prog, host, keep, on_device)
+        return RaggedPendingBatch(
+            flows, lows, bucket, h2d, return_low, low_device, event,
+            real_px=sum(h * w for (h, w, _, _, _, _) in rows),
+            padded_px=bb * bh * bw)
+
+    def infer_ragged(self, pairs, flow_inits=None,
+                     return_low: bool = False):
+        """Synchronous form: ``infer_ragged_async(...).fetch()``."""
+        return self.infer_ragged_async(
+            pairs, flow_inits=flow_inits, return_low=return_low).fetch()
+
+    def infer_cached_async(self, image2, slots,
+                           expect_version: Optional[int] = None
+                           ) -> PendingBatch:
+        """Cross-frame cached dispatch: one encoder pass (the new frames)
+        and the recurrence; each pair's first-frame features arrive as
+        device-resident cache rows instead of pixels.
+
+        ``image2``: (B, h, w, 3), each stream's new frame (the only frame
+        that ships). ``slots``: length-B list; entry i is None for a
+        cold/prime row (zeroed cache inputs: its flow is meaningless, its
+        cache outputs prime the stream) or a ``(fmap1, cnet1, flow_init)``
+        triple of tensors at the request's 1/8 ÷8-padded geometry
+        (``flow_init`` may be None: warm features, cold recurrence).
+
+        ``expect_version``: the ``weights_version`` the rows were stamped
+        with; if the engine moved past it, :class:`StaleFeatureError`
+        before the program runs (the check and the run are one atom).
+
+        ``fetch()`` returns ``(flow, flow_low_full, fmap2, cnet2)``; the
+        last three are full-bucket device tensors."""
+        if not self.feature_cache:
+            raise ValueError("infer_cached_async needs a "
+                             "feature_cache=True engine")
+        image2 = self._wire(image2)
+        b, h, w, _ = image2.shape
+        if len(slots) != b:
+            raise ValueError(f"{len(slots)} cache slots for batch {b}")
+        left, right, top, bottom = pad_amounts(h, w)
+        hp, wp = h + top + bottom, w + left + right
+        lh, lw = hp // 8, wp // 8
+        dims = (self.config.fnet_dim, self.config.cnet_dim, 2)
+        for i, s in enumerate(slots):
+            if s is None:
+                continue
+            for t, c in zip(s, dims):
+                if t is not None and tuple(t.shape) != (lh, lw, c):
+                    raise ValueError(
+                        f"slot {i}: cache row shape {tuple(t.shape)} != "
+                        f"{(lh, lw, c)} (1/8 of the ÷8-padded request)")
+        bucket = self._route(b, hp, wp, cached=True)
+        prog = self._get_program(bucket, "cached")
+        bb, bh, bw = bucket
+        align = ((0, 0), (top, bottom), (left, right), (0, 0))
+        fill = ((0, bb - b), (0, bh - hp), (0, bw - wp), (0, 0))
+        host = {"image2": np.pad(np.pad(image2, align, mode="edge"), fill)}
+        h2d = host["image2"].nbytes
+
+        def on_device(inputs):
+            # zero rows are the prime/cold form, so one assembly serves
+            # every warmth mix
+            names = ("fmap1", "cnet1", "flow_init")
+            for name in names:
+                inputs[name].zero_()
+            for i, s in enumerate(slots):
+                if s is None:
+                    continue
+                for name, t in zip(names, s):
+                    if t is not None:
+                        inputs[name][i, :lh, :lw].copy_(
+                            self._device_tensor(t))
+
+        def keep(out):
+            low, up, fmap2, cnet2 = out
+            return (up[:b, top:top + h, left:left + w].clone(), low.clone(),
+                    fmap2.clone(), cnet2.clone())
+
+        (flow, low, fmap2, cnet2), event = self._dispatch(
+            prog, host, keep, on_device, expect_version=expect_version)
+        return PendingBatch(flow, low, bucket, h2d, False, True, event,
+                            cache=(fmap2, cnet2))
+
+    def infer_cached(self, image2, slots,
+                     expect_version: Optional[int] = None):
+        """Synchronous form: ``infer_cached_async(...).fetch()``."""
+        return self.infer_cached_async(
+            image2, slots, expect_version=expect_version).fetch()
+
+    def infer(self, images: Sequence[np.ndarray], batch_size: int = 4,
+              time_it: bool = False) -> List[np.ndarray]:
+        """Sliding-window flow over a frame sequence (raft_trt.py:41-67):
+        consecutive pairs, chunked into batches. The last chunk batch-fills
+        into the bucket the full chunks use, so one program serves the
+        whole sequence."""
+        flows: List[np.ndarray] = []
+        n = len(images) - 1
+        t0 = time.perf_counter()
+        for i in range(0, n, batch_size):
+            i1 = np.stack(images[i:min(i + batch_size, n)])
+            i2 = np.stack(images[i + 1:min(i + batch_size, n) + 1])
+            flows.extend(self.infer_batch(i1, i2))
+        if time_it:
+            dt = time.perf_counter() - t0
+            print(f"{n} pairs in {dt:.3f}s ({n / max(dt, 1e-9):.2f} pairs/s)")
+        return flows

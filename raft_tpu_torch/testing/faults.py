@@ -56,8 +56,9 @@ CRASH_EXIT_CODE = 41
 
 #: every site armed in raft_tpu_torch, one line each. Plans are checked
 #: against it when armed, so a typo'd site fails instead of arming nothing.
-#: Add the row with the ``fault_point``/``fault_file`` call. The serving
-#: sites of the JAX package come with the port's serving code.
+#: Add the row with the ``fault_point``/``fault_file`` call. The JAX
+#: package's other serving sites (``serve.request``, ...) come with the
+#: serving host layers (ROADMAP M11).
 KNOWN_SITES = {
     "loader.sample": "per-sample decode and augmentation in the "
                      "PrefetchLoader's workers, under on_bad_sample",
@@ -67,6 +68,12 @@ KNOWN_SITES = {
                           "the finished file)",
     "ckpt.orbax_save": "full-state save (corrupt zero-fills the step "
                        "directory's state file after it is committed)",
+    "serve.fetch": "PendingBatch/RaggedPendingBatch.fetch in "
+                   "serving/engine.py, before waiting for the device result "
+                   "(hang: a dispatch that never completes)",
+    "engine.compile": "RAFTEngine._get_program in serving/engine.py, before "
+                      "a bucket's program is built (on the card, a CUDA graph "
+                      "captured)",
 }
 
 _POINT_KINDS = ("raise", "hang", "crash")

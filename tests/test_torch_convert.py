@@ -3,9 +3,10 @@
 - The trained small fixture loads into identical port tensors through the
   ``.pth`` directly and through JAX's ``.msgpack`` loader followed by
   ``state_dict_from_flax``; JAX-initialised variables load ``strict=True``.
-- ``raft_tpu_torch`` (its ``training``, ``data`` and evaluation modules,
-  the augmentors, loader, checkpoints and training CLIs included), ``chip_smoke``, ``profile_corr_alt``, ``profile_hd_pair``
-  and ``profile_train_convs`` import with
+- ``raft_tpu_torch`` (its ``training``, ``data``, evaluation and serving
+  modules, the augmentors, loader, checkpoints and CLIs included),
+  ``chip_smoke``, ``profile_corr_alt``, ``profile_hd_pair``,
+  ``profile_train_convs`` and ``profile_serving_fp32`` import with
   ``jax``, ``flax``, ``raft_tpu``, ``PIL`` and ``cv2`` blocked (a
   subprocess; ``raft_tpu_torch`` itself must pass): the card's machine has
   none of them.
@@ -108,9 +109,12 @@ for n in ("training.loss", "training.optim", "training.train_step",
           "utils.watchdog", "testing.faults", "training.restore_sandbox",
           "training.supervisor", "cli._measure", "cli.loader_bench",
           "cli.envelope", "cli.infer_bench", "cli.corr_bench",
-          "cli.profile_step", "cli.trace_summary"):
+          "cli.profile_step", "cli.trace_summary", "serving",
+          "serving.engine", "serving.ragged", "serving.export",
+          "cli.export", "cli.parity"):
     assert "raft_tpu_torch." + n in names, n
 import chip_smoke, profile_corr_alt, profile_hd_pair, profile_train_convs
+import profile_serving_fp32
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 print(len(names), "modules")
@@ -121,7 +125,7 @@ def test_port_and_chip_smoke_import_with_jax_blocked():
     r = subprocess.run([sys.executable, "-c", _BLOCKER], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
-    assert int(r.stdout.split()[0]) >= 57
+    assert int(r.stdout.split()[0]) >= 63
 
 
 def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
@@ -176,8 +180,25 @@ def test_later_slices_raise_not_implemented(tmp_path):
     model = RAFT(RAFTConfig(small=True, dropout=0.1))
     img = torch.zeros(1, 32, 32, 3)
     model(img, img, iters=1, test_mode=False, train=True)
-    for fn in (model.forward_cached, model.forward_ragged):
-        with pytest.raises(NotImplementedError, match="M10"):
-            fn(img)
+    # the serving forwards are ported (M10); sharded serving, the program
+    # store and the serving video are not
+    full = torch.full((1,), 4, dtype=torch.int32)
+    assert model.forward_ragged(img, img, full, full, iters=1)[1].shape == (
+        1, 32, 32, 2)
+    cached = model.forward_cached(img, torch.zeros(1, 4, 4, 128),
+                                  torch.zeros(1, 4, 4, 160),
+                                  torch.zeros(1, 4, 4, 2), iters=1)
+    assert [tuple(t.shape) for t in cached] == [
+        (1, 4, 4, 2), (1, 32, 32, 2), (1, 4, 4, 128), (1, 4, 4, 160)]
+    from raft_tpu_torch.cli.parity import main as parity
+    from raft_tpu_torch.serving import RAFTEngine
+    with pytest.raises(NotImplementedError, match="M9"):
+        RAFTEngine(model, model.config, mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="M11"):
+        RAFTEngine(model, model.config, aot_cache=str(tmp_path),
+                   device="cpu")
+    with pytest.raises(NotImplementedError, match="M11"):
+        parity(["--model", "unused.pth", "--path", str(tmp_path),
+                "--video", "out.avi", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="msgpack"):
         load_weights(str(tmp_path / "w.msgpack"), RAFTConfig(small=True))

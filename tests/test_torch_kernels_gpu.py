@@ -506,3 +506,114 @@ def test_envelope_measures_the_card(cuda):
     assert all(v > 1 for v in out["matmul_tflops"].values())
     assert out["copy_gbps"] > 100 and 0 < out["launch_us"] < 1000
     assert out["device"] == torch.cuda.get_device_name(0)
+
+
+# -- serving: captured graphs, the kernels' operators, the export ----------
+
+def _serving_frames(seed, n, h=60, w=92):
+    rng = np.random.RandomState(seed)
+    base = np.floor(rng.rand(h + 2 * n, w + 2 * n, 3) * 256).astype(
+        np.float32)
+    return [base[k:k + h, 2 * k:2 * k + w] for k in range(n)]
+
+
+def test_graph_replay_is_bitwise_eager(cuda):
+    """A bucket's captured graph against the eager forward of the same
+    padded bucket inputs on the card (basic model, seeded random weights,
+    K1 and K2): bitwise, plain and ragged, and each replay's K1/K2
+    launches as its capture recorded them."""
+    from raft_tpu_torch.config import RAFTConfig
+    from raft_tpu_torch.models import RAFT
+    from raft_tpu_torch.serving import RAFTEngine
+
+    cfg = RAFTConfig(corr_impl="pallas", gru_impl="fused")
+    model = RAFT(cfg, torch.Generator().manual_seed(0))
+    eng = RAFTEngine(model, cfg, iters=3, envelope=[(2, 64, 96)],
+                     wire="u8", warm_start=True, ragged=True,
+                     capacity_classes=[(2, 64, 96)])
+    assert eng.capture_count == 2
+    f = _serving_frames(0, 3)
+    i1, i2 = np.stack(f[:2]), np.stack(f[1:])
+    flow, low = eng.infer_batch(i1, i2, return_low=True)
+    pad = ((0, 0), (2, 2), (2, 2), (0, 0))
+    with torch.no_grad():
+        want_low, want = eng.model(
+            *[torch.from_numpy(np.pad(x, pad, mode="edge").astype(np.uint8))
+              .to(cuda) for x in (i1, i2)], iters=3)
+    np.testing.assert_array_equal(flow, want[:, 2:62, 2:94].cpu().numpy())
+    np.testing.assert_array_equal(low, want_low.cpu().numpy())
+    assert eng.replayed_launches() == {"corr_lookup": 3, "gru_gates": 6,
+                                       "gru_blend": 6}
+    # ragged: a full row and a smaller one in the class's one graph
+    rows = eng.infer_ragged([(f[0], f[1]), (f[1][:40, :50], f[2][:40, :50])])
+    np.testing.assert_array_equal(rows[0], flow[0])
+    assert rows[1].shape == (40, 50, 2) and eng.capture_count == 2
+
+
+def test_two_pending_replays_keep_their_own_flows(cuda):
+    from raft_tpu_torch.config import RAFTConfig
+    from raft_tpu_torch.models import RAFT
+    from raft_tpu_torch.serving import RAFTEngine
+
+    cfg = RAFTConfig(corr_impl="pallas", gru_impl="fused")
+    eng = RAFTEngine(RAFT(cfg), cfg, iters=2, envelope=[(1, 64, 96)])
+    f = _serving_frames(1, 4)
+    alone = [eng.infer_batch(f[i][None], f[i + 1][None]) for i in (0, 2)]
+    first = eng.infer_batch_async(f[0][None], f[1][None])
+    second = eng.infer_batch_async(f[2][None], f[3][None])
+    np.testing.assert_array_equal(second.fetch(), alone[1])
+    np.testing.assert_array_equal(first.fetch(), alone[0])
+    assert not np.array_equal(alone[0], alone[1])
+
+
+def test_operators_match_the_autograd_path(cuda):
+    """The ``torch.library`` operators a traced program holds launch the
+    same kernels as the wrappers' ``autograd.Function``s: bitwise."""
+    from raft_tpu_torch.kernels.corr_alt import alt_corr_lookup_cuda
+
+    rng = np.random.RandomState(2)
+    pyr = _pyramid(rng, 1, 12, 20, 3, torch.float32, cuda)
+    coords = _coords(rng, 1, 12, 20, 4.0, cuda)
+    ops = torch.ops.raft_tpu_torch
+    assert torch.equal(ops.corr_lookup(coords, pyr, 4),
+                       corr_lookup_cuda(pyr, coords, 4))
+    zr = torch.randn(2, 256, 12, 20, device=cuda)
+    h = torch.randn(2, 128, 12, 20, device=cuda)
+    for a, b in zip(ops.gru_gates(zr[:, :128], zr[:, 128:], h),
+                    gru_gates(zr[:, :128], zr[:, 128:], h)):
+        assert torch.equal(a, b)
+    assert torch.equal(ops.gru_blend(zr[:, :128], h, zr[:, 128:]),
+                       gru_blend(zr[:, :128], h, zr[:, 128:]))
+    f1 = torch.randn(1, 12, 20, 64, device=cuda)
+    f2 = [torch.randn(1, 12, 20, 64, device=cuda),
+          torch.randn(1, 6, 10, 64, device=cuda)]
+    assert torch.equal(ops.alt_corr_lookup(f1, f2, coords, 3),
+                       alt_corr_lookup_cuda(f1, f2, coords, 3))
+
+
+def test_exported_program_launches_the_kernels(cuda, tmp_path):
+    """``torch.export`` of the basic model on the card holds the K1 and K2
+    operators; the saved and reloaded program launches the kernels and
+    equals the eager forward at batch 1 and 2 within 1e-5 px."""
+    from raft_tpu_torch.config import RAFTConfig
+    from raft_tpu_torch.models import RAFT
+    from raft_tpu_torch.serving.export import (export_program, load_program,
+                                               make_serving_fn)
+
+    cfg = RAFTConfig(corr_impl="pallas", gru_impl="fused")
+    model = RAFT(cfg).to(cuda).eval()
+    path = str(tmp_path / "basic.pt2")
+    torch.export.save(export_program(model, cfg, iters=2, image_hw=(64, 96)), path)
+    program = load_program(path)
+    for b in (1, 2):
+        f = _serving_frames(3 + b, b + 1, 64, 96)
+        i1 = torch.from_numpy(np.stack(f[:b])).to(cuda)
+        i2 = torch.from_numpy(np.stack(f[1:])).to(cuda)
+        kernels.reset_launch_counts()
+        got = program(i1, i2)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()["corr_lookup"] == 2
+        assert kernels.launch_counts()["gru_gates"] == 4
+        with torch.no_grad():
+            want = make_serving_fn(model, cfg, 2)(i1, i2)
+        assert float((got - want).abs().max()) <= 1e-5
