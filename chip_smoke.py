@@ -158,10 +158,33 @@ Phases, each of which fails loudly (nothing is caught):
    encoder saving; ``export_program`` of the small fixture loaded in a
    fresh process (batch 1 and 2 against eager, K1 in its profile); and
    ``cli/parity`` over ``demo-frames/`` (within 5e-4 px);
-18. print the drill's, the envelope's and the serving phase's numbers, the
-   ``{"kernels": [...]}`` line (with ``launches_serving`` on K1 and K2),
-   the ``nvidia-smi`` line, and last the ``{"ok": true, "device": ...}``
-   line.
+18. the serving front end (``serving.scheduler`` over the engine,
+   ``serving.session``, the feature-cache pool, breakers and watchdog,
+   tracing) through ``cli/serve_bench.run_drill``: the basic model at full
+   width with seeded random weights (``pallas`` + ``fused``, iters 20, u8
+   wire, warm start, TF32 convolutions as phase 17's engine A), buckets of
+   4 at 440x1024 and 368x496, 48 requests from 2 submitters and 2 video
+   sessions of 8 pairs, at ``pipeline_depth`` 1 and 2 on the same seeded
+   traffic: pairs/s, p50/p99, occupancy, dispatch gap, overlap, H2D bytes
+   a request, captures, each run's replayed K1/K2 launches (20, 40, 40 a
+   dispatch) and the idle share of a profiled 16-request window (run 1
+   traced, its spans read back with ``cli/serve_trace``; one profiled
+   dispatch's launches by kernel name); the small fixture through the
+   scheduler on mixed crops of ``demo-frames/`` (each future within 5e-4
+   px of the engine's direct ``infer_batch``, nothing stranded, the
+   accounting identity), the same traffic through one ragged class against
+   the buckets, feature-cache sessions over ``demo-frames/`` (each warm
+   pair within 5e-4 px of the plain twin fed the same ``flow_init``, one
+   u8 frame of H2D a pair, against plain warm-start sessions), device-state
+   sessions (``flow_low`` a CUDA tensor throughout, the device warp
+   bitwise across two runs), and one ``--chaos 2`` drill (raise and hang
+   at ``serve.request``, ``serve.dispatch_exec``, ``engine.compile``: no
+   invariant broken, the clean round healthy with the documented graphs);
+19. print the drill's, the envelope's and the serving phases' numbers (a
+   ``{"serving_frontend": ...}`` line), the ``{"kernels": [...]}`` line
+   (with ``launches_serving`` and ``launches_serving_frontend`` on K1 and
+   K2), the ``nvidia-smi`` line, and last the ``{"ok": true, "device":
+   ...}`` line.
 
 Exits non-zero, printing no result, when there is no CUDA device.
 """
@@ -2155,6 +2178,360 @@ def envelope_bound_ms(t: dict, env: dict, tf32: bool = False) -> tuple:
 
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the serving front end
+# ---------------------------------------------------------------------------
+
+FRONT_SHAPES = [(440, 1024), (368, 496)]   # the drill's cvt2trt-ish pair
+FRONT_BUCKET_B = 4
+FRONT_REQUESTS = 48
+FRONT_SUBMITTERS = 2
+FRONT_SESSIONS = 2
+FRONT_SESSION_FRAMES = 8
+FRONT_PROFILED_REQUESTS = 16
+MIXED_CROPS = [(436, 1024), (368, 496), (256, 320)]   # of demo-frames
+CHAOS_SHAPES = [(256, 320), (192, 256)]
+
+
+def demo_frames():
+    """``demo-frames/``: ten 436x1024 frames of one Sintel scene."""
+    from raft_tpu_torch.data.png import read_png
+
+    return [read_png(f) for f in
+            sorted(glob.glob(os.path.join(REPO, "demo-frames", "*.png")))]
+
+
+def front_drill(engine, weights, cfg, depth: int, **kw):
+    """``cli/serve_bench.run_drill`` at full width on ``engine``: the
+    drill's seeded traffic (FRONT_REQUESTS pairs from FRONT_SUBMITTERS
+    threads and FRONT_SESSIONS warm-start video sessions), u8 wire, one
+    pipeline depth. Returns the summary and each kernel's replayed
+    launches during the drill."""
+    from raft_tpu_torch.cli import serve_bench
+
+    kw.setdefault("requests", FRONT_REQUESTS)
+    kw.setdefault("sessions", FRONT_SESSIONS)
+    before = dict(engine.replayed_launches())
+    summary = serve_bench.run_drill(
+        weights, cfg, shapes=FRONT_SHAPES, submitters=FRONT_SUBMITTERS,
+        bucket_batch=FRONT_BUCKET_B, iters=ITERS,
+        session_frames=FRONT_SESSION_FRAMES, wire="u8",
+        pipeline_depth=depth, seed=18, engine=engine, **kw)
+    after = engine.replayed_launches()
+    return summary, {k: after[k] - before.get(k, 0) for k in after}
+
+
+def serving_frontend_phase(smi: str) -> dict:
+    """Phase 18: the serving front end on the card (``serving.scheduler``,
+    ``serving.session``, the feature-cache pool, the resilience layer,
+    tracing, ``cli/serve_bench`` and ``cli/serve_trace``); see the module
+    docstring."""
+    import contextlib
+    import io
+    import threading
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from raft_tpu_torch.cli import serve_bench, serve_trace
+    from raft_tpu_torch.config import RAFTConfig
+    from raft_tpu_torch.models import RAFT
+    from raft_tpu_torch.ops.interp import forward_interpolate_device
+    from raft_tpu_torch.serving import (MicroBatchScheduler, RAFTEngine,
+                                        VideoSession)
+    from raft_tpu_torch.serving.schema import validate_lines
+    from raft_tpu_torch.tools.convert import load_pth
+
+    per_replay = {"corr_lookup": ITERS, "gru_gates": 2 * ITERS,
+                  "gru_blend": 2 * ITERS}
+    out = {}
+    # as engine A of phase 17: TF32 convolutions, cuDNN deterministic
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cudnn.deterministic = True
+
+    # -- 1. full width, timed, depth 1 against depth 2 -----------------------
+    cfg = RAFTConfig(corr_impl="pallas", gru_impl="fused")
+    weights = RAFT(cfg, torch.Generator().manual_seed(0)).state_dict()
+    t0 = time.perf_counter()
+    eng = RAFTEngine(weights, cfg, iters=ITERS, envelope=sorted(
+        {(FRONT_BUCKET_B, -(-h // 8) * 8, -(-w // 8) * 8)
+         for h, w in FRONT_SHAPES}), warm_start=True, wire="u8")
+    capture_s = time.perf_counter() - t0
+    captures = eng.capture_count
+    launches = {k: 0 for k in per_replay}
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        spans = os.path.join(tmp, "spans.jsonl")
+        for depth in (1, 2):
+            s, l = front_drill(eng, weights, cfg, depth,
+                               trace_path=spans if depth == 1 else None)
+            n = s["dispatches"]
+            if l != {k: v * n for k, v in per_replay.items()}:
+                raise RuntimeError(f"depth {depth}: {n} dispatches replayed "
+                                   f"{l}, want {per_replay} each")
+            for k in launches:
+                launches[k] += l[k]
+            bad = (s["served"] != s["accepted"] or s["stranded"]
+                   or not s["accounting_ok"] or s["errors"]
+                   or s["session_pairs"] != FRONT_SESSIONS
+                   * FRONT_SESSION_FRAMES or s["executables"] != captures)
+            if bad:
+                raise RuntimeError(f"depth {depth} drill: {s}")
+            # the idle share of one profiled window: the same drill's
+            # traffic, cut to FRONT_PROFILED_REQUESTS one-shot pairs
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t1 = time.perf_counter()
+                ps, pl = front_drill(eng, weights, cfg, depth,
+                                     requests=FRONT_PROFILED_REQUESTS,
+                                     sessions=0)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t1) * 1e3
+            for k in launches:
+                launches[k] += pl[k]
+            busy = device_busy_ms(prof)
+            runs[depth] = {k: s[k] for k in (
+                "pairs_per_s", "p50_ms", "p99_ms", "mean_occupancy",
+                "dispatch_gap_p50_ms", "dispatch_gap_p99_ms",
+                "dispatch_gap_mean_ms", "overlap_ratio",
+                "h2d_bytes_per_req", "dispatches", "served",
+                "session_pairs", "warm_submits", "wall_s")}
+            runs[depth].update(
+                captures=eng.capture_count, profiled_wall_ms=wall,
+                profiled_busy_ms=busy, idle_share=1 - busy / wall,
+                profiled_pairs_per_s=ps["pairs_per_s"])
+            log(f"[18] serve_bench.run_drill, basic model at full width "
+                f"(seeded weights, pallas+fused, iters={ITERS}, u8 wire, warm "
+                f"start, TF32 convolutions), shapes {FRONT_SHAPES} in buckets "
+                f"of {FRONT_BUCKET_B}, {FRONT_REQUESTS} requests from "
+                f"{FRONT_SUBMITTERS} submitters + {FRONT_SESSIONS} sessions "
+                f"of {FRONT_SESSION_FRAMES} pairs, pipeline_depth={depth}: "
+                f"{runs[depth]}; {n} dispatches replayed {l} (per replay "
+                f"{per_replay}); {smi}")
+            if eng.capture_count != captures:
+                raise RuntimeError("the drill captured a new graph")
+        # -- 7. the spans of run 1, read back with cli/serve_trace ------------
+        recs = serve_trace.load_spans(spans)
+        requests = [r for r in recs if r["span"] == "request"]
+        problems = validate_lines(recs)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            serve_trace.main([spans, "--top", "3"])
+        attribution = serve_trace.phase_attribution(recs)
+        log(f"[18] --trace-path on run 1: {len(requests)} request spans "
+            f"({len([r for r in recs if r['span'] == 'dispatch'])} dispatch "
+            f"spans), schema problems {problems[:3]}; serve_trace's report:\n"
+            + buf.getvalue().rstrip())
+        if problems or len(requests) != runs[1]["served"] + FRONT_SESSIONS \
+                * FRONT_SESSION_FRAMES or not buf.getvalue().strip():
+            raise RuntimeError("the spans file does not hold every request")
+        out["trace"] = {"request_spans": len(requests),
+                        "phase_attribution": attribution}
+    # one profiled dispatch: the bucket graph's K1/K2 by kernel name
+    f = synthetic_frames(0, FRONT_BUCKET_B + 1)
+    f1, f2 = np.stack(f[:-1]), np.stack(f[1:])
+    _, _, counts, _ = profiled_replay(lambda: eng.infer_batch(f1, f2),
+                                      per_replay, "front end dispatch")
+    out.update(full_width=runs, capture_s=capture_s, captures=captures,
+               profiled_dispatch_launches=counts)
+    del eng
+
+    # -- 2. correctness: the small fixture, mixed shapes of demo-frames ------
+    fixture = os.path.join(REPO, "tests", "fixtures",
+                           "raft-small-cputrained.pth")
+    cfg_s = RAFTConfig(small=True, corr_impl="pallas")
+    small = load_pth(fixture, cfg_s)
+    frames, crops = demo_frames(), MIXED_CROPS
+    pairs = [(frames[i][:h, :w], frames[i + 1][:h, :w])
+             for i in range(len(frames) - 1) for h, w in crops]
+    mixed = RAFTEngine(small, cfg_s, iters=ITERS, envelope=sorted(
+        {(FRONT_BUCKET_B, -(-h // 8) * 8, -(-w // 8) * 8) for h, w in crops}),
+        wire="u8")
+    direct = [mixed.infer_batch(a[None], b[None])[0] for a, b in pairs]
+    with MicroBatchScheduler(mixed, max_batch=FRONT_BUCKET_B,
+                             gather_window_s=0.005) as sched:
+        futs = [sched.submit(a, b) for a, b in pairs]
+        done = [f.result(timeout=300).flow for f in futs]
+    snap = sched.metrics.snapshot()
+    gap = max(float(np.abs(g - d).max()) for g, d in zip(done, direct))
+    stranded = sum(not f.done() for f in futs)
+    identity = snap["submitted"] == (snap["completed"] + snap["failed"]
+                                     + snap["deadline_missed"]
+                                     + snap["cancelled"])
+    log(f"[18] the small fixture through the scheduler: {len(pairs)} pairs of "
+        f"demo-frames at {crops} in {snap['dispatches']} dispatches "
+        f"(occupancy {snap['occupancy']['mean']}), each against the engine's "
+        f"direct infer_batch of the pair: largest gap {gap:.3e} px (tol "
+        f"{SMALL_TOL:g}); stranded {stranded}, accounting identity {identity}")
+    if not (gap <= SMALL_TOL and stranded == 0 and identity
+            and snap["completed"] == len(pairs)):
+        raise RuntimeError("the scheduler's flows disagree or strand")
+    out["correctness"] = {"pairs": len(pairs), "gap_px": gap,
+                          "dispatches": snap["dispatches"]}
+
+    # -- 5. ragged: the same mixed traffic through one capacity class --------
+    box = (FRONT_BUCKET_B, max(-(-h // 8) * 8 for h, _ in crops),
+           max(-(-w // 8) * 8 for _, w in crops))
+    ragged = RAFTEngine(small, cfg_s, iters=ITERS, wire="u8", ragged=True,
+                        capacity_classes=[box])
+    shapes = MIXED_CROPS
+    rs = serve_bench.run_drill(small, cfg_s, shapes=shapes, requests=24,
+                               bucket_batch=FRONT_BUCKET_B, iters=ITERS,
+                               wire="u8", ragged=True, engine=ragged, seed=5)
+    bs = serve_bench.run_drill(small, cfg_s, shapes=shapes, requests=24,
+                               bucket_batch=FRONT_BUCKET_B, iters=ITERS,
+                               wire="u8", engine=mixed, seed=5)
+    log(f"[18] --ragged on {shapes} x 24 requests: {ragged.capture_count} "
+        f"graph (class {box}), {rs['dispatches']} dispatches, capacity fill "
+        f"{rs['capacity_fill']}, cross-shape rate "
+        f"{rs['cross_shape_coalesce_rate']}, padding waste "
+        f"{rs['padding_waste_ratio']}, {rs['pairs_per_s']} pairs/s; bucketed: "
+        f"{mixed.capture_count} graphs, {bs['dispatches']} dispatches, "
+        f"padding waste {bs['padding_waste_ratio']}, {bs['pairs_per_s']} "
+        f"pairs/s")
+    for s in (rs, bs):
+        if s["served"] != s["accepted"] or not s["accounting_ok"]:
+            raise RuntimeError(f"ragged/bucketed drill: {s}")
+    if ragged.capture_count != 1:
+        raise RuntimeError("the ragged drill captured more than its class")
+    out["ragged"] = {"graphs": ragged.capture_count,
+                     "graphs_bucketed": mixed.capture_count,
+                     **{k: rs[k] for k in (
+                         "dispatches", "capacity_fill",
+                         "cross_shape_coalesce_rate", "padding_waste_ratio",
+                         "pairs_per_s")},
+                     "bucketed": {k: bs[k] for k in (
+                         "dispatches", "padding_waste_ratio",
+                         "pairs_per_s")}}
+    del ragged, mixed
+
+    # -- 3. feature-cache sessions over demo-frames (small fixture) ----------
+    # Items 3, 4 and 6 run fp32 convolutions (TF32 off, as phase 1 set
+    # it): with TF32 the cached program (fnet at batch 1 on the new frame)
+    # and the plain twin (fnet at batch 2 on both frames) round
+    # differently, and the small fixture's 20 steps carry that to a few
+    # hundredths of a px. Items 1, 2 and 5 compare a program with itself
+    # and keep TF32: fp32 at a batch-4 bucket runs cuDNN's FFT convolutions
+    torch.backends.cudnn.allow_tf32 = False
+    full = (1,) + tuple(-(-x // 8) * 8 for x in frames[0].shape[:2])
+    frame_bytes = full[1] * full[2] * 3          # one u8 frame at the bucket
+    cached = RAFTEngine(small, cfg_s, iters=ITERS, envelope=[full],
+                        wire="u8", warm_start=True, feature_cache=True)
+    twin = RAFTEngine(small, cfg_s, iters=ITERS, envelope=[full], wire="u8",
+                      warm_start=True)
+    streams = [frames, frames[::-1]]
+
+    def sessions_run(engine, record=None, **kw):
+        """Each stream in a VideoSession on its own thread; returns the
+        sessions' warm pairs, the wall seconds and the metrics."""
+        with MicroBatchScheduler(engine, max_batch=1, gather_window_s=0.0,
+                                 feature_cache=kw.get("feature_cache",
+                                                      False)) as sched:
+            sessions = [VideoSession(sched, **kw) for _ in streams]
+
+            def run(k):
+                sess = sessions[k]
+                for i, frame in enumerate(streams[k]):
+                    fut = sess.submit_frame(frame)
+                    if fut is None or record is None:
+                        continue
+                    res = fut.result(timeout=300)
+                    low = (sched._fcache._slots[sess._stream].flow_low
+                           if sess.feature_cache else res.flow_low)
+                    # the flow_low the stream's NEXT pair starts from
+                    record[k].append((i, res.flow, low.clone()
+                                      if isinstance(low, torch.Tensor)
+                                      else low))
+
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=run, args=(k,))
+                       for k in range(len(streams))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(600)
+            for sess in sessions:
+                sess.drain()
+            wall = time.perf_counter() - t0
+            return (sum(x.warm_submits for x in sessions), wall,
+                    sched.metrics.snapshot())
+
+    warm_c, wall_c, snap_c = sessions_run(cached, feature_cache=True)
+    warm_p, wall_p, snap_p = sessions_run(twin)
+    record = [[] for _ in streams]
+    sessions_run(cached, record, feature_cache=True)
+    # each cached pair against the plain twin fed the same flow_init (the
+    # first pair of a stream is cold: its slot came from the prime)
+    cgap = 0.0
+    for k, stream in enumerate(streams):
+        prev_low = None
+        for i, flow, low in record[k]:
+            init = (None if prev_low is None
+                    else forward_interpolate_device(prev_low)[None])
+            want = twin.infer_batch(stream[i - 1][None], stream[i][None],
+                                    flow_init=init)
+            cgap = max(cgap, float(np.abs(want[0] - flow).max()))
+            prev_low = low
+    fc = snap_c["feature_cache"]
+    h2d = snap_c["hot_path"]["h2d_bytes_per_req"]
+    pairs_total = sum(len(s) - 1 for s in streams)
+    front_cache = {
+        "warm_pairs_per_s": warm_c / wall_c, "cache_hit_rate": fc["hit_rate"],
+        "h2d_bytes_per_warm_pair": h2d, "frame_bytes": frame_bytes,
+        "gap_px": cgap, "pairs_per_s": pairs_total / wall_c,
+        "plain_sessions_pairs_per_s": pairs_total / wall_p,
+        "plain_h2d_bytes_per_pair": snap_p["hot_path"]["h2d_bytes_per_req"],
+        "warm_pairs": warm_c, "plain_warm_pairs": warm_p}
+    log(f"[18] feature-cache sessions (small fixture, {len(streams)} streams "
+        f"of demo-frames, one thread each, bucket {full}): {front_cache}; "
+        f"each warm pair against the plain twin with the same flow_init: "
+        f"largest gap {cgap:.3e} px (tol {SMALL_TOL:g})")
+    if not (cgap <= SMALL_TOL and h2d == frame_bytes
+            and warm_c == pairs_total and fc["hit_rate"] == 1.0):
+        raise RuntimeError("the feature-cache sessions disagree, miss, or "
+                           "ship more than one frame a pair")
+    out["feature_cache"] = front_cache
+
+    # -- 4. a device_state session: flow_low stays on the card ---------------
+    record = [[] for _ in streams]
+    sessions_run(twin, record, device_state=True)
+    on_card = all(isinstance(low, torch.Tensor) and low.device == twin.device
+                  for rec in record for _, _, low in rec)
+    warps = [forward_interpolate_device(low) for rec in record
+             for _, _, low in rec]
+    again = [forward_interpolate_device(low) for rec in record
+             for _, _, low in rec]
+    bitwise = all(torch.equal(a, b) for a, b in zip(warps, again))
+    log(f"[18] device_state sessions on the twin engine: "
+        f"{sum(len(r) for r in record)} pairs, every flow_low a tensor on "
+        f"{twin.device} {on_card}, forward_interpolate_device bitwise across two runs "
+        f"{bitwise}")
+    if not (on_card and bitwise):
+        raise RuntimeError("device_state left the card or the warp varies")
+    out["device_state"] = {"pairs": sum(len(r) for r in record),
+                           "on_card": on_card, "warp_bitwise": bitwise}
+    del cached, twin
+
+    # -- 6. one --chaos 2 drill at the small fixture -------------------------
+    t0 = time.perf_counter()
+    chaos = serve_bench.run_chaos_drill(small, cfg_s, shapes=CHAOS_SHAPES,
+                                        rounds=2, seed=18)
+    clean = chaos["per_round"][-1]
+    log(f"[18] serve_bench --chaos 2 (small fixture, {CHAOS_SHAPES}, raise "
+        f"and hang at serve.request, serve.dispatch_exec, engine.compile): "
+        f"violations {chaos['violations']}, totals {chaos['totals']}, "
+        f"breaker transitions {chaos['breaker_transitions']}, graphs "
+        f"{chaos['executables']} of {chaos['documented_buckets']} documented, "
+        f"clean round {clean['health_state']}, "
+        f"{time.perf_counter() - t0:.1f} s")
+    if chaos["violations"] or clean["health_state"] != "healthy":
+        raise RuntimeError("the chaos drill broke an invariant")
+    out["chaos"] = {k: chaos[k] for k in (
+        "violations", "totals", "breaker_transitions", "executables",
+        "documented_buckets")}
+    out["launches_serving_frontend"] = launches
+    out["launches_per_replay"] = per_replay
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -2843,7 +3220,10 @@ def main() -> int:
     # -- 17. the serving engine ----------------------------------------------
     serving = serving_phase(smi)
 
-    # -- 18. result ----------------------------------------------------------
+    # -- 18. the serving front end -------------------------------------------
+    frontend = serving_frontend_phase(smi)
+
+    # -- 19. result ----------------------------------------------------------
     sources = {"corr_lookup": ("raft_tpu_torch/csrc/corr_lookup.cu",
                                "raft_tpu/kernels/corr_pallas.py:177"),
                "gru_gates": ("raft_tpu_torch/csrc/gru.cu",
@@ -2895,6 +3275,10 @@ def main() -> int:
             row["launches_serving"] = serving["launches_serving"][name]
             row["launches_serving_per_replay"] = serving[
                 "launches_per_replay"][name]
+            # phase 18's scheduler dispatches, each a replay of a bucket
+            # graph (the drills' runs, timed and profiled)
+            row["launches_serving_frontend"] = frontend[
+                "launches_serving_frontend"][name]
         row["dtypes_train_cli"] = cli["dtypes"].get(name, {})
         if name in err_bf16:
             row["max_abs_err_bf16"] = err_bf16[name]
@@ -2946,6 +3330,7 @@ def main() -> int:
                                   "peak_mib": {k: v[2] for k, v in hd.items()}}})
     print(json.dumps({"supervised_drill": drill, "envelope": env,
                       "serving": serving}), flush=True)
+    print(json.dumps({"serving_frontend": frontend}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

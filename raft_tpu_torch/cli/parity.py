@@ -49,7 +49,8 @@ def main(argv=None):
     if args.video:
         raise NotImplementedError(
             "--video: the side-by-side visualization video "
-            "(serving/video.py) is ROADMAP M11 of the port")
+            "(serving/video.py, an MJPG AVI writer) waits for the port's "
+            "JPEG codec, ROADMAP M14 of the port")
 
     dev = resolve_device(args.device)
     cfg = RAFTConfig(small=args.small, **corr_overrides(args))

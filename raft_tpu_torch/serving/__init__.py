@@ -1,10 +1,22 @@
-"""Serving, port of ``raft_tpu/serving``'s engine layer (ROADMAP M10).
+"""Serving, port of ``raft_tpu/serving`` (ROADMAP M10 and M11a).
 
-``engine.py`` is the shape-bucketed engine (one captured CUDA graph per
-bucket on the card, the eager forward on the CPU), ``ragged.py`` the masked
-correlation of ragged batches, ``export.py`` the ``torch.export`` path. The
-host layers above the engine (scheduler, sessions, registry, fleet) are
-ROADMAP M11.
+The engine layer: ``engine.py`` is the shape-bucketed engine (one captured
+CUDA graph per bucket on the card, the eager forward on the CPU),
+``ragged.py`` the masked correlation of ragged batches, ``export.py`` the
+``torch.export`` path.
+
+The one-model front end above it: an async micro-batching scheduler with
+deadlines, backpressure and priority classes (``scheduler.py``), per-stream
+warm-start video sessions (``session.py``), the cross-frame feature-cache
+pool (``feature_cache.py``), the resilience layer (``resilience.py``:
+dispatch watchdog with quarantine-and-replace and per-bucket circuit
+breakers), the metrics surface (``metrics.py``), request-scoped tracing
+(``trace.py``, read back by ``raft_tpu_torch.cli.serve_trace``) and the
+record schemas (``schema.py``).
+
+Still to come (ROADMAP M11b): the multi-model registry and its SLO guardian,
+the serialized-program store, the replica fleet and the multi-host
+transport; ``serving/video.py`` is ROADMAP M14.
 """
 
 from raft_tpu_torch.serving.engine import (SHAPE_ENVELOPE_LINUX,
@@ -13,14 +25,35 @@ from raft_tpu_torch.serving.engine import (SHAPE_ENVELOPE_LINUX,
                                            RAFTEngine, StaleFeatureError)
 from raft_tpu_torch.serving.export import (export_program, load_program,
                                            make_serving_fn)
+from raft_tpu_torch.serving.feature_cache import (FeatureCacheMiss,
+                                                  FeatureCachePool)
+from raft_tpu_torch.serving.futures import settle_future
+from raft_tpu_torch.serving.metrics import LatencyHistogram, ServingMetrics
 from raft_tpu_torch.serving.ragged import (RaggedDescriptor,
                                            build_corr_pyramid_ragged,
                                            corr_lookup_ragged,
                                            make_descriptor, mask_features)
+from raft_tpu_torch.serving.resilience import (CircuitBreaker, CircuitOpen,
+                                               DispatchExecutor,
+                                               DispatchWedged)
+from raft_tpu_torch.serving.scheduler import (PRIORITY_BATCH,
+                                              PRIORITY_INTERACTIVE,
+                                              BackpressureError,
+                                              DeadlineExceeded,
+                                              MicroBatchScheduler,
+                                              SchedulerClosed, ServeResult)
+from raft_tpu_torch.serving.session import VideoSession
+from raft_tpu_torch.serving.trace import TraceLedger
 
 __all__ = ["RAFTEngine", "PendingBatch", "RaggedPendingBatch",
            "StaleFeatureError", "SHAPE_ENVELOPE_LINUX",
            "SHAPE_ENVELOPE_WINDOWS", "export_program", "load_program",
            "make_serving_fn", "RaggedDescriptor",
            "make_descriptor", "mask_features", "build_corr_pyramid_ragged",
-           "corr_lookup_ragged"]
+           "corr_lookup_ragged", "MicroBatchScheduler", "BackpressureError",
+           "DeadlineExceeded", "SchedulerClosed", "ServeResult",
+           "VideoSession", "ServingMetrics", "LatencyHistogram",
+           "CircuitBreaker", "CircuitOpen", "DispatchExecutor",
+           "DispatchWedged", "PRIORITY_INTERACTIVE", "PRIORITY_BATCH",
+           "settle_future", "FeatureCachePool", "FeatureCacheMiss",
+           "TraceLedger"]

@@ -34,9 +34,10 @@ Like the fork's single-output ONNX export (test_trt.py:131 names only
 ``flowup``), the engine returns only the upsampled flow unless
 ``warm_start``; the iteration count is baked at 20 (ITERS_EXPORT).
 
-Not ported here: ``mesh=`` (ROADMAP M9) and ``aot_cache=`` (M11) raise
+Not ported here: ``mesh=`` (ROADMAP M9) and ``aot_cache=`` (M11b) raise
 ``NotImplementedError``; ``spawn_replica``/``adopt_executables`` belong to
-the M11 fleet.
+the M11b fleet (on the card a sibling cannot share a captured graph, whose
+buffers are static, so their design comes with the fleet).
 """
 
 from __future__ import annotations
@@ -96,11 +97,14 @@ class PendingBatch:
 
     ``h2d_bytes``: host bytes shipped to the device (padded frames and any
     host-built ``flow_init``). ``t_ready``: monotonic time the outputs were
-    known complete (set by ``fetch``).
+    known complete (set by ``fetch``). ``span_ctx``: the request-trace
+    spans of the batch, set by a tracing scheduler so its completion stage
+    marks ``fetch_start`` on the pending it fetches.
     """
 
-    __slots__ = ("bucket", "h2d_bytes", "t_ready", "_flow", "_flow_low",
-                 "_return_low", "_low_device", "_cache", "_event")
+    __slots__ = ("bucket", "h2d_bytes", "t_ready", "span_ctx", "_flow",
+                 "_flow_low", "_return_low", "_low_device", "_cache",
+                 "_event")
 
     def __init__(self, flow, flow_low, bucket, h2d_bytes, return_low,
                  low_device, event, cache=None):
@@ -113,6 +117,7 @@ class PendingBatch:
         self._event = event
         self._cache = cache
         self.t_ready: Optional[float] = None
+        self.span_ctx = None
 
     def fetch(self):
         """Wait for the device result and return it. One-shot."""
@@ -147,8 +152,9 @@ class RaggedPendingBatch:
     request. ``real_px``/``padded_px``: request pixels against box
     pixels."""
 
-    __slots__ = ("bucket", "h2d_bytes", "t_ready", "real_px", "padded_px",
-                 "_flows", "_lows", "_return_low", "_low_device", "_event")
+    __slots__ = ("bucket", "h2d_bytes", "t_ready", "span_ctx", "real_px",
+                 "padded_px", "_flows", "_lows", "_return_low", "_low_device",
+                 "_event")
 
     def __init__(self, flows, lows, bucket, h2d_bytes, return_low,
                  low_device, event, real_px=0, padded_px=0):
@@ -162,6 +168,7 @@ class RaggedPendingBatch:
         self.real_px = real_px
         self.padded_px = padded_px
         self.t_ready: Optional[float] = None
+        self.span_ctx = None
 
     def fetch(self):
         """Wait for the device result; ``[flow_i]`` or ``([flow_i],
@@ -258,7 +265,7 @@ class RAFTEngine:
 
         ``device``: the card unless ``"cpu"`` is asked for; on the CPU the
         programs run the eager forward. ``mesh`` and ``aot_cache`` are
-        not ported (ROADMAP M9, M11) and raise.
+        not ported (ROADMAP M9, M11b) and raise.
         """
         if wire not in ("f32", "u8"):
             raise ValueError(f"wire={wire!r}: choose 'f32' or 'u8'")
@@ -296,7 +303,7 @@ class RAFTEngine:
         if aot_cache is not None:
             raise NotImplementedError(
                 "aot_cache=: the store of serialized programs is ROADMAP "
-                "M11 of the port")
+                "M11b of the port")
         self.config = config
         self.iters = iters
         self.exact_shapes = exact_shapes
@@ -503,14 +510,17 @@ class RAFTEngine:
             prog = table.get(shape)
         if prog is not None:
             return prog
+        # chaos site: "raise" models an uncapturable shape, "hang" a
+        # capture that never returns. It fires outside every lock, as
+        # the JAX engine's compile does: a thread the scheduler's
+        # watchdog quarantined here holds nothing, so other shapes'
+        # captures and the half-open probe's recapture go on
+        fault_point("engine.compile")
         with self._capture_lock:
             with self._lock:
                 prog = table.get(shape)
             if prog is not None:
                 return prog
-            # chaos site: "raise" models an uncapturable shape, "hang" a
-            # capture that never returns
-            fault_point("engine.compile")
             with self._lock:
                 self.capture_count += 1
             prog = self._build(shape, kind)
@@ -576,7 +586,7 @@ class RAFTEngine:
 
     def aot_stats(self) -> Dict[str, int]:
         """The JAX engine's serialized-cache counters: no store exists
-        here (ROADMAP M11), so all are 0 but ``compiles``, the programs
+        here (ROADMAP M11b), so all are 0 but ``compiles``, the programs
         built."""
         with self._lock:
             return {"enabled": 0, "aot_hits": 0, "aot_misses": 0,

@@ -1,5 +1,6 @@
 """Deterministic fault injection for crash-safety drills, port of the
-trainer's part of ``raft_tpu/testing/faults.py``.
+trainer's and the serving front end's part of
+``raft_tpu/testing/faults.py``.
 
 The watchdog, the atomic checkpoints, the restore sandbox, the supervisor
 and the loader's policies are only trustworthy if their failure paths run.
@@ -57,8 +58,8 @@ CRASH_EXIT_CODE = 41
 #: every site armed in raft_tpu_torch, one line each. Plans are checked
 #: against it when armed, so a typo'd site fails instead of arming nothing.
 #: Add the row with the ``fault_point``/``fault_file`` call. The JAX
-#: package's other serving sites (``serve.request``, ...) come with the
-#: serving host layers (ROADMAP M11).
+#: package's registry, guardian, AOT-store, transport and host sites come
+#: with those layers (ROADMAP M11b).
 KNOWN_SITES = {
     "loader.sample": "per-sample decode and augmentation in the "
                      "PrefetchLoader's workers, under on_bad_sample",
@@ -68,6 +69,15 @@ KNOWN_SITES = {
                           "the finished file)",
     "ckpt.orbax_save": "full-state save (corrupt zero-fills the step "
                        "directory's state file after it is committed)",
+    "serve.request": "per micro-batch dispatch in the serving scheduler's "
+                     "worker (MicroBatchScheduler._dispatch, "
+                     "_dispatch_ragged and _dispatch_cached)",
+    "serve.dispatch_exec": "top of the supervised dispatch executor's job "
+                           "loop (resilience.DispatchExecutor; watchdog "
+                           "quarantine drill)",
+    "scheduler.swap": "MicroBatchScheduler.swap_weights, before the engine's "
+                      "weights are touched (raise: the swap fails and the "
+                      "old weights keep serving)",
     "serve.fetch": "PendingBatch/RaggedPendingBatch.fetch in "
                    "serving/engine.py, before waiting for the device result "
                    "(hang: a dispatch that never completes)",

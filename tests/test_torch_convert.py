@@ -111,7 +111,10 @@ for n in ("training.loss", "training.optim", "training.train_step",
           "cli.envelope", "cli.infer_bench", "cli.corr_bench",
           "cli.profile_step", "cli.trace_summary", "serving",
           "serving.engine", "serving.ragged", "serving.export",
-          "cli.export", "cli.parity"):
+          "cli.export", "cli.parity", "serving.futures", "serving.metrics",
+          "serving.trace", "serving.schema", "serving.resilience",
+          "serving.feature_cache", "serving.scheduler", "serving.session",
+          "parallel.placement", "cli.serve_bench", "cli.serve_trace"):
     assert "raft_tpu_torch." + n in names, n
 import chip_smoke, profile_corr_alt, profile_hd_pair, profile_train_convs
 import profile_serving_fp32
@@ -170,18 +173,18 @@ def test_later_slices_raise_not_implemented(tmp_path):
     from raft_tpu_torch.data.frame_utils import read_gen
     from raft_tpu_torch.ops.interp import forward_interpolate_device
 
-    # mixed precision, dropout and training's augmentation are ported; JPEG
-    # frames and the serving layer's on-device warm start are not
+    # mixed precision, dropout, training's augmentation and the serving
+    # layer's on-device warm start are ported; JPEG frames are not
     RAFT(RAFTConfig(mixed_precision=True))
     with pytest.raises(NotImplementedError, match="M14"):
         read_gen(str(tmp_path / "frame.jpg"))
-    with pytest.raises(NotImplementedError, match="M11"):
-        forward_interpolate_device(torch.zeros(8, 8, 2))
+    assert not forward_interpolate_device(torch.zeros(8, 8, 2)).any()
     model = RAFT(RAFTConfig(small=True, dropout=0.1))
     img = torch.zeros(1, 32, 32, 3)
     model(img, img, iters=1, test_mode=False, train=True)
-    # the serving forwards are ported (M10); sharded serving, the program
-    # store and the serving video are not
+    # the serving forwards (M10) and front end (M11a) are ported; sharded
+    # serving, the program store, the replica fleet and the serving video
+    # are not
     full = torch.full((1,), 4, dtype=torch.int32)
     assert model.forward_ragged(img, img, full, full, iters=1)[1].shape == (
         1, 32, 32, 2)
@@ -197,8 +200,13 @@ def test_later_slices_raise_not_implemented(tmp_path):
     with pytest.raises(NotImplementedError, match="M11"):
         RAFTEngine(model, model.config, aot_cache=str(tmp_path),
                    device="cpu")
-    with pytest.raises(NotImplementedError, match="M11"):
+    with pytest.raises(NotImplementedError, match="M14"):
         parity(["--model", "unused.pth", "--path", str(tmp_path),
                 "--video", "out.avi", "--device", "cpu"])
+    from raft_tpu_torch.serving import MicroBatchScheduler
+    for kw in ({"replicas": 2}, {"replica_ceiling": 2},
+               {"placement": object()}, {"host_fleet": object()}):
+        with pytest.raises(NotImplementedError, match="M11b"):
+            MicroBatchScheduler(object(), **kw)
     with pytest.raises(NotImplementedError, match="msgpack"):
         load_weights(str(tmp_path / "w.msgpack"), RAFTConfig(small=True))

@@ -118,9 +118,11 @@ class TestFaultPlan:
         with pytest.raises(ValueError, match=r"trainer\.stp.*did you mean "
                                              r"'trainer\.step'"):
             faults.arm([{"site": "trainer.stp", "kind": "raise"}])
-        # the JAX package's serving sites come with the port's serving code
+        # the JAX package's registry sites come with the port's registry
+        # (ROADMAP M11b); the front end's serve.request is armed
         with pytest.raises(ValueError, match="KNOWN_SITES"):
-            faults.arm([{"site": "serve.request", "kind": "raise"}])
+            faults.arm([{"site": "registry.load", "kind": "raise"}])
+        faults.arm([{"site": "serve.request", "kind": "raise"}])
         faults.arm([{"site": "x", "kind": "raise"}])
         assert faults.armed("x")
 

@@ -617,3 +617,62 @@ def test_exported_program_launches_the_kernels(cuda, tmp_path):
         with torch.no_grad():
             want = make_serving_fn(model, cfg, 2)(i1, i2)
         assert float((got - want).abs().max()) <= 1e-5
+
+
+def test_scheduler_dispatches_replay_the_bucket_graphs(cuda):
+    """The serving front end over a CUDA engine: every micro-batch the
+    scheduler forms is one replay of the bucket's graph (its K1/K2
+    launches as captured, no new capture), at pipeline depth 1 and 2, and
+    each future's flow is the engine's direct ``infer_batch`` of the same
+    pair in the same bucket, alone in it (within 2e-3 px, the bound of one
+    basic-model step at random init, ``chip_smoke.BASIC_STEP_TOL``: the
+    other row of the batch is another pair instead of zeros)."""
+    from raft_tpu_torch.config import RAFTConfig
+    from raft_tpu_torch.models import RAFT
+    from raft_tpu_torch.serving import MicroBatchScheduler, RAFTEngine
+
+    cfg = RAFTConfig(corr_impl="pallas", gru_impl="fused")
+    eng = RAFTEngine(RAFT(cfg, torch.Generator().manual_seed(0)), cfg,
+                     iters=2, envelope=[(2, 64, 96)], wire="u8",
+                     warm_start=True)
+    f = _serving_frames(2, 5)
+    direct = [eng.infer_batch(f[i][None], f[i + 1][None]) for i in range(4)]
+    for depth in (1, 2):
+        before = eng.replayed_launches()
+        with MicroBatchScheduler(eng, max_batch=2, gather_window_s=0.0,
+                                 pipeline_depth=depth) as sched:
+            futs = [sched.submit(f[i], f[i + 1]) for i in range(4)]
+            got = [fut.result(timeout=120).flow for fut in futs]
+        n = sched.metrics.snapshot()["dispatches"]
+        after = eng.replayed_launches()
+        assert {k: after[k] - before.get(k, 0) for k in after} == {
+            "corr_lookup": 2 * n, "gru_gates": 4 * n, "gru_blend": 4 * n}
+        for g, d in zip(got, direct):
+            assert np.abs(g - d[0]).max() <= 2e-3
+    assert eng.capture_count == 1
+
+
+def test_device_flow_init_is_bitwise_host_flow_init(cuda):
+    """The scheduler's device-resident warm start (a CUDA ``flow_init``,
+    assembled on the card with row copies) gives bitwise the flow of the
+    same values shipped from the host."""
+    from raft_tpu_torch.config import RAFTConfig
+    from raft_tpu_torch.models import RAFT
+    from raft_tpu_torch.ops.interp import forward_interpolate_device
+    from raft_tpu_torch.serving import MicroBatchScheduler, RAFTEngine
+
+    cfg = RAFTConfig(corr_impl="pallas", gru_impl="fused")
+    eng = RAFTEngine(RAFT(cfg, torch.Generator().manual_seed(0)), cfg,
+                     iters=2, envelope=[(2, 64, 96)], warm_start=True)
+    f = _serving_frames(3, 3)
+    with MicroBatchScheduler(eng, max_batch=2, gather_window_s=0.0) as sched:
+        low = sched.submit(f[0], f[1], want_low=True,
+                           low_device=True).result(timeout=120).flow_low
+        assert low.is_cuda
+        init = forward_interpolate_device(low)
+        dev = sched.submit(f[1], f[2], flow_init=init).result(timeout=120)
+        host = sched.submit(f[1], f[2], flow_init=init.cpu().numpy()
+                            ).result(timeout=120)
+    np.testing.assert_array_equal(dev.flow, host.flow)
+    np.testing.assert_array_equal(forward_interpolate_device(low).cpu(),
+                                  init.cpu())
