@@ -180,11 +180,40 @@ Phases, each of which fails loudly (nothing is caught):
    bitwise across two runs), and one ``--chaos 2`` drill (raise and hang
    at ``serve.request``, ``serve.dispatch_exec``, ``engine.compile``: no
    invariant broken, the clean round healthy with the documented graphs);
-19. print the drill's, the envelope's and the serving phases' numbers (a
-   ``{"serving_frontend": ...}`` line), the ``{"kernels": [...]}`` line
-   (with ``launches_serving`` and ``launches_serving_frontend`` on K1 and
-   K2), the ``nvidia-smi`` line, and last the ``{"ok": true, "device":
-   ...}`` line.
+19. multi-model serving and the replica fleet (``serving.registry``,
+   ``serving.guardian``, the scheduler's fleet), every engine built with
+   TF32 convolutions as phase 18's: (a) ``cli/serve_bench.
+   run_registry_drill`` with two models on the card, the basic model at
+   full width (seeded weights, iters 20, u8 wire, warm start) and the
+   small fixture, buckets of 4 at 440x1024 and 368x496, 48 requests from 2
+   submitters at priority mix 1:1 under an admission budget, a same-arch
+   basic canary (a second seed) at 0.25 promoted after traffic: per model
+   and priority pairs/s, p50/p99 and ``admission_rejected``; each future
+   within SERVE_TOL of its own variant's direct ``infer_batch`` (the
+   variant read from its span), the promote capturing nothing, nothing
+   stranded, the accounting identity; (b) the SLO guardian as
+   ``tests/test_guardian.py``'s acceptance drills: a canary whose
+   dispatches fault at ``serve.request`` rolled back inside its bake
+   window on ``err_rate`` with live outputs bitwise unchanged, and a
+   clean canary auto-promoted as a weight swap; (c) the replica fleet:
+   one replica spawned (seconds, captures, memory added), phase 18's
+   traffic at ``replicas`` 1 (``pipeline_depth`` 1 and 2) and 2 (depth 1;
+   the fleet takes no completion stage), three runs of each, interleaved:
+   every run's pairs/s and occupancy, the median run's latency, each
+   lane's dispatches and peak memory, a profiled window's idle share;
+   the fleet-atomic swap under traffic, clean and then with
+   ``scheduler.swap`` armed at the second lane: every output bitwise one
+   weight set's, every lane on the old set after the failed one; (d)
+   ``run_registry_chaos`` for 2 rounds with the guardian (plans over
+   ``registry.load``, ``guardian.decide``, ``serve.request``,
+   ``serve.dispatch_exec``, ``engine.compile``): no invariant broken,
+   the clean round promoted by the guardian;
+20. print the drill's, the envelope's and the serving phases' numbers
+   (``{"serving_frontend": ...}`` and ``{"serving_registry": ...}``
+   lines), the ``{"kernels": [...]}`` line (with ``launches_serving``,
+   ``launches_serving_frontend``, ``launches_registry`` and
+   ``launches_fleet`` on K1 and K2), the ``nvidia-smi`` line, and last
+   the ``{"ok": true, "device": ...}`` line.
 
 Exits non-zero, printing no result, when there is no CUDA device.
 """
@@ -2532,6 +2561,483 @@ def serving_frontend_phase(smi: str) -> dict:
     return out
 
 
+REG_CANARY = 0.25               # drill (a)'s canary fraction
+REG_BUDGET = 24                 # drill (a)'s admission budget (tokens)
+REG_RESERVE = 6                 # of which interactive-only
+GUARD_HW = FRONT_SHAPES[1]      # drill (b)'s request shape
+SWAP_PAIRS = 8                  # drill (c)'s pairs under the swaps
+FLEET_REPEATS = 3               # drill (c)'s runs of each configuration
+
+
+def registry_fleet_phase(smi: str) -> dict:
+    """Phase 19: multi-model serving and the replica fleet on the card
+    (``serving.registry``, ``serving.guardian``, the scheduler's fleet,
+    ``RAFTEngine.spawn_replica``, ``cli/serve_bench``'s registry drills);
+    see the module docstring."""
+    import threading
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from raft_tpu_torch.cli import serve_bench, serve_trace
+    from raft_tpu_torch.config import RAFTConfig
+    from raft_tpu_torch.models import RAFT
+    from raft_tpu_torch.parallel.placement import Placement
+    from raft_tpu_torch.serving import (GuardianPolicy, MicroBatchScheduler,
+                                        ModelRegistry, RAFTEngine,
+                                        SLOGuardian)
+    from raft_tpu_torch.serving.schema import validate_lines
+    from raft_tpu_torch.testing import faults
+    from raft_tpu_torch.tools.convert import load_pth
+
+    per_replay = {"corr_lookup": ITERS, "gru_gates": 2 * ITERS,
+                  "gru_blend": 2 * ITERS}
+    # every engine of the phase is built under one setting, phase 18's:
+    # TF32 convolutions (a graph fixes its kernels at capture), cuDNN
+    # deterministic
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cudnn.deterministic = True
+    out = {"tf32_convolutions": True}
+    cfg = RAFTConfig(corr_impl="pallas", gru_impl="fused")
+    v1 = RAFT(cfg, torch.Generator().manual_seed(0)).state_dict()
+    v2 = RAFT(cfg, torch.Generator().manual_seed(1)).state_dict()
+    cfg_s = RAFTConfig(small=True, corr_impl="pallas")
+    small = load_pth(os.path.join(REPO, "tests", "fixtures",
+                                  "raft-small-cputrained.pth"),
+                     cfg_s).state_dict()
+    env = sorted({(FRONT_BUCKET_B, -(-h // 8) * 8, -(-w // 8) * 8)
+                  for h, w in FRONT_SHAPES})
+
+    def engine(w, c):
+        return RAFTEngine(w, c, iters=ITERS, envelope=env,
+                          warm_start=True, wire="u8")
+
+    def replayed(engines):
+        return [dict(e.replayed_launches()) for e in engines]
+
+    def delta(engines, before):
+        tot = {k: 0 for k in per_replay}
+        for e, b in zip(engines, before):
+            for k, n in e.replayed_launches().items():
+                tot[k] += n - b.get(k, 0)
+        return tot
+
+    def gap(a, b):
+        return float(np.abs(np.asarray(a) - np.asarray(b)).max())
+
+    launches_registry = {k: 0 for k in per_replay}
+
+    # -- (a) two models on one card, a same-arch canary promoted ------------
+    t0 = time.perf_counter()
+    live, canary, small_eng = engine(v1, cfg), engine(v2, cfg), \
+        engine(small, cfg_s)
+    build_s = time.perf_counter() - t0
+    engines = (live, canary, small_eng)
+    captures = [e.capture_count for e in engines]
+    for e in (live, canary):
+        for prog in e._programs.values():
+            if prog.launches != per_replay:
+                raise RuntimeError(f"a basic bucket graph holds "
+                                   f"{prog.launches}, want {per_replay}")
+    accepted = []
+    lock = threading.Lock()
+
+    def on_accept(name, prio, i1, i2, fut):
+        with lock:
+            accepted.append((name, prio, i1, i2, fut))
+
+    before = replayed(engines)
+    with tempfile.TemporaryDirectory() as tmp:
+        spans = os.path.join(tmp, "spans.jsonl")
+        metrics = os.path.join(tmp, "metrics.jsonl")
+        s = serve_bench.run_registry_drill(
+            [("basic", v1, cfg), ("small", small, cfg_s)],
+            shapes=FRONT_SHAPES, requests=FRONT_REQUESTS,
+            submitters=FRONT_SUBMITTERS, bucket_batch=FRONT_BUCKET_B,
+            iters=ITERS, priority_mix=(1, 1), canary_fraction=REG_CANARY,
+            canary_variables=v2, promote=True, wire="u8",
+            admission_budget=REG_BUDGET, admission_reserve=REG_RESERVE,
+            metrics_path=metrics, trace_path=spans, seed=19,
+            engines={"basic": live, "small": small_eng},
+            canary_engine=canary, on_accept=on_accept)
+        recs = serve_trace.load_spans(spans)
+        with open(metrics) as fh:
+            mrecs = [json.loads(line) for line in fh]
+    drill_launches = delta(engines, before)
+    basic_launches = delta(engines[:2], before[:2])
+    small_launches = delta(engines[2:], before[2:])
+    for k in per_replay:
+        launches_registry[k] += drill_launches[k]
+    problems = validate_lines(recs) + validate_lines(mrecs)
+    variant = {r["trace_id"]: r.get("variant") for r in recs
+               if r["span"] == "request"}
+    if s["canary"]["resolution"] != "weights_swap":
+        raise RuntimeError(f"the canary did not promote: {s['canary']}")
+    promote_captures = [e.capture_count for e in engines]
+    # each future against its own variant's direct infer_batch of the same
+    # micro-batch (its rows in their order, read from the dispatch span):
+    # the live engine serves the canary's weights since the promote, so
+    # its own weights go back first (a swap: nothing is captured). Not
+    # against its pair alone in the bucket: with TF32 convolutions the
+    # basic model's last row of a full batch-4 bucket at 440x1024 rounds
+    # differently from row 0, and 20 steps at random weights carry that
+    # to hundreds of px (`profile_serving_rows.py`)
+    live.update_weights(v1)
+    direct = {("basic", "v1"): live, ("basic", "v2"): canary,
+              ("small", "v1"): small_eng}
+    by_id = {getattr(fut, "trace_id", None): (name, i1, i2, fut)
+             for name, _, i1, i2, fut in accepted}
+    before_direct = replayed(engines)
+    counts, gaps = {}, {}
+    for d in (r for r in recs if r["span"] == "dispatch"):
+        members = [by_id[t] for t in d["requests"]]
+        name, _, ver = d["model"].partition("@")
+        eng = direct[(name, ver)]
+        want = eng.infer_batch(np.stack([m[1] for m in members]),
+                               np.stack([m[2] for m in members]))
+        for k, (mname, i1, i2, fut) in enumerate(members):
+            if mname != name or variant.get(fut.trace_id) != ver:
+                raise RuntimeError(f"dispatch {d['trace_id']} mixes "
+                                   "variants")
+            key = (name, ver)
+            counts[key] = counts.get(key, 0) + 1
+            flow = fut.result(timeout=0).flow
+            gaps[key] = max(gaps.get(key, 0.0), gap(flow, want[k]))
+    worst = max(gaps.values())
+    direct_launches = delta(engines, before_direct)
+    per_model = {}
+    for name, blk in s["models"].items():
+        per_model[name] = {k: blk[k] for k in (
+            "submitted", "completed", "p50_ms", "p99_ms",
+            "admission_rejected", "occupancy", "accounting_ok")}
+        per_model[name]["pairs_per_s"] = blk["completed"] / s["wall_s"]
+    drill_a = {
+        "build_s": build_s, "captures": captures,
+        "captures_after_promote": promote_captures,
+        "served": s["served"], "accepted": s["accepted"],
+        "shed": s["shed"], "stranded": s["stranded"],
+        "pairs_per_s": s["pairs_per_s"], "wall_s": s["wall_s"],
+        "models": per_model, "priorities": s["priorities"],
+        "admission": s["admission"], "canary": s["canary"],
+        "futures_by_variant": {f"{n}@{v}": c for (n, v), c in
+                               sorted(counts.items())},
+        "max_gap_px_by_variant": {f"{n}@{v}": g for (n, v), g in
+                                  sorted(gaps.items())},
+        "max_gap_px": worst, "launches": drill_launches,
+        "schema_problems": problems[:3]}
+    log(f"[19] (a) two models on one card through "
+        f"serve_bench.run_registry_drill: basic at full width (seeded "
+        f"weights, pallas+fused, iters={ITERS}, u8 wire, warm start, TF32 "
+        f"convolutions) and the small fixture, buckets {env}, "
+        f"{FRONT_REQUESTS} requests from {FRONT_SUBMITTERS} submitters at "
+        f"priority mix 1:1, a same-arch basic canary (second seed) at "
+        f"{REG_CANARY}, admission budget {REG_BUDGET} (reserve "
+        f"{REG_RESERVE}), promoted after traffic: {drill_a}; each future "
+        f"against its own variant's direct infer_batch of the same "
+        f"micro-batch: largest gap {worst:.3e} px (tol {SERVE_TOL:g}); "
+        f"{smi}")
+    n_basic = sum(c for (n, _), c in counts.items() if n == "basic")
+    n_small = len(accepted) - n_basic
+    n_dispatch = sum(1 for r in recs if r["span"] == "dispatch")
+    n_basic_dispatch = sum(1 for r in recs if r["span"] == "dispatch"
+                           and r["model"].startswith("basic@"))
+    # every dispatch a replay: 20 K1 each; 40 gates and blends each of
+    # the basic model's (the small model's GRU is not the fused one)
+    bad = (worst > SERVE_TOL or s["stranded"] or not s["accounting_ok"]
+           or s["served"] != s["accepted"] or problems
+           or len(accepted) != s["accepted"] or not n_small
+           or promote_captures != captures
+           or [e.capture_count for e in engines] != captures
+           or ("basic", "v2") not in counts
+           or not basic_launches["corr_lookup"]
+           or not small_launches["corr_lookup"]
+           or basic_launches["corr_lookup"] % ITERS
+           or small_launches["corr_lookup"] % ITERS
+           or basic_launches["gru_gates"] != 2 * basic_launches[
+               "corr_lookup"]
+           or basic_launches["gru_blend"] != basic_launches["gru_gates"]
+           or small_launches["gru_gates"] or small_launches["gru_blend"]
+           or sum(counts.values()) != len(accepted)
+           or direct_launches != {
+               "corr_lookup": ITERS * n_dispatch,
+               "gru_gates": 2 * ITERS * n_basic_dispatch,
+               "gru_blend": 2 * ITERS * n_basic_dispatch})
+    if bad:
+        raise RuntimeError(f"the two-model drill failed: {drill_a}; "
+                           f"direct launches {direct_launches}")
+    out["two_models"] = drill_a
+
+    # -- (b) the guardian: a degraded canary rolled back, a clean one
+    # promoted (as tests/test_guardian.py's acceptance drills) -----------
+    before = replayed((live, canary))
+    rng = np.random.RandomState(19)
+    xa, xb = (rng.rand(*GUARD_HW, 3).astype(np.float32) * 255
+              for _ in range(2))
+    ref_live = live.infer_batch(xa[None], xb[None])[0]
+    ref_canary = canary.infer_batch(xa[None], xb[None])[0]
+    reg = ModelRegistry(max_batch=FRONT_BUCKET_B, gather_window_s=0.0)
+    reg.add_model("basic", v1, cfg, iters=ITERS, engine=live)
+    version = reg.deploy("basic", v2, canary_fraction=0.5, engine=canary)
+    live_keys = [k for k in range(100)
+                 if not reg.routes_to_canary("basic", k)][:8]
+    canary_keys = [k for k in range(100)
+                   if reg.routes_to_canary("basic", k)][:6]
+    clock = [0.0]
+    policy = GuardianPolicy(bake_window_s=100.0, min_requests=4,
+                            err_rate_margin=0.1)
+    g = SLOGuardian(reg, policy, clock=lambda: clock[0])
+    g.tick()
+    futs, live_bitwise, injected = [], True, 0
+    for k in live_keys:
+        futs.append(reg.submit(xa, xb, model="basic", route_key=k))
+        live_bitwise &= np.array_equal(futs[-1].result(300).flow, ref_live)
+    faults.arm([{"site": "serve.request", "kind": "raise",
+                 "count": len(canary_keys)}])
+    try:
+        for k in canary_keys:
+            futs.append(reg.submit(xa, xb, model="basic", route_key=k))
+            injected += futs[-1].exception(300) is not None
+    finally:
+        faults.disarm()
+    clock[0] = 5.0
+    verdict = g.tick()
+    futs.append(reg.submit(xa, xb, model="basic", route_key=live_keys[0]))
+    live_bitwise &= np.array_equal(futs[-1].result(300).flow, ref_live)
+    stranded = sum(not f.done() for f in futs)
+    canary_left = reg.health()["basic"]["canary"]
+    # the clean canary, baked to its window's end under a policy whose
+    # margins only a fault can breach (as the JAX acceptance drill's)
+    reg.deploy("basic", v2, canary_fraction=0.5, engine=canary)
+    clean_policy = GuardianPolicy(bake_window_s=10.0, min_requests=4,
+                                  p99_ratio=50.0, p99_slack_ms=1e5,
+                                  err_rate_margin=0.5)
+    g2 = SLOGuardian(reg, clean_policy, clock=lambda: clock[0])
+    g2.tick()
+    clean = [reg.submit(xa, xb, model="basic", route_key=k)
+             for k in range(16)]
+    for f in clean:
+        f.result(300)
+    clock[0] = 15.5
+    promote = g2.tick()
+    after = reg.submit(xa, xb, model="basic").result(300).flow
+    reg.close()
+    snap = reg.snapshot()["basic"]
+    guard_launches = delta((live, canary), before)
+    for k in per_replay:
+        launches_registry[k] += guard_launches[k]
+    drill_b = {"rollback": [{k: d[k] for k in ("action", "version",
+                                                "reason")}
+                            for d in verdict],
+               "rollback_window_s": (verdict[0]["evidence"]["window_s"]
+                                     if verdict else None),
+               "injected_failures": injected,
+               "live_bitwise": bool(live_bitwise),
+               "promote": [{k: d.get(k) for k in ("action", "mode",
+                                                   "reason")}
+                           for d in promote],
+               "promoted_bitwise": bool(np.array_equal(after, ref_canary)),
+               "stranded": stranded, "accounting_ok": snap["accounting_ok"],
+               "captures": [live.capture_count, canary.capture_count],
+               "launches": guard_launches}
+    log(f"[19] (b) the guardian on the basic model at {GUARD_HW}: a canary "
+        f"whose dispatches fault at serve.request, then a clean one: "
+        f"{drill_b}; {smi}")
+    if not (len(verdict) == 1 and verdict[0]["action"] == "rollback"
+            and verdict[0]["version"] == version
+            and "err_rate" in verdict[0]["reason"]
+            and verdict[0]["evidence"]["window_s"] < policy.bake_window_s
+            and canary_left is None and live_bitwise
+            and injected == len(canary_keys) and not stranded
+            and len(promote) == 1 and promote[0]["action"] == "promote"
+            and promote[0].get("mode") == "weights_swap"
+            and drill_b["promoted_bitwise"] and snap["accounting_ok"]
+            and [live.capture_count, canary.capture_count]
+            == captures[:2]):
+        raise RuntimeError(f"the guardian drill failed: {drill_b}")
+    out["guardian"] = drill_b
+    live.update_weights(v1)
+    del canary, small_eng, reg
+
+    # -- (c) the replica fleet on one card -----------------------------------
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    res0 = torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    placement = Placement(live, replicas=2)
+    torch.cuda.synchronize()
+    spawn_s = time.perf_counter() - t0
+    rep = placement.engines[1]
+    replica = {
+        "spawn_s": spawn_s,
+        "capture_s": sum(v["warmup"] + v["capture"]
+                         for v in rep.capture_seconds.values()),
+        "captures": rep.capture_count,
+        "primary_programs": live.capture_count,
+        "memory_added_mib": (torch.cuda.memory_allocated() - mem0) / 2**20,
+        "reserved_added_mib": (torch.cuda.memory_reserved() - res0) / 2**20,
+        "peak_added_mib": (torch.cuda.max_memory_allocated() - mem0) / 2**20,
+        "assignments": placement.snapshot()["assignments"]}
+    fleet_engines = placement.engines
+    launches_fleet = {k: 0 for k in per_replay}
+    configs = (("r1_depth1", 1, 1), ("r1_depth2", 1, 2), ("r2_depth1", 2, 1))
+    draws = {tag: [] for tag, _, _ in configs}
+    # FLEET_REPEATS unprofiled runs of each configuration, interleaved so
+    # a drift of the host behind the call spreads over all of them
+    for _ in range(FLEET_REPEATS):
+        for tag, replicas, depth in configs:
+            kw = dict(placement=placement) if replicas > 1 else {}
+            before = replayed(fleet_engines)
+            torch.cuda.reset_peak_memory_stats()
+            fs, _ = front_drill(live, v1, cfg, depth, **kw)
+            d = delta(fleet_engines, before)
+            for k in per_replay:
+                launches_fleet[k] += d[k]
+            if (fs["served"] != fs["accepted"] or fs["stranded"]
+                    or not fs["accounting_ok"] or fs["errors"]
+                    or d != {k: v * fs["dispatches"]
+                             for k, v in per_replay.items()}):
+                raise RuntimeError(f"fleet drill {tag}: {fs}; launches {d}")
+            draws[tag].append(
+                (fs, torch.cuda.max_memory_allocated() / 2**20,
+                 torch.cuda.memory_reserved() / 2**20))
+    runs = {}
+    for tag, replicas, depth in configs:
+        kw = dict(placement=placement) if replicas > 1 else {}
+        rates = [fs["pairs_per_s"] for fs, _, _ in draws[tag]]
+        fs, peak, reserved = sorted(
+            draws[tag], key=lambda x: x[0]["pairs_per_s"])[len(rates) // 2]
+        before = replayed(fleet_engines)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            ps, _ = front_drill(live, v1, cfg, depth, sessions=0,
+                                requests=FRONT_PROFILED_REQUESTS, **kw)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t1) * 1e3
+        busy = device_busy_ms(prof)
+        d = delta(fleet_engines, before)
+        for k in per_replay:
+            launches_fleet[k] += d[k]
+        if d != {k: v * ps["dispatches"] for k, v in per_replay.items()}:
+            raise RuntimeError(f"fleet drill {tag}, profiled: {ps}; "
+                               f"launches {d}")
+        # the median run's numbers, and every run's pairs/s and occupancy
+        runs[tag] = {k: fs[k] for k in (
+            "pairs_per_s", "p50_ms", "p99_ms", "mean_occupancy",
+            "dispatches", "served", "session_pairs", "wall_s")}
+        runs[tag].update(
+            pairs_per_s_runs=rates,
+            occupancy_runs=[f["mean_occupancy"] for f, _, _ in draws[tag]],
+            peak_mib=peak, reserved_mib=reserved,
+            idle_share=1 - busy / wall,
+            profiled_pairs_per_s=ps["pairs_per_s"])
+        if "fleet" in fs:
+            runs[tag]["lane_dispatches"] = {
+                k: v["dispatches"] for k, v in fs["fleet"]["lanes"].items()}
+            runs[tag]["concurrency_max"] = fs["fleet"]["concurrency_max"]
+        log(f"[19] (c) phase 18's traffic, replicas={replicas}, "
+            f"pipeline_depth={depth}, {FLEET_REPEATS} runs (the median's "
+            f"numbers): {runs[tag]}; {smi}")
+    if runs["r2_depth1"]["lane_dispatches"]["r1"] < 1:
+        raise RuntimeError("the second lane never dispatched")
+    # the fleet-atomic swap, clean then failed, under traffic
+    frames = synthetic_frames(19, SWAP_PAIRS + 1, GUARD_HW)
+    pairs = [(frames[k], frames[k + 1]) for k in range(SWAP_PAIRS)]
+    solo = engine(v2, cfg)
+    refs = {"v1": [live.infer_batch(a[None], b[None])[0] for a, b in pairs],
+            "v2": [solo.infer_batch(a[None], b[None])[0] for a, b in pairs]}
+    del solo
+    before = replayed(fleet_engines)
+    outputs = []
+    with MicroBatchScheduler(live, placement=placement,
+                             max_batch=FRONT_BUCKET_B,
+                             gather_window_s=0.0) as sched:
+        stop = threading.Event()
+
+        def traffic():
+            while not stop.is_set():
+                fs_ = [sched.submit(a, b) for a, b in pairs]
+                outputs.extend((k, f.result(300).flow)
+                               for k, f in enumerate(fs_))
+
+        t = threading.Thread(target=traffic)
+        t.start()
+        time.sleep(0.5)
+        sched.swap_weights(v2)
+        time.sleep(0.5)
+        faults.arm([{"site": "scheduler.swap", "at": 2, "kind": "raise"}])
+        failed = False
+        try:
+            sched.swap_weights(v1)
+        except faults.FaultInjected:
+            failed = True
+        finally:
+            faults.disarm()
+        torch.cuda.synchronize()    # the copies ran on the lanes' streams
+        lanes_old = all(all(torch.equal(x, v2[k].to(x.device))
+                            for k, x in lane.engine.variables.items())
+                        for lane in sched._lanes)
+        time.sleep(0.5)
+        stop.set()
+        t.join(300)
+        tail = [sched.submit(a, b) for a, b in pairs]
+        tail_v2 = all(np.array_equal(f.result(300).flow, refs["v2"][k])
+                      for k, f in enumerate(tail))
+        lane_dispatches = {f"r{lane.index}": lane.dispatches
+                           for lane in sched._lanes}
+    d = delta(fleet_engines, before)
+    for k in per_replay:
+        launches_fleet[k] += d[k]
+    which = [("v1" if np.array_equal(o, refs["v1"][k]) else
+              "v2" if np.array_equal(o, refs["v2"][k]) else "mixed")
+             for k, o in outputs]
+    swap = {"outputs": len(outputs),
+            "by_weights": {w: which.count(w) for w in ("v1", "v2",
+                                                        "mixed")},
+            "failed_swap_raised": failed, "lanes_on_old_after_failure":
+            lanes_old, "after_failure_bitwise_v2": tail_v2,
+            "lane_dispatches": lane_dispatches,
+            "captures": [e.capture_count for e in fleet_engines]}
+    log(f"[19] (c) the fleet-atomic swap under traffic ({SWAP_PAIRS} pairs "
+        f"at {GUARD_HW} a round, 2 lanes): v1->v2 clean, then v2->v1 with "
+        f"scheduler.swap armed at the second lane: {swap}; {smi}")
+    if not (failed and lanes_old and tail_v2 and not which.count("mixed")
+            and which.count("v1") and which.count("v2")
+            and swap["captures"] == [captures[0]] * 2):
+        raise RuntimeError(f"the fleet-atomic swap failed: {swap}")
+    out["fleet"] = {"replica": replica, "runs": runs, "swap": swap}
+    del placement, rep, fleet_engines, live
+
+    # -- (d) registry chaos with the guardian --------------------------------
+    t0 = time.perf_counter()
+    chaos = serve_bench.run_registry_chaos(
+        [("small", small, cfg_s), ("basic", v1, cfg)], shapes=CHAOS_SHAPES,
+        rounds=2, canary_variables=RAFT(
+            cfg_s, torch.Generator().manual_seed(2)).state_dict(),
+        guardian=True, seed=19)
+    clean = chaos["per_round"][-1]
+    drill_d = {k: chaos[k] for k in ("violations", "deploys", "guardian",
+                                      "totals", "executables",
+                                      "documented_buckets")}
+    drill_d.update(clean_resolution=clean["canary"]["resolution"],
+                   plans=[[f"{f['site']}:{f['kind']}"
+                           for f in p["plan"]["faults"]]
+                          for p in chaos["per_round"] if "plan" in p],
+                   seconds=time.perf_counter() - t0)
+    log(f"[19] (d) serve_bench registry chaos, 2 rounds with the guardian "
+        f"(the small fixture and the basic model at {CHAOS_SHAPES}, iters "
+        f"1; plans over registry.load, guardian.decide, serve.request, "
+        f"serve.dispatch_exec, engine.compile): {drill_d}")
+    if chaos["violations"] or clean["canary"]["resolution"] != \
+            "guardian_promote":
+        raise RuntimeError(f"the registry chaos broke an invariant: "
+                           f"{drill_d}")
+    out["chaos"] = drill_d
+    out["launches_registry"] = launches_registry
+    out["launches_fleet"] = launches_fleet
+    out["launches_per_replay"] = per_replay
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -3223,7 +3729,12 @@ def main() -> int:
     # -- 18. the serving front end -------------------------------------------
     frontend = serving_frontend_phase(smi)
 
-    # -- 19. result ----------------------------------------------------------
+    # -- 19. multi-model serving and the replica fleet -----------------------
+    t19 = time.perf_counter()
+    registry = registry_fleet_phase(smi)
+    registry["seconds"] = time.perf_counter() - t19
+
+    # -- 20. result ----------------------------------------------------------
     sources = {"corr_lookup": ("raft_tpu_torch/csrc/corr_lookup.cu",
                                "raft_tpu/kernels/corr_pallas.py:177"),
                "gru_gates": ("raft_tpu_torch/csrc/gru.cu",
@@ -3279,6 +3790,12 @@ def main() -> int:
             # graph (the drills' runs, timed and profiled)
             row["launches_serving_frontend"] = frontend[
                 "launches_serving_frontend"][name]
+            # phase 19's dispatches: the registry drills (two models, the
+            # guardian, the chaos rounds' traffic is the small fixture's
+            # and the basic model's at iters 1, not counted) and the
+            # replica fleet, each a replay of a bucket graph
+            row["launches_registry"] = registry["launches_registry"][name]
+            row["launches_fleet"] = registry["launches_fleet"][name]
         row["dtypes_train_cli"] = cli["dtypes"].get(name, {})
         if name in err_bf16:
             row["max_abs_err_bf16"] = err_bf16[name]
@@ -3331,6 +3848,7 @@ def main() -> int:
     print(json.dumps({"supervised_drill": drill, "envelope": env,
                       "serving": serving}), flush=True)
     print(json.dumps({"serving_frontend": frontend}), flush=True)
+    print(json.dumps({"serving_registry": registry}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

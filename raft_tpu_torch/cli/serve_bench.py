@@ -1,5 +1,6 @@
 """Synthetic ragged-traffic drill for the serving front-end; port of
-``raft_tpu/cli/serve_bench.py``'s single-model drills.
+``raft_tpu/cli/serve_bench.py`` (the single-model drills, the replica
+fleet and the multi-model registry drills).
 
 Drives ``MicroBatchScheduler`` + a warm-start ``RAFTEngine`` with
 mixed-shape traffic from concurrent submitter threads (plus optional
@@ -63,11 +64,25 @@ the serve_trace phase attribution over them), and under ``--chaos``
 the drill additionally pins ZERO orphan spans. Read the file back with
 ``python -m raft_tpu_torch.cli.serve_trace``.
 
-The multi-model flags (``--models``, ``--canary``, ``--guardian``,
-``--slo``, ``--bake-ms``, ``--admission-*``), the fleet flags
-(``--replicas``, ``--replica-ceiling``, ``--hosts``,
-``--hosts-kill-one``) and ``--aot-cache`` parse as in the JAX package
-and exit naming ROADMAP M11b, where the layers they drive are queued.
+``--replicas N`` (+ ``--replica-ceiling M``) fans the engine out into N
+replica lanes on the card behind one scheduler (each replica its own
+weights, stream, graph pool and captures of the primary's programs); the
+summary grows a per-replica ``fleet`` block.
+
+``--models basic,small`` runs the multi-model drill instead: each name a
+live model behind one ``ModelRegistry`` (weights seeded from ``--seed``),
+``--canary F`` deploys a same-arch canary of the first model (a second
+seeded weight set) at that request-hash fraction and promotes it after
+traffic, ``--priority-mix I:B`` tags the traffic, ``--guardian`` (+
+``--slo``, ``--bake-ms``) hands the verdict to the SLO guardian, and
+``--admission-budget N`` (+ ``--admission-reserve R``) arms the
+registry-wide admission budget; with ``--chaos N`` the registry's fault
+rounds run instead. The summary line carries per-model and per-priority
+blocks.
+
+``--hosts``, ``--hosts-kill-one`` and ``--aot-cache`` parse as in the JAX
+package and exit naming ROADMAP M11c, where the layers they drive are
+queued.
 """
 
 
@@ -96,6 +111,13 @@ CHAOS_SITES = ("serve.request", "serve.dispatch_exec", "engine.compile")
 #: at pipeline_depth > 1 the blocking fetch moves to the completion
 #: stage — its own hang surface, so pipelined chaos draws it too
 CHAOS_SITES_PIPELINED = CHAOS_SITES + ("serve.fetch",)
+#: registry drills add the model-variant build path: a failed canary
+#: deploy must auto-roll-back without touching live traffic
+CHAOS_SITES_REGISTRY = CHAOS_SITES + ("registry.load",)
+#: guardian-attended drills add the decision point: a guardian that
+#: raises or hangs mid-decision must strand nothing and leave routing
+#: exactly as it found it (the site fires before any registry mutation)
+CHAOS_SITES_GUARDIAN = CHAOS_SITES_REGISTRY + ("guardian.decide",)
 
 def chaos_plan(rng: random.Random, hang_s: float = 0.5,
                sites=CHAOS_SITES) -> dict:
@@ -164,7 +186,8 @@ def run_drill(weights, cfg, *, shapes, requests=32, submitters=2,
               ragged=False, capacity_classes=None,
               fault_plan=None, recover_s=0.0,
               metrics_path=None, trace_path=None, trace_sample=1.0,
-              tracer=None, seed=0, engine=None, device="cuda"):
+              tracer=None, seed=0, engine=None, replicas=1,
+              replica_ceiling=None, placement=None, device="cuda"):
     """The drill as a library call (tests reuse it, and may pass a
     prebuilt warm-start ``engine`` to share captures across drills).
     Returns the summary dict the CLI prints. ``weights``: a ``RAFT``
@@ -199,7 +222,18 @@ def run_drill(weights, cfg, *, shapes, requests=32, submitters=2,
     them + the ledger counters). ``tracer`` injects a prebuilt ledger
     (the chaos harness shares ONE across rounds so trace ids stay
     unique in the shared file). Default off: summary byte-identical
-    to the untraced drill."""
+    to the untraced drill.
+
+    ``replicas`` > 1 (or a ``replica_ceiling``) arms the replica fleet
+    (parallel/placement.py): the engine fans out into N lanes, each
+    replica capturing its own copy of the primary's programs, and the
+    summary grows a ``fleet`` block with per-replica dispatches,
+    occupancy, breaker state and queue depth. At the default
+    ``replicas=1`` no fleet is built and the summary has no such
+    key. ``placement`` injects a prebuilt
+    :class:`~raft_tpu_torch.parallel.placement.Placement` (its engines,
+    primary first, become the lanes: a caller measuring the replicas
+    keeps them)."""
     from raft_tpu_torch.ops.interp import forward_interpolate_device
     from raft_tpu_torch.serving.engine import RAFTEngine
     from raft_tpu_torch.serving.feature_cache import FeatureCacheMiss
@@ -255,7 +289,10 @@ def run_drill(weights, cfg, *, shapes, requests=32, submitters=2,
                                 feature_cache_capacity=cache_capacity,
                                 ragged=ragged,
                                 metrics_path=metrics_path,
-                                tracer=tracer)
+                                tracer=tracer,
+                                replicas=replicas,
+                                replica_ceiling=replica_ceiling,
+                                placement=placement)
     if feature_cache and sessions:
         # warm-outside-the-measurement discipline (the engine's
         # envelope precompile, one layer up): the device forward warp's
@@ -444,6 +481,32 @@ def run_drill(weights, cfg, *, shapes, requests=32, submitters=2,
         "wall_s": round(wall, 3),
         "pairs_per_s": round(total_served / wall, 2) if wall else 0.0,
     }
+    fleet = health.get("fleet")
+    if fleet:
+        # replica-fleet surface (key absent at replicas=1): per-replica
+        # dispatch/occupancy/breaker/queue-depth blocks
+        reps = rec.get("replicas") or {}
+        lanes = {}
+        for name, ln in sorted(fleet["lanes"].items()):
+            m = reps.get(name[1:], {})
+            lanes[name] = {
+                "active": ln["active"],
+                "quarantined": ln["quarantined"],
+                "dispatches": ln["dispatches"],
+                "completed": m.get("completed", 0),
+                "occupancy": m.get("occupancy", 0.0),
+                "queue_depth_last": m.get("queue_depth_last", 0),
+                "open_breakers": sum(
+                    1 for b in ln["breakers"].values()
+                    if b["state"] != "closed"),
+            }
+        summary["fleet"] = {
+            "replicas": fleet["replicas"],
+            "active": fleet["active"],
+            "ceiling": fleet["ceiling"],
+            "concurrency_max": fleet["concurrency_max"],
+            "lanes": lanes,
+        }
     if tracer is not None:
         # request-tracing surface (key absent when tracing is off —
         # the summary stays byte-identical to the untraced drill):
@@ -485,7 +548,13 @@ def _round_violations(s: dict) -> list:
     if s["health_state"] == "healthy" and s["open_buckets"]:
         v.append("health says healthy with open breakers")
     if s["health_state"] == "degraded" and not s["open_buckets"]:
-        v.append("health says degraded with all breakers closed")
+        # a quarantined fleet lane degrades health with every bucket
+        # breaker closed — that's the fleet's degradation, not a
+        # breaker-accounting bug
+        lanes = (s.get("fleet") or {}).get("lanes", {})
+        if not any(ln["quarantined"] or ln["open_breakers"]
+                   for ln in lanes.values()):
+            v.append("health says degraded with all breakers closed")
     return v
 
 
@@ -667,11 +736,591 @@ def run_chaos_drill(weights, cfg, *, shapes, rounds=3, requests=12,
 
 
 
-#: the JAX package's multi-model and fleet flags: they parse here and exit
-#: naming ROADMAP M11b, where the layers they drive are queued
-_M11B_FLAGS = ("models", "canary", "guardian", "slo", "admission_budget",
-               "admission_reserve", "replicas", "replica_ceiling", "hosts",
-               "hosts_kill_one", "aot_cache")
+def _merged_priority_blocks(variant_snaps):
+    """Aggregate per-priority counters + latency across every variant
+    snapshot (live + canary + retired finals, all models): counters
+    sum, histograms merge on the shared ladder — the per-priority
+    summary block of the registry drill's JSON line."""
+    from raft_tpu_torch.serving.metrics import LatencyHistogram
+
+    out = {}
+    for snap in variant_snaps:
+        for cls, p in (snap.get("priority") or {}).items():
+            agg = out.setdefault(cls, {
+                "submitted": 0, "completed": 0, "shed": 0,
+                "deadline_missed": 0, "_hist": LatencyHistogram()})
+            for k in ("submitted", "completed", "shed",
+                      "deadline_missed"):
+                agg[k] += p[k]
+            agg["_hist"].merge(
+                LatencyHistogram.from_snapshot(p["latency"]))
+    for agg in out.values():
+        h = agg.pop("_hist")
+        agg["p50_ms"] = h.quantile(0.5)
+        agg["p99_ms"] = h.quantile(0.99)
+        agg["mean_ms"] = (round(h.total / h.count, 3) if h.count
+                          else 0.0)
+    return out
+
+
+def _variant_snaps(model_block):
+    """Every variant snapshot in one model's registry-snapshot block."""
+    snaps = [model_block["live"]]
+    if model_block["canary"] is not None:
+        snaps.append(model_block["canary"])
+    return snaps + list(model_block["retired"])
+
+
+def run_registry_drill(models, *, shapes, requests=48, submitters=2,
+                       bucket_batch=4, iters=2, priority_mix=(1, 1),
+                       canary_fraction=0.0, canary_variables=None,
+                       promote=True, deadline_s=None, max_queue=64,
+                       gather_window_s=0.005, dispatch_timeout_s=None,
+                       breaker_failures=0, breaker_backoff_s=0.25,
+                       breaker_backoff_max_s=30.0, wire="f32",
+                       pipeline_depth=1, sessions=0, session_frames=4,
+                       admission_budget=None, admission_reserve=None,
+                       guardian=False, guardian_policy=None,
+                       guardian_poll_s=0.05, guardian_timeout_s=30.0,
+                       fault_plan=None, metrics_path=None,
+                       trace_path=None, trace_sample=1.0, seed=0,
+                       engines=None, canary_engine=None, on_accept=None,
+                       device="cuda"):
+    """Mixed-model, mixed-priority drill over a ``ModelRegistry``.
+
+    ``models``: list of ``(name, weights, config)`` (``weights`` a
+    ``RAFT`` module or its state dict) — each becomes a live model with
+    its own warm-start engine (one bucket per distinct ÷8 request
+    shape), scheduler, breaker board and metrics namespace.
+    ``priority_mix``: (interactive, batch) request counts per cycle
+    of each submitter's traffic ((0, 0) = priority-less).
+    ``canary_fraction`` > 0 deploys ``canary_variables`` as the FIRST
+    model's canary before traffic and promotes it after
+    (``promote=False`` rolls it back) — under an armed ``fault_plan``
+    the deploy may fail, which must auto-roll-back and leave live
+    traffic untouched (asserted via the summary's ``canary`` block).
+    ``engines``/``canary_engine`` inject prebuilt engines so chaos
+    rounds share captures. ``on_accept(model, priority, image1, image2,
+    future)`` is called for each accepted one-shot request (a caller
+    holding each future to its variant's own forward). Returns the
+    one-line summary dict with per-model and per-priority blocks.
+
+    ``guardian=True`` hands the rollout verdict to an
+    :class:`~raft_tpu_torch.serving.guardian.SLOGuardian` polling the
+    registry (``guardian_policy``: GuardianPolicy kwargs): the drill
+    waits up to ``guardian_timeout_s`` for its decision instead of
+    promoting/rolling back manually, records it in the summary's
+    ``canary``/``guardian`` blocks, and a guardian that never decides
+    (wedged at the ``guardian.decide`` chaos site) must leave the
+    canary fully routed — never half-rolled — for ``close()`` to
+    drain. ``admission_budget`` arms the registry-wide token bucket;
+    rejections land per model as ``admission_rejected``."""
+    from raft_tpu_torch.serving.registry import DeployError, ModelRegistry
+    from raft_tpu_torch.serving.resilience import (CircuitOpen,
+                                                   DispatchWedged)
+    from raft_tpu_torch.serving.scheduler import (PRIORITY_BATCH,
+                                                  PRIORITY_INTERACTIVE,
+                                                  BackpressureError,
+                                                  DeadlineExceeded)
+    from raft_tpu_torch.serving.session import VideoSession
+    from raft_tpu_torch.testing import faults
+
+    envelope = sorted({(bucket_batch, _ceil8(h), _ceil8(w))
+                       for h, w in shapes})
+    _fresh_trace_file(trace_path)
+    reg = ModelRegistry(metrics_path=metrics_path,
+                        trace_path=trace_path,
+                        trace_sample=trace_sample,
+                        max_queue=max_queue,
+                        max_batch=bucket_batch,
+                        gather_window_s=gather_window_s,
+                        dispatch_timeout_s=dispatch_timeout_s,
+                        breaker_failures=breaker_failures,
+                        breaker_backoff_s=breaker_backoff_s,
+                        breaker_backoff_max_s=breaker_backoff_max_s,
+                        breaker_rng=random.Random(seed),
+                        pipeline_depth=pipeline_depth,
+                        admission_budget=admission_budget,
+                        admission_interactive_reserve=admission_reserve,
+                        device=device)
+    for name, weights, cfg in models:
+        reg.add_model(name, weights, cfg, iters=iters,
+                      envelope=envelope,
+                      engine=(engines or {}).get(name),
+                      warm_start=True, wire=wire)
+    guard = None
+    if guardian:
+        from raft_tpu_torch.serving.guardian import (GuardianPolicy,
+                                                     SLOGuardian)
+
+        guard = SLOGuardian(reg, GuardianPolicy(**(guardian_policy
+                                                   or {})),
+                            poll_s=guardian_poll_s).start()
+    target = models[0][0]
+    canary = {"requested": canary_fraction > 0, "deployed": False,
+              "version": None, "deploy_failed": None,
+              "leaked_after_failure": False, "resolution": None,
+              "half_rolled": False}
+    accepted = [[] for _ in range(submitters)]   # (future, model, prio)
+    shed = [0] * submitters
+    rejected = [0] * submitters
+    session_stats = {"pairs": 0, "warm": 0, "errors": 0}
+    pi, pb = priority_mix
+    cycle = ([PRIORITY_INTERACTIVE] * int(pi)
+             + [PRIORITY_BATCH] * int(pb))
+
+    def submit_loop(sid):
+        rng = np.random.RandomState(seed + sid)
+        per = requests // submitters + (1 if sid < requests % submitters
+                                        else 0)
+        for k in range(per):
+            h, w = shapes[(sid + k) % len(shapes)]
+            name = models[(sid * 7 + k) % len(models)][0]
+            prio = cycle[k % len(cycle)] if cycle else None
+            i1 = rng.rand(h, w, 3).astype(np.float32) * 255
+            i2 = rng.rand(h, w, 3).astype(np.float32) * 255
+            try:
+                fut = reg.submit(i1, i2, model=name, priority=prio,
+                                 deadline_s=deadline_s)
+            except BackpressureError:
+                shed[sid] += 1
+                continue
+            except CircuitOpen:
+                rejected[sid] += 1
+                continue
+            accepted[sid].append((fut, name, prio))
+            if on_accept is not None:
+                on_accept(name, prio, i1, i2, fut)
+
+    def session_loop(sid):
+        rng = np.random.RandomState(seed + 1000 + sid)
+        h, w = shapes[sid % len(shapes)]
+        name = models[sid % len(models)][0]
+        sess = VideoSession(reg, model=name, deadline_s=deadline_s)
+        futs = []
+        for _ in range(session_frames + 1):
+            try:
+                futs.append(sess.submit_frame(
+                    rng.rand(h, w, 3).astype(np.float32) * 255))
+            except (BackpressureError, CircuitOpen):
+                session_stats["errors"] += 1
+        for f in futs:
+            if f is None:
+                continue
+            try:
+                f.result(timeout=600)
+                session_stats["pairs"] += 1
+            except Exception:
+                session_stats["errors"] += 1
+        session_stats["warm"] += sess.warm_submits
+
+    threads = ([threading.Thread(target=submit_loop, args=(s,))
+                for s in range(submitters)]
+               + [threading.Thread(target=session_loop, args=(s,))
+                  for s in range(sessions)])
+    if fault_plan is not None:
+        faults.arm(fault_plan)
+    t0 = time.perf_counter()
+    try:
+        if canary_fraction > 0:
+            # deploy BEFORE traffic: the canary serves its hash slice
+            # of the drill. A build failure (incl. the registry.load
+            # chaos site) must auto-roll-back: live serves 100% and
+            # health shows no canary — the summary pins both.
+            try:
+                canary["version"] = reg.deploy(
+                    target, canary_variables,
+                    canary_fraction=canary_fraction,
+                    engine=canary_engine)
+                canary["deployed"] = True
+                if guard is not None:
+                    # open the bake BEFORE traffic so the judged
+                    # window contains the drill's requests — on a fast
+                    # drill the polling loop's first post-deploy tick
+                    # could otherwise freeze its baseline after the
+                    # traffic already completed
+                    guard.tick()
+            except DeployError as exc:
+                canary["deploy_failed"] = str(exc)[:200]
+                canary["leaked_after_failure"] = (
+                    reg.health()[target]["canary"] is not None)
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        futures_wait([f for fl in accepted for (f, _, _) in fl],
+                     timeout=600)
+        if canary["deployed"]:
+            if guard is not None:
+                # the guardian owns the verdict: wait it out (bounded
+                # — a wedged guardian must not wedge the drill), and a
+                # canary it never resolved must still be FULLY routed
+                # (state canary, fraction > 0) for close() to drain —
+                # half-rolled is the invariant violation chaos hunts
+                decision = guard.wait_decision(
+                    target, timeout=guardian_timeout_s)
+                canary["resolution"] = (
+                    "guardian_" + decision["action"]
+                    if decision is not None else "guardian_undecided")
+            elif promote:
+                canary["resolution"] = reg.promote(target)["mode"]
+            else:
+                reg.rollback(target)
+                canary["resolution"] = "rolled_back"
+        health = reg.health()
+        tgt_canary = health[target]["canary"]
+        canary["half_rolled"] = (
+            tgt_canary is not None
+            and (tgt_canary["state"] != "canary"
+                 or not tgt_canary["fraction"] > 0))
+        guardian_block = None
+        if guard is not None:
+            guardian_block = {
+                "decisions": list(guard.decisions),
+                "errors": guard.errors,
+                "wedged": not guard.stop(timeout=5.0),
+            }
+        admission = reg.admission_snapshot()
+        reg.close(drain=True)
+    finally:
+        if guard is not None:
+            guard.stop(timeout=0.1)
+        if fault_plan is not None:
+            faults.disarm()
+    wall = time.perf_counter() - t0
+
+    snap = reg.snapshot()    # post-close: retired finals included
+    per_model = {}
+    for name, _, _ in models:
+        blk = snap[name]
+        live = blk["live"]
+        per_model[name] = {
+            "submitted": blk["totals"]["submitted"],
+            "completed": blk["totals"]["completed"],
+            "failed": blk["totals"]["failed"],
+            "shed": blk["totals"]["shed"],
+            "evicted": blk["totals"]["evicted"],
+            "admission_rejected": blk["totals"]["admission_rejected"],
+            "deadline_missed": blk["totals"]["deadline_missed"],
+            "cancelled": blk["totals"]["cancelled"],
+            "accounting_ok": blk["accounting_ok"],
+            "abandoned_inflight": sum(
+                s["abandoned_inflight"] for s in _variant_snaps(blk)),
+            "occupancy": live["occupancy"]["mean"],
+            "p50_ms": live["latency"]["p50_ms"],
+            "p99_ms": live["latency"]["p99_ms"],
+            "executables_live": live["executables"],
+            "health_state": health[name]["live"]["health"]["state"],
+        }
+    served = deadline_missed = wedged = circuit = errors = 0
+    stranded = evicted = 0
+    for fl in accepted:
+        for fut, _, _ in fl:
+            if not fut.done():
+                stranded += 1
+                continue
+            try:
+                fut.result(timeout=0)
+                served += 1
+            except DeadlineExceeded:
+                deadline_missed += 1
+            except DispatchWedged:
+                wedged += 1
+            except CircuitOpen:
+                circuit += 1
+            except BackpressureError:
+                # an ACCEPTED future failing backpressure is a
+                # shed-batch-first eviction — by design under a
+                # priority mix, not a dispatch failure
+                evicted += 1
+            except Exception:
+                errors += 1
+    all_snaps = [s for name, _, _ in models
+                 for s in _variant_snaps(snap[name])]
+    total_served = served + session_stats["pairs"]
+    summary = {
+        "registry": True,
+        "model_names": [name for name, _, _ in models],
+        "submitted": sum(b["submitted"] for b in per_model.values()),
+        "accepted": sum(len(fl) for fl in accepted),
+        "served": served,
+        "shed": sum(shed),
+        "circuit_rejected": sum(rejected),
+        "deadline_missed": deadline_missed,
+        "errors": errors + session_stats["errors"],
+        "failed_wedged": wedged,
+        "failed_circuit": circuit,
+        "failed_evicted": evicted,
+        "stranded": stranded,
+        "accounting_ok": all(b["accounting_ok"]
+                             for b in per_model.values()),
+        "abandoned_inflight": sum(b["abandoned_inflight"]
+                                  for b in per_model.values()),
+        "session_pairs": session_stats["pairs"],
+        "warm_submits": session_stats["warm"],
+        "canary": canary,
+        "guardian": guardian_block,
+        "admission": admission,
+        "models": per_model,
+        "priorities": _merged_priority_blocks(all_snaps),
+        "wall_s": round(wall, 3),
+        "pairs_per_s": round(total_served / wall, 2) if wall else 0.0,
+    }
+    if reg.tracer is not None:
+        # spans carry the model/variant/canary stamps the registry
+        # minted — the phase attribution here covers ALL models
+        summary["tail_exemplars"] = {
+            **_trace_file_view(trace_path),
+            "ledger": reg.tracer.snapshot(),
+        }
+    return summary
+
+
+def _registry_round_violations(s: dict) -> list:
+    """The registry chaos-drill invariants, checked after every
+    round: the single-model invariants PER MODEL, plus the canary
+    contract — a failed deploy leaves no canary behind and live
+    traffic keeps serving."""
+    v = []
+    if s["stranded"]:
+        v.append(f"stranded futures: {s['stranded']}")
+    if s["abandoned_inflight"]:
+        v.append(f"abandoned_inflight: {s['abandoned_inflight']}")
+    for name, blk in s["models"].items():
+        if not blk["accounting_ok"]:
+            v.append(f"model {name}: submitted != completed+failed+"
+                     "deadline_missed+cancelled")
+    if (s["canary"]["deploy_failed"] is not None
+            and s["canary"]["leaked_after_failure"]):
+        v.append("failed canary deploy left a canary routing traffic "
+                 "(auto-rollback broken)")
+    if s["canary"].get("half_rolled"):
+        v.append("canary left half-rolled (present but not fully "
+                 "routed) — a wedged guardian must leave routing "
+                 "exactly as it found it")
+    return v
+
+
+def run_registry_chaos(models, *, shapes, rounds=2, requests=16,
+                       submitters=2, bucket_batch=3, iters=1,
+                       priority_mix=(1, 1), canary_fraction=0.5,
+                       canary_variables=None, dispatch_timeout_s=0.4,
+                       hang_s=0.8, breaker_failures=2,
+                       breaker_backoff_s=0.15,
+                       breaker_backoff_max_s=0.6,
+                       gather_window_s=0.0, max_queue=64,
+                       deadline_s=None, guardian=True,
+                       guardian_policy=None, guardian_timeout_s=8.0,
+                       admission_budget=None, admission_reserve=None,
+                       seed=0, metrics_path=None, device="cuda"):
+    """``rounds`` randomized fault rounds + one clean round of the
+    registry drill over SHARED prebuilt engines (captures amortized
+    across rounds; a new registry per round owns fresh schedulers).
+    Each round attempts a canary deploy for the first model — the
+    plans draw ``registry.load``, so some deploys fail and must
+    auto-roll-back without touching live traffic — then runs
+    mixed-model mixed-priority traffic and resolves the rollout. With
+    ``guardian=True`` (the default) every round runs under a live
+    :class:`~raft_tpu_torch.serving.guardian.SLOGuardian` owning the
+    verdict, the plans additionally draw the ``guardian.decide`` site
+    (a guardian that raises or hangs must strand nothing and never
+    leave a half-rolled canary — the violations check pins it), and
+    the clean round must end in a guardian auto-promote; with
+    ``guardian=False`` rounds resolve manually (promote on even,
+    rollback on odd). Either way the clean round needs per-model
+    accounting identity, zero stranded futures, and per-engine
+    programs back at the documented bucket count."""
+    from raft_tpu_torch.serving.engine import RAFTEngine
+
+    rng = random.Random(seed)
+    envelope = sorted({(bucket_batch, _ceil8(h), _ceil8(w))
+                       for h, w in shapes})
+    # exact_shapes, like run_chaos_drill: a wedge-dropped bucket must
+    # honestly recapture, not hide behind a larger healthy one
+    engines = {name: RAFTEngine(weights, cfg, iters=iters,
+                                envelope=envelope, precompile=True,
+                                warm_start=True, exact_shapes=True,
+                                device=device)
+               for name, weights, cfg in models}
+    canary_engine = RAFTEngine(canary_variables, models[0][2],
+                               iters=iters, envelope=envelope,
+                               precompile=True, warm_start=True,
+                               exact_shapes=True, device=device)
+    # the recovery check covers every engine population the chaos can
+    # wedge — the shared canary engine included, under a reserved key
+    all_engines = dict(engines)
+    all_engines["_canary"] = canary_engine
+    documented = {name: eng.executable_count()
+                  for name, eng in all_engines.items()}
+    if guardian:
+        # drill-sized bake defaults: judgeable within one round's
+        # traffic, margins wide enough that only the drill's own
+        # injected faults (not latency jitter) can breach. Caller
+        # overrides MERGE on top — a --slo/--bake-ms spec must not
+        # silently resurrect the production min_requests=20 against a
+        # dozen-request round
+        overrides = guardian_policy or {}
+        guardian_policy = {**{"bake_window_s": 0.5, "max_bake_s": 6.0,
+                              "min_requests": 1, "p99_ratio": 4.0,
+                              "p99_slack_ms": 500.0,
+                              "err_rate_margin": 0.3, "max_wedged": 1,
+                              "max_breaker_opens": 2},
+                           **overrides}
+        if "max_bake_s" not in overrides:
+            # a caller-sized bake window (--bake-ms) must not collide
+            # with the drill default ceiling (GuardianPolicy rejects
+            # max_bake_s < bake_window_s)
+            guardian_policy["max_bake_s"] = max(
+                guardian_policy["max_bake_s"],
+                4.0 * guardian_policy["bake_window_s"])
+    common = dict(shapes=shapes, requests=requests,
+                  submitters=submitters, bucket_batch=bucket_batch,
+                  iters=iters, priority_mix=priority_mix,
+                  canary_fraction=canary_fraction,
+                  canary_variables=canary_variables,
+                  deadline_s=deadline_s, max_queue=max_queue,
+                  gather_window_s=gather_window_s,
+                  dispatch_timeout_s=dispatch_timeout_s,
+                  breaker_failures=breaker_failures,
+                  breaker_backoff_s=breaker_backoff_s,
+                  breaker_backoff_max_s=breaker_backoff_max_s,
+                  guardian=guardian, guardian_policy=guardian_policy,
+                  guardian_timeout_s=guardian_timeout_s,
+                  admission_budget=admission_budget,
+                  admission_reserve=admission_reserve,
+                  metrics_path=metrics_path, engines=engines,
+                  canary_engine=canary_engine, device=device)
+    per_round = []
+    violations = []
+    sites = (CHAOS_SITES_GUARDIAN if guardian
+             else CHAOS_SITES_REGISTRY)
+    for r in range(rounds):
+        plan = chaos_plan(rng, hang_s=hang_s, sites=sites)
+        if r == 0:
+            # every chaos run proves the auto-rollback contract at
+            # least once: round 0's deploy is FORCED to fail at
+            # registry.load (the randomized entries may or may not
+            # draw the site) — the round then runs live-only and the
+            # violations check pins no-canary-leaked + accounting
+            plan["faults"] = [f for f in plan["faults"]
+                              if f["site"] != "registry.load"]
+            plan["faults"].append({"site": "registry.load",
+                                   "kind": "raise", "at": 1,
+                                   "count": 1})
+        s = run_registry_drill(models, seed=seed + 17 * r,
+                               fault_plan=plan, promote=(r % 2 == 0),
+                               **common)
+        s["round"] = r
+        s["plan"] = plan
+        per_round.append(s)
+        violations += [f"round {r}: {v}"
+                       for v in _registry_round_violations(s)]
+    # clean round at a production-sized watchdog (same reasoning as
+    # run_chaos_drill: a legitimate recapture of a chaos-dropped
+    # bucket must not verdict as a wedge mid-recovery)
+    clean = dict(common, dispatch_timeout_s=max(30.0,
+                                                dispatch_timeout_s))
+    s = run_registry_drill(models, seed=seed + 999, fault_plan=None,
+                           promote=True, **clean)
+    s["round"] = "clean"
+    per_round.append(s)
+    violations += [f"clean round: {v}"
+                   for v in _registry_round_violations(s)]
+    if not s["canary"]["deployed"] or s["canary"]["resolution"] is None:
+        violations.append("clean round: canary deploy/promote did not "
+                          "complete")
+    elif guardian and s["canary"]["resolution"] != "guardian_promote":
+        # the clean round's canary bakes with zero injected faults: the
+        # guardian must judge it clean and auto-promote — anything else
+        # (rollback, undecided) is a broken judgment loop
+        violations.append(
+            "clean round: guardian resolution "
+            f"{s['canary']['resolution']!r} != guardian_promote")
+    if s["served"] != s["accepted"]:
+        violations.append("clean round: served != accepted traffic")
+    for name, eng in all_engines.items():
+        if eng.executable_count() != documented[name]:
+            violations.append(
+                f"model {name}: executables {eng.executable_count()} != "
+                f"documented {documented[name]} after recovery")
+    totals = {k: sum(p[k] for p in per_round) for k in
+              ("submitted", "served", "shed", "circuit_rejected",
+               "deadline_missed", "failed_wedged", "failed_circuit",
+               "errors")}
+    deploys = {"attempted": sum(1 for p in per_round
+                                if p["canary"]["requested"]),
+               "deployed": sum(1 for p in per_round
+                               if p["canary"]["deployed"]),
+               "auto_rolled_back": sum(
+                   1 for p in per_round
+                   if p["canary"]["deploy_failed"] is not None)}
+    guardian_summary = None
+    if guardian:
+        guardian_summary = {
+            "decisions": sum(len(p["guardian"]["decisions"])
+                             for p in per_round if p["guardian"]),
+            "errors": sum(p["guardian"]["errors"]
+                          for p in per_round if p["guardian"]),
+            "wedged_rounds": sum(1 for p in per_round
+                                 if p["guardian"]
+                                 and p["guardian"]["wedged"]),
+            "undecided_rounds": sum(
+                1 for p in per_round
+                if p["canary"]["resolution"] == "guardian_undecided"),
+        }
+    return {
+        "chaos_rounds": rounds,
+        "registry": True,
+        "violations": violations,
+        "documented_buckets": documented,
+        "executables": {name: eng.executable_count()
+                        for name, eng in all_engines.items()},
+        "deploys": deploys,
+        "guardian": guardian_summary,
+        "totals": totals,
+        "per_round": per_round,
+    }
+
+
+#: --slo spec keys → GuardianPolicy kwargs (floats unless noted)
+_SLO_KEYS = {"p99_ms": "p99_ceiling_ms", "p99_ratio": "p99_ratio",
+             "p99_slack_ms": "p99_slack_ms",
+             "err_rate": "err_rate_margin",
+             "min_requests": "min_requests", "wedged": "max_wedged",
+             "breaker_opens": "max_breaker_opens"}
+_SLO_INT_KEYS = ("min_requests", "wedged", "breaker_opens")
+
+
+def _parse_slo(spec: str) -> dict:
+    """``--slo`` spec → GuardianPolicy kwargs: a comma list of
+    ``key:value`` pairs, e.g. ``p99_ms:500,err_rate:0.05`` (absolute
+    canary p99 ceiling + error-rate margin over live) or
+    ``p99_ratio:2.0,wedged:0``. Unknown keys exit with usage — a typo
+    must not silently run an unguarded bake."""
+    out = {}
+    for part in spec.split(","):
+        if not part:
+            continue
+        key, sep, val = part.partition(":")
+        dest = _SLO_KEYS.get(key.strip())
+        if not sep or dest is None:
+            raise SystemExit(
+                f"--slo {spec!r}: expected comma-separated key:value "
+                f"pairs with keys from {sorted(_SLO_KEYS)} "
+                "(e.g. p99_ms:500,err_rate:0.05)")
+        try:
+            out[dest] = (int(val) if key.strip() in _SLO_INT_KEYS
+                         else float(val))
+        except ValueError:
+            raise SystemExit(
+                f"--slo {spec!r}: {key.strip()!r} needs a number, "
+                f"got {val!r}")
+    return out
+
+
+#: the JAX package's multi-host and program-store flags: they parse here
+#: and exit naming ROADMAP M11c, where the layers they drive are queued
+_M11C_FLAGS = ("hosts", "hosts_kill_one", "aot_cache")
 
 
 def main(argv=None):
@@ -757,26 +1406,71 @@ def main(argv=None):
                         "(each captured at --bucket-batch rows); "
                         "default is one box covering every --shapes "
                         "entry")
-    m11b = p.add_argument_group(
-        "multi-model and fleet flags (ROADMAP M11b: they exit naming it)")
-    m11b.add_argument("--models", default=None)
-    m11b.add_argument("--canary", type=float, default=0.0, metavar="F")
-    m11b.add_argument("--priority-mix", default="0:0", metavar="I:B",
-                      help="with --models: interactive:batch request "
-                           "counts per cycle (0:0 = priority-less)")
-    m11b.add_argument("--guardian", action="store_true")
-    m11b.add_argument("--slo", default=None, metavar="K:V,...")
-    m11b.add_argument("--bake-ms", type=float, default=2000.0)
-    m11b.add_argument("--admission-budget", type=int, default=0,
-                      metavar="N")
-    m11b.add_argument("--admission-reserve", type=int, default=None,
-                      metavar="R")
-    m11b.add_argument("--replicas", type=int, default=1, metavar="N")
-    m11b.add_argument("--replica-ceiling", type=int, default=None,
-                      metavar="M")
-    m11b.add_argument("--hosts", type=int, default=0, metavar="N")
-    m11b.add_argument("--hosts-kill-one", action="store_true")
-    m11b.add_argument("--aot-cache", default=None, metavar="DIR")
+    p.add_argument("--models", default=None,
+                   help="comma list of model archs (basic, small) to "
+                        "serve as independent live models behind a "
+                        "ModelRegistry (one engine/scheduler/metrics "
+                        "namespace per model, weights seeded from "
+                        "--seed); the summary line gains per-model and "
+                        "per-priority blocks")
+    p.add_argument("--canary", type=float, default=0.0, metavar="F",
+                   help="with --models: deploy a same-arch canary (a "
+                        "second seeded weight set) for the FIRST model "
+                        "at this deterministic request-hash fraction "
+                        "before traffic, and promote it after (a "
+                        "weight swap into the live engine: nothing is "
+                        "captured)")
+    p.add_argument("--priority-mix", default="0:0", metavar="I:B",
+                   help="with --models: interactive:batch request "
+                        "counts per cycle of each submitter's traffic "
+                        "(0:0 = priority-less)")
+    p.add_argument("--guardian", action="store_true",
+                   help="with --models: the SLO guardian owns the "
+                        "rollout verdict — it bakes the canary against "
+                        "the live variant's window metrics and "
+                        "auto-promotes (clean) or auto-rolls-back (SLO "
+                        "breach); the summary gains a guardian block. "
+                        "With --chaos the plans also draw "
+                        "guardian.decide")
+    p.add_argument("--slo", default=None, metavar="K:V,...",
+                   help="guardian SLO overrides (keys: p99_ms absolute "
+                        "canary p99 ceiling, p99_ratio/p99_slack_ms vs "
+                        "live, err_rate margin over live, "
+                        "min_requests, wedged, breaker_opens), e.g. "
+                        "p99_ms:500,err_rate:0.05")
+    p.add_argument("--bake-ms", type=float, default=2000.0,
+                   help="guardian bake window: a clean canary "
+                        "auto-promotes (max bake = 4x)")
+    p.add_argument("--admission-budget", type=int, default=0,
+                   metavar="N",
+                   help="with --models: registry-wide admission budget "
+                        "— at most N admitted-but-unsettled requests "
+                        "across ALL models; exhaustion fails fast with "
+                        "BackpressureError, counted per model as "
+                        "admission_rejected (0: off)")
+    p.add_argument("--admission-reserve", type=int, default=None,
+                   metavar="R",
+                   help="interactive-only tokens of the admission "
+                        "budget (default N/4): batch-class traffic "
+                        "can never take the last R tokens")
+    p.add_argument("--replicas", type=int, default=1, metavar="N",
+                   help="replica fleet: fan the engine out into N lanes "
+                        "behind one scheduler on the card (each "
+                        "replica its own weights, stream, graph pool "
+                        "and captures); the summary grows a "
+                        "per-replica 'fleet' block. Default 1: no "
+                        "fleet")
+    p.add_argument("--replica-ceiling", type=int, default=None,
+                   metavar="M",
+                   help="with --replicas: queue pressure grows the "
+                        "fleet up to M lanes and idle lanes retire "
+                        "back toward the --replicas floor")
+    m11c = p.add_argument_group(
+        "multi-host and program-store flags (ROADMAP M11c: they exit "
+        "naming it)")
+    m11c.add_argument("--hosts", type=int, default=0, metavar="N")
+    m11c.add_argument("--hosts-kill-one", action="store_true")
+    m11c.add_argument("--aot-cache", default=None, metavar="DIR")
     p.add_argument("--log-dir", default=None,
                    help="append the metrics snapshot to "
                         "<log-dir>/metrics.jsonl")
@@ -802,16 +1496,14 @@ def main(argv=None):
     add_corr_args(p)
     args = p.parse_args(argv)
 
-    set_flags = [f for f in _M11B_FLAGS
+    set_flags = [f for f in _M11C_FLAGS
                  if getattr(args, f) != p.get_default(f)]
-    if set_flags or args.priority_mix != "0:0":
-        names = ", ".join("--" + f.replace("_", "-") for f in set_flags
-                          ) or "--priority-mix"
+    if set_flags:
+        names = ", ".join("--" + f.replace("_", "-") for f in set_flags)
         raise SystemExit(
-            f"{names}: the multi-model registry, its guardian and "
-            "admission budget, the replica and host fleets and the "
-            "serialized-program store are ROADMAP M11b of the port — "
-            "run the single-model drill without them")
+            f"{names}: the replica lanes on other hosts and the "
+            "serialized-program store are ROADMAP M11c of the port — "
+            "run the drill without them")
 
     from raft_tpu_torch.config import RAFTConfig
     from raft_tpu_torch.models import RAFT
@@ -831,6 +1523,9 @@ def main(argv=None):
             "ROADMAP 'Ragged serving, next bricks' (a) — the per-row "
             "descriptor subsuming the cached bucket matrix is the "
             "next brick. Run the two drills separately until then.")
+    if args.ragged and args.models:
+        raise SystemExit("--ragged is a single-model drill knob (the "
+                         "registry drills keep the bucketed path)")
     metrics_path = (os.path.join(args.log_dir, "metrics.jsonl")
                     if args.log_dir else None)
     trace_path = args.trace_path
@@ -845,9 +1540,35 @@ def main(argv=None):
     if not 0.0 <= trace_sample <= 1.0:
         raise SystemExit(f"--trace-sample {trace_sample}: must be "
                          "in [0, 1]")
+    if trace_path and args.models and args.chaos:
+        raise SystemExit("--trace-path with --models --chaos is not "
+                         "wired yet (each chaos round builds a fresh "
+                         "registry/ledger and the shared spans file "
+                         "would repeat trace ids) — trace the "
+                         "single-model chaos or the plain registry "
+                         "drill")
+    if args.replicas > 1 or args.replica_ceiling:
+        if args.models or args.chaos:
+            raise SystemExit(
+                "--replicas/--replica-ceiling drive the plain drill "
+                "only for now (registry drills size their own fleets "
+                "via canary_fraction; the chaos harness stays "
+                "single-engine) — drop --models/--chaos")
+        if args.feature_cache:
+            raise SystemExit(
+                "--replicas with --feature-cache is not supported: "
+                "the device-resident feature pool is single-engine "
+                "state (a stream's cached activations live on ONE "
+                "replica) — run the fleet without it")
+    if (args.guardian or args.admission_budget) and not args.models:
+        raise SystemExit("--guardian/--admission-budget need --models "
+                         "(they are ModelRegistry features)")
     if args.log_dir:
         os.makedirs(args.log_dir, exist_ok=True)
 
+    if args.models:
+        return _registry_main(args, shapes, metrics_path, trace_path,
+                              trace_sample)
     cfg = RAFTConfig(small=args.small, **corr_overrides(args))
     # random weights seeded from --seed (no trained basic weights are in
     # the repository; the serving numbers do not depend on them)
@@ -900,6 +1621,109 @@ def main(argv=None):
         cache_capacity=args.cache_capacity,
         ragged=args.ragged, capacity_classes=capacity_classes,
         recover_s=args.recover_s,
+        metrics_path=metrics_path, trace_path=trace_path,
+        trace_sample=trace_sample, seed=args.seed,
+        replicas=args.replicas, replica_ceiling=args.replica_ceiling,
+        device=args.device)
+    print(json.dumps(summary), flush=True)
+    return summary
+
+
+def _registry_main(args, shapes, metrics_path, trace_path, trace_sample):
+    """``--models``: the registry drill (or its chaos rounds) with one
+    live model per arch name, weights seeded from ``--seed``."""
+    from raft_tpu_torch.cli._args import corr_overrides
+    from raft_tpu_torch.config import RAFTConfig
+    from raft_tpu_torch.models import RAFT
+
+    over = corr_overrides(args)
+    # the small model's update block has no fused GRU
+    arch = {"basic": RAFTConfig(**over),
+            "small": RAFTConfig(small=True, **{
+                k: v for k, v in over.items() if k != "gru_impl"})}
+    models = []
+    for name in args.models.split(","):
+        c = arch.get(name)
+        if c is None:
+            raise SystemExit(f"--models {name!r}: choose from "
+                             f"{sorted(arch)}")
+        gen = torch.Generator().manual_seed(args.seed + len(models))
+        models.append((name, RAFT(c, gen).state_dict(), c))
+    try:
+        mix = tuple(int(v) for v in args.priority_mix.split(":"))
+        if len(mix) != 2 or any(v < 0 for v in mix):
+            raise ValueError
+    except ValueError:
+        raise SystemExit(
+            f"--priority-mix {args.priority_mix!r}: expected "
+            "INTERACTIVE:BATCH non-negative counts, e.g. 3:1 "
+            "(0:0 = priority-less)")
+    canary_variables = None
+    if args.canary or args.chaos:
+        # same arch as the first model, another seed — the "new
+        # checkpoint" the rollout ships
+        canary_variables = RAFT(models[0][2], torch.Generator().manual_seed(
+            args.seed + 97)).state_dict()
+    guardian_policy = None
+    if args.guardian:
+        guardian_policy = _parse_slo(args.slo) if args.slo else {}
+        guardian_policy.setdefault("bake_window_s", args.bake_ms / 1e3)
+        # size the evidence floor to the drill unless --slo pinned it:
+        # the production default (min_requests=20) against a small
+        # --requests run would hold past max_bake and roll every
+        # clean canary back as insufficient_traffic
+        guardian_policy.setdefault(
+            "min_requests", max(1, min(20, args.requests // 8)))
+    if args.chaos:
+        summary = run_registry_chaos(
+            models, shapes=shapes, rounds=args.chaos,
+            requests=args.requests, submitters=args.submitters,
+            bucket_batch=args.bucket_batch, iters=args.iters,
+            priority_mix=mix, canary_fraction=args.canary or 0.5,
+            canary_variables=canary_variables,
+            dispatch_timeout_s=(args.dispatch_timeout_ms / 1e3
+                                if args.dispatch_timeout_ms else 0.4),
+            hang_s=args.hang_ms / 1e3,
+            breaker_failures=args.breaker_failures or 2,
+            breaker_backoff_s=args.breaker_backoff_ms / 1e3,
+            breaker_backoff_max_s=max(args.breaker_backoff_max_ms,
+                                      args.breaker_backoff_ms) / 1e3,
+            gather_window_s=args.gather_ms / 1e3,
+            deadline_s=(args.deadline_ms / 1e3 if args.deadline_ms
+                        else None),
+            guardian=args.guardian, guardian_policy=guardian_policy,
+            # scaled like the non-chaos path: a decision can only land
+            # after the bake window — a fixed wait below it would
+            # report every clean round guardian_undecided
+            guardian_timeout_s=max(8.0, 4 * args.bake_ms / 1e3),
+            admission_budget=args.admission_budget or None,
+            admission_reserve=args.admission_reserve,
+            max_queue=args.queue, seed=args.seed,
+            metrics_path=metrics_path, device=args.device)
+        print(json.dumps(summary), flush=True)
+        if summary["violations"]:
+            raise SystemExit(1)
+        return summary
+    summary = run_registry_drill(
+        models, shapes=shapes, requests=args.requests,
+        submitters=args.submitters, bucket_batch=args.bucket_batch,
+        iters=args.iters, priority_mix=mix,
+        canary_fraction=args.canary, canary_variables=canary_variables,
+        sessions=args.sessions, session_frames=args.session_frames,
+        deadline_s=(args.deadline_ms / 1e3 if args.deadline_ms
+                    else None),
+        max_queue=args.queue, gather_window_s=args.gather_ms / 1e3,
+        dispatch_timeout_s=(args.dispatch_timeout_ms / 1e3
+                            if args.dispatch_timeout_ms else None),
+        breaker_failures=args.breaker_failures,
+        breaker_backoff_s=args.breaker_backoff_ms / 1e3,
+        breaker_backoff_max_s=max(args.breaker_backoff_max_ms,
+                                  args.breaker_backoff_ms) / 1e3,
+        wire=args.wire, pipeline_depth=args.pipeline_depth,
+        guardian=args.guardian, guardian_policy=guardian_policy,
+        guardian_timeout_s=max(30.0, 8 * args.bake_ms / 1e3),
+        admission_budget=args.admission_budget or None,
+        admission_reserve=args.admission_reserve,
         metrics_path=metrics_path, trace_path=trace_path,
         trace_sample=trace_sample, seed=args.seed, device=args.device)
     print(json.dumps(summary), flush=True)

@@ -1,9 +1,9 @@
 """Placement: device assignment + dispatch-mode decisions for the
 replica fleet; port of ``raft_tpu/parallel/placement.py``.
 
-The single-engine scheduler calls only :meth:`Placement.bucket_fit`;
-the rest waits for the replica fleet (ROADMAP M11b), and is held by
-unit tests over an explicit ``engines`` list meanwhile.
+On one card every replica's nominal device is ``cuda:0``: the fleet
+there is a failure domain (a wedged lane is quarantined while another
+serves), not more devices.
 
 The scheduler used to own these decisions implicitly — ``_route`` /
 ``ensure_bucket`` calls straight into ONE engine meant "this bucket
@@ -13,8 +13,9 @@ and this module is their single owner, sitting over the engine's
 ``partitioner`` (the mesh seam, ROADMAP M9):
 
 - **Replica construction + device assignment**: replicas 2..N are
-  siblings of the primary engine (``RAFTEngine.spawn_replica``) sharing
-  its program store. Each replica gets a NOMINAL device from a
+  siblings of the primary engine (``RAFTEngine.spawn_replica``: a copy
+  of its weights and its own capture of each of its programs). Each
+  replica gets a NOMINAL device from a
   round-robin over the local device table (``cuda:i``): on a CPU-only
   host the assignment is observability (it names which device a real
   multi-card deployment would pin), on real hardware it is the
@@ -36,7 +37,8 @@ and this module is their single owner, sitting over the engine's
   queue-depth-driven activation up to a configured ceiling, idle-time
   retirement back down to the configured floor.
 
-Nothing here builds programs or moves tensors; the engines do. A duck-typed engine without ``spawn_replica`` works at
+Nothing here builds programs or moves tensors; the engines do. A
+duck-typed engine without ``spawn_replica`` works at
 ``replicas=1`` (no spawning happens) or with an explicit ``engines``
 list (the tests' fake-fleet path).
 """

@@ -1,4 +1,5 @@
-"""Serving, port of ``raft_tpu/serving`` (ROADMAP M10 and M11a).
+"""Serving, port of ``raft_tpu/serving`` (ROADMAP M10, M11a and the
+in-process half of M11b).
 
 The engine layer: ``engine.py`` is the shape-bucketed engine (one captured
 CUDA graph per bucket on the card, the eager forward on the CPU),
@@ -14,9 +15,15 @@ breakers), the metrics surface (``metrics.py``), request-scoped tracing
 (``trace.py``, read back by ``raft_tpu_torch.cli.serve_trace``) and the
 record schemas (``schema.py``).
 
-Still to come (ROADMAP M11b): the multi-model registry and its SLO guardian,
-the serialized-program store, the replica fleet and the multi-host
-transport; ``serving/video.py`` is ROADMAP M14.
+Above it, several models on one card: the registry (``registry.py``:
+versioned engines per named model, canary rollout by a deterministic
+request hash, promote and rollback with zero stranded futures), the SLO
+guardian that bakes a canary and promotes or rolls it back, and the
+registry-wide admission budget (``guardian.py``); and the scheduler's
+replica fleet, N engines on the card behind one queue.
+
+Still to come (ROADMAP M11c): the serialized-program store, the lanes on
+other hosts and their transport; ``serving/video.py`` is ROADMAP M14.
 """
 
 from raft_tpu_torch.serving.engine import (SHAPE_ENVELOPE_LINUX,
@@ -28,7 +35,12 @@ from raft_tpu_torch.serving.export import (export_program, load_program,
 from raft_tpu_torch.serving.feature_cache import (FeatureCacheMiss,
                                                   FeatureCachePool)
 from raft_tpu_torch.serving.futures import settle_future
+from raft_tpu_torch.serving.guardian import (AdmissionBudget,
+                                             GuardianPolicy, SLOGuardian)
 from raft_tpu_torch.serving.metrics import LatencyHistogram, ServingMetrics
+from raft_tpu_torch.serving.registry import (DeployError, ModelRegistry,
+                                             RolloutInProgress,
+                                             UnknownModel)
 from raft_tpu_torch.serving.ragged import (RaggedDescriptor,
                                            build_corr_pyramid_ragged,
                                            corr_lookup_ragged,
@@ -56,4 +68,6 @@ __all__ = ["RAFTEngine", "PendingBatch", "RaggedPendingBatch",
            "CircuitBreaker", "CircuitOpen", "DispatchExecutor",
            "DispatchWedged", "PRIORITY_INTERACTIVE", "PRIORITY_BATCH",
            "settle_future", "FeatureCachePool", "FeatureCacheMiss",
-           "TraceLedger"]
+           "TraceLedger", "ModelRegistry", "DeployError",
+           "RolloutInProgress", "UnknownModel", "SLOGuardian",
+           "GuardianPolicy", "AdmissionBudget"]

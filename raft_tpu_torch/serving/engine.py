@@ -21,9 +21,12 @@ owns: the padded frames go through a pinned buffer into the static inputs
 (``non_blocking``), the graph replays, and the outputs the pending batch
 hands back are cloned, since the next replay of the bucket overwrites the
 static outputs. ``PendingBatch.fetch`` then waits on an event recorded
-after the clone. Captures run outside the engine lock (one at a time, all
-into one memory pool: safe because every replay is serialised on the
-engine's stream), as the JAX engine compiles outside its lock.
+after the clone. Captures run outside the engine lock, as the JAX engine
+compiles outside its lock: one at a time in the whole process (one lock
+for every engine, so a replica capturing under load never races another
+engine's capture, nor its attribution of kernel launches), each engine's
+into its own memory pool (safe because that engine's replays are
+serialised on its stream).
 
 ``update_weights`` copies a checkpoint into the module's own parameter and
 buffer storage on the engine's stream, so every captured graph stays valid
@@ -34,10 +37,17 @@ Like the fork's single-output ONNX export (test_trt.py:131 names only
 ``flowup``), the engine returns only the upsampled flow unless
 ``warm_start``; the iteration count is baked at 20 (ITERS_EXPORT).
 
-Not ported here: ``mesh=`` (ROADMAP M9) and ``aot_cache=`` (M11b) raise
-``NotImplementedError``; ``spawn_replica``/``adopt_executables`` belong to
-the M11b fleet (on the card a sibling cannot share a captured graph, whose
-buffers are static, so their design comes with the fleet).
+Replicas (``spawn_replica``, ``adopt_executables``) for the scheduler's
+fleet: a JAX replica shares the primary's immutable executables, but a
+captured graph has static buffers, one pool and one stream, and a weight
+swap writes the module's own storage. So a replica here owns everything:
+a copy of the parameters and buffers, its stream, its pool, its static
+inputs and outputs, and its own capture of each of the primary's
+programs (one capture per program, where JAX compiles none). A swap on
+one lane then never writes a tensor another lane's replay reads.
+
+Not ported here: ``mesh=`` (ROADMAP M9) and ``aot_cache=`` (M11c) raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -64,6 +74,11 @@ SHAPE_ENVELOPE_WINDOWS: List[Tuple[int, int, int]] = [
     (1, 256, 256), (1, 512, 800), (1, 512, 1024)]
 
 _KINDS = ("plain", "cached", "ragged")
+
+#: one capture at a time in the process: every engine's capture (a
+#: replica's too) takes it, outside every engine lock, so no capture
+#: overlaps another and each attributes only its own kernel launches
+_CAPTURE_LOCK = threading.Lock()
 
 
 class StaleFeatureError(RuntimeError):
@@ -265,7 +280,7 @@ class RAFTEngine:
 
         ``device``: the card unless ``"cpu"`` is asked for; on the CPU the
         programs run the eager forward. ``mesh`` and ``aot_cache`` are
-        not ported (ROADMAP M9, M11b) and raise.
+        not ported (ROADMAP M9, M11c) and raise.
         """
         if wire not in ("f32", "u8"):
             raise ValueError(f"wire={wire!r}: choose 'f32' or 'u8'")
@@ -303,7 +318,7 @@ class RAFTEngine:
         if aot_cache is not None:
             raise NotImplementedError(
                 "aot_cache=: the store of serialized programs is ROADMAP "
-                "M11b of the port")
+                "M11c of the port")
         self.config = config
         self.iters = iters
         self.exact_shapes = exact_shapes
@@ -324,9 +339,8 @@ class RAFTEngine:
         #: guards the tables, the counters and the weight storage: a
         #: dispatch (copy in, run, clone out) and a weight swap are atoms
         self._lock = threading.RLock()
-        #: one capture at a time: every capture shares one memory pool.
-        #: Taken before ``_lock``, which stays a leaf
-        self._capture_lock = threading.Lock()
+        #: the process's capture lock, taken before ``_lock`` (a leaf)
+        self._capture_lock = _CAPTURE_LOCK
         self.model = RAFT(config)
         self.model.load_state_dict(_state_dict(weights), strict=True)
         self.model = self.model.to(dev).eval().requires_grad_(False)
@@ -389,6 +403,24 @@ class RAFTEngine:
                     for k in old if old[k] != new[k]]
             raise ValueError(
                 "checkpoint structure mismatch: " + "; ".join(diff[:5]))
+
+    @property
+    def variables(self) -> Dict[str, torch.Tensor]:
+        """The serving weights as a state dict: live views of the
+        module's storage (the JAX engine's ``variables``). For a copy
+        that a later swap cannot change, :meth:`weights_copy`."""
+        return self.model.state_dict()
+
+    def weights_copy(self) -> Dict[str, torch.Tensor]:
+        """A copy of the serving weights, made on the caller's stream
+        after everything queued on the engine's (every swap and replay
+        before this call)."""
+        with self._lock, torch.no_grad():
+            if self.device.type == "cuda":
+                torch.cuda.current_stream(self.device).wait_stream(
+                    self._stream)
+            return {k: v.detach().clone()
+                    for k, v in self.model.state_dict().items()}
 
     def compatible_weights(self, weights) -> bool:
         """True iff ``weights`` could be swapped in live with
@@ -586,11 +618,51 @@ class RAFTEngine:
 
     def aot_stats(self) -> Dict[str, int]:
         """The JAX engine's serialized-cache counters: no store exists
-        here (ROADMAP M11b), so all are 0 but ``compiles``, the programs
-        built."""
+        here (ROADMAP M11c), so all are 0 but ``compiles``, the programs
+        built (a replica's captures of its primary's programs count)."""
         with self._lock:
             return {"enabled": 0, "aot_hits": 0, "aot_misses": 0,
                     "compiles": self.capture_count, "compiles_avoided": 0}
+
+    # -- replica fleet (parallel/placement.py) --------------------------------
+
+    def spawn_replica(self) -> "RAFTEngine":
+        """A sibling for the scheduler's replica fleet: the same config,
+        iters, wire and mode flags, a copy of this engine's weights on
+        the same device, and its own capture of each program this engine
+        has built (:meth:`adopt_executables`); placeholders are mirrored
+        as placeholders. The sibling's tables are its own, so a wedge
+        verdict's ``drop_bucket`` on one replica never touches
+        another's graph, and its stream, pool and weight storage are its
+        own, so its replays and swaps run beside this engine's."""
+        rep = RAFTEngine(
+            self.weights_copy(), self.config, iters=self.iters,
+            envelope=(), precompile=False,
+            exact_shapes=self.exact_shapes, warm_start=self.warm_start,
+            wire=self.wire, feature_cache=self.feature_cache,
+            ragged=self.ragged, ragged_grain=self.ragged_grain,
+            device=str(self.device))
+        rep.adopt_executables(self)
+        return rep
+
+    def adopt_executables(self, source: "RAFTEngine") -> int:
+        """Mirror ``source``'s table keys here and capture each program
+        ``source`` has built on this engine (its own static buffers,
+        pool and stream: a graph cannot be shared); ``source``'s
+        placeholders stay placeholders. Returns how many programs were
+        captured: one per built program of ``source`` this engine
+        lacked, and no more."""
+        with source._lock:
+            tables = {k: dict(t) for k, t in source._tables.items()}
+        before = self.capture_count
+        for kind in _KINDS:
+            for shape, prog in sorted(tables[kind].items()):
+                if prog is None:
+                    with self._lock:
+                        self._tables[kind].setdefault(shape, None)
+                else:
+                    self._get_program(shape, kind)
+        return self.capture_count - before
 
     # -- shape routing -------------------------------------------------------
 

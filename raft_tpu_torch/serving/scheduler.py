@@ -1,5 +1,6 @@
 """Async micro-batching scheduler: the serving front-end over the engine;
-port of ``raft_tpu/serving/scheduler.py``'s single-engine path.
+port of ``raft_tpu/serving/scheduler.py`` with its in-process replica
+fleet (the multi-host lanes are ROADMAP M11c).
 
 ``RAFTEngine`` is a synchronous bucket router — one caller drives it at
 a time, and a lone request pads a bucket's whole batch dimension with
@@ -107,9 +108,14 @@ spans (bucket key, padding-waste share) linked to their request spans,
 and phase marks (taken/shipped/fetch_start) give ``serve_trace`` the
 queue-vs-assembly-vs-device-vs-fetch attribution behind a p99 spike.
 
-Not ported here: the replica fleet (``replicas``, ``replica_ceiling``,
-``placement=``, ``host_fleet=``) and the registry above the scheduler
-are ROADMAP M11b; those knobs raise ``NotImplementedError``.
+Replica fleet (``replicas`` > 1, ``replica_ceiling``, ``placement=``;
+default OFF): N engines on one card (``RAFTEngine.spawn_replica``: each
+its own weights, stream, pool and captures), one lane each behind the
+one queue, picked least-loaded per dispatch, each with its own executor
+and breaker board. A wedge quarantines one lane while the rest serve, and
+``swap_weights`` moves every lane or none. Not ported here: the host
+lanes (``host_fleet=``, ROADMAP M11c), which raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -183,6 +189,43 @@ LOCK_ORDER = (
     ("scheduler.MicroBatchScheduler._cv",
      "trace.TraceLedger._lock"),
 )
+
+
+class ConfigError(ValueError):
+    """A constructor-time knob combination that could only misbehave
+    at runtime (e.g. ``feature_cache=True`` with ``replicas>1`` would
+    silently correlate a stream's frames across replica-local device
+    pools) — rejected loudly up front instead."""
+
+
+class _ReplicaLane:
+    """One replica's serving lane in the fleet: its engine, its own
+    supervised dispatch executor (a single worker — the engine's
+    single-caller contract holds PER REPLICA), its own breaker board
+    (labels ``model/HxW/r<k>`` — a wedge on one replica's program must
+    not open a sibling's breaker), the in-flight job, and the fan-out
+    gauges the least-loaded pick reads. All mutable state is owned by
+    the ONE fleet dispatcher thread; other threads only read it for
+    health snapshots."""
+
+    __slots__ = ("index", "engine", "exec", "breakers", "job",
+                 "t_launch", "active", "quarantined", "dispatches",
+                 "prev_pending", "idle_since")
+
+    def __init__(self, index: int, engine):
+        self.index = index
+        self.engine = engine
+        self.exec = DispatchExecutor(f"MicroBatchScheduler-r{index}")
+        self.breakers: Dict[Tuple, CircuitBreaker] = {}
+        self.job: Optional[_DispatchJob] = None
+        self.t_launch = 0.0
+        #: takes new dispatches (False: retired by the idle policy or
+        #: quarantined by a wedge verdict — the fleet serves without it)
+        self.active = True
+        self.quarantined = False
+        self.dispatches = 0
+        self.prev_pending = None
+        self.idle_since: Optional[float] = time.monotonic()
 
 
 class ServeResult(NamedTuple):
@@ -287,6 +330,7 @@ class MicroBatchScheduler:
                  tracer: Optional[TraceLedger] = None,
                  replicas: int = 1,
                  replica_ceiling: Optional[int] = None,
+                 replica_idle_retire_s: float = 30.0,
                  placement: Optional[Placement] = None,
                  host_fleet=None):
         """(Trailing knobs) ``feature_cache=True`` (needs a
@@ -322,15 +366,30 @@ class MicroBatchScheduler:
         Default None: no span objects exist, every path above is
         bitwise the untraced stack.
 
-        ``replicas`` > 1, ``replica_ceiling``, ``placement`` and
-        ``host_fleet`` arm the replica fleet of the JAX package, which
-        is ROADMAP M11b of the port: they raise ``NotImplementedError``
-        here, before any thread starts."""
-        if (int(replicas) > 1 or replica_ceiling is not None
-                or placement is not None or host_fleet is not None):
+        ``replicas`` > 1 (or a ``replica_ceiling`` above it, or an
+        explicit ``placement``) arms the REPLICA FLEET: N sibling
+        engines on the card (``RAFTEngine.spawn_replica`` — each its own
+        weights, stream, graph pool and captures of the primary's
+        programs) each serve whole coalesced micro-batches on their own
+        supervised lane, picked least-loaded per dispatch. Each lane
+        carries its OWN breaker board (``model/HxW/r<k>``) and a wedge
+        verdict quarantines ONE replica while the rest keep serving;
+        queue pressure activates lanes up to ``replica_ceiling`` and
+        ``replica_idle_retire_s`` of idleness retires them back to the
+        floor. The placement layer
+        (:class:`~raft_tpu_torch.parallel.placement.Placement`) owns
+        both decisions. ``replicas=1`` (the default) is the
+        single-engine scheduler. ``feature_cache`` and
+        ``pipeline_depth>1`` raise :class:`ConfigError` with a fleet —
+        see the messages for why.
+
+        ``host_fleet`` (lanes on other hosts) is ROADMAP M11c of the
+        port and raises ``NotImplementedError`` before any thread
+        starts."""
+        if host_fleet is not None:
             raise NotImplementedError(
-                "replicas>1, replica_ceiling, placement= and host_fleet= "
-                "arm the replica fleet, ROADMAP M11b of the port")
+                "host_fleet=: replica lanes on other hosts are ROADMAP "
+                "M11c of the port")
         self.engine = engine
         self.max_queue = int(max_queue)
         self.max_batch = int(max_batch)
@@ -364,6 +423,51 @@ class MicroBatchScheduler:
                 "ragged=True with feature_cache=True is not supported "
                 "yet — the cached signature keeps per-shape buckets")
         self._ragged = bool(ragged)
+        #: replica fleet: the placement layer owns replica construction
+        #: and assignment and the per-bucket replicate-vs-shard decision;
+        #: the scheduler owns the lanes. Fleet mode is any ceiling above
+        #: one engine; replicas=1 with no ceiling builds NO placement and
+        #: stays the single-engine path.
+        want = (placement.ceiling if placement is not None
+                else max(1, int(replicas), int(replica_ceiling or 0)))
+        if want > 1:
+            if feature_cache:
+                raise ConfigError(
+                    "feature_cache=True with replicas>1: a stream's "
+                    "device slot lives in ONE replica's pool, and "
+                    "fleet coalescing would silently correlate its "
+                    "frames across replica-local pools — run one "
+                    "feature-cache scheduler per replica (pinning "
+                    "streams yourself) or set replicas=1")
+            if int(pipeline_depth) > 1:
+                raise ConfigError(
+                    "pipeline_depth>1 with replicas>1: fleet lanes run "
+                    "dispatch+fetch+settle inline per replica — cross-"
+                    "batch overlap comes from replica concurrency, not "
+                    "a shared completion stage")
+        self.placement = (placement if placement is not None
+                          else (Placement(engine, replicas=replicas,
+                                          ceiling=replica_ceiling)
+                                if want > 1 else None))
+        #: fleet lanes, primary first; EMPTY list = single-engine mode
+        #: (every `if self._lanes` fleet branch below is dead)
+        self._lanes: List[_ReplicaLane] = (
+            [_ReplicaLane(k, eng)
+             for k, eng in enumerate(self.placement.engines)]
+            if self.placement is not None else [])
+        self.replica_idle_retire_s = float(replica_idle_retire_s)
+        #: swap barrier: a fleet-atomic weight swap quiesces the lanes
+        #: (no new launches) while the dispatcher keeps reaping
+        self._swapping = False
+        #: the dispatcher is changing the fleet (growing a replica or
+        #: launching on a lane). Set and read under ``_cv``: it is set
+        #: only while no swap is up, and a swap is raised only while it
+        #: is clear, so a replica grown from the pre-swap weights always
+        #: joins ``_lanes`` before the epoch lists them
+        self._mutating = False
+        #: high-water mark of simultaneously busy lanes (the fan-out
+        #: gauge: > 1 when two lanes dispatched at once)
+        self._concurrency_max = 0
         #: request-tracing ledger (serving/trace.py); public so
         #: sessions (parent chaining) and the registry (intake stamps)
         #: can reach it duck-typed. None = tracing off, zero overhead.
@@ -384,8 +488,12 @@ class MicroBatchScheduler:
         self._breaker_backoff_max_s = float(breaker_backoff_max_s)
         self._breaker_rng = breaker_rng
         self._breakers: Dict[Tuple[int, int], CircuitBreaker] = {}
+        # fleet mode: each lane has its own executor and the fleet
+        # watchdog verdicts per lane — the single supervised executor
+        # stays un-built
         self._exec = (DispatchExecutor()
-                      if self.dispatch_timeout_s is not None else None)
+                      if self.dispatch_timeout_s is not None
+                      and not self._lanes else None)
         self.pipeline_depth = max(1, int(pipeline_depth))
         #: pipelined completion stage: a second supervised worker owns
         #: the blocking fetch + settle; ``_pending_jobs`` is the FIFO
@@ -414,7 +522,7 @@ class MicroBatchScheduler:
         self._inflight_since: Optional[float] = None
         self._last_dispatch_done: Optional[float] = None
         self._worker = threading.Thread(
-            target=self._run,
+            target=self._run_fleet if self._lanes else self._run,
             name="MicroBatchScheduler-dispatch", daemon=True)
         self._worker.start()
 
@@ -591,6 +699,24 @@ class MicroBatchScheduler:
                 # say so — CircuitOpen's "retry after backoff" would
                 # send the caller into a futile retry loop
                 raise SchedulerClosed("scheduler is closed")
+        if self._lanes:
+            # fleet: a shape fails fast only when it is open on EVERY
+            # active replica — one replica's bad program must not
+            # reject traffic its siblings serve fine (state() promotes
+            # an expired open to half_open, so the probe gets through)
+            states = []
+            for lane in self._lanes:
+                if not lane.active:
+                    continue
+                br = lane.breakers.get(key)
+                states.append(br.state() if br is not None
+                              else BREAKER_CLOSED)
+            if states and all(s == BREAKER_OPEN for s in states):
+                self.metrics.record_circuit_rejected()
+                raise CircuitOpen(
+                    f"bucket {key} circuit open on every active "
+                    "replica — failing fast; retry after backoff")
+            return
         br = self._breakers.get(key)
         if br is not None and br.state() == BREAKER_OPEN:
             # fail fast at intake: an open bucket must not burn queue
@@ -785,22 +911,88 @@ class MicroBatchScheduler:
         """Live checkpoint swap; atomic wrt in-flight micro-batches
         (the engine snapshots its tree once per dispatch). With a
         feature cache armed, the pool flushes — features computed by
-        the old tree must never feed the new one (the engine's
-        weights-version stamp is the backstop for the race window)."""
+        the old weights must never feed the new ones (the engine's
+        weights-version stamp is the backstop for the race window).
+        With a replica fleet, the swap is FLEET-ATOMIC
+        (:meth:`swap_weights`): all replicas move under one epoch or
+        none do."""
         self.swap_weights(variables)
         if self._fcache is not None:
             self.flush_feature_cache("weights_swap")
 
-    def swap_weights(self, variables) -> None:
-        """Swap the serving weights on the engine: one atom under its
+    def swap_weights(self, variables, timeout_s: float = 30.0) -> None:
+        """Swap the serving weights. Single engine: one atom under its
         lock (``RAFTEngine.update_weights`` copies into the module's
         own storage on its stream), so every dispatch queued before
-        ran the old weights and every one after runs the new. The
+        ran the old weights and every one after runs the new; the
         ``scheduler.swap`` fault site fires before the engine is
-        touched: a raise leaves it on the old weights. The fleet-atomic
-        epoch over N replicas is ROADMAP M11b."""
-        fault_point("scheduler.swap")
-        self.engine.update_weights(variables)
+        touched, so a raise leaves it on the old weights.
+
+        Replica fleet: one epoch over every lane that can serve again
+        (a quarantined lane never does, and its abandoned worker may
+        hold its engine). Raise the swap barrier (the dispatcher reaps
+        in-flight lanes but grows and launches nothing new), wait for
+        a grow or launch already under way to end (a grown replica is
+        listed before the epoch reads the lanes) and for the lanes to
+        quiesce (a lane's job ends after its replay's results were
+        fetched), then swap engine by engine, each copy on that lane's
+        own stream — any failure (the
+        ``scheduler.swap`` chaos site fires before each lane) rolls the
+        already-swapped engines BACK to a copy of their old weights
+        before re-raising, so the fleet is never observable
+        half-rolled: every dispatch before this returns ran the old
+        weights everywhere, every dispatch after runs the new
+        everywhere, a replica grown meanwhile included."""
+        if not self._lanes:
+            fault_point("scheduler.swap")
+            self.engine.update_weights(variables)
+            return
+        with self._cv:
+            if self._swapping:
+                raise RuntimeError("a fleet weight swap is already in "
+                                   "progress")
+            self._swapping = True
+        try:
+            deadline = time.monotonic() + timeout_s
+            with self._cv:
+                if not self._cv.wait_for(lambda: not self._mutating,
+                                         timeout=timeout_s):
+                    raise RuntimeError(
+                        f"the fleet did not finish growing or launching "
+                        f"within {timeout_s}s for the weight swap")
+            while any(lane.job is not None for lane in self._lanes):
+                # the dispatcher keeps reaping (and wedging) under the
+                # barrier — a wedged lane cannot stall the epoch past
+                # its own verdict
+                if time.monotonic() > deadline:
+                    raise RuntimeError(
+                        f"fleet did not quiesce within {timeout_s}s "
+                        "for the weight swap")
+                time.sleep(0.001)
+            swapped = []
+            try:
+                for lane in self._lanes:
+                    if lane.quarantined:
+                        continue
+                    copy = getattr(lane.engine, "weights_copy", None)
+                    old = (copy() if copy is not None
+                           else lane.engine.variables)
+                    fault_point("scheduler.swap")
+                    lane.engine.update_weights(variables)
+                    swapped.append((lane, old))
+            except BaseException:
+                # epoch abort: restore the engines already swapped (in
+                # reverse) — a failed rollout leaves the WHOLE fleet
+                # on the old weights, never a mixed set
+                for lane, old in reversed(swapped):
+                    lane.engine.update_weights(old)
+                raise
+            self.metrics.record_event(
+                "fleet_weights_swap", replicas=len(self._lanes))
+        finally:
+            with self._cv:
+                self._swapping = False
+                self._cv.notify_all()
 
     def invalidate_stream(self, stream) -> bool:
         """Drop one stream's feature-cache slot (end-of-stream
@@ -848,24 +1040,32 @@ class MicroBatchScheduler:
                            else cls.CACHE_LABEL_SUFFIX)
         return base
 
-    def _label(self, key) -> str:
+    def _label(self, key, lane: Optional[_ReplicaLane] = None) -> str:
         """Breaker/event label for a request shape: ``model/HxW``
         under a namespace, plain ``HxW`` single-model — the
-        per-model+bucket key the shared metrics.jsonl needs."""
+        per-model+bucket key the shared metrics.jsonl needs. A fleet
+        lane appends its replica suffix (``model/HxW/r<k>``): one
+        replica's failure domain, one label."""
         base = self._key_label(key)
+        if lane is not None:
+            base = f"{base}/r{lane.index}"
         return f"{self.namespace}/{base}" if self.namespace else base
 
-    def _breaker(self, key: Tuple[int, int]) -> Optional[CircuitBreaker]:
-        """The shape's breaker, created on first dispatch (so health
-        lists every active bucket). None when breakers are disarmed."""
+    def _breaker(self, key: Tuple[int, int],
+                 lane: Optional[_ReplicaLane] = None
+                 ) -> Optional[CircuitBreaker]:
+        """The shape's breaker — on ``lane``'s own board in fleet mode
+        (a wedge on replica k's program opens replica k's breaker,
+        nobody else's) — created on first dispatch (so health lists
+        every active bucket). None when breakers are disarmed."""
         if not self._breaker_failures:
             return None
-        board = self._breakers
+        board = lane.breakers if lane is not None else self._breakers
         with self._cv:
             br = board.get(key)
             if br is not None:
                 return br
-        label = self._label(key)
+        label = self._label(key, lane)
         br = CircuitBreaker(
             failures=self._breaker_failures,
             base_s=self._breaker_backoff_s,
@@ -897,10 +1097,22 @@ class MicroBatchScheduler:
                        if head is not None else 0.0)
             if age > self.dispatch_timeout_s:
                 return "wedged"  # completion-stage verdict due
+        if self._lanes and self.dispatch_timeout_s is not None:
+            now = time.monotonic()
+            for lane in self._lanes:
+                job = lane.job
+                if (job is not None and not job.done.is_set()
+                        and now - lane.t_launch
+                        > self.dispatch_timeout_s):
+                    return "wedged"   # lane verdict due right now
         with self._cv:
             breakers = list(self._breakers.values())
+            for lane in self._lanes:
+                breakers.extend(lane.breakers.values())
         if any(br.peek() != BREAKER_CLOSED for br in breakers):
             return "degraded"
+        if any(lane.quarantined for lane in self._lanes):
+            return "degraded"    # serving on a reduced fleet
         return "healthy"
 
     def _refresh_state(self, reason: str) -> None:
@@ -946,26 +1158,54 @@ class MicroBatchScheduler:
             "quarantined_alive": (self._exec.quarantined_alive()
                                   if self._exec else 0)
             + (self._completion.quarantined_alive()
-               if self._completion else 0),
+               if self._completion else 0)
+            + sum(lane.exec.quarantined_alive()
+                  for lane in self._lanes),
             "pending_completions": pending,
             "completion_worker_alive": (self._completion.worker_alive()
                                         if self._completion else None),
         }
+        if self._lanes:
+            out["fleet"] = {
+                "replicas": len(self._lanes),
+                "active": sum(1 for ln in self._lanes if ln.active),
+                "ceiling": self.placement.ceiling,
+                "concurrency_max": self._concurrency_max,
+                "placement": self.placement.snapshot(),
+                "lanes": {
+                    f"r{ln.index}": {
+                        "active": ln.active,
+                        "quarantined": ln.quarantined,
+                        "busy": ln.job is not None,
+                        "dispatches": ln.dispatches,
+                        "worker_alive": ln.exec.worker_alive(),
+                        "breakers": {
+                            self._key_label(k): br.snapshot()
+                            for k, br in sorted(
+                                dict(ln.breakers).items())},
+                    } for ln in self._lanes},
+            }
         return out
 
     # -- dispatch loop -----------------------------------------------------
 
-    def _shape_capacity(self, key) -> int:
+    def _shape_capacity(self, key,
+                        lane: Optional[_ReplicaLane] = None) -> int:
         """Per-key dispatch capacity, probed/warmed through the
         placement layer's :meth:`~raft_tpu_torch.parallel.placement.
         Placement.bucket_fit` (one copy of the capacity-or-ensure
-        logic, engine-parametric, for the fleet to reuse). Cached per
-        key."""
-        cap = self._capacity.get(key)
+        logic, engine-parametric, so every fleet lane warms ITS
+        engine's table the way the single engine does). Cached per key
+        (per key+replica in fleet mode: capacity is a property of one
+        replica's table — a wedge drops one replica's bucket, not the
+        fleet's number)."""
+        ck = key if lane is None else (key, lane.index)
+        cap = self._capacity.get(ck)
         if cap is None:
-            fit = Placement.bucket_fit(self.engine, key, self.max_batch)
+            eng = lane.engine if lane is not None else self.engine
+            fit = Placement.bucket_fit(eng, key, self.max_batch)
             cap = max(1, min(fit, self.max_batch))
-            self._capacity[key] = cap
+            self._capacity[ck] = cap
         return cap
 
     def _expire(self, req: _Request, now: float) -> bool:
@@ -1341,16 +1581,272 @@ class MicroBatchScheduler:
                                   timeout_s=self.dispatch_timeout_s)
         self._refresh_state(f"completion wedge on {label}")
 
-    def _after_dispatch(self, key: Tuple[int, int],
-                        job: _DispatchJob) -> None:
-        """Outcome bookkeeping for a dispatch that settled in time."""
+    # -- fleet dispatch loop (replicas > 1) --------------------------------
+
+    def _run_fleet(self) -> None:
+        """The fleet dispatcher: ONE thread owns every lane's executor
+        (submit/quarantine/close — the DispatchExecutor single-
+        supervisor contract, N times over), fanning coalesced
+        micro-batches across the least-loaded free replica while
+        reaping finished lanes, wedging overdue ones, and scaling the
+        active set against queue depth. Concurrency comes from the
+        lanes: while replica k's executor runs a dispatch, this loop
+        is already picking a lane for the next key."""
+        while True:
+            with self._cv:
+                if not self._q and not self._closed \
+                        and not self._busy_lanes():
+                    self._cv.wait(timeout=0.05)
+                key, prefer = (self._select_locked() if self._q
+                               else (None, None))
+                closed = self._closed
+            self._reap_lanes()
+            self._expiry_scan()
+            if self.tracer is not None:
+                self.tracer.flush()
+            if key is None:
+                if closed and not self._busy_lanes():
+                    return
+                if self._busy_lanes():
+                    time.sleep(0.0005)
+                self._retire_idle()
+                continue
+            with self._cv:
+                swapping = self._swapping
+                self._mutating = not swapping
+            if swapping:
+                # fleet-atomic weight swap in progress: reap (above),
+                # grow and launch nothing — the epoch needs quiesced
+                # lanes, and all of them listed
+                time.sleep(0.0005)
+                continue
+            try:
+                self._fleet_step(key, prefer)
+            finally:
+                with self._cv:
+                    self._mutating = False
+                    self._cv.notify_all()
+
+    def _fleet_step(self, key, prefer: Optional[str]) -> None:
+        """Scale, pick a lane for ``key`` and launch on it, or settle
+        the key's queue when no lane can ever take it (the dispatcher
+        holds ``_mutating`` across the call)."""
+        self._scale_fleet()
+        lane = self._pick_lane(key)
+        if lane is None:
+            if self._fleet_all_open(key):
+                # the shape is open on every active replica:
+                # queued work fails fast, exactly the single-board
+                # open-breaker discipline
+                doomed = self._take(key, self.max_queue or 1)
+                n = self._fail_requests(doomed, CircuitOpen(
+                    f"bucket {key} circuit open on every active "
+                    "replica — failing fast"))
+                self.metrics.record_failure(n)
+            elif not any(ln.active for ln in self._lanes) \
+                    and len(self.placement.engines) \
+                    >= self.placement.ceiling:
+                # every replica quarantined and no headroom to
+                # grow: nothing can ever serve this — fail rather
+                # than strand
+                doomed = self._take(key, self.max_queue or 1)
+                n = self._fail_requests(doomed,
+                                        self._wedge_error(key))
+                self.metrics.record_failure(n)
+            else:
+                # lanes busy (or probing backoff): wait a beat,
+                # reap on the next tick
+                time.sleep(0.0005)
+            return
+        self._launch(lane, key, prefer)
+
+    def _busy_lanes(self) -> int:
+        return sum(1 for lane in self._lanes if lane.job is not None)
+
+    def _reap_lanes(self) -> None:
+        """Collect finished lane jobs: outcome bookkeeping (breaker
+        success/failure on the LANE's board) and lane release."""
+        for lane in self._lanes:
+            job = lane.job
+            if job is not None and job.done.is_set():
+                lane.job = None
+                lane.idle_since = time.monotonic()
+                self._after_dispatch(job.key, job, lane)
+        self._fleet_watchdog()
+
+    def _fleet_watchdog(self) -> None:
+        """Wedge verdict for any lane past ``dispatch_timeout_s`` —
+        the per-lane analogue of ``_supervise``'s inline deadline."""
+        if self.dispatch_timeout_s is None:
+            return
+        now = time.monotonic()
+        for lane in self._lanes:
+            job = lane.job
+            if (job is not None and not job.done.is_set()
+                    and now - lane.t_launch > self.dispatch_timeout_s):
+                self._wedge_replica(lane, job)
+
+    def _pick_lane(self, key) -> Optional[_ReplicaLane]:
+        """Least-loaded FREE lane for ``key`` — or the primary alone
+        when placement says the bucket shards (a sharded program only
+        exists on the mesh-armed engine). Skips lanes whose breaker
+        for the shape is open (their backoff expiry promotes to
+        half_open, which re-admits the lane as the probe). None:
+        nothing can take the key right now."""
+        lanes = (self._lanes[:1]
+                 if self.placement.decide(key) == "shard"
+                 else self._lanes)
+        best = None
+        for lane in lanes:
+            if not lane.active or lane.job is not None:
+                continue
+            br = lane.breakers.get(key)
+            if br is not None and br.state() == BREAKER_OPEN:
+                continue
+            if best is None or lane.dispatches < best.dispatches:
+                best = lane
+        return best
+
+    def _fleet_all_open(self, key) -> bool:
+        if not self._breaker_failures:
+            return False
+        lanes = [lane for lane in self._lanes if lane.active]
+        if not lanes:
+            return False
+        for lane in lanes:
+            br = lane.breakers.get(key)
+            if br is None or br.state() != BREAKER_OPEN:
+                return False
+        return True
+
+    def _launch(self, lane: _ReplicaLane, key,
+                prefer: Optional[str]) -> None:
+        """Hand one micro-batch dispatch for ``key`` to ``lane``'s
+        executor; the loop reaps it later (the lane stays busy until
+        then)."""
+        lane.dispatches += 1
+        lane.idle_since = None
+        lane.t_launch = time.monotonic()
+        job = lane.exec.submit(
+            lambda j, key=key, prefer=prefer, lane=lane:
+            self._serve_key(key, j, prefer, lane=lane))
+        job.key = key
+        lane.job = job
+        busy = self._busy_lanes()
+        if busy > self._concurrency_max:
+            self._concurrency_max = busy
+
+    def _wedge_replica(self, lane: _ReplicaLane,
+                       job: _DispatchJob) -> None:
+        """Wedge verdict scoped to ONE replica: consequences first —
+        abandon the job, drop the suspect program from the LANE's
+        engine (its siblings' tables are untouched), open the lane's
+        breaker, quarantine the lane's worker and RETIRE the lane —
+        then fail the taken batch's futures. The queue survives: work
+        the wedged lane never took keeps serving on the remaining
+        replicas. The quarantined thread holds no scheduler lock and
+        the engine holds none across its capture site, so nothing
+        another lane needs waits on it; its stream is abandoned with
+        it (a hung graph cannot be killed)."""
+        key = job.key
+        job.abandoned = True   # a late-waking thread must abort, not
+        #                        dispatch into a dropped bucket
+        lane.job = None
+        label = self._label(key, lane)
+        if job.bucket is not None:
+            if job.ragged:
+                lane.engine.drop_bucket(job.bucket, ragged=True)
+            else:
+                lane.engine.drop_bucket(job.bucket)
+        self._capacity.pop((key, lane.index), None)
+        br = self._breaker(key, lane)
+        if br is not None:
+            br.record_failure(wedged=True)
+        alive = lane.exec.quarantine_and_replace()
+        lane.prev_pending = None
+        lane.active = False
+        lane.quarantined = True
+        self.metrics.record_quarantined(label, alive=alive)
+        self.metrics.record_event(
+            "replica_quarantined", replica=lane.index,
+            bucket=self._key_label(key))
+        exc = self._wedge_error(key)
+        # fail ONLY what the wedged lane actually took — a pre-take
+        # wedge (hung capacity probe) leaves the shape's queued work
+        # for the surviving replicas
+        n = self._fail_requests(list(job.batch or ()), exc)
+        self.metrics.record_wedge(label, failed=n,
+                                  timeout_s=self.dispatch_timeout_s)
+        self._refresh_state(f"replica wedge on {label}")
+
+    def _scale_fleet(self) -> None:
+        """Queue-pressure scale-up within the ceiling: reactivate a
+        retired (non-quarantined) lane first, else grow a fresh
+        replica through the placement layer (its captures happen
+        here, on the dispatcher thread, one at a time in the
+        process)."""
+        with self._cv:
+            depth = len(self._q)
+        if not depth:
+            return
+        active = sum(1 for lane in self._lanes if lane.active)
+        if active and not self.placement.want_scale_up(
+                depth, active, self.max_batch):
+            return
+        if active >= self.placement.ceiling:
+            return
+        for lane in self._lanes:
+            if not lane.active and not lane.quarantined:
+                lane.active = True
+                lane.idle_since = time.monotonic()
+                self.metrics.record_event(
+                    "replica_activated", replica=lane.index,
+                    queue_depth=depth)
+                return
+        if len(self.placement.engines) >= self.placement.ceiling:
+            return   # only quarantined lanes left below the ceiling
+        try:
+            eng = self.placement.grow()
+        except Exception as exc:  # noqa: BLE001 — scale-up is advisory
+            self.metrics.record_event("replica_grow_failed",
+                                      error=str(exc)[:160])
+            return
+        lane = _ReplicaLane(len(self._lanes), eng)
+        self._lanes.append(lane)
+        self.metrics.record_event("replica_activated",
+                                  replica=lane.index, queue_depth=depth,
+                                  grown=True)
+
+    def _retire_idle(self) -> None:
+        """Idle-time scale-down back toward the configured floor
+        (never the primary — shard-pinned buckets only run there)."""
+        now = time.monotonic()
+        active = sum(1 for lane in self._lanes if lane.active)
+        for lane in reversed(self._lanes):
+            if (lane.index > 0 and lane.active
+                    and lane.job is None
+                    and lane.idle_since is not None
+                    and self.placement.want_retire(
+                        now - lane.idle_since, active,
+                        self.replica_idle_retire_s)):
+                lane.active = False
+                active -= 1
+                self.metrics.record_event(
+                    "replica_retired", replica=lane.index,
+                    idle_s=round(now - lane.idle_since, 3))
+
+    def _after_dispatch(self, key: Tuple[int, int], job: _DispatchJob,
+                        lane: Optional[_ReplicaLane] = None) -> None:
+        """Outcome bookkeeping for a dispatch that settled in time
+        (``lane``: the fleet lane that ran it — its board takes the
+        breaker outcome)."""
         if job.error is not None and job.batch:
             # a failure that escaped _serve_key's routing (e.g. the
             # serve.dispatch_exec fault firing mid-job) with requests
             # already taken: settle them here — never strand
             n = self._fail_requests(list(job.batch), job.error)
             self.metrics.record_failure(n)
-        br = self._breaker(key)
+        br = self._breaker(key, lane)
         if job.error is not None or job.outcome == "failed":
             if br is not None:
                 br.record_failure()
@@ -1363,15 +1859,17 @@ class MicroBatchScheduler:
         self._refresh_state("dispatch outcome")
 
     def _serve_key(self, key: Tuple[int, int], job: _DispatchJob,
-                   prefer: Optional[str] = None) -> None:
+                   prefer: Optional[str] = None,
+                   lane: Optional[_ReplicaLane] = None) -> None:
         """One micro-batch for ``key``: capacity (may capture) ->
         gather -> take (``prefer``'s class first) -> dispatch. Runs
-        inline on the dispatcher thread (no watchdog) or on the
-        supervised executor."""
+        inline on the dispatcher thread (no watchdog), on the
+        supervised executor, or — fleet mode — on ``lane``'s executor
+        against ``lane``'s engine."""
         try:
             # capacity may capture a bucket — never under the queue
             # lock (submitters would shed through the whole capture)
-            capacity = self._shape_capacity(key)
+            capacity = self._shape_capacity(key, lane)
         except Exception as exc:
             # an unservable shape (a capture failure) fails ITS
             # requests — it must not kill the dispatcher and strand
@@ -1399,11 +1897,11 @@ class MicroBatchScheduler:
             return
         if batch:
             if len(key) > 2 and key[2] == "ragged":
-                self._dispatch_ragged(key, batch, job)
+                self._dispatch_ragged(key, batch, job, lane)
             elif len(key) > 2:
                 self._dispatch_cached(key, batch, job)
             else:
-                self._dispatch(key, batch, job)
+                self._dispatch(key, batch, job, lane)
 
     def _assemble_flow_init(self, live: List[_Request], key):
         """The micro-batch's coalesced warm start, or None when every
@@ -1435,10 +1933,12 @@ class MicroBatchScheduler:
         return finit
 
     def _settle(self, live: List[_Request], outs, label: str,
-                t_disp: float, warm: bool) -> None:
+                t_disp: float, warm: bool,
+                replica: Optional[int] = None) -> None:
         """Resolve a finished micro-batch's futures + per-request
         latency records (inline at depth 1, on the completion worker
-        at depth > 1)."""
+        at depth > 1; ``replica`` stamps fleet completions into the
+        per-replica metrics block)."""
         if warm:
             flows, lows = outs
         else:
@@ -1463,7 +1963,8 @@ class MicroBatchScheduler:
                 label, queue_ms=queue_ms, device_ms=device_ms,
                 priority=r.priority,
                 trace_id=(r.span.trace_id if r.span is not None
-                          else None))
+                          else None),
+                replica=replica)
             if self.tracer is not None and r.span is not None:
                 # observed_ms: the exact value the latency histogram
                 # binned — serve_trace's top-bucket selection must
@@ -1565,7 +2066,7 @@ class MicroBatchScheduler:
         return live
 
     def _hot_path(self, prev, overlapped: bool, t_asm0: float, pending,
-                  live) -> None:
+                  live, lane: Optional[_ReplicaLane] = None) -> None:
         """Hot-path sample after a dispatch call returned: gap =
         host-observed device idle before this dispatch (0 when it
         shipped before the previous batch's results were even ready —
@@ -1582,7 +2083,10 @@ class MicroBatchScheduler:
             requests=len(live))
         self._trace_mark(live, "shipped", at=t_call_end)
         self._trace_span_ctx(pending, live)
-        self._prev_pending = pending
+        if lane is not None:
+            lane.prev_pending = pending
+        else:
+            self._prev_pending = pending
 
     def _hand_off(self, key, job: _DispatchJob, live: List[_Request],
                   pending, settle, *, cached: bool = False,
@@ -1625,8 +2129,10 @@ class MicroBatchScheduler:
         #                              the completion stage now
 
     def _dispatch(self, key: Tuple[int, int], batch: List[_Request],
-                  job: _DispatchJob) -> None:
-        eng = self.engine
+                  job: _DispatchJob,
+                  lane: Optional[_ReplicaLane] = None) -> None:
+        eng = lane.engine if lane is not None else self.engine
+        replica = lane.index if lane is not None else None
         live = self._claim(batch)
         if not live:
             return
@@ -1639,6 +2145,8 @@ class MicroBatchScheduler:
             bucket = eng.route_bucket(n, h, w)
             job.bucket = bucket
             label = "x".join(map(str, bucket))
+            if lane is not None:
+                label = f"{label}/r{lane.index}"
             with self._cv:
                 depth = len(self._q)
             # padding-waste gauge: requested pixels vs the padded
@@ -1649,9 +2157,11 @@ class MicroBatchScheduler:
             padded_px = bucket[0] * bucket[1] * bucket[2]
             self.metrics.record_dispatch(
                 label, filled=n, capacity=bucket[0], depth=depth,
-                real_px=real_px, padded_px=padded_px)
+                real_px=real_px, padded_px=padded_px, replica=replica)
             self._trace_dispatch(live, label, bucket, t_disp,
-                                 real_px=real_px, padded_px=padded_px)
+                                 real_px=real_px, padded_px=padded_px,
+                                 **({"replica": replica}
+                                    if replica is not None else {}))
             fault_point("serve.request")
             if job.abandoned:
                 # wedge verdict landed while we were stuck above:
@@ -1663,7 +2173,8 @@ class MicroBatchScheduler:
                     live, self._wedge_error(key)))
                 return
             warm = getattr(eng, "warm_start", False)
-            prev = self._prev_pending
+            prev = (lane.prev_pending if lane is not None
+                    else self._prev_pending)
             overlapped = prev is not None and prev.t_ready is None
             t_asm0 = time.monotonic()
             i1 = np.stack([r.image1 for r in live])
@@ -1673,7 +2184,10 @@ class MicroBatchScheduler:
             if call_async is None:
                 # duck-typed engine without the async API: synchronous
                 # call, settled inline (no pipelining, no gap stats)
-                self._prev_pending = None
+                if lane is not None:
+                    lane.prev_pending = None
+                else:
+                    self._prev_pending = None
                 if warm:
                     outs = eng.infer_batch(
                         i1, i2, flow_init=finit, return_low=True)
@@ -1681,7 +2195,8 @@ class MicroBatchScheduler:
                     outs = eng.infer_batch(i1, i2)
                 if job.abandoned:
                     return
-                self._settle(live, outs, label, t_disp, warm)
+                self._settle(live, outs, label, t_disp, warm,
+                             replica=replica)
                 job.outcome = "ok"
                 return
             if warm:
@@ -1690,10 +2205,11 @@ class MicroBatchScheduler:
                                      return_low=True, low_device=low_dev)
             else:
                 pending = call_async(i1, i2)
-            self._hot_path(prev, overlapped, t_asm0, pending, live)
+            self._hot_path(prev, overlapped, t_asm0, pending, live, lane)
             self._hand_off(
                 key, job, live, pending,
-                lambda outs: self._settle(live, outs, label, t_disp, warm))
+                lambda outs: self._settle(live, outs, label, t_disp, warm,
+                                          replica=replica))
         except Exception as exc:  # route to the callers; worker survives
             self.metrics.record_failure(self._fail_requests(live, exc))
             job.outcome = "failed"
@@ -1701,7 +2217,8 @@ class MicroBatchScheduler:
     # -- ragged (capacity-class) dispatch ----------------------------------
 
     def _dispatch_ragged(self, key, batch: List[_Request],
-                         job: _DispatchJob) -> None:
+                         job: _DispatchJob,
+                         lane: Optional[_ReplicaLane] = None) -> None:
         """One MIXED-SHAPE micro-batch through a capacity-class
         program: every request in ``batch`` mapped to the same class
         box (the submit-time key), whatever its own ``(h, w)``.
@@ -1710,7 +2227,8 @@ class MicroBatchScheduler:
         watchdog, breaker outcomes, pipelined completion, the
         accounting identity — is the plain dispatch protocol with a
         coarser bucket key."""
-        eng = self.engine
+        eng = lane.engine if lane is not None else self.engine
+        replica = lane.index if lane is not None else None
         live = self._claim(batch)
         if not live:
             return
@@ -1724,6 +2242,8 @@ class MicroBatchScheduler:
             job.bucket = bucket
             label = ("x".join(map(str, bucket))
                      + self.RAGGED_LABEL_SUFFIX)
+            if lane is not None:
+                label = f"{label}/r{lane.index}"
             with self._cv:
                 depth = len(self._q)
             shapes = {tuple(r.image1.shape[:2]) for r in live}
@@ -1733,18 +2253,21 @@ class MicroBatchScheduler:
             self.metrics.record_dispatch(
                 label, filled=n, capacity=bucket[0], depth=depth,
                 real_px=real_px, padded_px=padded_px,
-                ragged=True, cross_shape=len(shapes) > 1)
+                ragged=True, cross_shape=len(shapes) > 1,
+                replica=replica)
             self._trace_dispatch(
                 live, label, bucket, t_disp,
                 real_px=real_px, padded_px=padded_px,
-                ragged=True, cross_shape=len(shapes) > 1)
+                ragged=True, cross_shape=len(shapes) > 1,
+                **({"replica": replica} if replica is not None else {}))
             fault_point("serve.request")
             if job.abandoned:
                 self.metrics.record_failure(self._fail_requests(
                     live, self._wedge_error(key)))
                 return
             warm = getattr(eng, "warm_start", False)
-            prev = self._prev_pending
+            prev = (lane.prev_pending if lane is not None
+                    else self._prev_pending)
             overlapped = prev is not None and prev.t_ready is None
             t_asm0 = time.monotonic()
             # box=(ch, cw): the engine routes on the SAME extents
@@ -1761,12 +2284,13 @@ class MicroBatchScheduler:
                     return_low=True, low_device=low_dev, box=(ch, cw))
             else:
                 pending = eng.infer_ragged_async(pairs, box=(ch, cw))
-            self._hot_path(prev, overlapped, t_asm0, pending, live)
+            self._hot_path(prev, overlapped, t_asm0, pending, live, lane)
             # per-row fetch output matches _settle's (flows, lows)
             # protocol — the settle/accounting path is shared
             self._hand_off(
                 key, job, live, pending,
-                lambda outs: self._settle(live, outs, label, t_disp, warm),
+                lambda outs: self._settle(live, outs, label, t_disp, warm,
+                                          replica=replica),
                 ragged=True)
         except Exception as exc:  # route to the callers; worker survives
             self.metrics.record_failure(self._fail_requests(live, exc))
@@ -1937,7 +2461,12 @@ class MicroBatchScheduler:
     # -- lifecycle ---------------------------------------------------------
 
     def executable_count(self) -> int:
-        """The engine's programs (captured graphs on the card)."""
+        """The engine's programs (captured graphs on the card); with a
+        fleet, every lane's (each replica captures its own, so N
+        replicas hold N times the single engine's count)."""
+        if self._lanes:
+            return sum(self._engine_executables(lane.engine)
+                       for lane in self._lanes)
         return self._engine_executables(self.engine)
 
     @staticmethod
@@ -1998,6 +2527,14 @@ class MicroBatchScheduler:
             raise RuntimeError(
                 "supervised dispatch executor failed to stop within "
                 f"{timeout}s")
+        for lane in self._lanes:
+            # the fleet loop drained every lane before returning
+            # (quarantined wedge threads stay the accounted daemon
+            # exception, same as the single executor)
+            if not lane.exec.close(timeout):
+                raise RuntimeError(
+                    f"replica r{lane.index} dispatch executor failed "
+                    f"to stop within {timeout}s")
         if self._completion is not None:
             # handed-off batches are in-flight work: wait them out
             # (wedging any overdue one when the watchdog is armed —

@@ -1,6 +1,6 @@
 """The metrics.jsonl / spans.jsonl record schemas, in ONE place; port
 of ``raft_tpu/serving/schema.py`` (the wire-protocol table of the
-multi-host transport waits for it, ROADMAP M11b).
+multi-host transport waits for it, ROADMAP M11c).
 
 Every serving layer appends to the same observability files — metrics
 snapshots (``kind: "serving"``), supervisor-style events

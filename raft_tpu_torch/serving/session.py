@@ -1,7 +1,5 @@
-"""Per-stream video sessions: warm-started recurrence over the scheduler;
-port of ``raft_tpu/serving/session.py`` against a plain scheduler (the
-registry arguments ``model``, ``route_key`` and the variant poll are
-ROADMAP M11b).
+"""Per-stream video sessions: warm-started recurrence over the scheduler
+or a model registry; port of ``raft_tpu/serving/session.py``.
 
 RAFT's refinement is a recurrence, and consecutive frames of one stream
 are nearly the same problem — the reference's Sintel submission writer
@@ -36,13 +34,18 @@ from raft_tpu_torch.ops.interp import (forward_interpolate,
                                        forward_interpolate_device)
 from raft_tpu_torch.serving.feature_cache import FeatureCacheMiss
 from raft_tpu_torch.serving.resilience import CircuitOpen
-from raft_tpu_torch.serving.scheduler import BackpressureError
+from raft_tpu_torch.serving.scheduler import (PRIORITY_INTERACTIVE,
+                                              BackpressureError)
 from raft_tpu_torch.utils.retry import backoff_delays
 
 # This module owns NO locks by design (a session is single-submitter by
 # contract; cross-stream concurrency lives in the scheduler's queue).
 
-#: per-session stream identities for the feature-cache pool
+#: per-session identities: the feature-cache pool's stream names and,
+#: over a ModelRegistry, the sticky route tokens — one per session, fixed
+#: for its lifetime, so the deterministic canary hash routes the WHOLE
+#: stream to one variant (a warm-start flow_init never crosses engines
+#: mid-stream)
 _SESSION_IDS = itertools.count(1)
 
 
@@ -66,7 +69,9 @@ class VideoSession:
                  device_state: bool = False,
                  feature_cache: bool = False,
                  deadline_s: Optional[float] = None,
+                 model: Optional[str] = None,
                  priority: Optional[str] = None,
+                 route_key: Optional[str] = None,
                  retry_budget: int = 0,
                  retry_base_s: float = 0.05,
                  retry_max_s: float = 2.0,
@@ -88,8 +93,19 @@ class VideoSession:
         ``priority`` tags every submit (``"interactive"`` |
         ``"batch"`` | None).
 
-        ``feature_cache=True`` (needs a scheduler whose engine and
-        scheduler armed the cross-frame feature cache)
+        ``scheduler`` may also be a
+        :class:`~raft_tpu_torch.serving.registry.ModelRegistry`:
+        ``model`` then names the variant family to serve from,
+        ``priority`` defaults to ``"interactive"`` (a session is a user
+        waiting on frames), and the session pins a sticky ``route_key``
+        so the deterministic canary hash keeps the WHOLE stream on one
+        variant — warm-start state never crosses variants mid-stream,
+        and a rollout that moves the stream (the ``variant_version``
+        poll) cold-restarts it. Against a plain scheduler ``model`` and
+        ``route_key`` raise.
+
+        ``feature_cache=True`` (needs a scheduler/registry whose engine
+        and scheduler armed the cross-frame feature cache)
         moves the WHOLE recurrence + encoder state device-side: each
         frame submits alone through ``submit_cached`` (the pair's
         first frame never re-ships or re-encodes — its features live
@@ -100,12 +116,13 @@ class VideoSession:
         cold-restarts cleanly: re-prime the previous frame, wait it
         out, resubmit the pair. ``warm_start``/``device_state`` are
         superseded (state lives pool-side); ``drain()`` returns None
-        (the recurrence state never materializes to host). Shape
-        changes cold-restart BOTH the recurrence and the cache slot.
+        (the recurrence state never materializes to host). Rollout
+        moves (the ``variant_version`` poll) and shape changes
+        cold-restart BOTH the recurrence and the cache slot.
 
         ``retry_budget`` > 0 makes the session absorb transient
         submit-time rejections itself: a ``BackpressureError`` (full
-        queue) or ``CircuitOpen`` retries
+        queue or registry admission budget) or ``CircuitOpen`` retries
         through ``utils/retry.backoff_delays`` (``retry_base_s`` /
         ``retry_max_s`` / ``retry_jitter``; ``retry_rng`` and
         ``retry_sleep`` injectable for deterministic drills), capped
@@ -122,12 +139,27 @@ class VideoSession:
         self.feature_cache = bool(feature_cache)
         if feature_cache and not hasattr(scheduler, "submit_cached"):
             raise ValueError(
-                "feature_cache=True needs a scheduler with "
-                "submit_cached (a feature_cache=True scheduler over a "
-                "feature_cache=True engine)")
+                "feature_cache=True needs a scheduler/ModelRegistry "
+                "with submit_cached (a feature_cache=True scheduler "
+                "over a feature_cache=True engine)")
         self.deadline_s = deadline_s
         self._submit_kw = {}
-        if priority is not None:
+        self._variant_version: Optional[str] = None
+        if getattr(scheduler, "is_registry", False):
+            self._submit_kw["route_key"] = (
+                route_key if route_key is not None
+                else f"session-{next(_SESSION_IDS)}")
+            self._submit_kw["priority"] = (
+                priority if priority is not None else PRIORITY_INTERACTIVE)
+            if model is not None:
+                self._submit_kw["model"] = model
+        elif model is not None or route_key is not None:
+            # checked before the priority branch: a plain scheduler
+            # must reject these loudly whatever else is set — silently
+            # dropping model= would serve the wrong model's output
+            raise ValueError(
+                "model=/route_key= need a ModelRegistry scheduler")
+        elif priority is not None:
             self._submit_kw["priority"] = priority
         self.retry_budget = int(retry_budget)
         self.retries_used = 0
@@ -145,9 +177,11 @@ class VideoSession:
         self._pending = None                    # previous pair's Future
         self._flow_low = None          # numpy, or a device tensor
         #: feature-cache stream identity: ALWAYS unique per session
-        #: object — pool slots are per-session recurrence state (two
-        #: sessions' independent frame counters must never collide on
-        #: one slot's seq)
+        #: object — pool slots are per-session recurrence state, and
+        #: two sessions sharing an explicit sticky ``route_key`` must
+        #: NOT share a slot (their independent frame counters would
+        #: collide on seq and silently correlate one video's frame
+        #: against the other's cached features)
         self._stream = f"stream-{next(_SESSION_IDS)}"
         #: request tracing (serving/trace.py): the previous submit's
         #: trace id — frame N's span links frame N−1's, so the
@@ -203,6 +237,8 @@ class VideoSession:
         if prev.shape != frame.shape:
             self._pending, self._flow_low = None, None
             return None
+        if self._variant_moved():
+            self._pending, self._flow_low = None, None
         flow_init = None
         if self.warm_start:
             self._harvest()
@@ -247,6 +283,27 @@ class VideoSession:
             self._last_trace = getattr(fut, "trace_id", None)
         return fut
 
+    def _variant_moved(self) -> bool:
+        """Registry rollout guard (no-op off a registry): poll the
+        variant a request with this stream's sticky ``route_key``
+        would serve from; True when a deploy/promote/rollback moved it
+        since the last pair — warm state produced by one variant must
+        never feed another model's refinement, so the caller
+        cold-restarts. The first poll only establishes the baseline.
+        (A change landing between this read and the submit is a
+        one-pair race; the NEXT pair cold-restarts — and on the
+        feature-cache path the pool's weights-version stamp backstops
+        even that window.)"""
+        if "route_key" not in self._submit_kw:
+            return False
+        ver = self._sched.variant_version(
+            self._submit_kw.get("model"),
+            self._submit_kw["route_key"])
+        moved = (self._variant_version is not None
+                 and ver != self._variant_version)
+        self._variant_version = ver
+        return moved
+
     def _harvest_cached(self) -> None:
         """Settle the previous cached dispatch (pair or prime) — its
         completion installs the pool slot the NEXT pair correlates
@@ -265,19 +322,25 @@ class VideoSession:
     def _submit_frame_cached(self, frame, deadline_s):
         """The feature-cache form of ``submit_frame``: one frame ships
         per submit; pairs correlate against the device pool's slot for
-        this stream. Cold starts (first frame, shape change) PRIME:
-        the frame's features install the slot and the
+        this stream. Cold starts (first frame, shape change, rollout
+        move) PRIME: the frame's features install the slot and the
         caller gets None — exactly the first-frame contract."""
         frame = np.asarray(frame, np.float32)
         self.frames += 1
         seq = self.frames
         prev, self._prev_frame = self._prev_frame, frame
-        cold = prev is None or prev.shape != frame.shape
+        # a deploy/promote/rollback that moves this stream's variant
+        # cold-restarts — the slot lives in the OLD variant's pool and
+        # its features in the old weights (the pool's weights-version
+        # stamp + StaleFeatureError backstop the race window)
+        cold = (prev is None or prev.shape != frame.shape
+                or self._variant_moved())
         effective_deadline = (self.deadline_s if deadline_s is None
                               else deadline_s)
         if cold:
             # stream (re)start: prime THIS frame — there is no pair
-            # (or the recurrence must restart in the new geometry). Harvest the in-flight previous dispatch FIRST:
+            # (or the recurrence must restart in the new geometry/
+            # variant). Harvest the in-flight previous dispatch FIRST:
             # its completion store must not land after (and clobber)
             # the prime's fresh slot. The prime's own future is
             # harvested before the next submit; the caller gets None.
@@ -403,7 +466,12 @@ class VideoSession:
             self._harvest_cached()
             inv = getattr(self._sched, "invalidate_stream", None)
             if inv is not None:
-                inv(self._stream)
+                if "route_key" in self._submit_kw:
+                    inv(self._stream,
+                        model=self._submit_kw.get("model"),
+                        route_key=self._submit_kw["route_key"])
+                else:
+                    inv(self._stream)
             return None
         self._harvest()
         if self._flow_low is not None:

@@ -1,5 +1,5 @@
 """Deterministic fault injection for crash-safety drills, port of the
-trainer's and the serving front end's part of
+trainer's, the serving front end's and the model registry's part of
 ``raft_tpu/testing/faults.py``.
 
 The watchdog, the atomic checkpoints, the restore sandbox, the supervisor
@@ -58,8 +58,8 @@ CRASH_EXIT_CODE = 41
 #: every site armed in raft_tpu_torch, one line each. Plans are checked
 #: against it when armed, so a typo'd site fails instead of arming nothing.
 #: Add the row with the ``fault_point``/``fault_file`` call. The JAX
-#: package's registry, guardian, AOT-store, transport and host sites come
-#: with those layers (ROADMAP M11b).
+#: package's AOT-store, transport and host sites come with those layers
+#: (ROADMAP M11c).
 KNOWN_SITES = {
     "loader.sample": "per-sample decode and augmentation in the "
                      "PrefetchLoader's workers, under on_bad_sample",
@@ -75,15 +75,23 @@ KNOWN_SITES = {
     "serve.dispatch_exec": "top of the supervised dispatch executor's job "
                            "loop (resilience.DispatchExecutor; watchdog "
                            "quarantine drill)",
-    "scheduler.swap": "MicroBatchScheduler.swap_weights, before the engine's "
-                      "weights are touched (raise: the swap fails and the "
-                      "old weights keep serving)",
+    "scheduler.swap": "MicroBatchScheduler.swap_weights, before each "
+                      "engine's weights are touched (raise: the swap fails; "
+                      "a fleet rolls the lanes already swapped back, so "
+                      "every lane keeps the old weights)",
     "serve.fetch": "PendingBatch/RaggedPendingBatch.fetch in "
                    "serving/engine.py, before waiting for the device result "
                    "(hang: a dispatch that never completes)",
     "engine.compile": "RAFTEngine._get_program in serving/engine.py, before "
                       "a bucket's program is built (on the card, a CUDA graph "
                       "captured)",
+    "registry.load": "ModelRegistry._build_variant in serving/registry.py, "
+                     "before a variant's engine and scheduler are built "
+                     "(raise: a failed deploy rolls back automatically, "
+                     "live traffic untouched)",
+    "guardian.decide": "SLOGuardian._decide in serving/guardian.py, after "
+                       "judgment and before the registry's promote or "
+                       "rollback (raise/hang: routing stays as it was)",
 }
 
 _POINT_KINDS = ("raise", "hang", "crash")

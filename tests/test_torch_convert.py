@@ -114,10 +114,11 @@ for n in ("training.loss", "training.optim", "training.train_step",
           "cli.export", "cli.parity", "serving.futures", "serving.metrics",
           "serving.trace", "serving.schema", "serving.resilience",
           "serving.feature_cache", "serving.scheduler", "serving.session",
-          "parallel.placement", "cli.serve_bench", "cli.serve_trace"):
+          "parallel.placement", "cli.serve_bench", "cli.serve_trace",
+          "serving.registry", "serving.guardian"):
     assert "raft_tpu_torch." + n in names, n
 import chip_smoke, profile_corr_alt, profile_hd_pair, profile_train_convs
-import profile_serving_fp32
+import profile_serving_fp32, profile_serving_rows
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 print(len(names), "modules")
@@ -128,7 +129,7 @@ def test_port_and_chip_smoke_import_with_jax_blocked():
     r = subprocess.run([sys.executable, "-c", _BLOCKER], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
-    assert int(r.stdout.split()[0]) >= 63
+    assert int(r.stdout.split()[0]) >= 65
 
 
 def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
@@ -182,9 +183,9 @@ def test_later_slices_raise_not_implemented(tmp_path):
     model = RAFT(RAFTConfig(small=True, dropout=0.1))
     img = torch.zeros(1, 32, 32, 3)
     model(img, img, iters=1, test_mode=False, train=True)
-    # the serving forwards (M10) and front end (M11a) are ported; sharded
-    # serving, the program store, the replica fleet and the serving video
-    # are not
+    # the serving forwards (M10), the front end (M11a), the registry and
+    # the replica fleet (M11b) are ported; sharded serving, the program
+    # store, the host lanes and the serving video are not
     full = torch.full((1,), 4, dtype=torch.int32)
     assert model.forward_ragged(img, img, full, full, iters=1)[1].shape == (
         1, 32, 32, 2)
@@ -197,16 +198,18 @@ def test_later_slices_raise_not_implemented(tmp_path):
     from raft_tpu_torch.serving import RAFTEngine
     with pytest.raises(NotImplementedError, match="M9"):
         RAFTEngine(model, model.config, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="M11"):
+    with pytest.raises(NotImplementedError, match="M11c"):
         RAFTEngine(model, model.config, aot_cache=str(tmp_path),
                    device="cpu")
     with pytest.raises(NotImplementedError, match="M14"):
         parity(["--model", "unused.pth", "--path", str(tmp_path),
                 "--video", "out.avi", "--device", "cpu"])
-    from raft_tpu_torch.serving import MicroBatchScheduler
-    for kw in ({"replicas": 2}, {"replica_ceiling": 2},
-               {"placement": object()}, {"host_fleet": object()}):
-        with pytest.raises(NotImplementedError, match="M11b"):
-            MicroBatchScheduler(object(), **kw)
+    from raft_tpu_torch.serving import MicroBatchScheduler, ModelRegistry
+    with pytest.raises(NotImplementedError, match="M11c"):
+        MicroBatchScheduler(object(), host_fleet=object())
+    with pytest.raises(NotImplementedError, match="M11c"):
+        ModelRegistry(device="cpu").add_model(
+            "m", model.state_dict(), model.config,
+            artifact_dir=str(tmp_path))
     with pytest.raises(NotImplementedError, match="msgpack"):
         load_weights(str(tmp_path / "w.msgpack"), RAFTConfig(small=True))

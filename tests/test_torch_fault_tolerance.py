@@ -118,10 +118,10 @@ class TestFaultPlan:
         with pytest.raises(ValueError, match=r"trainer\.stp.*did you mean "
                                              r"'trainer\.step'"):
             faults.arm([{"site": "trainer.stp", "kind": "raise"}])
-        # the JAX package's registry sites come with the port's registry
-        # (ROADMAP M11b); the front end's serve.request is armed
+        # the JAX package's AOT-store site comes with the port's store
+        # (ROADMAP M11c); the front end's serve.request is armed
         with pytest.raises(ValueError, match="KNOWN_SITES"):
-            faults.arm([{"site": "registry.load", "kind": "raise"}])
+            faults.arm([{"site": "aot.load", "kind": "raise"}])
         faults.arm([{"site": "serve.request", "kind": "raise"}])
         faults.arm([{"site": "x", "kind": "raise"}])
         assert faults.armed("x")

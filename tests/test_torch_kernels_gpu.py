@@ -17,6 +17,8 @@ which it rounds once. The on-the-fly lookup (K5) is held within 1e-5 plus
 another order), with exact zeros for far-out queries and empty levels.
 """
 
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -676,3 +678,56 @@ def test_device_flow_init_is_bitwise_host_flow_init(cuda):
     np.testing.assert_array_equal(dev.flow, host.flow)
     np.testing.assert_array_equal(forward_interpolate_device(low).cpu(),
                                   init.cpu())
+
+
+def test_two_replicas_replay_concurrently_each_its_own(cuda):
+    """A replica (``RAFTEngine.spawn_replica``: its own weights, stream,
+    pool and capture) given other weights, and its primary, replaying at
+    once from two threads on their two streams: each output within 1e-5
+    px (``chip_smoke.SERVE_TOL``) of its own engine's eager forward of the
+    same padded inputs — neither lane reads the other's weights or
+    buffers."""
+    from raft_tpu_torch.config import RAFTConfig
+    from raft_tpu_torch.models import RAFT
+    from raft_tpu_torch.serving import RAFTEngine
+
+    cfg = RAFTConfig(corr_impl="pallas", gru_impl="fused")
+    primary = RAFTEngine(RAFT(cfg, torch.Generator().manual_seed(0)), cfg,
+                         iters=3, envelope=[(2, 64, 96)], wire="u8")
+    replica = primary.spawn_replica()
+    assert replica.capture_count == 1
+    assert replica._stream != primary._stream
+    replica.update_weights(RAFT(cfg, torch.Generator().manual_seed(1)))
+    torch.cuda.synchronize()      # the copy ran on the replica's stream
+    engines = (primary, replica)
+    frames = [_serving_frames(10 + k, 3) for k in range(2)]
+    inputs = [(np.stack(f[:2]), np.stack(f[1:])) for f in frames]
+    pad = ((0, 0), (2, 2), (2, 2), (0, 0))
+    want = {}
+    with torch.no_grad():
+        for e, eng in enumerate(engines):
+            for k, (i1, i2) in enumerate(inputs):
+                up = eng.model(*[torch.from_numpy(
+                    np.pad(x, pad, mode="edge").astype(np.uint8)).to(cuda)
+                    for x in (i1, i2)], iters=3)[1]
+                want[e, k] = up[:, 2:62, 2:94].cpu().numpy()
+    assert float(np.abs(want[0, 0] - want[1, 0]).max()) > 1e-2
+    got = {}
+    barrier = threading.Barrier(2)
+
+    def lane(e):
+        barrier.wait(60)
+        for rep in range(4):
+            pend = [engines[e].infer_batch_async(*x) for x in inputs]
+            for k, p in enumerate(pend):
+                got[e, k, rep] = p.fetch()
+
+    threads = [threading.Thread(target=lane, args=(e,)) for e in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    assert len(got) == 16
+    for (e, k, _), flow in got.items():
+        assert float(np.abs(flow - want[e, k]).max()) <= 1e-5
+    assert replica.capture_count == 1 and primary.capture_count == 1

@@ -282,11 +282,17 @@ def test_serve_bench_cli_cpu_chaos_round(tmp_path, capsys):
     assert out["executables"] == out["documented_buckets"] == 2
 
 
-@pytest.mark.parametrize("flag", [["--models", "basic"], ["--replicas", "2"],
-                                  ["--hosts", "1"], ["--aot-cache", "d"],
-                                  ["--guardian"], ["--priority-mix", "3:1"]])
+@pytest.mark.parametrize("flag", [["--hosts", "1"], ["--hosts-kill-one"],
+                                  ["--aot-cache", "d"], ["--guardian"],
+                                  ["--replicas", "2", "--models", "small"],
+                                  ["--models", "small", "--ragged"]])
 def test_serve_bench_fleet_and_registry_flags_name_m11b(flag):
+    """The registry and fleet flags drive their drills now (M11b); the
+    host lanes and the program store exit naming M11c, and combinations
+    the drills do not take exit saying why, before anything is built."""
     from raft_tpu_torch.cli import serve_bench
 
-    with pytest.raises(SystemExit, match="M11b"):
+    match = {"--guardian": "need --models", "--replicas": "plain drill",
+             "--models": "single-model drill"}.get(flag[0], "M11c")
+    with pytest.raises(SystemExit, match=match):
         serve_bench.main(["--device", "cpu", *flag])
