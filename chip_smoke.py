@@ -208,12 +208,42 @@ Phases, each of which fails loudly (nothing is caught):
    ``registry.load``, ``guardian.decide``, ``serve.request``,
    ``serve.dispatch_exec``, ``engine.compile``): no invariant broken,
    the clean round promoted by the guardian;
-20. print the drill's, the envelope's and the serving phases' numbers
-   (``{"serving_frontend": ...}`` and ``{"serving_registry": ...}``
-   lines), the ``{"kernels": [...]}`` line (with ``launches_serving``,
-   ``launches_serving_frontend``, ``launches_registry`` and
-   ``launches_fleet`` on K1 and K2), the ``nvidia-smi`` line, and last
-   the ``{"ok": true, "device": ...}`` line.
+20. the program store, the transport and the host fleet
+   (``serving.aot``, ``serving.transport``, ``serving.hosts``,
+   ``serving.host_worker``, the scheduler's host lanes), every engine built
+   under a fresh process's defaults (TF32 convolutions): (a) the basic
+   model at full width (seeded weights, ``pallas`` + ``fused``, iters 20,
+   u8 wire, warm start) with buckets (4, 440, 1024) and (4, 368, 496) over
+   an empty store (misses, exports, stored bytes), an engine without a
+   store (the live module's graphs) and one warm from the store (hits
+   equal to programs, no trace): each replay within SERVE_TOL of the live
+   module's, bitwise or not, a loaded program's K1/K2 launches in one
+   replay by the profiler (20, 40, 40), one entry corrupted on disk (the
+   ``aot.load`` site) read as a miss and traced again, and the join time
+   of a fresh ``host_worker`` process from an empty store (cold) and from
+   a pushed one (warm), split into start and CUDA init, push, load or
+   export, warm-up and capture, with the warm worker's replay against
+   this process's through the socket and the wire's share of a remote
+   call; (b) ``cli/serve_bench.run_drill`` with 2 loopback host lanes on
+   phase 18's one-shot traffic, each future within SERVE_TOL of the
+   primary's forward of its own micro-batch (from the dispatch span),
+   pairs/s, occupancy, a profiled window's idle share; (c) the socket kill
+   drill: two ``host_worker`` processes on the card (bucket (1, 440,
+   1024), ``max_batch=1``), push and prewarm, h0 SIGKILLed after 6 of 16
+   requests, every future settled once within SERVE_TOL of the primary's
+   forward of the pair, then a rejoin on a fresh port for 6 more; the
+   times from the kill to the dead verdict, the failover and the last
+   future; (d) ``run_chaos_drill`` with ``hosts=2`` and a store, 2 rounds
+   (plans over the serving sites, ``transport.send``, ``transport.recv``,
+   ``host.heartbeat``, and an ``aot.load`` corruption): no invariant
+   broken;
+21. print the drill's, the envelope's and the serving phases' numbers
+   (``{"serving_frontend": ...}``, ``{"serving_registry": ...}`` and
+   ``{"serving_store_hosts": ...}`` lines), the ``{"kernels": [...]}``
+   line (with ``launches_serving``, ``launches_serving_frontend``,
+   ``launches_registry``, ``launches_fleet`` and ``launches_store_hosts``
+   on K1 and K2), the ``nvidia-smi`` line, and last the ``{"ok": true,
+   "device": ...}`` line.
 
 Exits non-zero, printing no result, when there is no CUDA device.
 """
@@ -3038,7 +3068,579 @@ def registry_fleet_phase(smi: str) -> dict:
     return out
 
 
+STORE_ENVELOPE = [(4, 440, 1024), (4, 368, 496)]   # phase 20 (a)'s buckets
+KILL_BUCKET = (4, 368, 496)     # (c)'s hosts' bucket (a store entry of (a))
+KILL_HW = (368, 496)            # (c)'s pair, 16 times, max_batch 1 as JAX's
+KILL_REQUESTS = 16
+KILL_AFTER = 6                  # h0 is SIGKILLed after this many submits
+REJOIN_REQUESTS = 6
+WORKER_WAIT_S = 600             # bound on a worker's start, prewarm, calls
+
+
+def worker_argv(weights: str, root, envelope, iters=None):
+    """``serving.host_worker``'s argv for phase 20's engine recipe: the
+    basic model at full width (``pallas`` + ``fused``), u8 wire, warm
+    start, TF32 convolutions (torch's defaults, which phase 20 sets in
+    this process too: the flags are part of every program-store key);
+    ``root`` None: no store."""
+    return ["--weights", weights,
+            *(["--aot-root", root] if root else []), "--envelope",
+            ",".join("x".join(map(str, b)) for b in envelope),
+            "--iters", str(iters or ITERS), "--wire", "u8", "--warm-start",
+            "--tf32", "cudnn", "--corr_impl", "pallas", "--gru_impl",
+            "fused"]
+
+
+def spawn_workers(argvs: dict, procs: dict) -> dict:
+    """Start one ``python -m raft_tpu_torch.serving.host_worker`` per name,
+    all at once, into ``procs`` (the caller kills them); returns ``{name:
+    (port, seconds from the spawn to its PORT line)}``."""
+    import threading
+
+    t0 = time.perf_counter()
+    for name, argv in argvs.items():
+        procs[name] = subprocess.Popen(
+            [sys.executable, "-m", "raft_tpu_torch.serving.host_worker",
+             *argv], cwd=REPO, stdout=subprocess.PIPE, text=True)
+    out = {}
+    for name in argvs:
+        got = []
+        th = threading.Thread(target=lambda p=procs[name]: got.append(
+            (p.stdout.readline(), time.perf_counter() - t0)), daemon=True)
+        th.start()
+        th.join(WORKER_WAIT_S)
+        if not got or not got[0][0].startswith("PORT "):
+            raise RuntimeError(f"worker {name} reported no port: {got}")
+        out[name] = (int(got[0][0].split()[1]), got[0][1])
+    return out
+
+
+def store_entries(root: str) -> list:
+    """The manifests of a program store's entries."""
+    out = []
+    for m in sorted(glob.glob(os.path.join(root, "objects", "*",
+                                           "manifest.json"))):
+        with open(m) as fh:
+            out.append(json.load(fh))
+    return out
+
+
+def store_hosts_phase(smi: str) -> dict:
+    """Phase 20: the program store, the transport and the host fleet on
+    the card (``serving.aot``, ``serving.transport``, ``serving.hosts``,
+    ``serving.host_worker``, the scheduler's host lanes); see the module
+    docstring."""
+    import gc
+    import random
+    import threading
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from raft_tpu_torch.cli import serve_bench, serve_trace
+    from raft_tpu_torch.config import RAFTConfig
+    from raft_tpu_torch.models import RAFT
+    from raft_tpu_torch.serving import MicroBatchScheduler, RAFTEngine
+    from raft_tpu_torch.serving.aot import AOTCache
+    from raft_tpu_torch.serving.hosts import HOST_DEAD, HostFleet, HostWorker
+    from raft_tpu_torch.serving.transport import (LoopbackTransport,
+                                                  SocketTransport, decode,
+                                                  encode)
+    from raft_tpu_torch.testing import faults
+    from raft_tpu_torch.tools.convert import load_pth, save_pth
+
+    per_replay = {"corr_lookup": ITERS, "gru_gates": 2 * ITERS,
+                  "gru_blend": 2 * ITERS}
+    # a fresh worker process runs torch's defaults (TF32 convolutions, no
+    # TF32 matmuls, cuDNN free to pick any algorithm); every engine of the
+    # phase is built under the same, so keys match and outputs can be
+    # bitwise across processes
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = False
+    out = {"tf32_convolutions": True}
+    cfg = RAFTConfig(corr_impl="pallas", gru_impl="fused")
+    model = RAFT(cfg, torch.Generator().manual_seed(0))
+    v1 = model.state_dict()
+    launches = {k: 0 for k in per_replay}
+
+    def engine(env, **kw):
+        return RAFTEngine(v1, cfg, iters=ITERS, envelope=env,
+                          warm_start=True, wire="u8", **kw)
+
+    def count(engines, fn):
+        before = [dict(e.replayed_launches()) for e in engines]
+        r = fn()
+        for e, b in zip(engines, before):
+            for k, n in e.replayed_launches().items():
+                launches[k] += n - b.get(k, 0)
+        return r
+
+    def gap(a, b):
+        return float(np.abs(np.asarray(a) - np.asarray(b)).max())
+
+    def batch(seed, bucket):
+        b, hw = bucket[0], bucket[1:]
+        f = synthetic_frames(seed, b + 1, hw)
+        return (np.stack(f[:b]).astype(np.uint8),
+                np.stack(f[1:]).astype(np.uint8))
+
+    procs = {}
+    gc.collect()    # earlier phases' engines go before anything is profiled
+    tmp = tempfile.mkdtemp(prefix="raft_phase20_")
+    try:
+        # -- (a) the store: cold, live, warm in this process -----------------
+        store = os.path.join(tmp, "store")
+        wpath = os.path.join(tmp, "v1.pth")
+        save_pth(model, wpath)
+        t0 = time.perf_counter()
+        cold = engine(STORE_ENVELOPE, aot_cache=store)
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        live = engine(STORE_ENVELOPE)
+        torch.cuda.synchronize()
+        live_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        warm = engine(STORE_ENVELOPE, aot_cache=store)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        entries = store_entries(store)
+        sc, sw = cold.aot_stats(), warm.aot_stats()
+        n = len(STORE_ENVELOPE)
+        if not (sc["aot_misses"] == sc["compiles"] == n and not sc["aot_hits"]
+                and sw["aot_hits"] == n and not sw["compiles"]
+                and not sw["aot_misses"] and len(entries) == n):
+            raise RuntimeError(f"the store: cold {sc}, warm {sw}, "
+                               f"{len(entries)} entries")
+        for e in (cold, live, warm):
+            for prog in e._programs.values():
+                if prog.launches != per_replay:
+                    raise RuntimeError(f"a bucket program holds "
+                                       f"{prog.launches}, want {per_replay}")
+        inputs = {b: batch(20 + k, b) for k, b in
+                  enumerate(STORE_ENVELOPE)}
+        agree = {}
+        for b, (i1, i2) in inputs.items():
+            flows = count((cold, live, warm), lambda: {
+                name: e.infer_batch(i1, i2) for name, e in
+                (("cold", cold), ("live", live), ("warm", warm))})
+            agree["x".join(map(str, b))] = {
+                "loaded_vs_live_px": gap(flows["warm"], flows["live"]),
+                "exported_vs_live_px": gap(flows["cold"], flows["live"]),
+                "loaded_vs_live_bitwise": bool(np.array_equal(
+                    flows["warm"], flows["live"])),
+                "loaded_vs_exported_bitwise": bool(np.array_equal(
+                    flows["warm"], flows["cold"]))}
+        worst = max(max(v["loaded_vs_live_px"], v["exported_vs_live_px"])
+                    for v in agree.values())
+        i1, i2 = inputs[STORE_ENVELOPE[0]]
+        _, busy, counts, _ = count((warm,), lambda: profiled_replay(
+            lambda: warm.infer_batch(i1, i2), per_replay, "a loaded program"))
+        replay_ms = {name: count((e,), lambda e=e: events_ms(
+            lambda: e.infer_batch(i1, i2), 3))
+            for name, e in (("loaded", warm), ("live", live))}
+        # one entry corrupted on disk: a miss, and the bucket is traced
+        # from the live module again and re-stored (the largest bucket:
+        # no other fits its requests, so ensure_bucket rebuilds it)
+        shape = STORE_ENVELOPE[0]
+        key = warm._aot_key(shape)
+        warm.drop_bucket(shape)
+        faults.arm([{"site": "aot.load", "kind": "corrupt", "at": 1,
+                     "count": 1}])
+        try:
+            t0 = time.perf_counter()
+            warm.ensure_bucket(*shape)
+            torch.cuda.synchronize()
+            rebuild_s = time.perf_counter() - t0
+        finally:
+            faults.disarm()
+        sr = warm.aot_stats()
+        j1, j2 = inputs[shape]
+        rgap = count((warm, live), lambda: gap(warm.infer_batch(j1, j2),
+                                               live.infer_batch(j1, j2)))
+        restored = AOTCache(store)._entry_valid(AOTCache(store).entry_dir(key),
+                                                key)
+        corrupt = {"stats": sr, "rebuild_s": rebuild_s, "gap_px": rgap,
+                   "entry_valid_after": restored,
+                   "last_miss": warm._aot.last_miss}
+        out["store"] = {
+            "build_s": {"cold": cold_s, "live": live_s, "warm": warm_s},
+            "cold": sc, "warm": sw, "entries": len(entries),
+            "blob_bytes": [m["blob_bytes"] for m in entries],
+            "aot_seconds_cold": {f"{k[0]}:{'x'.join(map(str, k[1]))}": v
+                                 for k, v in cold.aot_seconds.items()},
+            "aot_seconds_warm": {f"{k[0]}:{'x'.join(map(str, k[1]))}": v
+                                 for k, v in warm.aot_seconds.items()},
+            "capture_seconds_warm": {
+                f"{k[0]}:{'x'.join(map(str, k[1]))}": v
+                for k, v in warm.capture_seconds.items()},
+            "agree": agree, "profiled_launches": counts,
+            "profiled_busy_ms": busy, "replay_ms": replay_ms,
+            "corrupt": corrupt}
+        log(f"[20] (a) the program store, basic model at full width, "
+            f"buckets {STORE_ENVELOPE}, iters {ITERS}, u8 wire, warm start: "
+            f"{out['store']}; {smi}")
+        if not (worst <= SERVE_TOL and counts == per_replay
+                and sr["aot_misses"] == 1 and sr["compiles"] == 1
+                and rgap <= SERVE_TOL and restored):
+            raise RuntimeError(f"the store failed: {out['store']}")
+
+        # -- (a) join times: fresh worker processes, cold and warm ----------
+        # four workers started at once: the two join workers (their
+        # start times are the join's first term) and (c)'s two hosts
+        def argv_k(name):
+            return worker_argv(wpath, os.path.join(tmp, f"kill_{name}"),
+                               [KILL_BUCKET])
+
+        ports = spawn_workers(
+            {"cold": worker_argv(wpath, os.path.join(tmp, "join_cold"),
+                                 STORE_ENVELOPE),
+             "warm": worker_argv(wpath, os.path.join(tmp, "join_warm"),
+                                 STORE_ENVELOPE),
+             "none": worker_argv(wpath, None, STORE_ENVELOPE),
+             "h0": argv_k("h0"), "h1": argv_k("h1")}, procs)
+
+        def join(tag, push):
+            port, start_s = ports[tag]
+            t = SocketTransport("127.0.0.1", port,
+                                call_timeout_s=WORKER_WAIT_S, name=tag)
+            rec = {"start_s": start_s}
+            if push:
+                t0 = time.perf_counter()
+                rec["push"] = AOTCache(store).push(t)
+                rec["push_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            rec["prewarm"] = t.call("prewarm")
+            rec["prewarm_s"] = time.perf_counter() - t0
+            rec["ready_s"] = (start_s + rec.get("push_s", 0.0)
+                              + rec["prewarm_s"])
+            return t, rec
+
+        # one at a time (each builds on the card alone): without a store
+        # (the live module captured), from an empty store, from a pushed
+        # one; the last two stay up as (b)'s socket lanes
+        tn, jnone = join("none", push=False)
+        tn.close()
+        p = procs.pop("none")
+        p.kill()
+        p.wait(30)
+        tc, jcold = join("cold", push=False)
+        tw, jwarm = join("warm", push=True)
+        pw = jwarm["prewarm"]
+        if not (jcold["prewarm"]["compiles"] == n and pw["compiles"] == 0
+                and pw["aot_hits"] == n):
+            raise RuntimeError(f"join: cold {jcold}, warm {jwarm}")
+        # the warm worker's replay against this process's on the same
+        # inputs, through the socket: u8 frames out, fp32 flow back
+        remote = tw.call("infer", {"image1": i1, "image2": i2})
+        local = count((cold,), lambda: cold.infer_batch(i1, i2))
+        rgap_w = gap(remote, local)
+        rpc_ms = host_ms(lambda: tw.call("infer", {"image1": i1,
+                                                   "image2": i2}), 3)
+        local_ms = count((cold,), lambda: host_ms(
+            lambda: cold.infer_batch(i1, i2), 3))
+        payload = {"image1": i1, "image2": i2}
+        t0 = time.perf_counter()
+        for _ in range(3):
+            decode(encode(("infer", payload)))
+            decode(encode(("ok", remote)))
+        pickle_ms = (time.perf_counter() - t0) * 1e3 / 3
+        out["join"] = {
+            "none": jnone, "cold": jcold, "warm": jwarm,
+            "remote_gap_px": rgap_w,
+            "remote_bitwise": bool(np.array_equal(remote, local)),
+            "wire": {"bytes_out": int(i1.nbytes + i2.nbytes),
+                     "bytes_back": int(remote.nbytes), "rpc_ms": rpc_ms,
+                     "local_ms": local_ms, "pickle_ms": pickle_ms,
+                     "share": 1.0 - local_ms / rpc_ms}}
+        log(f"[20] (a) join a fresh worker process (buckets "
+            f"{STORE_ENVELOPE}): {out['join']}; {smi}")
+        if rgap_w > SERVE_TOL:
+            raise RuntimeError("the warm worker's replay disagrees")
+
+        # -- (b) run_drill with two loopback host lanes ---------------------
+        del warm
+        accepted = {}
+
+        def on_accept(a, b, fut):
+            accepted[fut.trace_id] = (a, b, fut)
+
+        spans = os.path.join(tmp, "spans_b.jsonl")
+        sb = count((cold,), lambda: serve_bench.run_drill(
+            v1, cfg, shapes=FRONT_SHAPES, requests=FRONT_REQUESTS,
+            submitters=FRONT_SUBMITTERS, bucket_batch=FRONT_BUCKET_B,
+            iters=ITERS, wire="u8", engine=cold, hosts=2, aot_cache=store,
+            trace_path=spans, seed=20, on_accept=on_accept))
+        recs = serve_trace.load_spans(spans)
+        by_lane, worst_b, bitwise_b = {}, 0.0, True
+        for d in (r for r in recs if r["span"] == "dispatch"):
+            members = [accepted[t] for t in d["requests"]]
+            want = count((cold,), lambda: cold.infer_batch(
+                np.stack([m[0] for m in members]),
+                np.stack([m[1] for m in members])))
+            lane = d.get("replica", 0)
+            by_lane[lane] = by_lane.get(lane, 0) + len(members)
+            for k, (_, _, fut) in enumerate(members):
+                g = gap(fut.result(0).flow, want[k])
+                worst_b = max(worst_b, g)
+                bitwise_b &= g == 0.0
+        out["loopback"] = {
+            **{k: sb[k] for k in ("pairs_per_s", "p50_ms", "p99_ms",
+                                  "mean_occupancy", "dispatches",
+                                  "served", "wall_s")},
+            "futures_by_lane": by_lane, "worst_gap_px": worst_b,
+            "bitwise": bitwise_b, "hosts": sb["hosts"],
+            "fleet_lanes": {k: v["dispatches"]
+                            for k, v in sb["fleet"]["lanes"].items()}}
+        log(f"[20] (b) serve_bench.run_drill, phase 18's one-shot traffic "
+            f"({FRONT_REQUESTS} requests at {FRONT_SHAPES}), the primary and "
+            f"2 loopback host lanes spawned from it: {out['loopback']}; "
+            f"{smi}")
+        if not (sb["served"] == sb["accepted"] == len(accepted)
+                and sb["accounting_ok"] and not sb["stranded"]
+                and worst_b <= SERVE_TOL and len(by_lane) == 3):
+            raise RuntimeError(f"the loopback host drill failed: {sb}")
+
+        # (b) one seeded batch of one-shot requests, all submitted at once,
+        # through the primary alone, with two loopback host lanes (over
+        # replicas of the store-less engine: their own captures, ~0.3 s a
+        # program where a store load takes seconds; the same numbers), and
+        # with the two join workers as socket lanes: pairs/s and, profiled,
+        # the idle share (the lanes are built before the profiler starts:
+        # no graph is captured under it)
+        def one_shot(sched):
+            rng = np.random.RandomState(20)
+            pairs = [tuple(rng.rand(h, w, 3).astype(np.float32) * 255
+                           for _ in range(2))
+                     for h, w in (FRONT_SHAPES[k % len(FRONT_SHAPES)]
+                                  for k in range(FRONT_REQUESTS))]
+            t0 = time.perf_counter()
+            futs = [sched.submit(a, b) for a, b in pairs]
+            for fu in futs:
+                fu.result(WORKER_WAIT_S)
+            wall = time.perf_counter() - t0
+            h = sched.health()
+            return {"pairs_per_s": len(pairs) / wall, "wall_s": wall,
+                    "lane_dispatches": {
+                        k: v["dispatches"] for k, v in
+                        h.get("fleet", {}).get("lanes", {}).items()},
+                    "dispatches": sched.metrics.snapshot()["dispatches"]}
+
+        fleet_s = HostFleet({"h0": tc, "h1": tw}, heartbeat_s=0.5,
+                            heartbeat_timeout_s=60.0,
+                            reconnect_backoff_s=600.0,
+                            rng=random.Random(21))
+        fleet_s.admit_all()
+        fleet_l = HostFleet(
+            {f"h{k}": LoopbackTransport(HostWorker(live.spawn_replica()),
+                                        name=f"h{k}") for k in range(2)},
+            heartbeat_s=0.5, heartbeat_timeout_s=60.0,
+            reconnect_backoff_s=600.0, rng=random.Random(22))
+        fleet_l.admit_all()
+        sock = {}
+        for tag, fleet_kw in (("alone", None), ("loopback", fleet_l),
+                              ("socket", fleet_s)):
+            with MicroBatchScheduler(cold, max_batch=FRONT_BUCKET_B,
+                                     gather_window_s=0.005,
+                                     breaker_failures=1,
+                                     dispatch_timeout_s=WORKER_WAIT_S,
+                                     host_fleet=fleet_kw) as sched:
+                one_shot(sched)     # warm: each lane's first dispatches
+                # earlier drills' engines (and their graphs) are
+                # collected here, not while the profiler traces replays
+                gc.collect()
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    t1 = time.perf_counter()
+                    sock[tag] = count((cold,), lambda: one_shot(sched))
+                    torch.cuda.synchronize()
+                    wall = (time.perf_counter() - t1) * 1e3
+                sock[tag]["idle_share"] = 1 - device_busy_ms(prof) / wall
+        del fleet_l, live
+        out["one_shot_lanes"] = sock
+        log(f"[20] (b) {FRONT_REQUESTS} one-shot requests submitted at once, "
+            f"through the primary alone, with two loopback host lanes, with "
+            f"the two join workers as socket lanes (each run after a warm-up "
+            f"run, profiled): {sock}; {smi}")
+        for name in ("cold", "warm"):
+            p = procs.pop(name)
+            p.kill()
+            p.wait(30)
+
+        # -- (c) the socket kill drill ---------------------------------------
+        # the primary is (a)'s cold engine; the hosts serve its KILL_BUCKET
+        # program, pushed from the store
+        kill_eng = cold
+        p1, p2 = synthetic_frames(22, 2, KILL_HW)
+        oracle = count((kill_eng,), lambda: kill_eng.infer_batch(
+            p1[None], p2[None])[0])
+        mpath = os.path.join(tmp, "metrics_c.jsonl")
+        fleet = HostFleet(
+            {name: SocketTransport("127.0.0.1", ports[name][0],
+                                   call_timeout_s=WORKER_WAIT_S, name=name)
+             for name in ("h0", "h1")},
+            aot_cache=AOTCache(store), heartbeat_s=0.1,
+            heartbeat_timeout_s=10.0, suspect_after=1, dead_after=2,
+            reconnect_backoff_s=600.0, rng=random.Random(20))
+        # both hosts admitted at once (push, then prewarm: a load each)
+        t0 = time.perf_counter()
+        admitted = {}
+        threads = [threading.Thread(
+            target=lambda name=name: admitted.__setitem__(
+                name, fleet.admit(name))) for name in ("h0", "h1")]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(WORKER_WAIT_S)
+        admit_s = time.perf_counter() - t0
+        if len(admitted) != 2:
+            raise RuntimeError(f"a host was not admitted: {admitted}")
+        if any(a["compiles"] or a["aot_hits"] < 1 for a in admitted.values()):
+            raise RuntimeError(f"a host traced at prewarm: {admitted}")
+        settled = []
+        lock = threading.Lock()
+
+        def on_done(fut):
+            with lock:
+                settled.append((id(fut), time.time()))
+
+        sched = MicroBatchScheduler(
+            kill_eng, max_batch=1, gather_window_s=0.0,
+            dispatch_timeout_s=WORKER_WAIT_S, breaker_failures=1,
+            metrics_path=mpath, host_fleet=fleet)
+        try:
+            futs = []
+            for i in range(KILL_REQUESTS):
+                futs.append(sched.submit(p1, p2))
+                futs[-1].add_done_callback(on_done)
+                if i == KILL_AFTER - 1:
+                    procs["h0"].kill()          # SIGKILL mid-traffic
+                    t_kill = time.time()
+            # its replacement starts while the drill drains
+            spawned = {}
+            th = threading.Thread(target=lambda: spawned.update(
+                spawn_workers({"h0b": argv_k("h0b")}, procs)))
+            th.start()
+            flows = count((kill_eng,), lambda: [fu.result(WORKER_WAIT_S).flow
+                                                for fu in futs])
+            end = time.monotonic() + 120
+            while time.monotonic() < end and not (
+                    fleet.hosts["h0"].failovers
+                    and fleet.hosts["h0"].state == HOST_DEAD):
+                time.sleep(0.01)
+            with open(mpath) as fh:
+                ev = [json.loads(line) for line in fh]
+            ev = [e for e in ev if e.get("kind") == "serving_event"]
+            dead_t = [e["time"] for e in ev if e["event"] == "host_dead"]
+            fo_t = [e["time"] for e in ev if e["event"] == "failover"]
+            snap1 = sched.metrics.snapshot()
+            lanes = {k: v["dispatches"] for k, v in
+                     sched.health()["fleet"]["lanes"].items()}
+            # restart h0 on a fresh port: the full rejoin protocol
+            th.join(WORKER_WAIT_S)
+            ports2 = spawned
+            t0 = time.perf_counter()
+            rstats = fleet.rejoin("h0", SocketTransport(
+                "127.0.0.1", ports2["h0b"][0], call_timeout_s=WORKER_WAIT_S,
+                name="h0"))
+            rejoin_s = time.perf_counter() - t0
+            end = time.monotonic() + 120
+            while time.monotonic() < end and not any(
+                    b.get("host") == "h0" and b["active"] for b in
+                    sched.health()["fleet"]["lanes"].values()):
+                time.sleep(0.01)
+            futs2 = [sched.submit(p1, p2) for _ in range(REJOIN_REQUESTS)]
+            for fu in futs2:
+                fu.add_done_callback(on_done)
+            flows2 = count((kill_eng,), lambda: [
+                fu.result(WORKER_WAIT_S).flow for fu in futs2])
+            end = time.monotonic() + 120
+            while time.monotonic() < end and \
+                    sched.health()["state"] != "healthy":
+                time.sleep(0.01)
+            state = sched.health()["state"]
+            lanes2 = {k: v["dispatches"] for k, v in
+                      sched.health()["fleet"]["lanes"].items()}
+        finally:
+            sched.close()
+        snap = sched.metrics.snapshot()
+        gaps = [gap(fl, oracle) for fl in flows + flows2]
+        ids = [i for i, _ in settled]
+        last = max(t for i, t in settled if i in {id(fu) for fu in futs})
+        out["kill"] = {
+            "admit_s": admit_s,
+            "admitted": admitted, "worker_start_s": {
+                k: v[1] for k, v in {**ports, **ports2}.items()},
+            "settled": len(settled),
+            "settled_once": len(set(ids)) == len(ids) == len(futs) + len(futs2),
+            "completed": snap["completed"], "failed": snap["failed"],
+            "abandoned_inflight": snap["abandoned_inflight"],
+            "accounting_ok": snap["submitted"] == (
+                snap["completed"] + snap["failed"] + snap["deadline_missed"]
+                + snap["cancelled"]),
+            "hosts_metrics": snap.get("hosts"),
+            "worst_gap_px": max(gaps), "bitwise": max(gaps) == 0.0,
+            "kill_to_dead_s": (dead_t[0] - t_kill) if dead_t else None,
+            "kill_to_failover_s": [t - t_kill for t in fo_t],
+            "kill_to_last_settled_s": last - t_kill,
+            "lane_dispatches_at_kill_drain": lanes,
+            "lane_dispatches_after_rejoin": lanes2,
+            "rejoin": rstats, "rejoin_s": rejoin_s, "state_after": state,
+            "first_snapshot_completed": snap1["completed"]}
+        log(f"[20] (c) the socket kill drill: the primary and 2 host_worker "
+            f"processes on the card, bucket {KILL_BUCKET}, max_batch 1, h0 "
+            f"SIGKILLed after {KILL_AFTER} of {KILL_REQUESTS} requests, then "
+            f"rejoined on a fresh port for {REJOIN_REQUESTS} more: "
+            f"{out['kill']}; {smi}")
+        if not (out["kill"]["settled_once"]
+                and snap["completed"] == KILL_REQUESTS + REJOIN_REQUESTS
+                and not snap["failed"] and not snap["abandoned_inflight"]
+                and out["kill"]["accounting_ok"]
+                and max(gaps) <= SERVE_TOL and dead_t and fo_t
+                and rstats["compiles"] == 0 and rstats["aot_hits"] >= 1
+                and state == "healthy"):
+            raise RuntimeError(f"the kill drill failed: {out['kill']}")
+        for p in procs.values():
+            p.kill()
+        del kill_eng, cold
+
+        # -- (d) serve_bench --chaos 2 --hosts 2 --aot-cache ----------------
+        t0 = time.perf_counter()
+        cfg_s = RAFTConfig(small=True, corr_impl="pallas")
+        small = load_pth(os.path.join(REPO, "tests", "fixtures",
+                                      "raft-small-cputrained.pth"), cfg_s)
+        chaos = serve_bench.run_chaos_drill(
+            small, cfg_s, shapes=CHAOS_SHAPES, rounds=2, seed=20, hosts=2,
+            aot_cache=os.path.join(tmp, "chaos_store"))
+        clean = chaos["per_round"][-1]
+        out["chaos"] = {k: chaos[k] for k in (
+            "violations", "totals", "breaker_transitions", "executables",
+            "documented_buckets", "aot")}
+        out["chaos"].update(
+            plans=[[f"{f['site']}:{f['kind']}" for f in p["plan"]["faults"]]
+                   for p in chaos["per_round"] if "plan" in p],
+            hosts=[p.get("hosts", {}).get("state")
+                   for p in chaos["per_round"]],
+            seconds=time.perf_counter() - t0)
+        log(f"[20] (d) serve_bench --chaos 2 --hosts 2 --aot-cache (the small "
+            f"fixture, {CHAOS_SHAPES}): {out['chaos']}; {smi}")
+        if chaos["violations"] or clean["health_state"] != "healthy":
+            raise RuntimeError(f"the host chaos broke an invariant: "
+                               f"{out['chaos']}")
+    finally:
+        for p in procs.values():
+            p.kill()
+            p.wait(30)
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["launches_store_hosts"] = launches
+    out["launches_per_replay"] = per_replay
+    return out
+
+
 def main() -> int:
+    import faulthandler
+
+    faulthandler.enable()   # a native crash prints every thread's stack
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
@@ -3734,7 +4336,12 @@ def main() -> int:
     registry = registry_fleet_phase(smi)
     registry["seconds"] = time.perf_counter() - t19
 
-    # -- 20. result ----------------------------------------------------------
+    # -- 20. the program store, the transport and the host fleet -----------
+    t20 = time.perf_counter()
+    hosts = store_hosts_phase(smi)
+    hosts["seconds"] = time.perf_counter() - t20
+
+    # -- 21. result ----------------------------------------------------------
     sources = {"corr_lookup": ("raft_tpu_torch/csrc/corr_lookup.cu",
                                "raft_tpu/kernels/corr_pallas.py:177"),
                "gru_gates": ("raft_tpu_torch/csrc/gru.cu",
@@ -3796,6 +4403,11 @@ def main() -> int:
             # replica fleet, each a replay of a bucket graph
             row["launches_registry"] = registry["launches_registry"][name]
             row["launches_fleet"] = registry["launches_fleet"][name]
+            # phase 20's dispatches in this process: the store's engines
+            # (loaded, exported, live), the loopback drill's primary lane
+            # and the kill drill's (each a replay of a bucket graph; the
+            # host lanes' and the worker processes' replays are theirs)
+            row["launches_store_hosts"] = hosts["launches_store_hosts"][name]
         row["dtypes_train_cli"] = cli["dtypes"].get(name, {})
         if name in err_bf16:
             row["max_abs_err_bf16"] = err_bf16[name]
@@ -3849,6 +4461,7 @@ def main() -> int:
                       "serving": serving}), flush=True)
     print(json.dumps({"serving_frontend": frontend}), flush=True)
     print(json.dumps({"serving_registry": registry}), flush=True)
+    print(json.dumps({"serving_store_hosts": hosts}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

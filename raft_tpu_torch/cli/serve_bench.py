@@ -1,6 +1,7 @@
 """Synthetic ragged-traffic drill for the serving front-end; port of
 ``raft_tpu/cli/serve_bench.py`` (the single-model drills, the replica
-fleet and the multi-model registry drills).
+fleet, the host fleet and program store, and the multi-model registry
+drills).
 
 Drives ``MicroBatchScheduler`` + a warm-start ``RAFTEngine`` with
 mixed-shape traffic from concurrent submitter threads (plus optional
@@ -80,9 +81,23 @@ registry-wide admission budget; with ``--chaos N`` the registry's fault
 rounds run instead. The summary line carries per-model and per-priority
 blocks.
 
-``--hosts``, ``--hosts-kill-one`` and ``--aot-cache`` parse as in the JAX
-package and exit naming ROADMAP M11c, where the layers they drive are
-queued.
+``--hosts N`` adds N host lanes behind loopback transports (each a
+``HostWorker`` over an engine spawned from the primary, which loads its
+programs from the store when ``--aot-cache`` is set), admitted by push and
+prewarm before traffic and heartbeat-monitored; ``--hosts-kill-one``
+poisons ``h0`` mid-traffic (dead verdict, quarantine, failover, every
+request settled once); the summary grows a per-host ``hosts`` block.
+``--aot-cache DIR`` arms the program store (serving/aot.py): the engine
+loads each bucket's program from ``DIR`` when it is there and exports and
+stores it when not; the summary grows ``aot_hits``, ``aot_misses``,
+``compiles`` and ``compiles_avoided`` (run the same drill twice against
+one ``DIR`` for the load-against-trace A/B). With ``--chaos`` both widen
+the fault plans (an ``aot.load`` corruption each round; the transport and
+heartbeat sites)::
+
+    python -m raft_tpu_torch.cli.serve_bench --device cpu --small \\
+        --shapes 32x32,24x40 --requests 12 --iters 1 --hosts 2 \\
+        --hosts-kill-one --aot-cache /tmp/raft_aot
 """
 
 
@@ -118,6 +133,13 @@ CHAOS_SITES_REGISTRY = CHAOS_SITES + ("registry.load",)
 #: raises or hangs mid-decision must strand nothing and leave routing
 #: exactly as it found it (the site fires before any registry mutation)
 CHAOS_SITES_GUARDIAN = CHAOS_SITES_REGISTRY + ("guardian.decide",)
+#: host drills add the remote lanes' surfaces: both wire directions (a
+#: corrupted or raised exchange must fail over or settle cleanly, never
+#: strand), the heartbeat probe (missed beats walk the suspect -> dead
+#: ladder and the verdict's consequences fire) and the worker's infer
+#: itself (a host dying MID-BATCH: the failover-requeue path)
+CHAOS_SITES_HOSTS = CHAOS_SITES + ("transport.send", "transport.recv",
+                                   "host.heartbeat", "host.infer")
 
 def chaos_plan(rng: random.Random, hang_s: float = 0.5,
                sites=CHAOS_SITES) -> dict:
@@ -186,8 +208,9 @@ def run_drill(weights, cfg, *, shapes, requests=32, submitters=2,
               ragged=False, capacity_classes=None,
               fault_plan=None, recover_s=0.0,
               metrics_path=None, trace_path=None, trace_sample=1.0,
-              tracer=None, seed=0, engine=None, replicas=1,
-              replica_ceiling=None, placement=None, device="cuda"):
+              tracer=None, seed=0, engine=None, aot_cache=None,
+              replicas=1, replica_ceiling=None, placement=None, hosts=0,
+              host_kill_one=False, on_accept=None, device="cuda"):
     """The drill as a library call (tests reuse it, and may pass a
     prebuilt warm-start ``engine`` to share captures across drills).
     Returns the summary dict the CLI prints. ``weights``: a ``RAFT``
@@ -233,7 +256,30 @@ def run_drill(weights, cfg, *, shapes, requests=32, submitters=2,
     key. ``placement`` injects a prebuilt
     :class:`~raft_tpu_torch.parallel.placement.Placement` (its engines,
     primary first, become the lanes: a caller measuring the replicas
-    keeps them)."""
+    keeps them).
+
+    ``aot_cache`` (a directory path) arms the program store
+    (serving/aot.py): the engine's precompile LOADS any bucket whose
+    program is already in the directory instead of tracing it, and
+    exports and stores what it does trace. When armed the summary grows
+    ``aot_hits``/``aot_misses``/``compiles``/``compiles_avoided`` (from
+    ``engine.aot_stats()``); off, the summary has no such keys.
+
+    ``hosts`` > 0 arms the host fleet (serving/hosts.py): N loopback host
+    workers, each a ``HostWorker`` over an engine spawned from the primary
+    (its programs loaded from the store when ``aot_cache`` is set), behind
+    a ``HostFleet`` with heartbeats, breakers and the failover path,
+    admitted (push and prewarm) BEFORE any traffic. ``host_kill_one``
+    runs the kill-one drill: once every submitter has queued its traffic,
+    host ``h0``'s transport is poisoned mid-drain; the missed-beat ladder
+    must verdict it dead, its lane quarantine, its in-flight batches fail
+    over, and every request still settle exactly once. The summary grows
+    a ``hosts`` block (per-host state, beats, failovers, rejoins, push
+    counters).
+
+    ``on_accept(image1, image2, future)`` is called for every accepted
+    one-shot request (a caller holding each future to a forward of its
+    own)."""
     from raft_tpu_torch.ops.interp import forward_interpolate_device
     from raft_tpu_torch.serving.engine import RAFTEngine
     from raft_tpu_torch.serving.feature_cache import FeatureCacheMiss
@@ -258,7 +304,7 @@ def run_drill(weights, cfg, *, shapes, requests=32, submitters=2,
                 warm_start=True, wire=wire, ragged=True,
                 capacity_classes=_capacity_envelope(
                     shapes, capacity_classes, bucket_batch),
-                device=device)
+                aot_cache=aot_cache, device=device)
         else:
             # one documented bucket per distinct ÷8-padded request shape
             envelope = sorted({(bucket_batch, _ceil8(h), _ceil8(w))
@@ -267,7 +313,7 @@ def run_drill(weights, cfg, *, shapes, requests=32, submitters=2,
                                 envelope=envelope, precompile=True,
                                 warm_start=True, wire=wire,
                                 feature_cache=feature_cache,
-                                device=device)
+                                aot_cache=aot_cache, device=device)
     _n_exec = getattr(engine, "executable_count",
                       lambda: len(engine._compiled))
     documented = _n_exec()
@@ -276,6 +322,8 @@ def run_drill(weights, cfg, *, shapes, requests=32, submitters=2,
         from raft_tpu_torch.serving.trace import TraceLedger
         _fresh_trace_file(trace_path)
         tracer = TraceLedger(trace_path, sample_rate=trace_sample)
+    host_fleet = (_loopback_fleet(engine, hosts, aot_cache, seed)
+                  if hosts else None)
     sched = MicroBatchScheduler(engine, max_queue=max_queue,
                                 max_batch=bucket_batch,
                                 gather_window_s=gather_window_s,
@@ -292,7 +340,8 @@ def run_drill(weights, cfg, *, shapes, requests=32, submitters=2,
                                 tracer=tracer,
                                 replicas=replicas,
                                 replica_ceiling=replica_ceiling,
-                                placement=placement)
+                                placement=placement,
+                                host_fleet=host_fleet)
     if feature_cache and sessions:
         # warm-outside-the-measurement discipline (the engine's
         # envelope precompile, one layer up): the device forward warp's
@@ -317,12 +366,16 @@ def run_drill(weights, cfg, *, shapes, requests=32, submitters=2,
             i1 = rng.rand(h, w, 3).astype(np.float32) * 255
             i2 = rng.rand(h, w, 3).astype(np.float32) * 255
             try:
-                futures[sid].append(
-                    sched.submit(i1, i2, deadline_s=deadline_s))
+                fut = sched.submit(i1, i2, deadline_s=deadline_s)
             except BackpressureError:
                 shed[sid] += 1
+                continue
             except CircuitOpen:
                 rejected[sid] += 1
+                continue
+            futures[sid].append(fut)
+            if on_accept is not None:
+                on_accept(i1, i2, fut)
 
     def session_loop(sid):
         rng = np.random.RandomState(seed + 1000 + sid)
@@ -383,6 +436,12 @@ def run_drill(weights, cfg, *, shapes, requests=32, submitters=2,
             t.start()
         for t in threads:
             t.join()
+        if host_kill_one and host_fleet is not None:
+            # every submitter has queued its traffic and the queue is
+            # still draining: poisoning h0 HERE lands the dead-host
+            # verdict mid-traffic, and the failover path must re-dispatch
+            # its in-flight batches
+            host_fleet.poison("h0")
         if recover_s > 0:
             recover_loop()
         # settle traffic before reading health: submit threads join as
@@ -507,6 +566,38 @@ def run_drill(weights, cfg, *, shapes, requests=32, submitters=2,
             "concurrency_max": fleet["concurrency_max"],
             "lanes": lanes,
         }
+    hf = health.get("hosts")
+    if hf:
+        # host-fleet surface (key absent at hosts=0): per-host liveness,
+        # failover and push blocks the kill-one drill asserts against
+        summary["hosts"] = {
+            "state": hf["state"],
+            "suspect_after": hf["suspect_after"],
+            "dead_after": hf["dead_after"],
+            "hosts": {
+                name: {
+                    "state": blk["state"],
+                    "ready": blk["ready"],
+                    "beats": blk["beats"],
+                    "missed_beats": blk["missed_beats"],
+                    "failovers": blk["failovers"],
+                    "rejoins": blk["rejoins"],
+                    "push_entries": blk["push_entries"],
+                    "push_bytes": blk["push_bytes"],
+                    "push_retries": blk["push_retries"],
+                    "breaker": blk["breaker"]["state"],
+                } for name, blk in sorted(hf["hosts"].items())},
+        }
+    aot = (engine.aot_stats() if hasattr(engine, "aot_stats")
+           else {"enabled": 0})
+    if aot.get("enabled"):
+        # load-against-trace A/B surface (keys absent with the store
+        # off): a second run against a warm store reports compiles == 0
+        # and compiles_avoided == the first run's compiles
+        summary["aot_hits"] = aot["aot_hits"]
+        summary["aot_misses"] = aot["aot_misses"]
+        summary["compiles"] = aot["compiles"]
+        summary["compiles_avoided"] = aot["compiles_avoided"]
     if tracer is not None:
         # request-tracing surface (key absent when tracing is off —
         # the summary stays byte-identical to the untraced drill):
@@ -533,6 +624,42 @@ def run_drill(weights, cfg, *, shapes, requests=32, submitters=2,
     return summary
 
 
+def _loopback_fleet(engine, hosts: int, aot_cache, seed: int):
+    """``hosts`` loopback host lanes, each a ``HostWorker`` over a sibling
+    spawned from ``engine`` (its programs loaded from the store when
+    ``aot_cache`` is set) with its OWN store root, so the admit-time push
+    ships the primary's programs there sha256-verified: the full
+    protocol, though the in-process sibling builds from the shared
+    store. Admitted (push and prewarm) before it is returned."""
+    import tempfile
+
+    from raft_tpu_torch.serving.aot import AOTCache
+    from raft_tpu_torch.serving.hosts import HostFleet, HostWorker
+    from raft_tpu_torch.serving.transport import LoopbackTransport
+
+    spawn = getattr(engine, "spawn_replica", None)
+    if spawn is None:
+        raise ValueError("hosts > 0 needs an engine with spawn_replica "
+                         "(the host workers wrap siblings of the primary)")
+    transports = {}
+    for k in range(hosts):
+        root = (tempfile.mkdtemp(prefix=f"raft_host_h{k}_")
+                if aot_cache else None)
+        transports[f"h{k}"] = LoopbackTransport(
+            HostWorker(spawn(), aot_root=root), name=f"h{k}")
+    # a short ladder: the kill-one drill must verdict the poisoned host
+    # DEAD well inside the drill's drain, and the long reconnect backoff
+    # keeps the monitor from reviving the killed host mid-assertion
+    fleet = HostFleet(
+        transports, aot_cache=AOTCache(aot_cache) if aot_cache else None,
+        heartbeat_s=0.05, heartbeat_timeout_s=2.0, suspect_after=1,
+        dead_after=2, reconnect_backoff_s=600.0, rng=random.Random(seed))
+    # admit BEFORE traffic: push and prewarm gate the lanes, and no
+    # request routes to a host until its programs verified
+    fleet.admit_all()
+    return fleet
+
+
 def _round_violations(s: dict) -> list:
     """The chaos-drill invariants, checked after every round."""
     v = []
@@ -552,8 +679,11 @@ def _round_violations(s: dict) -> list:
         # breaker closed — that's the fleet's degradation, not a
         # breaker-accounting bug
         lanes = (s.get("fleet") or {}).get("lanes", {})
-        if not any(ln["quarantined"] or ln["open_breakers"]
-                   for ln in lanes.values()):
+        fleet_degraded = (
+            s.get("hosts", {}).get("state", "healthy") != "healthy"
+            or any(ln["quarantined"] or ln["open_breakers"]
+                   for ln in lanes.values()))
+        if not fleet_degraded:
             v.append("health says degraded with all breakers closed")
     return v
 
@@ -570,7 +700,7 @@ def run_chaos_drill(weights, cfg, *, shapes, rounds=3, requests=12,
                     ragged=False, capacity_classes=None,
                     deadline_s=None, seed=0, metrics_path=None,
                     trace_path=None, trace_sample=1.0, engine=None,
-                    device="cuda"):
+                    aot_cache=None, hosts=0, device="cuda"):
     """``rounds`` randomized fault rounds + one clean recovery round
     over ONE shared engine (dropped buckets recapture lazily across
     rounds), asserting the invariants after each. Returns the summary
@@ -589,7 +719,22 @@ def run_chaos_drill(weights, cfg, *, shapes, rounds=3, requests=12,
     spans after the drill (every accepted request closed exactly one
     span) — the wedge/eviction/deadline outcome tags the test layer
     reconciles bucket-for-bucket.
-"""
+
+    ``aot_cache`` arms the program store AND its fault site: every chaos
+    round's plan gains an ``aot.load`` corruption, so when a wedge-dropped
+    bucket is rebuilt it first reads a just-corrupted entry; the drilled
+    contract is a clean miss and a rebuild from the live module (no
+    stranded future, the programs back at the documented count, and the
+    corrupted entry REPLACED by the re-store, which the clean round's
+    loads prove).
+
+    ``hosts`` > 0 runs every round with N loopback host lanes and widens
+    the fault vocabulary with both wire directions and the heartbeat
+    probe: corrupted exchanges must settle cleanly (failover or a settled
+    error, never a strand), and heartbeat faults walk the missed-beat
+    ladder, firing the verdict's consequences mid-round. The same
+    invariants pin the outcome.
+    """
     from raft_tpu_torch.serving.engine import RAFTEngine
 
     if ragged and feature_cache:
@@ -627,7 +772,8 @@ def run_chaos_drill(weights, cfg, *, shapes, rounds=3, requests=12,
             engine = RAFTEngine(
                 weights, cfg, iters=iters, precompile=True,
                 warm_start=True, wire=wire, ragged=True,
-                capacity_classes=classes, device=device)
+                capacity_classes=classes, aot_cache=aot_cache,
+                device=device)
         else:
             envelope = sorted({(bucket_batch, _ceil8(h), _ceil8(w))
                                for h, w in shapes})
@@ -635,7 +781,7 @@ def run_chaos_drill(weights, cfg, *, shapes, rounds=3, requests=12,
                                 envelope=envelope, precompile=True,
                                 warm_start=True, exact_shapes=True,
                                 wire=wire, feature_cache=feature_cache,
-                                device=device)
+                                aot_cache=aot_cache, device=device)
     _n_exec = getattr(engine, "executable_count",
                       lambda: len(engine._compiled))
     documented = _n_exec()
@@ -661,11 +807,24 @@ def run_chaos_drill(weights, cfg, *, shapes, rounds=3, requests=12,
                   cache_capacity=cache_capacity,
                   ragged=ragged, capacity_classes=capacity_classes,
                   recover_s=recover_s, metrics_path=metrics_path,
-                  tracer=tracer, engine=engine, device=device)
+                  tracer=tracer, engine=engine, hosts=hosts,
+                  aot_cache=aot_cache, device=device)
     sites = (CHAOS_SITES_PIPELINED if pipeline_depth > 1
              else CHAOS_SITES)
+    if hosts:
+        sites = sites + ("transport.send", "transport.recv",
+                         "host.heartbeat")
+    aot_armed = bool(getattr(engine, "aot_stats",
+                             lambda: {"enabled": 0})().get("enabled"))
     for r in range(rounds):
         plan = chaos_plan(rng, hang_s=hang_s, sites=sites)
+        if aot_armed:
+            # stored-program bit rot, mid-drill: the first load this
+            # round (a wedge-dropped bucket rebuilt) reads a
+            # just-corrupted entry and must take the clean miss and the
+            # rebuild from the live module
+            plan["faults"].append({"site": "aot.load", "kind": "corrupt",
+                                   "at": 1, "count": 1})
         s = run_drill(weights, cfg, seed=seed + 17 * r,
                       fault_plan=plan, **common)
         s["round"] = r
@@ -725,6 +884,8 @@ def run_chaos_drill(weights, cfg, *, shapes, rounds=3, requests=12,
         "totals": totals,
         "per_round": per_round,
     }
+    if aot_armed:
+        out["aot"] = engine.aot_stats()
     if tracer is not None:
         # whole-drill trace view (the per-round blocks carry only
         # their OWN refs/accounting — the shared ledger counters and
@@ -1318,11 +1479,6 @@ def _parse_slo(spec: str) -> dict:
     return out
 
 
-#: the JAX package's multi-host and program-store flags: they parse here
-#: and exit naming ROADMAP M11c, where the layers they drive are queued
-_M11C_FLAGS = ("hosts", "hosts_kill_one", "aot_cache")
-
-
 def main(argv=None):
     from raft_tpu_torch.cli._args import add_corr_args, corr_overrides
 
@@ -1465,12 +1621,26 @@ def main(argv=None):
                    help="with --replicas: queue pressure grows the "
                         "fleet up to M lanes and idle lanes retire "
                         "back toward the --replicas floor")
-    m11c = p.add_argument_group(
-        "multi-host and program-store flags (ROADMAP M11c: they exit "
-        "naming it)")
-    m11c.add_argument("--hosts", type=int, default=0, metavar="N")
-    m11c.add_argument("--hosts-kill-one", action="store_true")
-    m11c.add_argument("--aot-cache", default=None, metavar="DIR")
+    p.add_argument("--hosts", type=int, default=0, metavar="N",
+                   help="host fleet (serving/hosts.py): N loopback host "
+                        "workers behind the transport seam, admitted by "
+                        "push and prewarm before traffic, heartbeat-"
+                        "monitored with failover; the summary grows a "
+                        "per-host 'hosts' block. With --chaos the plans "
+                        "also draw transport.send / transport.recv / "
+                        "host.heartbeat. Default 0: no fleet")
+    p.add_argument("--hosts-kill-one", action="store_true",
+                   help="with --hosts: poison host h0 after submission "
+                        "while the queue drains (dead verdict, lane "
+                        "quarantine, failover to survivors, every "
+                        "request settled exactly once)")
+    p.add_argument("--aot-cache", default=None, metavar="DIR",
+                   help="program store directory (serving/aot.py): the "
+                        "engine loads programs already there instead of "
+                        "tracing them and stores what it traces; the "
+                        "summary grows aot_hits/aot_misses/compiles/"
+                        "compiles_avoided. Run the same drill twice "
+                        "against one DIR for the load-against-trace A/B")
     p.add_argument("--log-dir", default=None,
                    help="append the metrics snapshot to "
                         "<log-dir>/metrics.jsonl")
@@ -1495,15 +1665,6 @@ def main(argv=None):
                    help="torch device; the card unless 'cpu' is asked for")
     add_corr_args(p)
     args = p.parse_args(argv)
-
-    set_flags = [f for f in _M11C_FLAGS
-                 if getattr(args, f) != p.get_default(f)]
-    if set_flags:
-        names = ", ".join("--" + f.replace("_", "-") for f in set_flags)
-        raise SystemExit(
-            f"{names}: the replica lanes on other hosts and the "
-            "serialized-program store are ROADMAP M11c of the port — "
-            "run the drill without them")
 
     from raft_tpu_torch.config import RAFTConfig
     from raft_tpu_torch.models import RAFT
@@ -1560,9 +1721,37 @@ def main(argv=None):
                 "the device-resident feature pool is single-engine "
                 "state (a stream's cached activations live on ONE "
                 "replica) — run the fleet without it")
+    if args.hosts:
+        if args.models:
+            raise SystemExit(
+                "--hosts drives the single-model drills only for now "
+                "(the registry drill builds its engines internally) "
+                "— drop --models")
+        if args.ragged:
+            raise SystemExit(
+                "--hosts with --ragged is not supported: remote lanes "
+                "speak the bucketed engine surface — run the host drill "
+                "without --ragged")
+        if args.feature_cache:
+            raise SystemExit(
+                "--hosts with --feature-cache is not supported: the "
+                "device-resident feature pool is single-engine state "
+                "— run the host drill without it")
+    if args.hosts_kill_one and not args.hosts:
+        raise SystemExit("--hosts-kill-one needs --hosts")
+    if args.hosts_kill_one and args.chaos:
+        raise SystemExit("--hosts-kill-one drives the plain drill "
+                         "(the chaos rounds inject their own host "
+                         "faults through the widened site vocabulary)")
     if (args.guardian or args.admission_budget) and not args.models:
         raise SystemExit("--guardian/--admission-budget need --models "
                          "(they are ModelRegistry features)")
+    if args.aot_cache and args.models:
+        raise SystemExit("--aot-cache with --models is not wired yet "
+                         "(the registry drill builds its engines "
+                         "internally; use ModelRegistry's artifact_dir= "
+                         "in library code) — run the single-model drills "
+                         "against the store")
     if args.log_dir:
         os.makedirs(args.log_dir, exist_ok=True)
 
@@ -1597,7 +1786,8 @@ def main(argv=None):
             ragged=args.ragged, capacity_classes=capacity_classes,
             max_queue=args.queue, seed=args.seed,
             metrics_path=metrics_path, trace_path=trace_path,
-            trace_sample=trace_sample, device=args.device)
+            trace_sample=trace_sample, aot_cache=args.aot_cache,
+            hosts=args.hosts, device=args.device)
         print(json.dumps(summary), flush=True)
         if summary["violations"]:
             raise SystemExit(1)
@@ -1623,8 +1813,9 @@ def main(argv=None):
         recover_s=args.recover_s,
         metrics_path=metrics_path, trace_path=trace_path,
         trace_sample=trace_sample, seed=args.seed,
-        replicas=args.replicas, replica_ceiling=args.replica_ceiling,
-        device=args.device)
+        aot_cache=args.aot_cache, replicas=args.replicas,
+        replica_ceiling=args.replica_ceiling, hosts=args.hosts,
+        host_kill_one=args.hosts_kill_one, device=args.device)
     print(json.dumps(summary), flush=True)
     return summary
 

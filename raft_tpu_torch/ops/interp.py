@@ -13,11 +13,14 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-from scipy import interpolate
 
 
 def forward_interpolate(flow: np.ndarray) -> np.ndarray:
     """flow: (H, W, 2) numpy array (x, y channels last). Returns same shape."""
+    # imported here: scipy.interpolate costs a second at import, and most
+    # processes that import this module (a serving worker) never call it
+    from scipy import interpolate
+
     flow = np.asarray(flow)
     dx, dy = flow[..., 0], flow[..., 1]
 

@@ -1,5 +1,4 @@
-"""Serving, port of ``raft_tpu/serving`` (ROADMAP M10, M11a and the
-in-process half of M11b).
+"""Serving, port of ``raft_tpu/serving`` (ROADMAP M10 and M11).
 
 The engine layer: ``engine.py`` is the shape-bucketed engine (one captured
 CUDA graph per bucket on the card, the eager forward on the CPU),
@@ -22,10 +21,16 @@ guardian that bakes a canary and promotes or rolls it back, and the
 registry-wide admission budget (``guardian.py``); and the scheduler's
 replica fleet, N engines on the card behind one queue.
 
-Still to come (ROADMAP M11c): the serialized-program store, the lanes on
-other hosts and their transport; ``serving/video.py`` is ROADMAP M14.
+Across processes: the program store (``aot.py``: each bucket's exported
+program behind a content-addressed, sha256-verified store that a joining
+process loads instead of tracing), the transport (``transport.py``:
+loopback and socket, one wire protocol with the JAX package's), and the
+host fleet (``hosts.py``: workers that take no traffic until their pushed
+programs verify, heartbeats, failover and rejoin; ``host_worker.py`` is a
+worker's process). ``serving/video.py`` is ROADMAP M14.
 """
 
+from raft_tpu_torch.serving.aot import AOTCache, key_digest
 from raft_tpu_torch.serving.engine import (SHAPE_ENVELOPE_LINUX,
                                            SHAPE_ENVELOPE_WINDOWS,
                                            PendingBatch, RaggedPendingBatch,
@@ -37,6 +42,8 @@ from raft_tpu_torch.serving.feature_cache import (FeatureCacheMiss,
 from raft_tpu_torch.serving.futures import settle_future
 from raft_tpu_torch.serving.guardian import (AdmissionBudget,
                                              GuardianPolicy, SLOGuardian)
+from raft_tpu_torch.serving.hosts import (HostDead, HostFleet, HostWorker,
+                                          RemoteEngine)
 from raft_tpu_torch.serving.metrics import LatencyHistogram, ServingMetrics
 from raft_tpu_torch.serving.registry import (DeployError, ModelRegistry,
                                              RolloutInProgress,
@@ -56,6 +63,9 @@ from raft_tpu_torch.serving.scheduler import (PRIORITY_BATCH,
                                               SchedulerClosed, ServeResult)
 from raft_tpu_torch.serving.session import VideoSession
 from raft_tpu_torch.serving.trace import TraceLedger
+from raft_tpu_torch.serving.transport import (LoopbackTransport,
+                                              SocketTransport,
+                                              TransportError)
 
 __all__ = ["RAFTEngine", "PendingBatch", "RaggedPendingBatch",
            "StaleFeatureError", "SHAPE_ENVELOPE_LINUX",
@@ -70,4 +80,6 @@ __all__ = ["RAFTEngine", "PendingBatch", "RaggedPendingBatch",
            "settle_future", "FeatureCachePool", "FeatureCacheMiss",
            "TraceLedger", "ModelRegistry", "DeployError",
            "RolloutInProgress", "UnknownModel", "SLOGuardian",
-           "GuardianPolicy", "AdmissionBudget"]
+           "GuardianPolicy", "AdmissionBudget", "AOTCache", "key_digest",
+           "HostFleet", "HostWorker", "RemoteEngine", "HostDead",
+           "LoopbackTransport", "SocketTransport", "TransportError"]

@@ -46,8 +46,16 @@ inputs and outputs, and its own capture of each of the primary's
 programs (one capture per program, where JAX compiles none). A swap on
 one lane then never writes a tensor another lane's replay reads.
 
-Not ported here: ``mesh=`` (ROADMAP M9) and ``aot_cache=`` (M11c) raise
-``NotImplementedError``.
+The program store (``aot_cache=``, serving/aot.py): on a bucket's first
+build the engine loads its exported program from the store (the
+verification runs outside every lock) or, on a miss, exports the live
+module with ``torch.export`` and stores it; either way it captures the
+EXPORTED program, its parameters and buffers bound to the engine's live
+tensors, so both paths capture one program and a weight swap reaches the
+replay. A hit replaces the trace, not the capture: a CUDA graph never
+outlives its process. Without a store nothing of this runs.
+
+Not ported here: ``mesh=`` (ROADMAP M9) raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -64,6 +72,8 @@ from raft_tpu_torch.config import ITERS_EXPORT, RAFTConfig
 from raft_tpu_torch.evaluation.evaluate import resolve_device
 from raft_tpu_torch.models import RAFT
 from raft_tpu_torch.ops.padding import pad_amounts
+from raft_tpu_torch.serving import aot as _aotmod
+from raft_tpu_torch.serving.export import bind_program, export_bucket
 from raft_tpu_torch.testing.faults import fault_point
 
 # cvt2trt.sh:1 envelope (min 1x3x256x256 / opt 2x3x800x800 / max 8x3x1024x1024)
@@ -278,9 +288,14 @@ class RAFTEngine:
         shapes that fits (``RAFT.forward_ragged``); a request outside
         every class rounds its box up to ``ragged_grain`` pixels.
 
+        ``aot_cache``: the program store (a directory path or a
+        :class:`~raft_tpu_torch.serving.aot.AOTCache`): each bucket's
+        program is loaded from it on a hit, exported and stored on a
+        miss, and captured either way; ``aot_stats()`` counts both.
+
         ``device``: the card unless ``"cpu"`` is asked for; on the CPU the
-        programs run the eager forward. ``mesh`` and ``aot_cache`` are
-        not ported (ROADMAP M9, M11c) and raise.
+        programs run the eager forward. ``mesh`` is not ported (ROADMAP
+        M9) and raises.
         """
         if wire not in ("f32", "u8"):
             raise ValueError(f"wire={wire!r}: choose 'f32' or 'u8'")
@@ -315,10 +330,6 @@ class RAFTEngine:
         if mesh is not None:
             raise NotImplementedError(
                 "mesh=: sharded serving is ROADMAP M9 of the port")
-        if aot_cache is not None:
-            raise NotImplementedError(
-                "aot_cache=: the store of serialized programs is ROADMAP "
-                "M11c of the port")
         self.config = config
         self.iters = iters
         self.exact_shapes = exact_shapes
@@ -349,8 +360,23 @@ class RAFTEngine:
             self._capture_stream = torch.cuda.Stream(dev)
             self._pool = torch.cuda.graph_pool_handle()
         #: programs built (graphs captured on the card, eager programs on
-        #: the CPU); ``compile_count`` is its alias
+        #: the CPU), from the store or not
         self.capture_count = 0
+        #: programs built by tracing the live module (every build without
+        #: a store; a store's misses); ``compile_count`` is its alias
+        self.compiles = 0
+        #: the program store and its counters
+        self._aot = _aotmod.as_cache(aot_cache)
+        self.aot_hits = 0
+        self.aot_misses = 0
+        #: ``(table, bucket) -> {"load": s}`` on a store hit, ``{"export":
+        #: s, "store": s}`` on a miss
+        self.aot_seconds: Dict[tuple, Dict[str, float]] = {}
+        if self._aot is not None:
+            # a content fingerprint, not weights_version: a fresh process
+            # re-derives the same key from the same checkpoint
+            self._weights_fp = _aotmod.weights_fingerprint(self.model)
+            self._config_fp = _aotmod.config_fingerprint(config, iters)
         #: ``(table, bucket) -> {"warmup": s, "capture": s}`` of each graph
         #: captured: the eager warm-up run and the capture itself
         self.capture_seconds: Dict[tuple, Dict[str, float]] = {}
@@ -381,8 +407,10 @@ class RAFTEngine:
 
     @property
     def compile_count(self) -> int:
-        """Alias of :attr:`capture_count` under the JAX engine's name."""
-        return self.capture_count
+        """Programs built by tracing the live module (:attr:`compiles`),
+        under the JAX engine's name: :attr:`capture_count` without a
+        store."""
+        return self.compiles
 
     # -- weights -------------------------------------------------------------
 
@@ -443,6 +471,11 @@ class RAFTEngine:
         state = _state_dict(weights)
         self._check_weights(state)
         staged = {k: v.detach().to(self.device) for k, v in state.items()}
+        # outside the lock (it hashes every tensor): programs built after
+        # the swap key to the new weights, so the old checkpoint's
+        # entries are unreachable from here until it is swapped back
+        new_fp = (_aotmod.weights_fingerprint(state)
+                  if self._aot is not None else None)
         with self._lock:
             with self._on_stream(), torch.no_grad():
                 for k, t in self.model.state_dict().items():
@@ -451,6 +484,8 @@ class RAFTEngine:
                     if src.is_cuda:
                         src.record_stream(self._stream)
             self.weights_version += 1
+            if new_fp is not None:
+                self._weights_fp = new_fp
 
     # -- programs ------------------------------------------------------------
 
@@ -501,13 +536,12 @@ class RAFTEngine:
         return lambda x: model(x["image1"], x["image2"], iters=iters,
                                flow_init=x.get("flow_init"), test_mode=True)
 
-    def _build(self, shape, kind: str) -> _Program:
-        """A bucket's program. On the card: one warm-up run on the capture
-        stream (it builds the kernel library and the cuDNN and cuBLAS
-        state, so nothing of that happens inside the capture), then the
-        capture into the engine's shared pool."""
-        inputs = self._static_inputs(shape, kind)
-        fn = self._forward(kind)
+    def _build(self, shape, kind: str, inputs, fn) -> _Program:
+        """A bucket's program over ``fn`` (the live forward, or an
+        exported program bound to the live weights). On the card: one
+        warm-up run on the capture stream (it builds the kernel library
+        and the cuDNN and cuBLAS state, so nothing of that happens inside
+        the capture), then the capture into the engine's shared pool."""
         if self.device.type != "cuda":
             return _Program(inputs, torch.no_grad()(fn))
         from raft_tpu_torch import kernels
@@ -533,21 +567,70 @@ class RAFTEngine:
                 "warmup": t1 - t0, "capture": time.perf_counter() - t1}
         return _Program(inputs, fn, graph, outputs, launches)
 
+    def _aot_key(self, shape: Tuple[int, int, int],
+                 kind: str = "plain") -> Dict:
+        """The store's key for one bucket's program: its full provenance,
+        every component derivable by a fresh process holding the same
+        checkpoint (``aot.REQUIRED_KEY_FIELDS``, and the TF32 flags)."""
+        if kind == "ragged":
+            program = ("serve_ragged_warm" if self.warm_start
+                       else "serve_ragged")
+        elif kind == "cached":
+            program = "serve_cached"
+        else:
+            program = "serve_warm" if self.warm_start else "serve"
+        with self._lock:
+            weights_fp = self._weights_fp
+        return {
+            "format": _aotmod.AOT_FORMAT,
+            "program": program,
+            "weights": weights_fp,
+            "geometry": [int(x) for x in shape],
+            "wire": self.wire,
+            "iters": int(self.iters),
+            "config": self._config_fp,
+            "donations": "none",
+            "partition": _aotmod.partition_fingerprint(),
+            **_aotmod.runtime_fields(self.device),
+        }
+
     def _get_program(self, shape: Tuple[int, int, int],
                      kind: str = "plain") -> _Program:
         """The bucket's program, built on a miss outside the engine lock
-        (the analog of the JAX engine's ``_get_executable``)."""
+        (the analog of the JAX engine's ``_get_executable``). With a
+        store, a verified load comes first, outside every lock; a hit
+        builds from the loaded program and traces nothing."""
         table = self._tables[kind]
         with self._lock:
             prog = table.get(shape)
         if prog is not None:
             return prog
-        # chaos site: "raise" models an uncapturable shape, "hang" a
-        # capture that never returns. It fires outside every lock, as
-        # the JAX engine's compile does: a thread the scheduler's
-        # watchdog quarantined here holds nothing, so other shapes'
-        # captures and the half-open probe's recapture go on
-        fault_point("engine.compile")
+        key = (self._aot_key(shape, kind) if self._aot is not None
+               else None)
+        loaded = None
+        if key is not None:
+            # load-not-trace: the store never raises and never returns a
+            # wrong program; any mismatch or corruption falls through to
+            # the trace below (the "aot.load" site drills it)
+            t0 = time.perf_counter()
+            program = self._aot.load(key)
+            with self._lock:
+                if program is None:
+                    self.aot_misses += 1
+                else:
+                    self.aot_hits += 1
+                    self.aot_seconds[(kind, shape)] = {
+                        "load": time.perf_counter() - t0}
+            if program is not None:
+                loaded = bind_program(program, self.model)
+        if loaded is None:
+            # chaos site (builds that trace the live module): "raise"
+            # models an uncapturable shape, "hang" a capture that never
+            # returns. It fires outside every lock, as the JAX engine's
+            # compile does: a thread the scheduler's watchdog quarantined
+            # here holds nothing, so other shapes' captures and the
+            # half-open probe's recapture go on
+            fault_point("engine.compile")
         with self._capture_lock:
             with self._lock:
                 prog = table.get(shape)
@@ -555,13 +638,39 @@ class RAFTEngine:
                 return prog
             with self._lock:
                 self.capture_count += 1
-            prog = self._build(shape, kind)
+                if loaded is None:
+                    self.compiles += 1
+            inputs = self._static_inputs(shape, kind)
+            fn = self._forward(kind)
+            if loaded is not None:
+                fn = loaded
+            elif key is not None:
+                fn = self._export_and_store(shape, kind, key, inputs, fn)
+            prog = self._build(shape, kind, inputs, fn)
             with self._lock:
                 # a precompile=False placeholder (None) is filled
                 cur = table.get(shape)
                 if cur is None:
                     table[shape] = cur = prog
         return cur
+
+    def _export_and_store(self, shape, kind: str, key: Dict, inputs,
+                          fn) -> Callable:
+        """A store miss: export the live forward at the bucket's shapes,
+        store the program and return it bound to the live weights (the
+        program a later hit would load). A program that will not export
+        stores nothing, and the live forward is returned."""
+        t0 = time.perf_counter()
+        try:
+            program = export_bucket(self.model, fn, inputs)
+        except Exception:  # noqa: BLE001 — the store never gates a build
+            return fn
+        t1 = time.perf_counter()
+        self._aot.store(key, program)
+        with self._lock:
+            self.aot_seconds[(kind, shape)] = {
+                "export": t1 - t0, "store": time.perf_counter() - t1}
+        return bind_program(program, self.model)
 
     def _dispatch(self, prog: _Program, host: Dict[str, np.ndarray],
                   keep: Callable[[tuple], tuple],
@@ -617,21 +726,28 @@ class RAFTEngine:
             return dict(self._replayed)
 
     def aot_stats(self) -> Dict[str, int]:
-        """The JAX engine's serialized-cache counters: no store exists
-        here (ROADMAP M11c), so all are 0 but ``compiles``, the programs
-        built (a replica's captures of its primary's programs count)."""
+        """The program store's counters (the JAX engine's keys, and
+        ``captures``): loads that verified (``aot_hits``, also
+        ``compiles_avoided``), loads that missed, programs built by
+        tracing the live module (``compiles``: every build without a
+        store; a replica's builds count) and programs built in all."""
         with self._lock:
-            return {"enabled": 0, "aot_hits": 0, "aot_misses": 0,
-                    "compiles": self.capture_count, "compiles_avoided": 0}
+            return {"enabled": int(self._aot is not None),
+                    "aot_hits": self.aot_hits,
+                    "aot_misses": self.aot_misses,
+                    "compiles": self.compiles,
+                    "compiles_avoided": self.aot_hits,
+                    "captures": self.capture_count}
 
     # -- replica fleet (parallel/placement.py) --------------------------------
 
     def spawn_replica(self) -> "RAFTEngine":
         """A sibling for the scheduler's replica fleet: the same config,
         iters, wire and mode flags, a copy of this engine's weights on
-        the same device, and its own capture of each program this engine
-        has built (:meth:`adopt_executables`); placeholders are mirrored
-        as placeholders. The sibling's tables are its own, so a wedge
+        the same device, this engine's program store, and its own capture
+        of each program this engine has built (:meth:`adopt_executables`:
+        with a store, each loaded from it, so the sibling traces nothing);
+        placeholders are mirrored as placeholders. The sibling's tables are its own, so a wedge
         verdict's ``drop_bucket`` on one replica never touches
         another's graph, and its stream, pool and weight storage are its
         own, so its replays and swaps run beside this engine's."""
@@ -641,7 +757,7 @@ class RAFTEngine:
             exact_shapes=self.exact_shapes, warm_start=self.warm_start,
             wire=self.wire, feature_cache=self.feature_cache,
             ragged=self.ragged, ragged_grain=self.ragged_grain,
-            device=str(self.device))
+            aot_cache=self._aot, device=str(self.device))
         rep.adopt_executables(self)
         return rep
 

@@ -19,6 +19,14 @@ registers them.
 
     python -m raft_tpu_torch.cli.export --model raft-small.pth --small \\
         --out raft-small.pt2 [--device cpu]
+
+The serving engine's program store (``serving/aot.py``) exports each
+bucket's program the same way (:func:`export_bucket`): one program per
+engine kind (``serve``, ``serve_warm`` with ``flow_init``,
+``serve_cached``, ``serve_ragged``), traced at the bucket's static
+shapes on the engine's static input dict, in its wire dtype. A loaded
+program's parameters and buffers are then bound to the engine's live
+tensors (:func:`bind_program`), so a weight swap reaches its replays.
 """
 
 from __future__ import annotations
@@ -94,6 +102,43 @@ def load_program(path: str):
     import raft_tpu_torch.kernels  # noqa: F401  (registers the operators)
 
     return torch.export.load(path).module()
+
+
+class BucketProgram(nn.Module):
+    """One serving bucket's program as a module: ``forward(inputs)`` runs
+    ``fn`` (the engine's forward of a kind) on the bucket's input dict.
+    ``model`` is held as a submodule, so the state dict's keys are the
+    model's under ``model.``."""
+
+    def __init__(self, model: RAFT, fn):
+        super().__init__()
+        self.model = model
+        self._fn = fn
+
+    def forward(self, inputs):
+        return self._fn(inputs)
+
+
+def export_bucket(model: RAFT, fn, inputs) -> torch.export.ExportedProgram:
+    """``torch.export.export`` of :class:`BucketProgram` at the static
+    shapes and dtypes of ``inputs`` (the engine's static input dict, on
+    its device)."""
+    return torch.export.export(BucketProgram(model, fn), (inputs,))
+
+
+def bind_program(program: torch.export.ExportedProgram, model: RAFT):
+    """The callable of an exported bucket program whose parameters and
+    buffers ARE ``model``'s tensors (assigned, not copied): the ``.pt2``
+    carries its own copy of the weights, and an engine's in-place weight
+    swap must reach the program it replays. The kernels' operators are
+    registered first."""
+    import raft_tpu_torch.kernels  # noqa: F401  (registers the operators)
+
+    module = program.module()
+    module.load_state_dict(
+        {f"model.{k}": v for k, v in model.state_dict().items()},
+        strict=True, assign=True)
+    return module
 
 
 def main(argv=None):

@@ -1,6 +1,5 @@
 """Multi-model serving registry: versioned engines, canary rollout; port
-of ``raft_tpu/serving/registry.py`` without the serialized-program store
-(``artifact_dir=`` raises, naming ROADMAP M11c).
+of ``raft_tpu/serving/registry.py``.
 
 The serving stack below this module is single-model: one ``RAFTEngine``
 (one arch, one set of weights), one ``MicroBatchScheduler`` (one queue,
@@ -103,13 +102,6 @@ class DeployError(RuntimeError):
 class RolloutInProgress(RuntimeError):
     """``deploy`` while the model already has a canary: one rollout at
     a time per model — promote or roll back the current one first."""
-
-
-def _no_artifact_store(artifact_dir) -> None:
-    if artifact_dir is not None:
-        raise NotImplementedError(
-            "artifact_dir=: the store of serialized programs is ROADMAP "
-            "M11c of the port")
 
 
 def _executables(engine) -> int:
@@ -310,6 +302,36 @@ class ModelRegistry:
         variant.final_snapshot = variant.scheduler.metrics.snapshot(
             executables=_executables(variant.engine))
         self._set_state(name, variant, MODEL_RETIRED)
+        self._retire_artifacts(name, variant)
+
+    def _retire_artifacts(self, name: str, variant: _Variant) -> None:
+        """Program-store hygiene for a retired variant: evict its
+        programs from the store UNLESS a surviving variant (any model's
+        live or canary) still serves the same weights fingerprint — a
+        rolled-back canary's programs go, the live engine's stay, and a
+        re-deploy of shared weights keeps its warm path. Best-effort: a
+        failed eviction never fails the rollout that triggered it."""
+        aot = getattr(variant.engine, "_aot", None)
+        fp = getattr(variant.engine, "_weights_fp", None)
+        if aot is None or fp is None or not hasattr(aot, "evict"):
+            return
+        with self._lock:
+            survivors = {
+                getattr(v.engine, "_weights_fp", None)
+                for m in self._models.values()
+                for v in (m.live, m.canary) if v is not None
+                and v is not variant}
+        if fp in survivors:
+            return
+        try:
+            gone = aot.evict(weights=fp)
+        except Exception:  # noqa: BLE001 — GC must not fail a rollout
+            return
+        if gone.get("removed"):
+            self._events.record_event(
+                "aot_evicted", model=name, version=variant.version,
+                removed=gone["removed"],
+                removed_bytes=gone["removed_bytes"])
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -328,9 +350,11 @@ class ModelRegistry:
         engine (drills share captures across rounds); otherwise one is
         built from ``variables`` (a ``RAFT`` module or its state dict)
         and ``config``, its buckets captured over ``envelope``.
-        ``artifact_dir=`` (the serialized-program store) is ROADMAP
-        M11c and raises. Extra kwargs reach the variant's scheduler."""
-        _no_artifact_store(artifact_dir)
+        ``artifact_dir=`` points the engine at a program store
+        (serving/aot.py): an engine started against a warm store loads
+        its envelope's programs instead of tracing them, and a retired
+        variant's programs are evicted from it. Extra kwargs reach the
+        variant's scheduler."""
         with self._lock:
             if self._closed:
                 raise SchedulerClosed("registry is closed")
@@ -343,7 +367,8 @@ class ModelRegistry:
             iters=iters, envelope=envelope,
             engine_kw=dict(warm_start=warm_start, wire=wire,
                            exact_shapes=exact_shapes,
-                           feature_cache=feature_cache),
+                           feature_cache=feature_cache,
+                           aot_cache=artifact_dir),
             sched_kw=sched_kw, engine=engine)
         with self._lock:
             # re-checked at publish: the build ran outside the lock
@@ -381,9 +406,12 @@ class ModelRegistry:
         with auto-rollback — never under live traffic) defaulting to
         the live engine's bucket envelope and wire/warm-start recipe.
         ``promote()`` then reuses the live graphs for a same-arch
-        canary via ``update_weights``. ``artifact_dir=`` is ROADMAP
-        M11c and raises."""
-        _no_artifact_store(artifact_dir)
+        canary via ``update_weights``. ``artifact_dir=`` threads a
+        program store (serving/aot.py) into the canary engine: a
+        restarting supervisor re-deploying known weights loads the
+        canary envelope instead of tracing it (keys are content
+        addressed, so genuinely NEW weights still trace, and store their
+        programs for the replicas that follow)."""
         if not 0.0 < canary_fraction <= 1.0:
             raise ValueError(
                 f"canary_fraction={canary_fraction}: must be in (0, 1]")
@@ -430,7 +458,8 @@ class ModelRegistry:
                     exact_shapes=getattr(live.engine, "exact_shapes",
                                          False),
                     feature_cache=getattr(live.engine, "feature_cache",
-                                          False)),
+                                          False),
+                    aot_cache=artifact_dir),
                 sched_kw=sched_kw, engine=engine, same_arch=same_arch)
         except Exception as exc:
             # auto-rollback: nothing was routed, nothing is left. The

@@ -1,6 +1,6 @@
 """Async micro-batching scheduler: the serving front-end over the engine;
-port of ``raft_tpu/serving/scheduler.py`` with its in-process replica
-fleet (the multi-host lanes are ROADMAP M11c).
+port of ``raft_tpu/serving/scheduler.py`` with its replica fleet, in
+this process and in other host processes.
 
 ``RAFTEngine`` is a synchronous bucket router — one caller drives it at
 a time, and a lone request pads a bucket's whole batch dimension with
@@ -113,9 +113,16 @@ default OFF): N engines on one card (``RAFTEngine.spawn_replica``: each
 its own weights, stream, pool and captures), one lane each behind the
 one queue, picked least-loaded per dispatch, each with its own executor
 and breaker board. A wedge quarantines one lane while the rest serve, and
-``swap_weights`` moves every lane or none. Not ported here: the host
-lanes (``host_fleet=``, ROADMAP M11c), which raise
-``NotImplementedError``.
+``swap_weights`` moves every lane or none.
+
+Host lanes (``host_fleet=``, default None): each admitted host of a
+:class:`~raft_tpu_torch.serving.hosts.HostFleet` (an engine in another
+process, behind a transport) is one more lane, after the local ones. Its
+heartbeat verdicts drain on the dispatcher tick; a dead host's lane is
+quarantined and its transport poisoned before its in-flight batch fails
+over to the surviving lanes by requeue, every request settling exactly
+once (a zombie's late answer is dropped). A rejoined host's lane serves
+again.
 """
 
 from __future__ import annotations
@@ -136,6 +143,7 @@ from raft_tpu_torch.parallel.placement import Placement
 from raft_tpu_torch.serving.feature_cache import (FeatureCacheMiss,
                                                   FeatureCachePool)
 from raft_tpu_torch.serving.futures import settle_future
+from raft_tpu_torch.serving.hosts import HostDead
 from raft_tpu_torch.serving.metrics import ServingMetrics
 from raft_tpu_torch.serving.resilience import (BREAKER_CLOSED,
                                                BREAKER_OPEN, CircuitBreaker,
@@ -143,6 +151,7 @@ from raft_tpu_torch.serving.resilience import (BREAKER_CLOSED,
                                                DispatchExecutor,
                                                DispatchWedged, _DispatchJob)
 from raft_tpu_torch.serving.trace import TraceLedger
+from raft_tpu_torch.serving.transport import TransportError
 from raft_tpu_torch.testing.faults import fault_point
 
 
@@ -210,11 +219,14 @@ class _ReplicaLane:
 
     __slots__ = ("index", "engine", "exec", "breakers", "job",
                  "t_launch", "active", "quarantined", "dispatches",
-                 "prev_pending", "idle_since")
+                 "prev_pending", "idle_since", "host")
 
-    def __init__(self, index: int, engine):
+    def __init__(self, index: int, engine, host: Optional[str] = None):
         self.index = index
         self.engine = engine
+        #: host name when this lane lives in ANOTHER process
+        #: (serving/hosts.py); None for every local lane
+        self.host = host
         self.exec = DispatchExecutor(f"MicroBatchScheduler-r{index}")
         self.breakers: Dict[Tuple, CircuitBreaker] = {}
         self.job: Optional[_DispatchJob] = None
@@ -383,13 +395,20 @@ class MicroBatchScheduler:
         ``pipeline_depth>1`` raise :class:`ConfigError` with a fleet —
         see the messages for why.
 
-        ``host_fleet`` (lanes on other hosts) is ROADMAP M11c of the
-        port and raises ``NotImplementedError`` before any thread
-        starts."""
-        if host_fleet is not None:
-            raise NotImplementedError(
-                "host_fleet=: replica lanes on other hosts are ROADMAP "
-                "M11c of the port")
+        ``host_fleet`` (a :class:`~raft_tpu_torch.serving.hosts.
+        HostFleet`, already admitted: every host's programs pushed and
+        prewarmed) extends the replica fleet across processes: each
+        remote worker becomes one more lane, served through its
+        :class:`~raft_tpu_torch.serving.hosts.RemoteEngine` proxy like a
+        local replica. The fleet's heartbeat monitor is started here;
+        its dead-host verdicts drain on the dispatcher tick into
+        :meth:`_wedge_host` (quarantine and transport poison FIRST, then
+        the in-flight batch FAILS OVER by requeue to the surviving lanes:
+        never stranded, never settled twice). With remote lanes, set
+        ``breaker_failures>=1`` so a dying but not yet verdicted host is
+        paced by its lane breakers instead of re-picked every tick.
+        ``ragged=True`` with a fleet raises :class:`ConfigError`.
+        ``host_fleet=None`` (the default) builds none of this."""
         self.engine = engine
         self.max_queue = int(max_queue)
         self.max_batch = int(max_batch)
@@ -430,7 +449,12 @@ class MicroBatchScheduler:
         #: stays the single-engine path.
         want = (placement.ceiling if placement is not None
                 else max(1, int(replicas), int(replica_ceiling or 0)))
-        if want > 1:
+        if host_fleet is not None and ragged:
+            raise ConfigError(
+                "ragged=True with host_fleet: remote lanes speak the "
+                "bucketed engine surface only — capacity-class "
+                "programs are not proxied yet")
+        if want > 1 or host_fleet is not None:
             if feature_cache:
                 raise ConfigError(
                     "feature_cache=True with replicas>1: a stream's "
@@ -448,13 +472,30 @@ class MicroBatchScheduler:
         self.placement = (placement if placement is not None
                           else (Placement(engine, replicas=replicas,
                                           ceiling=replica_ceiling)
-                                if want > 1 else None))
+                                if want > 1 or host_fleet is not None
+                                else None))
         #: fleet lanes, primary first; EMPTY list = single-engine mode
         #: (every `if self._lanes` fleet branch below is dead)
         self._lanes: List[_ReplicaLane] = (
             [_ReplicaLane(k, eng)
              for k, eng in enumerate(self.placement.engines)]
             if self.placement is not None else [])
+        #: the host fleet: each admitted remote worker is one more lane,
+        #: appended AFTER the local lanes (local indices never move); its
+        #: heartbeat verdicts drain in _run_fleet
+        self.host_fleet = host_fleet
+        if host_fleet is not None:
+            if host_fleet.metrics is None:
+                host_fleet.metrics = self.metrics
+            for name, host in host_fleet.hosts.items():
+                idx = self.placement.attach_host(name, host.engine)
+                lane = _ReplicaLane(idx, host.engine, host=name)
+                # pre-warm-before-traffic: a host that was never admitted
+                # (programs unverified) starts INACTIVE, and only a
+                # rejoin notice can activate it
+                lane.active = host.ready
+                self._lanes.append(lane)
+            host_fleet.start()
         self.replica_idle_retire_s = float(replica_idle_retire_s)
         #: swap barrier: a fleet-atomic weight swap quiesces the lanes
         #: (no new launches) while the dispatcher keeps reaping
@@ -1113,6 +1154,9 @@ class MicroBatchScheduler:
             return "degraded"
         if any(lane.quarantined for lane in self._lanes):
             return "degraded"    # serving on a reduced fleet
+        if self.host_fleet is not None \
+                and self.host_fleet.degradation() != "healthy":
+            return "degraded"    # a host suspect, dead or partitioned
         return "healthy"
 
     def _refresh_state(self, reason: str) -> None:
@@ -1179,12 +1223,18 @@ class MicroBatchScheduler:
                         "busy": ln.job is not None,
                         "dispatches": ln.dispatches,
                         "worker_alive": ln.exec.worker_alive(),
+                        **({"host": ln.host}
+                           if ln.host is not None else {}),
                         "breakers": {
                             self._key_label(k): br.snapshot()
                             for k, br in sorted(
                                 dict(ln.breakers).items())},
                     } for ln in self._lanes},
             }
+        if self.host_fleet is not None:
+            # degradation healthy|degraded|partitioned and the per-host
+            # heartbeat, failover and push evidence
+            out["hosts"] = self.host_fleet.health()
         return out
 
     # -- dispatch loop -----------------------------------------------------
@@ -1601,6 +1651,8 @@ class MicroBatchScheduler:
                                else (None, None))
                 closed = self._closed
             self._reap_lanes()
+            if self.host_fleet is not None:
+                self._host_notices()
             self._expiry_scan()
             if self.tracer is not None:
                 self.tracer.flush()
@@ -1754,10 +1806,18 @@ class MicroBatchScheduler:
         lane.job = None
         label = self._label(key, lane)
         if job.bucket is not None:
-            if job.ragged:
-                lane.engine.drop_bucket(job.bucket, ragged=True)
-            else:
-                lane.engine.drop_bucket(job.bucket)
+            # best-effort on a remote lane: the drop travels the wire, and
+            # a wedged host is exactly the kind whose transport may raise
+            # (the dispatcher must survive; the lane is retired below
+            # either way, and a stale remote bucket dies with its worker)
+            try:
+                if job.ragged:
+                    lane.engine.drop_bucket(job.bucket, ragged=True)
+                else:
+                    lane.engine.drop_bucket(job.bucket)
+            except Exception:
+                if lane.host is None:
+                    raise
         self._capacity.pop((key, lane.index), None)
         br = self._breaker(key, lane)
         if br is not None:
@@ -1779,6 +1839,106 @@ class MicroBatchScheduler:
                                   timeout_s=self.dispatch_timeout_s)
         self._refresh_state(f"replica wedge on {label}")
 
+    def _host_notices(self) -> None:
+        """Drain the host fleet's liveness verdicts on the dispatcher
+        tick: the ONE thread that owns the lanes applies every
+        consequence (the heartbeat monitor only queues)."""
+        for kind, name in self.host_fleet.pop_notices():
+            lane = next((ln for ln in self._lanes if ln.host == name),
+                        None)
+            if lane is None:
+                continue
+            if kind == "dead":
+                self._wedge_host(lane)
+            elif kind == "rejoined":
+                # the full re-admission already happened (programs
+                # re-pushed and verified, prewarm counters read): the
+                # lane serves again, with a fresh breaker board and
+                # capacity table, since the restarted worker shares
+                # nothing with its dead predecessor
+                lane.breakers = {}
+                for ck in [ck for ck in self._capacity
+                           if ck[1] == lane.index]:
+                    self._capacity.pop(ck, None)
+                lane.quarantined = False
+                lane.active = True
+                lane.idle_since = time.monotonic()
+                self.placement.mark_host(name, "healthy")
+                self._refresh_state(f"host {name} rejoined")
+
+    def _wedge_host(self, lane: _ReplicaLane) -> None:
+        """Dead-host verdict: the remote analogue of
+        :meth:`_wedge_replica`, with FAILOVER instead of failure.
+        Consequences first: abandon the in-flight job, clear the lane's
+        capacity entries, open its breaker, quarantine its executor, mark
+        the placement layer, poison the transport (which unsticks a lane
+        thread blocked in the zombie's recv); THEN the in-flight batch
+        fails over: its unsettled requests requeue for the surviving
+        lanes (idempotent per request: a future stays RUNNING and settles
+        exactly once wherever it lands, and a late answer from the zombie
+        is dropped by the ``job.abandoned`` check and ``settle_future``'s
+        raced hook). Only when NO lane can ever serve again does the
+        batch fail, with :class:`~raft_tpu_torch.serving.hosts.HostDead`."""
+        name = lane.host
+        job = lane.job
+        requeue: List[_Request] = []
+        if job is not None:
+            job.abandoned = True   # a late-waking lane thread must drop
+            #                        its answer, never settle
+            lane.job = None
+            requeue = [r for r in (job.batch or ())
+                       if not r.future.done()]
+            job.batch = []   # reaped nowhere: nothing may re-fail these
+            br = self._breaker(job.key, lane)
+            if br is not None:
+                br.record_failure(wedged=True)
+        for ck in [ck for ck in self._capacity if ck[1] == lane.index]:
+            self._capacity.pop(ck, None)
+        alive = lane.exec.quarantine_and_replace()
+        lane.prev_pending = None
+        lane.active = False
+        lane.quarantined = True
+        self.placement.mark_host(name, "dead")
+        self.host_fleet.poison(name)
+        self.metrics.record_quarantined(f"host:{name}", alive=alive)
+        self.metrics.record_event(
+            "replica_quarantined", replica=lane.index,
+            bucket=f"host:{name}")
+        survivors = any(ln.active for ln in self._lanes)
+        if requeue and not survivors \
+                and len(self.placement.engines) >= self.placement.ceiling:
+            # nothing left to fail over TO and no headroom to grow: fail
+            # rather than strand (every consequence above has landed)
+            n = self._fail_requests(requeue, HostDead(
+                f"host {name} verdicted dead with no surviving lane — "
+                "in-flight work cannot fail over"))
+            self.metrics.record_failure(n)
+            requeue = []
+        n = self._failover_requeue(lane, requeue)
+        self.metrics.record_event("failover", host=name,
+                                  replica=lane.index, requeued=n)
+        self.host_fleet.record_failover(name, requeued=n)
+        self._refresh_state(f"host {name} dead")
+
+    def _failover_requeue(self, lane: _ReplicaLane,
+                          requests: List[_Request]) -> int:
+        """Put a dead host lane's in-flight requests back at the head of
+        the shared queue for the surviving lanes. Idempotent: a request
+        already settled, or already requeued by the other side of the
+        verdict race, is skipped, so each settles exactly once. No
+        accounting changes here: the requests never left ``submitted``
+        and are counted by whatever finally settles them."""
+        n = 0
+        with self._cv:
+            for r in reversed(requests):
+                if r.future.done() or r in self._q:
+                    continue
+                self._q.appendleft(r)
+                n += 1
+            if n:
+                self._cv.notify_all()
+        return n
+
     def _scale_fleet(self) -> None:
         """Queue-pressure scale-up within the ceiling: reactivate a
         retired (non-quarantined) lane first, else grow a fresh
@@ -1796,7 +1956,11 @@ class MicroBatchScheduler:
         if active >= self.placement.ceiling:
             return
         for lane in self._lanes:
-            if not lane.active and not lane.quarantined:
+            # host lanes only (re)activate through the fleet's rejoin
+            # protocol (programs verified and prewarmed), never by
+            # queue-pressure policy
+            if not lane.active and not lane.quarantined \
+                    and lane.host is None:
                 lane.active = True
                 lane.idle_since = time.monotonic()
                 self.metrics.record_event(
@@ -1823,7 +1987,7 @@ class MicroBatchScheduler:
         now = time.monotonic()
         active = sum(1 for lane in self._lanes if lane.active)
         for lane in reversed(self._lanes):
-            if (lane.index > 0 and lane.active
+            if (lane.index > 0 and lane.host is None and lane.active
                     and lane.job is None
                     and lane.idle_since is not None
                     and self.placement.want_retire(
@@ -1871,6 +2035,16 @@ class MicroBatchScheduler:
             # lock (submitters would shed through the whole capture)
             capacity = self._shape_capacity(key, lane)
         except Exception as exc:
+            if (lane is not None and lane.host is not None
+                    and isinstance(exc, TransportError)):
+                # the probe died with the HOST, not the shape: take
+                # nothing — the queued work stays for the surviving
+                # lanes, the lane breaker records the failure (through
+                # _after_dispatch) and the heartbeat verdict owns the
+                # quarantine and the failover
+                job.error = exc
+                job.outcome = "failed"
+                return
             # an unservable shape (a capture failure) fails ITS
             # requests — it must not kill the dispatcher and strand
             # every queued future unsettled behind a dead thread
@@ -1891,9 +2065,16 @@ class MicroBatchScheduler:
         if job.abandoned:
             # verdict landed between the check above and the take: the
             # verdict saw batch=None, so disposing of these is OUR job
-            # — a quarantined thread may never strand what it took
-            self.metrics.record_failure(self._fail_requests(
-                batch, self._wedge_error(key)))
+            # — a quarantined thread may never strand what it took. On
+            # a host lane the verdict is a DEAD-HOST failover: the
+            # requests go back to the queue for the survivors; on a
+            # local lane the wedge verdict failed the batch, so these
+            # stragglers fail the same way.
+            if lane is not None and lane.host is not None:
+                self._failover_requeue(lane, batch)
+            else:
+                self.metrics.record_failure(self._fail_requests(
+                    batch, self._wedge_error(key)))
             return
         if batch:
             if len(key) > 2 and key[2] == "ragged":
@@ -1934,15 +2115,20 @@ class MicroBatchScheduler:
 
     def _settle(self, live: List[_Request], outs, label: str,
                 t_disp: float, warm: bool,
-                replica: Optional[int] = None) -> None:
+                replica: Optional[int] = None,
+                host: Optional[str] = None) -> None:
         """Resolve a finished micro-batch's futures + per-request
         latency records (inline at depth 1, on the completion worker
         at depth > 1; ``replica`` stamps fleet completions into the
-        per-replica metrics block)."""
+        per-replica metrics block; ``host`` set means a lost settle race
+        is a ZOMBIE answer — the request already failed over and settled
+        elsewhere — counted as a drop, never settled twice)."""
         if warm:
             flows, lows = outs
         else:
             flows, lows = outs, None
+        raced = (None if host is None
+                 else lambda: self.metrics.record_host_zombie_drop(host))
         t_done = time.monotonic()
         for i, r in enumerate(live):
             low = None
@@ -1950,7 +2136,8 @@ class MicroBatchScheduler:
                 low = lows[i]
                 if not r.low_device and isinstance(low, torch.Tensor):
                     low = low.cpu().numpy()
-            if not settle_future(r.future, ServeResult(flows[i], low)):
+            if not settle_future(r.future, ServeResult(flows[i], low),
+                                 raced):
                 # wedge verdict settled it first (and owns the span
                 # close); a raced caller cancel owns nothing — close
                 # the span cancelled (idempotent either way)
@@ -2048,15 +2235,22 @@ class MicroBatchScheduler:
         never abandoned — the invariant behind
         ``metrics.abandoned_inflight == 0``); returns the live ones.
         A future a wedge verdict settled between take and here is
-        skipped; a caller-cancelled one is counted and its span
-        closed."""
+        skipped; a caller-cancelled one is counted and its span closed;
+        one already RUNNING is a failed-over request whose first dispatch
+        died with its host, and is dispatched again."""
         live: List[_Request] = []
         for r in batch:
+            if r.future.running():
+                # already RUNNING: re-dispatch is idempotent (the future
+                # settles exactly once, and it can no longer be
+                # cancelled, as at its first dispatch)
+                live.append(r)
+                continue
             try:
                 running = r.future.set_running_or_notify_cancel()
             except (InvalidStateError, RuntimeError):
                 # stdlib futures raise bare RuntimeError here for any
-                # non-PENDING state
+                # non-PENDING state: a wedge verdict settled it
                 continue
             if running:
                 live.append(r)
@@ -2168,9 +2362,13 @@ class MicroBatchScheduler:
                 # routing into the engine now would capture a leaked
                 # duplicate. Dispose of anything the verdict's batch
                 # read raced past (it may have seen batch=None) — a
-                # quarantined thread never strands what it took.
-                self.metrics.record_failure(self._fail_requests(
-                    live, self._wedge_error(key)))
+                # quarantined thread never strands what it took. Host
+                # lanes fail over; local lanes fail.
+                if lane is not None and lane.host is not None:
+                    self._failover_requeue(lane, live)
+                else:
+                    self.metrics.record_failure(self._fail_requests(
+                        live, self._wedge_error(key)))
                 return
             warm = getattr(eng, "warm_start", False)
             prev = (lane.prev_pending if lane is not None
@@ -2194,9 +2392,18 @@ class MicroBatchScheduler:
                 else:
                     outs = eng.infer_batch(i1, i2)
                 if job.abandoned:
+                    # a ZOMBIE answer: the dead-host verdict landed while
+                    # the RPC was out and already failed over (or failed)
+                    # this batch — drop the late result whole
+                    if lane is not None and lane.host is not None:
+                        for _ in live:
+                            self.metrics.record_host_zombie_drop(
+                                lane.host)
                     return
                 self._settle(live, outs, label, t_disp, warm,
-                             replica=replica)
+                             replica=replica,
+                             host=(lane.host if lane is not None
+                                   else None))
                 job.outcome = "ok"
                 return
             if warm:
@@ -2211,6 +2418,32 @@ class MicroBatchScheduler:
                 lambda outs: self._settle(live, outs, label, t_disp, warm,
                                           replica=replica))
         except Exception as exc:  # route to the callers; worker survives
+            if job.abandoned and lane is not None and lane.host is not None:
+                # the raise IS the dead-host verdict unsticking us
+                # (poisoned transport): the verdict already owned the
+                # batch (requeued or failed); settling here would
+                # dispose twice of the futures it failed over
+                job.outcome = "failed"
+                return
+            if (lane is not None and lane.host is not None
+                    and isinstance(exc, TransportError)):
+                # the transport died mid-dispatch BEFORE any heartbeat
+                # verdict (a socket reset the instant the worker was
+                # killed, an injected host.infer raise): fail over NOW —
+                # requeue the live batch for the surviving lanes, keep
+                # job.error so the lane breaker paces re-picks; the
+                # missed-beat ladder delivers the quarantine verdict
+                n = self._failover_requeue(lane, live)
+                self.metrics.record_event(
+                    "failover", host=lane.host, replica=lane.index,
+                    requeued=n)
+                if self.host_fleet is not None:
+                    self.host_fleet.record_failover(lane.host,
+                                                    requeued=n)
+                job.batch = []
+                job.error = exc
+                job.outcome = "failed"
+                return
             self.metrics.record_failure(self._fail_requests(live, exc))
             job.outcome = "failed"
 
@@ -2527,6 +2760,11 @@ class MicroBatchScheduler:
             raise RuntimeError(
                 "supervised dispatch executor failed to stop within "
                 f"{timeout}s")
+        if self.host_fleet is not None:
+            # stop the heartbeat monitor BEFORE closing the lanes: a
+            # verdict with no dispatcher left to drain it would sit in
+            # the notices forever
+            self.host_fleet.close()
         for lane in self._lanes:
             # the fleet loop drained every lane before returning
             # (quarantined wedge threads stay the accounted daemon

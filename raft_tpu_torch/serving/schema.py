@@ -1,6 +1,5 @@
-"""The metrics.jsonl / spans.jsonl record schemas, in ONE place; port
-of ``raft_tpu/serving/schema.py`` (the wire-protocol table of the
-multi-host transport waits for it, ROADMAP M11c).
+"""The metrics.jsonl / spans.jsonl record schemas and the host fleet's
+wire-protocol table, in ONE place; port of ``raft_tpu/serving/schema.py``.
 
 Every serving layer appends to the same observability files — metrics
 snapshots (``kind: "serving"``), supervisor-style events
@@ -92,6 +91,39 @@ EVENT_FIELDS: Dict[str, frozenset] = {
                                            "intended", "error"}),
     "guardian_error": frozenset({"error"}),
 }
+
+#: the wire-protocol method registry: every method a transport client
+#: may ``call()`` and a :class:`~raft_tpu_torch.serving.hosts.HostWorker`
+#: must table (``_m_<method>``), mapped to the payload keys the worker
+#: REQUIRES (the additive contract again: extra payload keys are never
+#: an error; a method lands HERE first). :func:`check_wire_handlers`
+#: holds a worker class to it; the table is the JAX package's, so either
+#: package's client drives either package's worker.
+WIRE_METHODS: Dict[str, frozenset] = {
+    "ping": frozenset(),
+    "put_artifact": frozenset({"digest", "blob", "manifest", "sha256"}),
+    "prewarm": frozenset(),
+    "capacity": frozenset({"h", "w"}),
+    "ensure": frozenset({"n", "h", "w"}),
+    "route": frozenset({"n", "h", "w"}),
+    "drop": frozenset({"bucket"}),
+    "infer": frozenset({"image1", "image2"}),
+    "update_weights": frozenset({"variables"}),
+    "stats": frozenset(),
+}
+
+
+def check_wire_handlers(worker_cls) -> List[str]:
+    """Problems between a worker class's ``_m_<method>`` handlers and
+    :data:`WIRE_METHODS` (a handler with no row, a row with no handler);
+    empty when they match."""
+    handlers = {name[len("_m_"):] for name in dir(worker_cls)
+                if name.startswith("_m_")}
+    return ([f"handler _m_{m} has no WIRE_METHODS row"
+             for m in sorted(handlers - set(WIRE_METHODS))]
+            + [f"WIRE_METHODS row {m!r} has no handler _m_{m}"
+               for m in sorted(set(WIRE_METHODS) - handlers)])
+
 
 #: span record types (serving/trace.py) → required fields. Request
 #: spans additionally carry "class" (the accounting-identity class

@@ -1,6 +1,6 @@
-"""Deterministic fault injection for crash-safety drills, port of the
-trainer's, the serving front end's and the model registry's part of
-``raft_tpu/testing/faults.py``.
+"""Deterministic fault injection for crash-safety drills, port of
+``raft_tpu/testing/faults.py`` (the trainer's, the serving stack's, the
+program store's and the host fleet's sites).
 
 The watchdog, the atomic checkpoints, the restore sandbox, the supervisor
 and the loader's policies are only trustworthy if their failure paths run.
@@ -32,7 +32,8 @@ Plan entries (a list of dicts, or ``{"faults": [...], "seed": N}``):
     default 3600 s: what a wedged device looks like to the loop),
     ``"crash"`` (``os._exit(CRASH_EXIT_CODE)``: no atexit, no finally, as
     power loss or a preemption leaves things), ``"corrupt"`` (zero-fills
-    the artifact at a site that writes one).
+    the artifact at a site that writes or reads one, or the bytes in
+    transit at a transport site).
 ``attempt``
     The supervisor attempt (0-based, ``$RAFT_SUPERVISOR_ATTEMPT``) the
     entry arms in; without it, every attempt. A drill wedges the first run
@@ -57,9 +58,7 @@ CRASH_EXIT_CODE = 41
 
 #: every site armed in raft_tpu_torch, one line each. Plans are checked
 #: against it when armed, so a typo'd site fails instead of arming nothing.
-#: Add the row with the ``fault_point``/``fault_file`` call. The JAX
-#: package's AOT-store, transport and host sites come with those layers
-#: (ROADMAP M11c).
+#: Add the row with the ``fault_point``/``fault_file``/``fault_data`` call.
 KNOWN_SITES = {
     "loader.sample": "per-sample decode and augmentation in the "
                      "PrefetchLoader's workers, under on_bad_sample",
@@ -92,6 +91,20 @@ KNOWN_SITES = {
     "guardian.decide": "SLOGuardian._decide in serving/guardian.py, after "
                        "judgment and before the registry's promote or "
                        "rollback (raise/hang: routing stays as it was)",
+    "aot.load": "AOTCache.load in serving/aot.py, the verified load of a "
+                "stored program (corrupt: the entry's blob zero-filled on "
+                "disk before the read; raise: inside the verification "
+                "scope; either reads as a clean miss)",
+    "transport.send": "Transport.call in serving/transport.py, request side "
+                      "(corrupt zero-fills the encoded request in transit: "
+                      "a clean TransportError the caller retries)",
+    "transport.recv": "Transport.call in serving/transport.py, reply side "
+                      "(same retry contract)",
+    "host.heartbeat": "one heartbeat probe in HostFleet.beat "
+                      "(serving/hosts.py; the missed-beat ladder drill)",
+    "host.infer": "HostWorker's infer in serving/hosts.py, on the worker "
+                  "side of the wire (a host dying mid-batch: failover by "
+                  "requeue)",
 }
 
 _POINT_KINDS = ("raise", "hang", "crash")

@@ -115,7 +115,8 @@ for n in ("training.loss", "training.optim", "training.train_step",
           "serving.trace", "serving.schema", "serving.resilience",
           "serving.feature_cache", "serving.scheduler", "serving.session",
           "parallel.placement", "cli.serve_bench", "cli.serve_trace",
-          "serving.registry", "serving.guardian"):
+          "serving.registry", "serving.guardian", "serving.aot",
+          "serving.transport", "serving.hosts", "serving.host_worker"):
     assert "raft_tpu_torch." + n in names, n
 import chip_smoke, profile_corr_alt, profile_hd_pair, profile_train_convs
 import profile_serving_fp32, profile_serving_rows
@@ -129,7 +130,7 @@ def test_port_and_chip_smoke_import_with_jax_blocked():
     r = subprocess.run([sys.executable, "-c", _BLOCKER], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
-    assert int(r.stdout.split()[0]) >= 65
+    assert int(r.stdout.split()[0]) >= 69
 
 
 def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
@@ -184,8 +185,8 @@ def test_later_slices_raise_not_implemented(tmp_path):
     img = torch.zeros(1, 32, 32, 3)
     model(img, img, iters=1, test_mode=False, train=True)
     # the serving forwards (M10), the front end (M11a), the registry and
-    # the replica fleet (M11b) are ported; sharded serving, the program
-    # store, the host lanes and the serving video are not
+    # the replica fleet (M11b), the program store and the host lanes
+    # (M11c) are ported; sharded serving and the serving video are not
     full = torch.full((1,), 4, dtype=torch.int32)
     assert model.forward_ragged(img, img, full, full, iters=1)[1].shape == (
         1, 32, 32, 2)
@@ -198,18 +199,30 @@ def test_later_slices_raise_not_implemented(tmp_path):
     from raft_tpu_torch.serving import RAFTEngine
     with pytest.raises(NotImplementedError, match="M9"):
         RAFTEngine(model, model.config, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="M11c"):
-        RAFTEngine(model, model.config, aot_cache=str(tmp_path),
-                   device="cpu")
+    eng = RAFTEngine(model, model.config, aot_cache=str(tmp_path),
+                     device="cpu")
+    assert eng.aot_stats()["enabled"] == 1
     with pytest.raises(NotImplementedError, match="M14"):
         parity(["--model", "unused.pth", "--path", str(tmp_path),
                 "--video", "out.avi", "--device", "cpu"])
-    from raft_tpu_torch.serving import MicroBatchScheduler, ModelRegistry
-    with pytest.raises(NotImplementedError, match="M11c"):
-        MicroBatchScheduler(object(), host_fleet=object())
-    with pytest.raises(NotImplementedError, match="M11c"):
-        ModelRegistry(device="cpu").add_model(
-            "m", model.state_dict(), model.config,
-            artifact_dir=str(tmp_path))
+    from raft_tpu_torch.serving import (HostFleet, HostWorker,
+                                        LoopbackTransport,
+                                        MicroBatchScheduler, ModelRegistry)
+    fleet = HostFleet({"h0": LoopbackTransport(HostWorker(eng))})
+    fleet.admit_all()
+    with MicroBatchScheduler(eng, host_fleet=fleet) as sched:
+        assert sched.health()["hosts"]["state"] == "healthy"
+    reg = ModelRegistry(device="cpu")
+    reg.add_model("m", model.state_dict(), model.config,
+                  artifact_dir=str(tmp_path))
+    assert reg._models["m"].live.engine.aot_stats()["enabled"] == 1
+    reg.close()
+    import os
+
+    import raft_tpu_torch
+    for root, _, files in os.walk(raft_tpu_torch.__path__[0]):
+        for f in files:
+            if f.endswith(".py"):
+                assert "M11c" not in open(os.path.join(root, f)).read(), f
     with pytest.raises(NotImplementedError, match="msgpack"):
         load_weights(str(tmp_path / "w.msgpack"), RAFTConfig(small=True))

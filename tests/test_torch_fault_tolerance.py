@@ -118,10 +118,11 @@ class TestFaultPlan:
         with pytest.raises(ValueError, match=r"trainer\.stp.*did you mean "
                                              r"'trainer\.step'"):
             faults.arm([{"site": "trainer.stp", "kind": "raise"}])
-        # the JAX package's AOT-store site comes with the port's store
-        # (ROADMAP M11c); the front end's serve.request is armed
-        with pytest.raises(ValueError, match="KNOWN_SITES"):
-            faults.arm([{"site": "aot.load", "kind": "raise"}])
+        # every site of the JAX package is the port's too: a typo of the
+        # program store's site is refused, the site itself armed
+        with pytest.raises(ValueError, match=r"did you mean 'aot\.load'"):
+            faults.arm([{"site": "aot.lod", "kind": "raise"}])
+        faults.arm([{"site": "aot.load", "kind": "raise"}])
         faults.arm([{"site": "serve.request", "kind": "raise"}])
         faults.arm([{"site": "x", "kind": "raise"}])
         assert faults.armed("x")

@@ -731,3 +731,56 @@ def test_two_replicas_replay_concurrently_each_its_own(cuda):
     for (e, k, _), flow in got.items():
         assert float(np.abs(flow - want[e, k]).max()) <= 1e-5
     assert replica.capture_count == 1 and primary.capture_count == 1
+
+
+def test_loaded_program_replay_matches_the_live_module(cuda, tmp_path):
+    """The program store on the card: an engine warm from the store (its
+    bucket program loaded, traced nothing) replays within 1e-5 px of an
+    engine that captured the live module, on the same inputs, and its
+    capture recorded the same K1/K2 launches."""
+    from raft_tpu_torch.config import RAFTConfig
+    from raft_tpu_torch.models import RAFT
+    from raft_tpu_torch.serving import RAFTEngine
+
+    cfg = RAFTConfig(corr_impl="pallas", gru_impl="fused")
+    model = RAFT(cfg, torch.Generator().manual_seed(0))
+    kw = dict(iters=3, envelope=[(2, 64, 96)], wire="u8", warm_start=True)
+    live = RAFTEngine(model, cfg, **kw)
+    cold = RAFTEngine(model, cfg, aot_cache=str(tmp_path), **kw)
+    warm = RAFTEngine(model, cfg, aot_cache=str(tmp_path), **kw)
+    assert cold.aot_stats()["compiles"] == 1
+    assert warm.aot_stats()["aot_hits"] == 1
+    assert warm.aot_stats()["compiles"] == 0
+    f = _serving_frames(5, 3)
+    i1, i2 = np.stack(f[:2]), np.stack(f[1:])
+    want = live.infer_batch(i1, i2)
+    for eng in (cold, warm):
+        assert float(np.abs(eng.infer_batch(i1, i2) - want).max()) <= 1e-5
+        assert eng._programs[(2, 64, 96)].launches == {
+            "corr_lookup": 3, "gru_gates": 6, "gru_blend": 6}
+
+
+def test_weight_swap_reaches_a_loaded_program(cuda, tmp_path):
+    """A loaded program's parameters are the engine's live tensors: a
+    swap after a warm start serves the new weights (the engine captured
+    the loaded program, not a copy of the weights the .pt2 carries)."""
+    from raft_tpu_torch.config import RAFTConfig
+    from raft_tpu_torch.models import RAFT
+    from raft_tpu_torch.serving import RAFTEngine
+
+    cfg = RAFTConfig(corr_impl="pallas", gru_impl="fused")
+    v1 = RAFT(cfg, torch.Generator().manual_seed(0)).state_dict()
+    v2 = RAFT(cfg, torch.Generator().manual_seed(1)).state_dict()
+    kw = dict(iters=3, envelope=[(2, 64, 96)], wire="u8", warm_start=True)
+    RAFTEngine(v1, cfg, aot_cache=str(tmp_path), **kw)
+    warm = RAFTEngine(v1, cfg, aot_cache=str(tmp_path), **kw)
+    assert warm.aot_stats()["aot_hits"] == 1
+    f = _serving_frames(6, 3)
+    i1, i2 = np.stack(f[:2]), np.stack(f[1:])
+    before = warm.infer_batch(i1, i2)
+    warm.update_weights(v2)
+    want = RAFTEngine(v2, cfg, **kw).infer_batch(i1, i2)
+    got = warm.infer_batch(i1, i2)
+    assert float(np.abs(got - want).max()) <= 1e-5
+    assert float(np.abs(got - before).max()) > 1e-3
+    assert warm.capture_count == 1

@@ -10,8 +10,8 @@ against ``raft_tpu.serving.registry`` on the CPU, mirroring
   events;
 - the lifecycle on the port's fake engines: rollback drains with zero
   futures stranded, a session sticks to one variant, a rollout
-  cold-restarts a session's recurrence, ``artifact_dir=`` raises naming
-  M11c;
+  cold-restarts a session's recurrence, ``artifact_dir=`` is taken and a
+  store-less variant's retirement evicts nothing;
 - the two-model drill on CPU engines with the small trained fixture (a
   fast tier at 1 refinement step beside the model at 2, and a canary of
   perturbed fixture weights): each future within 5e-4 px of
@@ -260,16 +260,22 @@ def test_rollout_cold_restarts_session_recurrence():
 
 
 def test_artifact_store_is_m11c(tmp_path):
-    reg = ModelRegistry(device="cpu")
-    with pytest.raises(NotImplementedError, match="M11c"):
-        reg.add_model("m", {}, engine=_FakeEngine(),
-                      artifact_dir=str(tmp_path))
-    reg.add_model("m", {}, engine=_FakeEngine())
-    with pytest.raises(NotImplementedError, match="M11c"):
-        reg.deploy("m", {}, engine=_FakeEngine(),
-                   artifact_dir=str(tmp_path))
+    """``artifact_dir=`` (the program store, ROADMAP M11c) is taken by
+    ``add_model`` and ``deploy``; an injected engine keeps its own store
+    (a fake has none), and retiring a variant without a store evicts
+    nothing and records no ``aot_evicted``."""
+    mpath = str(tmp_path / "metrics.jsonl")
+    reg = ModelRegistry(device="cpu", metrics_path=mpath)
+    reg.add_model("m", {}, engine=_FakeEngine(),
+                  artifact_dir=str(tmp_path / "store"))
+    reg.deploy("m", {}, engine=_FakeEngine(),
+               artifact_dir=str(tmp_path / "store"))
+    assert reg.health()["m"]["canary"] is not None
+    reg.rollback("m")
     assert reg.health()["m"]["canary"] is None
     reg.close()
+    assert not osp.exists(str(tmp_path / "store"))
+    assert "aot_evicted" not in open(mpath).read()
 
 
 # -- the two-model drill on CPU engines, held to raft_tpu ----------------------

@@ -282,17 +282,22 @@ def test_serve_bench_cli_cpu_chaos_round(tmp_path, capsys):
     assert out["executables"] == out["documented_buckets"] == 2
 
 
-@pytest.mark.parametrize("flag", [["--hosts", "1"], ["--hosts-kill-one"],
-                                  ["--aot-cache", "d"], ["--guardian"],
+@pytest.mark.parametrize("flag", [["--hosts", "1", "--models", "small"],
+                                  ["--hosts-kill-one"],
+                                  ["--aot-cache", "d", "--models", "small"],
+                                  ["--guardian"],
                                   ["--replicas", "2", "--models", "small"],
                                   ["--models", "small", "--ragged"]])
 def test_serve_bench_fleet_and_registry_flags_name_m11b(flag):
-    """The registry and fleet flags drive their drills now (M11b); the
-    host lanes and the program store exit naming M11c, and combinations
-    the drills do not take exit saying why, before anything is built."""
+    """The registry, fleet, host and program-store flags drive their
+    drills (M11b, M11c); combinations the drills do not take exit saying
+    why, before anything is built."""
     from raft_tpu_torch.cli import serve_bench
 
     match = {"--guardian": "need --models", "--replicas": "plain drill",
-             "--models": "single-model drill"}.get(flag[0], "M11c")
+             "--models": "single-model drill",
+             "--hosts": "single-model drills only",
+             "--hosts-kill-one": "needs --hosts",
+             "--aot-cache": "not wired yet"}[flag[0]]
     with pytest.raises(SystemExit, match=match):
         serve_bench.main(["--device", "cpu", *flag])

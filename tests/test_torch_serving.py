@@ -177,7 +177,7 @@ def test_routing_matches_jax_engine(small, kw):
     assert got.capture_count == got.compile_count == 0
     assert got.aot_stats() == {"enabled": 0, "aot_hits": 0,
                                "aot_misses": 0, "compiles": 0,
-                               "compiles_avoided": 0}
+                               "compiles_avoided": 0, "captures": 0}
 
 
 @pytest.mark.parametrize("kw", [
