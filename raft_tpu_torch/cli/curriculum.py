@@ -2,8 +2,10 @@
 ``train_standard.sh`` / ``train_mixed.sh`` analog, plus ``--device``.
 
 Runs the 4-stage C -> T -> S -> K recipe (train_standard.sh:3-6), each stage
-restoring the previous stage's final weights with a fresh schedule; a stage
-whose final ``.pth`` exists and passes its manifest is skipped.
+restoring the previous stage's final weights with a fresh schedule (through
+``tools.convert.load_weights``, which reads the port's ``.pth`` and the
+JAX trainer's ``.msgpack``); a stage whose final ``.pth`` exists and
+passes its manifest is skipped.
 
     python -m raft_tpu_torch.cli.curriculum --stages chairs things \\
         --num_steps 1000 --data_root datasets [--mixed] [--device cpu]

@@ -49,7 +49,8 @@ def main(argv=None):
     from raft_tpu_torch.tools.convert import load_weights
 
     p = argparse.ArgumentParser(description="RAFT demo on a frame directory")
-    p.add_argument("--model", required=True, help=".pth weights")
+    p.add_argument("--model", required=True,
+                   help="weights: a reference .pth or a flax .msgpack")
     p.add_argument("--path", required=True, help="directory of frames")
     p.add_argument("--out", default="demo_out", help="output directory")
     p.add_argument("--small", action="store_true")

@@ -1,6 +1,7 @@
 """Evaluation CLI, port of ``raft_tpu/cli/evaluate.py`` (the
 ``evaluate.py:169-195`` analog): the same flags, plus ``--device`` (the card
-by default). Weights are reference ``.pth`` files.
+by default). Weights are a reference ``.pth`` or the JAX trainer's
+``.msgpack``.
 
     python -m raft_tpu_torch.cli.evaluate --model raft-things.pth \\
         --dataset kitti --data_root datasets [--alternate_corr] [--device cpu]
@@ -16,7 +17,8 @@ from raft_tpu_torch.config import RAFTConfig
 
 def main(argv=None):
     p = argparse.ArgumentParser(description="Validate RAFT checkpoints")
-    p.add_argument("--model", required=True, help=".pth weights")
+    p.add_argument("--model", required=True,
+                   help="weights: a reference .pth or a flax .msgpack")
     p.add_argument("--dataset", required=True,
                    choices=["chairs", "sintel", "kitti"])
     p.add_argument("--small", action="store_true")

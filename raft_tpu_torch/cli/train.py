@@ -24,6 +24,18 @@ armed in each child::
     RAFT_FAULT_PLAN='[{"site": "trainer.step", "at": 4, "kind": "hang",
                        "attempt": 0}]' python -m raft_tpu_torch.cli.train \\
         --supervise --hang_s 60 --synthetic 8 --batch_size 8 ...
+
+Data parallel under ``torchrun`` (``training.trainer``): each rank takes
+``cuda:<LOCAL_RANK>`` and NCCL, or with ``--device cpu`` the CPU and gloo;
+``--batch_size`` is the global batch, split over the ranks::
+
+    torchrun --nproc_per_node=2 -m raft_tpu_torch.cli.train --device cpu \\
+        --small --synthetic 4 --batch_size 4 --image_size 64 96 --iters 2 \\
+        --num_steps 3
+
+``--synthetic`` data is written by rank 0 and read whole by every rank,
+which keeps its rows of each batch. ``--restore_ckpt`` takes the
+reference's ``.pth`` or the JAX trainer's ``.msgpack``.
 """
 
 from __future__ import annotations
@@ -49,7 +61,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--stage", default="chairs",
                    choices=["chairs", "things", "sintel", "kitti"])
     p.add_argument("--restore_ckpt", default=None,
-                   help=".pth weights to restore")
+                   help=".pth or .msgpack weights to restore")
     p.add_argument("--resume", action="store_true",
                    help="resume the full train state from the stage dir")
     p.add_argument("--small", action="store_true")
@@ -173,13 +185,22 @@ def main(argv=None):
     from raft_tpu_torch.testing import faults
     from raft_tpu_torch.training.trainer import train
 
+    from raft_tpu_torch.parallel import distributed
+
     resolve_device(args.device)
+    distributed.initialize(backend="gloo" if args.device == "cpu" else None)
     faults.arm_from_env()
     model_cfg, train_cfg = configs_from_args(args)
     loader = None
     if args.synthetic:
-        loader = synthetic_loader(args.synthetic, train_cfg,
-                                  args.synthetic_dir)
+        # rank 0 writes the samples; the others read them once it is done
+        if distributed.rank() == 0:
+            loader = synthetic_loader(args.synthetic, train_cfg,
+                                      args.synthetic_dir)
+        distributed.barrier()
+        if loader is None:
+            loader = synthetic_loader(args.synthetic, train_cfg,
+                                      args.synthetic_dir)
     return train(model_cfg, train_cfg, resume=args.resume, loader=loader,
                  device=args.device)
 

@@ -10,6 +10,14 @@ whichever worker made it.
 
 Batches are dicts of stacked numpy arrays; the trainer moves them to the
 card (pinned memory, ``non_blocking`` copies, two batches ahead).
+
+In a data-parallel run each rank builds its loader with ``rows=`` (its
+``process_batch_slice``): every rank walks the same seeded global order
+and decodes only its rows of each global batch. The augmentation draws
+stay per worker, each worker reseeded with the rank too, so an N-rank
+run's augmented batch is not bitwise a one-rank run's (the reference's
+per-worker reseed is not either); a run that must match one rank passes
+the trainer whole batches through ``loader=``.
 """
 
 from __future__ import annotations
@@ -18,7 +26,7 @@ import os
 import queue
 import threading
 import warnings
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional
 
 import numpy as np
 
@@ -81,7 +89,11 @@ class PrefetchLoader:
                  num_workers: int = 4, drop_last: bool = True,
                  seed: int = 1234, prefetch: int = 4, clamp: bool = True,
                  wire_dtype: str = "float32",
-                 on_bad_sample: str = "raise", stall_s: float = 0.0):
+                 on_bad_sample: str = "raise", stall_s: float = 0.0,
+                 rows: Optional[slice] = None):
+        """``rows``: the rows of each global batch of ``batch_size`` this
+        loader yields (a data-parallel rank's share); None yields
+        whole batches."""
         if wire_dtype not in ("float32", "uint8"):
             raise ValueError(f"wire_dtype={wire_dtype!r}: choose float32 "
                              "or uint8 (see _collate)")
@@ -120,6 +132,10 @@ class PrefetchLoader:
         self.prefetch = prefetch
         self.epoch = 0
         self._skip = 0  # batches the next epoch leaves out (start_at)
+        self.rows = rows
+        #: added to the workers' augmentation seeds: 0 for a whole-batch
+        #: loader and rank 0, another stream for every other rank's rows
+        self._rank_salt = 0 if rows is None else 7907 * int(rows.start or 0)
 
     def __len__(self):
         n = len(self.dataset)
@@ -179,6 +195,8 @@ class PrefetchLoader:
         indices = self._epoch_indices()
         batches = [indices[i:i + self.batch_size]
                    for i in range(0, len(indices), self.batch_size)]
+        if self.rows is not None:
+            batches = [b[self.rows] for b in batches]
         batches, self._skip = batches[self._skip:], 0
         self.epoch += 1
 
@@ -195,9 +213,11 @@ class PrefetchLoader:
         def worker(worker_id: int):
             # per-worker reseed (datasets.py:45-51 analog)
             if hasattr(self.dataset, "reseed"):
-                self.dataset.reseed(self.seed + worker_id * 7919 + self.epoch)
+                self.dataset.reseed(self.seed + worker_id * 7919 + self.epoch
+                                    + self._rank_salt)
             resample = np.random.RandomState(
-                self.seed + worker_id * 104729 + self.epoch)
+                self.seed + worker_id * 104729 + self.epoch
+                + self._rank_salt)
             while not stop.is_set():
                 ahead.acquire()
                 if stop.is_set():
@@ -256,11 +276,13 @@ def fetch_dataloader(stage: str, image_size, batch_size: int,
                      data_root: str = "datasets", num_workers: int = 4,
                      seed: int = 1234, wire_dtype: str = "float32",
                      on_bad_sample: str = "raise",
-                     stall_s: float = 0.0) -> PrefetchLoader:
+                     stall_s: float = 0.0,
+                     rows: Optional[slice] = None) -> PrefetchLoader:
     """Stage-preset loader, the fetch_dataloader analog (datasets.py:199).
 
     The default wire is float32 (batches safe for host arithmetic); the
-    trainer passes ``wire_dtype="uint8"`` (see :func:`_collate`).
+    trainer passes ``wire_dtype="uint8"`` (see :func:`_collate`), and a
+    data-parallel rank its ``rows``.
     """
 
     dataset = fetch_dataset(stage, image_size, data_root)
@@ -268,4 +290,5 @@ def fetch_dataloader(stage: str, image_size, batch_size: int,
     return PrefetchLoader(dataset, batch_size, shuffle=True,
                           num_workers=num_workers, drop_last=True, seed=seed,
                           wire_dtype=wire_dtype,
-                          on_bad_sample=on_bad_sample, stall_s=stall_s)
+                          on_bad_sample=on_bad_sample, stall_s=stall_s,
+                          rows=rows)

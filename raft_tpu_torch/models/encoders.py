@@ -11,12 +11,14 @@ flax's ``Dropout(broadcast_dims=(1, 2))`` (torch's ``Dropout2d``,
 extractor.py:146-148): one keep draw per (sample, channel) broadcast over H
 and W, kept channels scaled by 1/(1-p). The draws come from the
 ``generator`` the caller passes (the trainer seeds it from (seed, step));
-their numbers are not JAX's.
+their numbers are not JAX's. In a data-parallel step each rank passes
+``draw_rows=(start, global_batch)``: it draws the global batch's mask and
+keeps its own rows, so N ranks drop what one rank drops on the whole batch.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -26,17 +28,24 @@ from raft_tpu_torch.models.layers import (BottleneckBlock, ResidualBlock,
 
 
 def channel_dropout(x: torch.Tensor, p: float,
-                    generator: Optional[torch.Generator]) -> torch.Tensor:
+                    generator: Optional[torch.Generator],
+                    draw_rows: Optional[Tuple[int, int]] = None
+                    ) -> torch.Tensor:
     """flax ``Dropout(p, broadcast_dims=(1, 2))`` on NCHW: each (sample,
-    channel) kept with probability 1-p, kept ones divided by it."""
+    channel) kept with probability 1-p, kept ones divided by it.
+    ``draw_rows=(start, global_batch)``: ``x`` is rows ``start..`` of a
+    global batch, whose whole mask is drawn."""
     keep_prob = 1.0 - p
-    draw = torch.rand(x.shape[:2] + (1, 1), generator=generator,
-                      device=x.device)
+    b = x.shape[0]
+    start, total = draw_rows if draw_rows is not None else (0, b)
+    draw = torch.rand((total,) + x.shape[1:2] + (1, 1), generator=generator,
+                      device=x.device)[start:start + b]
     return torch.where(draw < keep_prob, x / keep_prob, torch.zeros_like(x))
 
 
 def _encode(enc: nn.Module, x: torch.Tensor, train: bool, freeze_bn: bool,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
+            generator: Optional[torch.Generator],
+            draw_rows: Optional[Tuple[int, int]]) -> torch.Tensor:
     ura = (not train) or freeze_bn
     x = enc.relu1(apply_norm(enc.norm1, enc.conv1(x), ura))
     for layer in (enc.layer1, enc.layer2, enc.layer3):
@@ -44,7 +53,7 @@ def _encode(enc: nn.Module, x: torch.Tensor, train: bool, freeze_bn: bool,
             x = block(x, ura)
     x = enc.conv2(x)
     if train and enc.dropout > 0:
-        x = channel_dropout(x, enc.dropout, generator)
+        x = channel_dropout(x, enc.dropout, generator, draw_rows)
     return x
 
 
@@ -71,8 +80,9 @@ class BasicEncoder(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 freeze_bn: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        return _encode(self, x, train, freeze_bn, generator)
+                generator: Optional[torch.Generator] = None,
+                draw_rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+        return _encode(self, x, train, freeze_bn, generator, draw_rows)
 
 
 class SmallEncoder(nn.Module):
@@ -98,5 +108,6 @@ class SmallEncoder(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 freeze_bn: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        return _encode(self, x, train, freeze_bn, generator)
+                generator: Optional[torch.Generator] = None,
+                draw_rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+        return _encode(self, x, train, freeze_bn, generator, draw_rows)

@@ -38,6 +38,28 @@ from torch import nn
 BN_MOMENTUM = 0.9
 
 
+class _AllReduceSum(torch.autograd.Function):
+    """A sum over the ranks of ``group``; its adjoint is the same sum of
+    the cotangents (every rank's loss reads the summed value)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+
+        ctx.group = group
+        y = x.clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d``'s parameters and buffers with flax's semantics.
 
@@ -47,23 +69,53 @@ class BatchNorm2d(nn.BatchNorm2d):
     updates the buffers as flax does: ``running = 0.9·running + 0.1·batch``
     for the mean and for the biased variance. ``nn.BatchNorm2d`` in train
     mode would update the variance with the unbiased one.
+
+    With a ``process_group`` (:func:`set_process_group`: the ``data`` axis
+    of a data-parallel run), the batch is the GLOBAL one, as XLA computes
+    it for the sharded JAX step: one all-reduce of (Σx, Σx², count) per
+    call gives the mean and the biased variance E[x²]−E[x]², and its
+    adjoint sums the cotangents across the ranks in the backward
+    (``nn.SyncBatchNorm`` would update the variance with the unbiased
+    one). Without one, the statistics are the local batch's.
     """
+
+    #: the process group the statistics are summed over (None: this
+    #: process's batch alone)
+    process_group = None
 
     def forward(self, x: torch.Tensor,
                 use_running_average: bool = True) -> torch.Tensor:
         if use_running_average:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
+        if self.process_group is not None:
+            return self._global_batch(x)
         out = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                            self.eps)
         with torch.no_grad():
             var, mean = torch.var_mean(x.float(), dim=(0, 2, 3),
                                        unbiased=False)
-            for buf, stat in ((self.running_mean, mean),
-                              (self.running_var, var)):
-                buf.copy_(BN_MOMENTUM * buf + (1.0 - BN_MOMENTUM) * stat)
-            self.num_batches_tracked += 1
+            self._update_running(mean, var)
         return out
+
+    def _update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        for buf, stat in ((self.running_mean, mean), (self.running_var, var)):
+            buf.copy_(BN_MOMENTUM * buf + (1.0 - BN_MOMENTUM) * stat)
+        self.num_batches_tracked += 1
+
+    def _global_batch(self, x: torch.Tensor) -> torch.Tensor:
+        c = x.shape[1]
+        n = x.new_full((1,), float(x.numel() // c))
+        stats = _AllReduceSum.apply(
+            torch.cat([x.sum((0, 2, 3)), (x * x).sum((0, 2, 3)), n]),
+            self.process_group)
+        mean = stats[:c] / stats[-1]
+        var = (stats[c:2 * c] / stats[-1] - mean * mean).clamp(min=0.0)
+        with torch.no_grad():
+            self._update_running(mean, var)
+        scale = self.weight * torch.rsqrt(var + self.eps)
+        shift = self.bias - mean * scale
+        return x * scale[:, None, None] + shift[:, None, None]
 
 
 def apply_norm(norm: nn.Module, x: torch.Tensor,
@@ -106,6 +158,14 @@ class Conv2d(nn.Conv2d):
         dt = self.compute_dtype
         return self._conv_forward(x.to(dt), self.weight.to(dt),
                                   self.bias.to(dt))
+
+
+def set_process_group(module: nn.Module, group) -> None:
+    """Every :class:`BatchNorm2d` under ``module`` takes its training
+    statistics over the ranks of ``group`` (None: its own batch)."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm2d):
+            m.process_group = group
 
 
 def set_compute_dtype(module: nn.Module, dtype: torch.dtype) -> None:

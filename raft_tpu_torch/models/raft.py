@@ -41,7 +41,7 @@ frame and takes the first frame's features from the caller.
 from __future__ import annotations
 
 import functools
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import torch
 from torch import nn
@@ -137,7 +137,8 @@ class RAFT(nn.Module):
                 iters: int = 12, flow_init: Optional[torch.Tensor] = None,
                 test_mode: bool = True, train: bool = False,
                 freeze_bn: bool = False, raw_predictions: bool = False,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                draw_rows: Optional[Tuple[int, int]] = None):
         """Estimate flow. Images: (B, H, W, 3) float in [0, 255] with
         H, W % 8 == 0 (pad with ``InputPadder``); ``flow_init``: (B, H/8,
         W/8, 2). Test mode returns ``(flow_low (B,H/8,W/8,2), flow_up
@@ -145,7 +146,10 @@ class RAFT(nn.Module):
         (iters, B, H, W, 2), or with ``raw_predictions`` (basic model) the
         subpixel-domain stack (iters, B, 2, 64, H/8·W/8). ``generator``
         draws the encoders' dropout masks when ``train`` and ``dropout >
-        0`` (torch's default generator when it is None)."""
+        0`` (torch's default generator when it is None); with
+        ``draw_rows=(start, global_batch)`` (a data-parallel rank's rows,
+        ``split_encode`` on) each mask is the global batch's, cut to these
+        rows."""
         cfg = self.config
         if not test_mode and raw_predictions and cfg.small:
             raise ValueError(
@@ -161,9 +165,12 @@ class RAFT(nn.Module):
         x2 = (2.0 * (image2.float() / 255.0) - 1.0).permute(0, 3, 1, 2)
         x1, x2 = x1.contiguous(), x2.contiguous()
 
+        if draw_rows is not None and not cfg.split_encode:
+            raise ValueError("draw_rows needs split_encode: the batch-concat "
+                             "encode would draw one mask over both frames")
         if cfg.split_encode:
-            fmap1 = self.fnet(x1, train, freeze_bn, generator)
-            fmap2 = self.fnet(x2, train, freeze_bn, generator)
+            fmap1 = self.fnet(x1, train, freeze_bn, generator, draw_rows)
+            fmap2 = self.fnet(x2, train, freeze_bn, generator, draw_rows)
         else:
             fmaps = self.fnet(torch.cat([x1, x2], 0), train, freeze_bn,
                               generator)
@@ -174,7 +181,7 @@ class RAFT(nn.Module):
 
         # context network (core/raft.py:110-114)
         net, inp = self._encode_context(
-            self.cnet(x1, train, freeze_bn, generator))
+            self.cnet(x1, train, freeze_bn, generator, draw_rows))
         return self._refine(lookup, net, inp, B, H, W, iters, flow_init,
                             test_mode, raw_predictions, image1.device)
 

@@ -1,0 +1,172 @@
+"""The device mesh of a data-parallel run, port of
+``raft_tpu/parallel/mesh.py``.
+
+The JAX package lays its devices out as a ``jax.sharding.Mesh`` with two
+axes, ``data`` (the batch, split across devices; XLA inserts the gradient
+sum) and ``spatial`` (image height, with conv halo exchanges and a
+query-sharded correlation volume). Here each process drives one device, so
+the mesh is the ``torch.distributed`` processes laid out as ``(data,
+spatial)``: rank ``r`` sits at ``(r // spatial, r % spatial)``. A
+:class:`Mesh` carries the JAX names the partitioner reads (``axis_names``,
+``shape`` as a mapping, ``devices`` as a ``(data, spatial)`` array of
+device names), this rank's coordinates and device, and the process group of
+its ``data`` axis, over which the train step sums gradients and batch-norm
+statistics.
+
+The ``spatial`` axis is laid out and fenced (:func:`validate_spatial_extent`,
+the partitioner's grain) but not executed: the port has no conv halo
+exchange and no sharded volume, and the train step refuses ``spatial > 1``
+(ROADMAP.md §1, "the spatial axis").
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+from raft_tpu_torch.parallel import distributed
+
+# The JAX package found XLA's in-loop conv halo exchange wrong when a
+# shard holds no more feature rows (H/8) than the largest halo inside the
+# refinement loop: the 7x7 motion-encoder conv, halo 3. The port keeps the
+# fence, so a layout the reference refuses is refused here too.
+MAX_FEATURE_HALO = 3
+
+#: logical value -> mesh axis per dim (None = unsharded), the JAX
+#: package's one table: ``frames`` (B, H, W, 3) batch over 'data', height
+#: over 'spatial'; ``flow_init``/``flow`` the same; ``valid`` (B, H, W);
+#: ``weights`` replicated on every device
+PARTITION_RULES = {
+    "frames": ("data", "spatial", None, None),
+    "flow_init": ("data", "spatial", None, None),
+    "flow": ("data", "spatial", None, None),
+    "valid": ("data", "spatial", None),
+    "weights": (),
+}
+
+
+class Mesh:
+    """The ``(data, spatial)`` layout of the run's processes, from this
+    rank's side."""
+
+    axis_names = ("data", "spatial")
+
+    def __init__(self, devices: np.ndarray, rank: int, device: torch.device,
+                 group=None):
+        data, spatial = devices.shape
+        #: device names, one per rank, shaped (data, spatial)
+        self.devices = devices
+        self.shape: Dict[str, int] = {"data": int(data),
+                                      "spatial": int(spatial)}
+        self.rank = int(rank)
+        #: this rank's (data, spatial) coordinates
+        self.coords = divmod(self.rank, int(spatial))
+        self.device = torch.device(device)
+        #: the process group of this rank's 'data' axis (None when the
+        #: axis is one device wide: nothing to sum over)
+        self.group = group
+
+    @property
+    def size(self) -> int:
+        return self.devices.size
+
+    def __repr__(self) -> str:
+        return (f"Mesh(data={self.shape['data']}, "
+                f"spatial={self.shape['spatial']}, rank={self.rank}, "
+                f"device={self.device})")
+
+
+def validate_spatial_extent(image_h: int, mesh: Mesh) -> None:
+    """Refuse a ``spatial`` layout of ``image_h``-high images the JAX
+    package refuses: feature rows (H/8) that the axis does not divide, or
+    a shard of no more than :data:`MAX_FEATURE_HALO` of them."""
+    spatial = mesh.shape.get("spatial", 1)
+    if spatial <= 1:
+        return
+    h_feat = image_h // 8
+    if h_feat % spatial != 0:
+        raise ValueError(
+            f"spatial={spatial} does not evenly divide the feature height "
+            f"{h_feat} (= H{image_h}//8); pick H with H/8 divisible by the "
+            "'spatial' axis.")
+    if (h_feat // spatial) <= MAX_FEATURE_HALO:
+        raise ValueError(
+            f"spatial={spatial} sharding of H={image_h} images gives "
+            f"{h_feat // spatial} feature rows per shard; the update "
+            f"block's 7x7 conv (halo {MAX_FEATURE_HALO}) needs > "
+            f"{MAX_FEATURE_HALO} rows per shard — use taller images or a "
+            "smaller 'spatial' axis.")
+
+
+def make_mesh(n_devices: Optional[int] = None, spatial: int = 1,
+              devices: Optional[Sequence] = None) -> Mesh:
+    """The mesh of ``(data = n / spatial, spatial)`` over every process
+    of the run. ``devices``: each rank's device in rank order (one a
+    process); None gathers every rank's ``distributed.local_device()``
+    (one collective). ``n_devices`` must be the world size: a process
+    drives one device, and a mesh over some of them would need ranks
+    that take no part."""
+    world = distributed.world_size()
+    if devices is None:
+        devices = distributed.gather_devices(distributed.local_device())
+    n = len(devices) if n_devices is None else int(n_devices)
+    if n != world or len(devices) != world:
+        raise ValueError(f"a mesh of {n} devices ({len(devices)} named) in "
+                         f"a run of {world} processes: one device a process")
+    if spatial < 1 or n % spatial:
+        raise ValueError(f"spatial={spatial} does not divide {n} devices")
+    grid = np.asarray([str(d) for d in devices], dtype=object).reshape(
+        n // spatial, spatial)
+    rank = distributed.rank()
+    group = None
+    if n // spatial > 1:
+        import torch.distributed as tdist
+
+        if spatial == 1:
+            group = tdist.group.WORLD
+        else:
+            # every rank creates every group, in one order
+            for s in range(spatial):
+                g = tdist.new_group([d * spatial + s
+                                     for d in range(n // spatial)])
+                if s == rank % spatial:
+                    group = g
+    return Mesh(grid, rank, torch.device(grid.reshape(-1)[rank]), group)
+
+
+def validate_batch_extent(batch: dict, mesh: Mesh) -> None:
+    """The spatial fence on a batch dict: the first image entry's height
+    decides (all 4-d entries share H). One definition for every batch
+    path (:func:`shard_batch`, ``distributed.host_local_batch``)."""
+    for v in batch.values():
+        if v.ndim == 4:
+            validate_spatial_extent(v.shape[1], mesh)
+            break
+
+
+def _to_device(v, device: torch.device) -> torch.Tensor:
+    if isinstance(v, np.ndarray):
+        v = torch.from_numpy(np.ascontiguousarray(v))
+    return v.to(device, non_blocking=True)
+
+
+def shard_batch(batch: dict, mesh: Mesh) -> dict:
+    """A global batch dict as this rank's share on its device: every
+    entry with a batch dim (3-d and 4-d, the ``data``-sharded kinds of
+    :data:`PARTITION_RULES`) cut to this rank's rows of the ``data``
+    axis, the rest moved whole. On a one-device mesh, a move."""
+    validate_batch_extent(batch, mesh)
+    data = mesh.shape["data"]
+    out = {}
+    for k, v in batch.items():
+        if data > 1 and v.ndim in (3, 4):
+            per, rem = divmod(v.shape[0], data)
+            if rem:
+                raise ValueError(f"{k}: a batch of {v.shape[0]} does not "
+                                 f"split over data={data}")
+            start = mesh.coords[0] * per
+            v = v[start:start + per]
+        out[k] = _to_device(v, mesh.device)
+    return out

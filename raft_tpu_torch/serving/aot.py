@@ -119,10 +119,18 @@ def config_fingerprint(config, iters: int) -> str:
     return h.hexdigest()[:16]
 
 
-def partition_fingerprint() -> str:
-    """``"single"``: the one-device engine is the only one the port has
-    (sharded serving is ROADMAP M9)."""
-    return "single"
+def partition_fingerprint(mesh=None, declared_specs=()) -> str:
+    """The mesh's axis names and shape and the declared spec table
+    (``Partitioner.declared_specs``), or ``"single"`` for the one-device
+    engine without a mesh. The shape counts devices: a program laid out
+    for one mesh never loads into an engine on another."""
+    if mesh is None:
+        return "single"
+    h = hashlib.sha256()
+    h.update(repr(tuple(mesh.axis_names)).encode())
+    h.update(repr(tuple(mesh.devices.shape)).encode())
+    h.update(repr(tuple(declared_specs)).encode())
+    return h.hexdigest()[:16]
 
 
 def runtime_fields(device) -> Dict:

@@ -55,7 +55,15 @@ tensors, so both paths capture one program and a weight swap reaches the
 replay. A hit replaces the trace, not the capture: a CUDA graph never
 outlives its process. Without a store nothing of this runs.
 
-Not ported here: ``mesh=`` (ROADMAP M9) raises ``NotImplementedError``.
+``mesh=`` takes a one-device ``parallel.mesh.Mesh``: the engine then
+runs on the mesh's device and asks its ``Partitioner`` for the bucket
+grain (``validate_bucket``, ``validate_extent``, ``round_bucket`` for a
+build-on-miss bucket), builds the model with ``mesh_model_config``, and
+keys the store with the mesh's partition fingerprint, as the JAX engine
+does (raft_tpu/serving/engine.py:444-456, :581). A mesh of more than one
+device raises ``NotImplementedError``: a sharded engine is ROADMAP.md §1,
+"the spatial axis and the sharded engine". Without a mesh nothing of this
+runs and the store keys say ``"single"``.
 """
 
 from __future__ import annotations
@@ -294,8 +302,11 @@ class RAFTEngine:
         miss, and captured either way; ``aot_stats()`` counts both.
 
         ``device``: the card unless ``"cpu"`` is asked for; on the CPU the
-        programs run the eager forward. ``mesh`` is not ported (ROADMAP
-        M9) and raises.
+        programs run the eager forward.
+
+        ``mesh``: a one-device ``parallel.mesh.Mesh``; the engine runs on
+        its device (``device`` is not read) under its ``Partitioner``. A
+        larger mesh raises ``NotImplementedError``.
         """
         if wire not in ("f32", "u8"):
             raise ValueError(f"wire={wire!r}: choose 'f32' or 'u8'")
@@ -327,9 +338,26 @@ class RAFTEngine:
         if capacity_classes and not ragged:
             raise ValueError("capacity_classes given without "
                              "ragged=True — they would compile nothing")
+        #: the sharding decisions of ``mesh`` (None without one)
+        self.partitioner = None
+        self._partition_fp = _aotmod.partition_fingerprint()
         if mesh is not None:
-            raise NotImplementedError(
-                "mesh=: sharded serving is ROADMAP M9 of the port")
+            from raft_tpu_torch.parallel.mesh import Mesh
+            from raft_tpu_torch.parallel.partitioner import (
+                Partitioner, mesh_model_config)
+
+            if not isinstance(mesh, Mesh):
+                raise TypeError("mesh: a raft_tpu_torch.parallel.mesh.Mesh")
+            if mesh.size > 1:
+                raise NotImplementedError(
+                    f"mesh of {mesh.size} devices: a sharded serving "
+                    "engine is ROADMAP.md §1 'the spatial axis and the "
+                    "sharded engine'; serve from a one-device mesh or none")
+            self.partitioner = Partitioner(mesh)
+            self._partition_fp = _aotmod.partition_fingerprint(
+                mesh, self.partitioner.declared_specs())
+            config = mesh_model_config(config, mesh)
+            device = str(mesh.device)
         self.config = config
         self.iters = iters
         self.exact_shapes = exact_shapes
@@ -359,6 +387,7 @@ class RAFTEngine:
             self._stream = torch.cuda.Stream(dev)
             self._capture_stream = torch.cuda.Stream(dev)
             self._pool = torch.cuda.graph_pool_handle()
+            self._used_by_replays(self.model.state_dict().values())
         #: programs built (graphs captured on the card, eager programs on
         #: the CPU), from the store or not
         self.capture_count = 0
@@ -521,7 +550,24 @@ class RAFTEngine:
             inputs["valid_w8"] = torch.zeros(b, dtype=torch.int32, device=dev)
         if self.warm_start:
             inputs["flow_init"] = low(2)
+        if dev.type == "cuda":
+            self._used_by_replays(inputs.values())
         return inputs
+
+    def _used_by_replays(self, tensors) -> None:
+        """Mark device memory that the engine's replays read: when such a
+        tensor is freed (a dropped bucket's static inputs, a dropped
+        engine's weights), the caching allocator hands its memory out again
+        only after the work queued on the engine's stream by then is done.
+        Unmarked, memory allocated on another stream and freed while a
+        replay may still read it is the allocating stream's to reuse at
+        once (the caching allocator's rule; ``profile_graph_churn.py``
+        drives drops and teardowns under replay). A captured graph and its
+        pool need nothing: a graph destroyed while it runs is freed when it
+        ends, and a pool's memory is released only by ``cudaFree``, which
+        waits for the device."""
+        for t in tensors:
+            t.record_stream(self._stream)
 
     def _forward(self, kind: str) -> Callable[[Dict], tuple]:
         model, iters = self.model, self.iters
@@ -590,7 +636,7 @@ class RAFTEngine:
             "iters": int(self.iters),
             "config": self._config_fp,
             "donations": "none",
-            "partition": _aotmod.partition_fingerprint(),
+            "partition": self._partition_fp,
             **_aotmod.runtime_fields(self.device),
         }
 
@@ -605,6 +651,9 @@ class RAFTEngine:
             prog = table.get(shape)
         if prog is not None:
             return prog
+        if self.partitioner is not None:
+            self.partitioner.validate_extent(shape[1])
+            self.partitioner.validate_bucket(shape)
         key = (self._aot_key(shape, kind) if self._aot is not None
                else None)
         loaded = None
@@ -809,7 +858,13 @@ class RAFTEngine:
         fit, else the exact build-on-miss bucket."""
         with self._lock:
             bucket = self._select_bucket(b, hp, wp, cached=cached)
-        return bucket if bucket is not None else (b, hp, wp)
+        if bucket is not None:
+            return bucket
+        if self.partitioner is not None:
+            # whole examples and feature rows a shard: the zero fill and
+            # the output crop absorb the rounding
+            b, hp = self.partitioner.round_bucket(b, hp)
+        return (b, hp, wp)
 
     def _padded(self, h: int, w: int) -> Tuple[int, int]:
         left, right, top, bottom = pad_amounts(h, w)

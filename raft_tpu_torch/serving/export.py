@@ -148,7 +148,8 @@ def main(argv=None):
 
     p = argparse.ArgumentParser(
         description="Export RAFT's serving function with torch.export")
-    p.add_argument("--model", required=True, help=".pth weights")
+    p.add_argument("--model", required=True,
+                   help="weights: a reference .pth or a flax .msgpack")
     p.add_argument("--out", required=True, help="output .pt2 path")
     p.add_argument("--small", action="store_true")
     p.add_argument("--iters", type=int, default=ITERS_EXPORT)

@@ -126,7 +126,8 @@ def main(argv=None):
     ap.add_argument("--stub", action="store_true",
                     help="the deterministic numpy engine (no model)")
     ap.add_argument("--infer-delay-s", type=float, default=0.0)
-    ap.add_argument("--weights", help=".pth weights (real mode)")
+    ap.add_argument("--weights",
+                    help=".pth or .msgpack weights (real mode)")
     ap.add_argument("--aot-root", help="this host's program store")
     ap.add_argument("--small", action="store_true")
     ap.add_argument("--iters", type=int, default=1)

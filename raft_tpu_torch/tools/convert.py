@@ -21,8 +21,16 @@ manifest (``<path>.sha256``, ``<sha256hex>  <nbytes>``, the
 JAX package's format, raft_tpu/tools/convert.py:151-193) that
 :func:`load_pth` checks before it unpickles anything.
 
-``.msgpack`` files need flax's serialization, which the port may not
-import; loading them is queued in ROADMAP.md.
+The JAX trainer's flax ``.msgpack`` files go both ways through the port's
+own codec (``tools.msgpack``; flax is not imported): :func:`load_msgpack`
+checks the manifest, decodes and maps the tree through
+:func:`state_dict_from_flax`; :func:`flax_from_state_dict` is the inverse
+(OIHW -> HWIO, ``weight`` -> ``scale``, running statistics into
+``batch_stats``, ``num_batches_tracked`` and the ``downsample.1`` copies
+dropped), and :func:`save_converted` writes its tree as the JAX package's
+``save_converted`` does, which ``raft_tpu.tools.convert.load_converted``
+reads. ``python -m raft_tpu_torch.tools.convert in.pth out.msgpack
+[--small]`` converts a reference ``.pth``.
 """
 
 from __future__ import annotations
@@ -39,6 +47,8 @@ import torch
 from raft_tpu_torch.config import RAFTConfig
 from raft_tpu_torch.models.raft import RAFT
 from raft_tpu_torch.testing import faults
+from raft_tpu_torch.tools import msgpack
+from raft_tpu_torch.tools.msgpack import CorruptCheckpointError
 
 
 def _flax_path_to_torch_key(path: Tuple[str, ...], collection: str) -> str:
@@ -98,8 +108,61 @@ def state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
     return sd
 
 
-class CorruptCheckpointError(RuntimeError):
-    """A checkpoint file failed its sidecar SHA-256 integrity check."""
+def _torch_key_to_flax_path(key: str) -> Tuple[str, Tuple[str, ...]]:
+    """'cnet.layer1.0.norm1.weight' -> ('params', ('cnet', 'layer1_0',
+    'norm1', 'norm', 'scale')): :func:`_flax_path_to_torch_key` reversed."""
+    parts = key.split(".")
+    *mods, leaf = parts
+    path = []
+    i = 0
+    while i < len(mods):
+        comp = mods[i]
+        nxt = mods[i + 1] if i + 1 < len(mods) else None
+        if re.fullmatch(r"layer\d", comp) and nxt is not None:
+            path.append(f"{comp}_{nxt}")
+            i += 2
+            continue
+        pair = {("downsample", "0"): "downsample_conv",
+                ("mask", "0"): "mask_conv1", ("mask", "2"): "mask_conv2"}
+        if (comp, nxt) in pair:
+            path.append(pair[comp, nxt])
+            i += 2
+            continue
+        path.append(comp)
+        i += 1
+    if re.fullmatch(r"norm\d*", path[-1]):
+        path.append("norm")      # the flax Norm wrapper's level
+        if leaf in ("running_mean", "running_var"):
+            return "batch_stats", tuple(path) + (leaf[len("running_"):],)
+        return "params", tuple(path) + ({"weight": "scale"}.get(leaf, leaf),)
+    return "params", tuple(path) + ({"weight": "kernel"}.get(leaf, leaf),)
+
+
+def flax_from_state_dict(state_dict: Mapping) -> Dict[str, Dict]:
+    """The JAX variable tree (``{"params": ..., "batch_stats": ...}`` of
+    nested dicts of fp32 numpy arrays; no ``batch_stats`` without batch
+    norms) of a port or reference ``state_dict``: conv kernels OIHW ->
+    HWIO, norm ``weight`` -> ``scale``, running statistics -> ``mean`` and
+    ``var``; ``num_batches_tracked`` and the ``downsample.1`` copies (the
+    same tensors as the block's last norm) dropped. The inverse of
+    :func:`state_dict_from_flax`."""
+    out: Dict[str, Dict] = {}
+    for key in sorted(state_dict):
+        k = key.removeprefix("module.")
+        if k.endswith("num_batches_tracked") or ".downsample.1." in k:
+            continue
+        value = state_dict[key]
+        if isinstance(value, torch.Tensor):
+            value = value.detach().cpu().float().numpy()
+        value = np.asarray(value, dtype=np.float32)
+        collection, path = _torch_key_to_flax_path(k)
+        if path[-1] == "kernel":
+            value = value.transpose(2, 3, 1, 0)              # OIHW -> HWIO
+        node = out.setdefault(collection, {})
+        for comp in path[:-1]:
+            node = node.setdefault(comp, {})
+        node[path[-1]] = np.ascontiguousarray(value)
+    return out
 
 
 def manifest_path(path: str) -> str:
@@ -157,18 +220,23 @@ def verify_manifest(path: str, data: bytes) -> None:
             "refusing to load it")
 
 
-def save_verified(obj, path: str, site: Optional[str] = None) -> None:
-    """``torch.save(obj)`` to ``path`` atomically, then its manifest.
-    ``site`` names a fault site: a point in the window before the rename,
-    and a corruption of the finished file."""
-    buf = io.BytesIO()
-    torch.save(obj, buf)
-    data = buf.getvalue()
+def _save_bytes(data: bytes, path: str, site: Optional[str]) -> None:
+    """``data`` to ``path`` atomically, then its manifest. ``site`` names a
+    fault site: a point in the window before the rename, and a corruption
+    of the finished file."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     _write_atomic(path, data, site=site)
     write_manifest(path, data)
     if site is not None:
         faults.fault_file(site, path)
+
+
+def save_verified(obj, path: str, site: Optional[str] = None) -> None:
+    """``torch.save(obj)`` to ``path`` atomically, then its manifest
+    (:func:`_save_bytes`)."""
+    buf = io.BytesIO()
+    torch.save(obj, buf)
+    _save_bytes(buf.getvalue(), path, site)
 
 
 def load_verified(path: str):
@@ -200,10 +268,66 @@ def save_pth(model: RAFT, path: str) -> None:
                   path, site="ckpt.msgpack_write")
 
 
+def save_converted(variables: Mapping, path: str) -> None:
+    """A JAX variable tree (:func:`flax_from_state_dict`) as flax
+    ``.msgpack`` bytes, written as the JAX package's ``save_converted``
+    writes them (raft_tpu/tools/convert.py:193-226): a temporary file,
+    fsync'd, the ``ckpt.msgpack_write`` fault site, the atomic rename, the
+    sha256 manifest, then the site's corruption of the finished file."""
+    _save_bytes(msgpack.packb(variables), path, "ckpt.msgpack_write")
+
+
+def load_msgpack(path: str, config: RAFTConfig) -> RAFT:
+    """A flax ``.msgpack`` (the JAX trainer's weights, or
+    :func:`save_converted`'s) loaded into a CPU ``RAFT`` with
+    ``strict=True``: the bytes pass their manifest first, then decode
+    whole (``tools.msgpack``; :class:`CorruptCheckpointError` otherwise)
+    and map through :func:`state_dict_from_flax`."""
+    with open(path, "rb") as f:
+        data = f.read()
+    verify_manifest(path, data)
+    tree = msgpack.unpackb(data)
+    if not isinstance(tree, dict) or "params" not in tree:
+        raise CorruptCheckpointError(
+            f"{path} holds no flax variable tree (no 'params')")
+    tree = {c: tree[c] for c in ("params", "batch_stats") if c in tree}
+    model = RAFT(config)
+    model.load_state_dict(state_dict_from_flax(_as_numpy(tree)), strict=True)
+    return model
+
+
+def _as_numpy(tree):
+    """Tensor leaves (bfloat16 ones decode as tensors) as fp32 numpy."""
+    if isinstance(tree, dict):
+        return {k: _as_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.float().numpy()
+    return tree
+
+
 def load_weights(path: str, config: RAFTConfig) -> RAFT:
-    """Weights by file type, as the JAX package's ``load_weights``."""
+    """Weights by file type, as the JAX package's ``load_weights``: a
+    reference ``.pth``, else a flax ``.msgpack``."""
     if path.endswith(".pth"):
         return load_pth(path, config)
-    raise NotImplementedError(
-        f"{path}: the port loads reference .pth files; .msgpack loading "
-        "needs flax serialization and is queued in ROADMAP.md")
+    return load_msgpack(path, config)
+
+
+def main(argv=None) -> None:
+    """The convert CLI: a reference ``.pth`` to flax ``.msgpack``
+    (raft_tpu/tools/convert.py:242-255)."""
+    import argparse
+
+    p = argparse.ArgumentParser(
+        description="Convert reference RAFT .pth checkpoints to flax msgpack")
+    p.add_argument("input", help="path to .pth file")
+    p.add_argument("output", help="path to write .msgpack")
+    p.add_argument("--small", action="store_true")
+    args = p.parse_args(argv)
+    model = load_pth(args.input, RAFTConfig(small=args.small))
+    save_converted(flax_from_state_dict(model.state_dict()), args.output)
+    print(f"converted {args.input} -> {args.output}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,5 +1,11 @@
 """Sequence loss over the iterations' flow predictions (train.py:47-72),
-port of ``raft_tpu/training/loss.py``."""
+port of ``raft_tpu/training/loss.py``.
+
+In a data-parallel step (``group``: the ``data`` axis's process group)
+each rank holds an equal share of the batch: the loss, a mean over all of
+its elements, is the mean of the ranks' losses (the step averages it and
+the gradients), while the metrics, means over the VALID pixels only, are
+summed as (sum, count) across the ranks, not averaged as means."""
 
 from __future__ import annotations
 
@@ -22,10 +28,21 @@ def _gamma_weighted_masked_l1(flow_preds, gt, vmask, gamma):
     return (weights * per_iter).sum()
 
 
-def _final_pred_metrics(epe, valid) -> Dict[str, torch.Tensor]:
+def _final_pred_metrics(epe, valid, group=None) -> Dict[str, torch.Tensor]:
     """epe/1px/3px/5px over the valid pixels of the final prediction
-    (train.py:62-70). ``epe`` and ``valid`` share one shape."""
+    (train.py:62-70). ``epe`` and ``valid`` share one shape. With a
+    ``group``, over the valid pixels of every rank's rows."""
     vf = valid.float()
+    if group is not None:
+        import torch.distributed as dist
+
+        with torch.no_grad():
+            sums = torch.stack([(x * vf).sum() for x in (
+                epe, (epe < 1).float(), (epe < 3).float(),
+                (epe < 5).float(), torch.ones_like(vf))])
+            dist.all_reduce(sums, group=group)
+        count = sums[4].clamp(min=1.0)
+        return dict(zip(("epe", "1px", "3px", "5px"), sums[:4] / count))
     count = vf.sum().clamp(min=1.0)
 
     def vmean(x):
@@ -37,7 +54,7 @@ def _final_pred_metrics(epe, valid) -> Dict[str, torch.Tensor]:
 
 def sequence_loss(flow_preds: torch.Tensor, flow_gt: torch.Tensor,
                   valid: torch.Tensor, gamma: float = 0.8,
-                  max_flow: float = MAX_FLOW
+                  max_flow: float = MAX_FLOW, group=None
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """γ-weighted L1 over all iteration outputs. flow_preds (T, B, H, W, 2),
     flow_gt (B, H, W, 2), valid (B, H, W). A pixel counts when
@@ -47,12 +64,12 @@ def sequence_loss(flow_preds: torch.Tensor, flow_gt: torch.Tensor,
     vmask = valid[None, ..., None].float()
     flow_loss = _gamma_weighted_masked_l1(flow_preds, flow_gt, vmask, gamma)
     epe = (flow_preds[-1] - flow_gt).pow(2).sum(-1).sqrt()
-    return flow_loss, _final_pred_metrics(epe, valid)
+    return flow_loss, _final_pred_metrics(epe, valid, group)
 
 
 def sequence_loss_subpixel(up_raw: torch.Tensor, flow_gt: torch.Tensor,
                            valid: torch.Tensor, gamma: float = 0.8,
-                           max_flow: float = MAX_FLOW
+                           max_flow: float = MAX_FLOW, group=None
                            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """:func:`sequence_loss` in the upsampler's subpixel domain: up_raw
     (T, B, 2, 64, H*W) from ``convex_upsample_batched_raw``; flow_gt
@@ -66,4 +83,4 @@ def sequence_loss_subpixel(up_raw: torch.Tensor, flow_gt: torch.Tensor,
     vmask = valid_t[None, :, None].float()                   # (1,B,1,64,HW)
     flow_loss = _gamma_weighted_masked_l1(up_raw, gt_t, vmask, gamma)
     epe = (up_raw[-1] - gt_t).pow(2).sum(1).sqrt()
-    return flow_loss, _final_pred_metrics(epe, valid_t)
+    return flow_loss, _final_pred_metrics(epe, valid_t, group)

@@ -13,6 +13,18 @@ parameters stay fp32. The step's random draws (image noise, then the
 encoders' dropout masks) come from one generator seeded from (seed, step),
 the analog of JAX's per-step key ``fold_in(rng, step)`` (train_step.py:107),
 so a resumed run replays them.
+
+Data parallel (``mesh=``, ``parallel.mesh``): each rank steps on its rows
+of the global batch. It draws the global batch's noise and dropout masks
+from the same generator and keeps its rows; the batch norms take the
+global batch's statistics (``models.layers.BatchNorm2d``); after the
+backward the gradients are summed over the ``data`` axis as one flat
+buffer and divided by N, before the clip, so every rank clips and steps
+identically; the loss and metrics are the global batch's. N ranks thus
+compute what one rank computes on the whole batch (within the sums'
+rounding). No ``DistributedDataParallel``: its ``module.`` prefix would
+reach the saved weights and its bucketed overlap reorders the sums; a
+one-device mesh runs no collective, bitwise the mesh-less step.
 """
 
 from __future__ import annotations
@@ -23,8 +35,10 @@ from typing import Dict
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from raft_tpu_torch.config import RAFTConfig, TrainConfig
+from raft_tpu_torch.models.layers import set_process_group
 from raft_tpu_torch.models.raft import RAFT
 from raft_tpu_torch.training.loss import sequence_loss, sequence_loss_subpixel
 from raft_tpu_torch.training.optim import clip_by_global_norm_, make_optimizer
@@ -68,21 +82,54 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
     return gen
 
 
-def add_noise(image1, image2, gen: torch.Generator):
+def add_noise(image1, image2, gen: torch.Generator, draw_rows=None):
     """train.py:167-170: one stdv ~ U[0, 5) for the pair, then Gaussian
-    noise of that stdv on each image, clipped to [0, 255]."""
+    noise of that stdv on each image, clipped to [0, 255].
+    ``draw_rows=(start, global_batch)``: the images are rows ``start..``
+    of a global batch, whose whole noise is drawn."""
     dev = image1.device
+    b = image1.shape[0]
+    start, total = draw_rows if draw_rows is not None else (0, b)
     stdv = 5.0 * torch.rand((), generator=gen, device=dev)
-    return tuple((im + stdv * torch.randn(im.shape, generator=gen, device=dev))
-                 .clamp(0.0, 255.0) for im in (image1, image2))
+    return tuple((im + stdv * torch.randn(
+        (total,) + im.shape[1:], generator=gen, device=dev)[start:start + b])
+        .clamp(0.0, 255.0) for im in (image1, image2))
 
 
-def make_train_step(model_cfg: RAFTConfig, train_cfg: TrainConfig):
+def all_reduce_mean_(grads, group, n: int) -> None:
+    """The mean of ``grads`` over the ``n`` ranks of ``group``, in place,
+    through one flat buffer (one collective, the same order of sums on
+    every rank)."""
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat, group=group)
+    flat /= n
+    offset = 0
+    for g in grads:
+        g.copy_(flat[offset:offset + g.numel()].view_as(g))
+        offset += g.numel()
+
+
+def make_train_step(model_cfg: RAFTConfig, train_cfg: TrainConfig,
+                    mesh=None):
     """``step(state, batch) -> metrics``: batch holds image1/image2
     (B,H,W,3) and valid (B,H,W), uint8 or float32, and flow (B,H,W,2)
     float32, on any device; metrics are the 0-dim tensors
     :data:`METRICS` on the model's device (nothing waits for the card).
-    ``grad_norm`` is the global norm before the clip."""
+    ``grad_norm`` is the global norm before the clip. With a ``mesh`` of a
+    ``data`` axis over 1, ``batch`` is this rank's rows (rank ``i`` of the
+    axis holds rows ``i·B..``) and the metrics are the global batch's; a
+    ``spatial`` axis over 1 is not executed and raises."""
+    data, group = 1, None
+    if mesh is not None:
+        if mesh.shape["spatial"] > 1:
+            raise NotImplementedError(
+                "a 'spatial' mesh axis over 1 (conv halo exchange, a "
+                "query-sharded volume) is ROADMAP.md §1 'the spatial "
+                "axis and the sharded engine'")
+        data, group = mesh.shape["data"], mesh.group
+        if data > 1 and not model_cfg.split_encode:
+            raise ValueError("a data axis over 1 needs split_encode "
+                             "(parallel.partitioner.mesh_model_config)")
     freeze_bn = train_cfg.stage != "chairs"
     fused = (train_cfg.fused_loss is not False) and not model_cfg.small
     if train_cfg.fused_loss is True and model_cfg.small:
@@ -104,19 +151,30 @@ def make_train_step(model_cfg: RAFTConfig, train_cfg: TrainConfig):
         valid = _as_float(batch["valid"], dev)
         flow = _as_float(batch["flow"], dev)
         gen = step_generator(train_cfg.seed, state.step, dev)
+        rows = None
+        if data > 1:
+            b = image1.shape[0]
+            rows = (mesh.coords[0] * b, data * b)
         if train_cfg.add_noise:
-            image1, image2 = add_noise(image1, image2, gen)
+            image1, image2 = add_noise(image1, image2, gen, rows)
         model.train()
+        set_process_group(model, group)
         preds = model(image1, image2, iters=train_cfg.iters, test_mode=False,
                       train=True, freeze_bn=freeze_bn, raw_predictions=fused,
-                      generator=gen)
-        loss, metrics = loss_impl(preds, flow, valid, train_cfg.gamma)
+                      generator=gen, draw_rows=rows)
+        loss, metrics = loss_impl(preds, flow, valid, train_cfg.gamma,
+                                  group=group)
         state.optimizer.zero_grad()
         loss.backward()
         params = list(model.parameters())
         for p in params:   # optax updates every leaf; a missing grad is 0
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        if group is not None:
+            all_reduce_mean_([p.grad for p in params], group, data)
+            loss = loss.detach().clone()
+            dist.all_reduce(loss, group=group)
+            loss /= data
         grad_norm = clip_by_global_norm_([p.grad for p in params],
                                          train_cfg.clip)
         state.optimizer.step()

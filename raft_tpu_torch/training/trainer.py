@@ -27,6 +27,25 @@ with ``nvcc`` never counts against it. ``resume`` also moves a loader that
 has ``start_at`` (the ``PrefetchLoader``) to the restored step, so the run
 continues on the batches the uninterrupted run would have drawn. The fault
 site ``trainer.step`` sits at the top of the loop (``testing.faults``).
+
+Data parallel, as the JAX trainer builds its mesh on every run
+(raft_tpu/training/trainer.py:106-110): :func:`train` calls
+``parallel.distributed.initialize()`` (a no-op in a lone process; NCCL on
+the card, gloo on the CPU), ``make_mesh()`` over every process's device
+and ``mesh_model_config`` (``split_encode`` for a data axis over 1).
+``batch_size`` stays the GLOBAL batch: each rank steps on its
+``process_batch_slice`` rows, cut from each batch of a passed ``loader``
+or decoded alone by the stage's loader (``rows=``), and the train step
+sums gradients, batch-norm statistics and metrics over the ranks. Rank 0
+alone writes the weights, the full states, ``metrics.jsonl`` and runs the
+validation, each write followed by a barrier; ``resume`` restores the
+same step on every rank; the watchdog and the supervisor are per process.
+Under ``torchrun --nproc_per_node=N`` each rank takes ``cuda:<LOCAL_RANK>``
+for ``device="cuda"``.
+
+The trainer writes ``.pth`` weights (the reference's format); the JAX
+trainer's ``.msgpack`` loads through ``restore_ckpt`` all the same
+(``tools.convert.load_weights``).
 """
 
 from __future__ import annotations
@@ -43,6 +62,9 @@ from raft_tpu_torch import kernels
 from raft_tpu_torch.config import RAFTConfig, TrainConfig, stage_config
 from raft_tpu_torch.evaluation import evaluate as ev
 from raft_tpu_torch.models.raft import RAFT
+from raft_tpu_torch.parallel import distributed
+from raft_tpu_torch.parallel.mesh import make_mesh
+from raft_tpu_torch.parallel.partitioner import mesh_model_config
 from raft_tpu_torch.testing import faults
 from raft_tpu_torch.tools.convert import (CorruptCheckpointError,
                                           load_weights, manifest_path,
@@ -118,22 +140,69 @@ class DeviceBatches:
                 it.close()
 
 
+class RankRows:
+    """This rank's rows of each global batch of ``loader`` (a re-iterable
+    of batch dicts): the trainer's cut of a passed loader under a data
+    axis over 1."""
+
+    def __init__(self, loader: Iterable, rows: slice):
+        self.loader, self.rows = loader, rows
+
+    def __iter__(self):
+        for batch in self.loader:
+            yield {k: v[self.rows] for k, v in batch.items()}
+
+    def start_at(self, step: int) -> None:
+        if hasattr(self.loader, "start_at"):
+            self.loader.start_at(step)
+
+
+class _Silent:
+    """The logger of a rank other than 0: rank 0 alone writes the log."""
+
+    def start_at(self, step: int) -> None:
+        pass
+
+    def push_sums(self, sums, n: int) -> None:
+        pass
+
+    def write_dict(self, results) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
 def train(model_cfg: RAFTConfig, train_cfg: TrainConfig, resume: bool = False,
           loader: Optional[Iterable] = None, device: str = "cuda"
           ) -> TrainState:
     """Run one stage for ``train_cfg.num_steps`` steps on ``device``; returns
     the final state. Weights start from ``restore_ckpt`` (a reference
-    ``.pth``, a fresh schedule) or from ``RAFT``'s init seeded with
-    ``train_cfg.seed``; ``resume`` then restores the stage's newest intact
-    full state, schedule and step included. ``loader`` is an iterable of
-    batch dicts, re-iterated until the steps are done; None builds the
-    stage's mix under ``data_root`` (``data.loader.fetch_dataloader``)."""
-    dev = ev.resolve_device(device)
+    ``.pth`` or a flax ``.msgpack``, a fresh schedule) or from ``RAFT``'s
+    init seeded with ``train_cfg.seed``; ``resume`` then restores the
+    stage's newest intact full state, schedule and step included.
+    ``loader`` is an iterable of global batch dicts, re-iterated until the
+    steps are done (each rank keeps its rows); None builds the stage's mix
+    under ``data_root`` (``data.loader.fetch_dataloader``)."""
+    dev = ev.resolve_device(str(distributed.local_device(device)))
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    distributed.initialize(backend="nccl" if dev.type == "cuda" else "gloo")
+    mesh = make_mesh(devices=distributed.gather_devices(dev))
+    model_cfg = mesh_model_config(model_cfg, mesh)
+    data = mesh.shape["data"]
+    if train_cfg.batch_size % data:
+        raise ValueError(f"batch_size {train_cfg.batch_size} does not split "
+                         f"over {data} processes")
+    rows = distributed.process_batch_slice(train_cfg.batch_size)
+    lead = mesh.rank == 0
     np.random.seed(train_cfg.seed)  # train.py:241-242
     torch.manual_seed(train_cfg.seed)
     stage_dir = os.path.join(train_cfg.checkpoint_dir, train_cfg.name,
                              train_cfg.stage)
-    os.makedirs(stage_dir, exist_ok=True)
+    if lead:
+        os.makedirs(stage_dir, exist_ok=True)
+    distributed.barrier()
     if train_cfg.restore_ckpt:
         model = load_weights(train_cfg.restore_ckpt, model_cfg)
     else:
@@ -149,16 +218,20 @@ def train(model_cfg: RAFTConfig, train_cfg: TrainConfig, resume: bool = False,
             train_cfg.stage, train_cfg.image_size, train_cfg.batch_size,
             data_root=train_cfg.data_root, num_workers=train_cfg.num_workers,
             seed=train_cfg.seed, wire_dtype="uint8",
-            on_bad_sample=train_cfg.on_bad_sample, stall_s=train_cfg.stall_s)
+            on_bad_sample=train_cfg.on_bad_sample, stall_s=train_cfg.stall_s,
+            rows=rows if data > 1 else None)
+    elif data > 1:
+        loader = RankRows(loader, rows)
     if resume and hasattr(loader, "start_at"):
         loader.start_at(state.step)
-    step_fn = make_train_step(model_cfg, train_cfg)
+    step_fn = make_train_step(model_cfg, train_cfg, mesh)
     if dev.type == "cuda" and _uses_kernels(model_cfg):
         from raft_tpu_torch.kernels import _build
 
         _build.library()  # nvcc at first use: before the watch is armed
-    logger = Logger(os.path.join(train_cfg.log_dir, train_cfg.name),
-                    lr_fn=lambda _: state.scheduler.get_last_lr()[0])
+    logger = (Logger(os.path.join(train_cfg.log_dir, train_cfg.name),
+                     lr_fn=lambda _: state.scheduler.get_last_lr()[0])
+              if lead else _Silent())
     logger.start_at(state.step)
     prof, profiler = train_cfg.profile_steps, None
     sums, n = None, 0
@@ -207,15 +280,17 @@ def train(model_cfg: RAFTConfig, train_cfg: TrainConfig, resume: bool = False,
                 if state.step % train_cfg.val_freq == train_cfg.val_freq - 1:
                     flush()  # the window's record precedes validation
                     t_val = time.perf_counter()
-                    ckpt_lib.save_train_state(stage_dir, state)
-                    ckpt_lib.save_weights(os.path.join(
-                        train_cfg.checkpoint_dir,
-                        f"{state.step + 1}_{train_cfg.name}.pth"), model)
-                    results = run_validation(model, model_cfg,
-                                             train_cfg.validation,
-                                             train_cfg.data_root, str(dev))
-                    if results:
-                        logger.write_dict(results)
+                    if lead:
+                        ckpt_lib.save_train_state(stage_dir, state)
+                        ckpt_lib.save_weights(os.path.join(
+                            train_cfg.checkpoint_dir,
+                            f"{state.step + 1}_{train_cfg.name}.pth"), model)
+                        results = run_validation(model, model_cfg,
+                                                 train_cfg.validation,
+                                                 train_cfg.data_root, str(dev))
+                        if results:
+                            logger.write_dict(results)
+                    distributed.barrier()
                     val_s += time.perf_counter() - t_val
                     hang_watch.beat()  # a long validation is no wedge
                 if state.step >= train_cfg.num_steps:
@@ -237,14 +312,17 @@ def train(model_cfg: RAFTConfig, train_cfg: TrainConfig, resume: bool = False,
                            "train_loop_steps": steps, **{
                                f"launches_{k}": v - launches0[k]
                                for k, v in kernels.launch_counts().items()}})
-        print(f"loader: the host waited {batches.wait_s:.3f} s for batches "
-              f"in {loop_s - val_s:.3f} s of {steps} steps (the loop "
-              f"{loop_s:.3f} s with {val_s:.3f} s of checkpoints and "
-              "validation)", flush=True)
+        if lead:
+            print(f"loader: the host waited {batches.wait_s:.3f} s for "
+                  f"batches in {loop_s - val_s:.3f} s of {steps} steps (the "
+                  f"loop {loop_s:.3f} s with {val_s:.3f} s of checkpoints "
+                  "and validation)", flush=True)
         final = os.path.join(train_cfg.checkpoint_dir, f"{train_cfg.name}.pth")
         hang_watch.beat()
-        ckpt_lib.save_weights(final, model)
-        print(f"saved final weights to {final}", flush=True)
+        if lead:
+            ckpt_lib.save_weights(final, model)
+            print(f"saved final weights to {final}", flush=True)
+        distributed.barrier()
     finally:
         # an in-process caller that catches an exception must not be
         # killed later by a watch nobody beats

@@ -784,3 +784,30 @@ def test_weight_swap_reaches_a_loaded_program(cuda, tmp_path):
     assert float(np.abs(got - want).max()) <= 1e-5
     assert float(np.abs(got - before).max()) > 1e-3
     assert warm.capture_count == 1
+
+
+@pytest.mark.parametrize("cell", [
+    "live", "store", "live_profiled", "store_profiled", "store_cached",
+    "store_cached_profiled"])
+def test_graph_churn_cell(cuda, cell):
+    """Serving graphs freed while another engine replays (the cells of
+    ``profile_graph_churn.CELLS``): engine A replays its bucket on a
+    thread, bitwise its first flow each time, while engine B's bucket is
+    dropped with a replay in flight, rebuilt, and B is dropped whole and
+    built again, 50 times; with and without ``torch.profiler``, B's
+    program captured live or loaded from the store, and once through an
+    in-process cache of deserialized programs. Each cell runs in a process
+    of its own with ``faulthandler`` on, so a crash fails this cell with
+    every thread's stack."""
+    import os.path as osp
+    import subprocess
+    import sys
+
+    repo = osp.dirname(osp.dirname(osp.abspath(__file__)))
+    r = subprocess.run(
+        [sys.executable, osp.join(repo, "profile_graph_churn.py"), "--cell",
+         cell, "--rounds", "50"], cwd=repo, capture_output=True, text=True,
+        timeout=900)
+    if r.returncode != 0:   # every thread's stack, unabridged
+        pytest.fail(f"cell {cell}: exit {r.returncode}\n{r.stdout[-3000:]}"
+                    f"\n{r.stderr[-8000:]}", pytrace=False)
