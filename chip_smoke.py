@@ -258,14 +258,36 @@ Phases, each of which fails loudly (nothing is caught):
    rank's launches at iters 12, the step's ms and the gradient
    all-reduce's ms (a subprocess each, DP_TIMEOUT_S each, both killed when
    one fails);
-22. print the drill's, the envelope's, the serving phases' and phase 21's
-   numbers (``{"serving_frontend": ...}``, ``{"serving_registry": ...}``,
-   ``{"serving_store_hosts": ...}`` and ``{"parallel": ...}`` lines), the
+22. the ``spatial`` mesh axis (``parallel.halo``, ``RAFTEngine(mesh=)``,
+   the train step over bands), TF32 off, cuDNN deterministic, two
+   processes on cuda:0 joined by gloo on a ``(1, 2)`` mesh (a subprocess
+   each, SP_TIMEOUT_S each, both killed when one fails): (a) one seeded
+   1080x1920 pair (bucket 1x1088x1920, 68 feature rows a band) through the
+   sharded engine, the basic model (``pallas`` + ``fused``) at iters 1
+   within BASIC_STEP_TOL of the one-device engine on the same card (its
+   bucket the same, so the same zero rows fill it) and
+   the small trained fixture at iters 20 within SMALL_TOL, both ranks'
+   results bitwise equal, each rank's pyramid exactly half the one-device
+   one's, each rank's peak memory beside the one-device engine's, the
+   basic pair's ms a rank and the share of it its all-reduces take (each
+   timed alone: the halos, the norms' sums, the fmap2 and output
+   gathers), no capture; (b) the chairs step on phase 21 (c)'s rows
+   (368x496, 23 feature rows a band): the basic model on its weights at
+   iters 1 and the small trained fixture at iters 12, each held to one
+   rank's step on the whole batch by phase 21's rules, with each side's
+   rounding witnessed by its own steps on image1, then image2, moved by
+   one ulp (the bounds the largest witness a side, summed over the
+   sides); (c) each rank's launches in the counted runs;
+23. print the drill's, the envelope's, the serving phases', phase 21's
+   and phase 22's numbers (``{"serving_frontend": ...}``,
+   ``{"serving_registry": ...}``, ``{"serving_store_hosts": ...}``,
+   ``{"parallel": ...}`` and ``{"spatial": ...}`` lines), the
    ``{"kernels": [...]}`` line (with ``launches_serving``,
    ``launches_serving_frontend``, ``launches_registry``,
    ``launches_fleet`` and ``launches_store_hosts`` on K1 and K2,
-   ``launches_parallel`` on K1-K4), the ``nvidia-smi`` line, and last the
-   ``{"ok": true, "device": ...}`` line.
+   ``launches_parallel`` and ``launches_spatial`` on K1-K4), the
+   ``nvidia-smi`` line, and last the ``{"ok": true, "device": ...}``
+   line.
 
 Exits non-zero, printing no result, when there is no CUDA device.
 """
@@ -747,8 +769,16 @@ def step_gap(a, b):
     return abs(la - lb) / abs(lb), max(rel), float(np.median(rel)), worst, gmax
 
 
+def witness_bounds(witnesses, base):
+    """The largest relative loss gap, largest-parameter gradient gap and
+    median gradient gap of ``witnesses`` (``step_grads``-shaped results)
+    to ``base``."""
+    gaps = [step_gap(w, base)[:3] for w in witnesses]
+    return tuple(max(g[i] for g in gaps) for i in range(3))
+
+
 def check_step(name, plain, kernels, ulp, tag="8", bf16=False,
-               across_ranks=False):
+               across_ranks=False, ulp2=()):
     """Phases 8 and 12: one step's kernels-vs-plain gap against the plain
     path's gap against itself on inputs moved by one ulp (``ulp``). For the
     gradients: each parameter's within the largest relative one-ulp gap of
@@ -765,9 +795,21 @@ def check_step(name, plain, kernels, ulp, tag="8", bf16=False,
     (at iters 12 random weights amplify a rounding difference past 1e-5),
     and a parameter whose gradient is under 1e-4 of the model's largest
     (zero in exact arithmetic: a bias in front of a batch norm, whose
-    statistics the two paths sum by other formulas) within that 1e-4."""
+    statistics the two paths sum by other formulas) within that 1e-4.
+    ``ulp`` may be a list of such witnesses (each an input moved by one
+    ulp another way): each bound is then the largest of theirs. ``ulp2``
+    (phase 22's bands, which round every conv and norm another way than
+    one rank): a list of ``kernels``' own steps on inputs moved by one
+    ulp, whose largest gaps to ``kernels`` are added to the bounds, one
+    rounding noise for each side."""
     dl, worst_rel, median, worst, gmax = step_gap(kernels, plain)
-    ulp_loss, grad_tol, median_tol, ulp_worst, _ = step_gap(ulp, plain)
+    ulps = ulp if isinstance(ulp, list) else [ulp]
+    ulp_worst = step_gap(ulps[0], plain)[3]
+    ulp_loss, grad_tol, median_tol = witness_bounds(ulps, plain)
+    if ulp2:
+        more = witness_bounds(ulp2, kernels)
+        ulp_loss, grad_tol, median_tol = (
+            a + b for a, b in zip((ulp_loss, grad_tol, median_tol), more))
     loss_tol, floor = STEP_LOSS_TOL, 1e-6 * gmax
     if across_ranks:
         loss_tol = max(STEP_LOSS_TOL, ulp_loss)
@@ -3797,6 +3839,104 @@ def dp_one_rank(cfg, weights, batch, iters: int):
             "grads": {k: p.grad.cpu() for k, p in model.named_parameters()}}
 
 
+#: one-rank steps on DP_B rows, by (model, iters, the frame moved by one
+#: ulp or "one"): phase 21's, to which phase 22's basic spatial step on the
+#: same weights and rows is held too
+DP_REFERENCES = {}
+
+
+def dp_references(cfg, weights, batch, iters: int, frames=("image1",),
+                  name: str = "basic"):
+    """The one-rank step of model ``name`` on the whole of ``batch``
+    (numpy), and the same step with each of ``frames`` in turn moved by
+    one ulp: what rounding alone does. Kept in :data:`DP_REFERENCES` for a
+    later phase on the same inputs. Returns ``(one, [witness a
+    frame])``."""
+    def step(key, moved=None):
+        key = (name, iters, key)
+        if key not in DP_REFERENCES:
+            b = dict(batch)
+            if moved:
+                b[moved] = np.nextafter(batch[moved].astype(np.float32),
+                                        np.float32(np.inf))
+            DP_REFERENCES[key] = dp_one_rank(
+                cfg, weights, {k: torch.from_numpy(v).cuda()
+                               for k, v in b.items()}, iters)
+        return DP_REFERENCES[key]
+
+    return step("one"), [step(f, f) for f in frames]
+
+
+def hold_to_one_rank(name: str, tag: str, ranks, one, one_ulps,
+                     ranks_ulps=()) -> dict:
+    """Phase 21's rules for ranks' step (each rank's ``metrics``, ``state``
+    and ``grads``) against one rank's on the whole batch: the ranks'
+    weights bitwise equal; the gradients and the loss by phase 8's one-ulp
+    rule (``check_step``, ``across_ranks``); the loss and epe within
+    STEP_LOSS_TOL or their one-ulp gap, the grad norm within the gradient
+    rule's bound; batch-norm statistics and the new parameters within the
+    gap one ulp of input opens (or 1e-5, 2 lr). ``one_ulps``: the one-rank
+    step's witnesses (inputs moved by one ulp), each bound the largest of
+    theirs; ``ranks_ulps``: rank 0's own witnesses, whose largest gaps to
+    the ranks' step are added to every bound (``check_step``'s
+    ``ulp2``). Returns each (gap, bound); raises on a gap over its
+    bound."""
+    if any(same_tree(ranks[0]["state"], r["state"]) for r in ranks[1:]):
+        raise RuntimeError(f"{name}: the ranks' weights differ")
+    lr0 = dp_train_config().lr / 25
+
+    def grads(r):
+        return r["metrics"]["loss"], r["grads"]
+
+    # phase 8's rule (check_step, across_ranks): each gradient within the
+    # largest relative gap one ulp of input opens in the one-rank step plus
+    # 1e-6 of the model's largest, the median within the one-ulp median;
+    # the loss within STEP_LOSS_TOL, or its one-ulp gap where that is
+    # larger
+    mine = ranks[0]
+    check_step(name, grads(one), grads(mine), [grads(u) for u in one_ulps],
+               tag=tag, across_ranks=True,
+               ulp2=[grads(u) for u in ranks_ulps])
+    sides = [(one_ulps, one)] + ([(ranks_ulps, mine)] if ranks_ulps else [])
+
+    def bound(gap):
+        """The sum over the sides of the largest witness gap."""
+        return sum(max(gap(u, base) for u in us) for us, base in sides)
+
+    # the loss and epe within STEP_LOSS_TOL or their one-ulp gap; the grad
+    # norm, a function of the gradients, within the gradient rule's bound:
+    # the largest relative gap one ulp of input opens in a parameter's
+    # gradient
+    grad_tol = bound(lambda u, w: step_gap(grads(u), grads(w))[1])
+    g = {}
+    for k in ("loss", "grad_norm", "epe"):
+        got, want = mine["metrics"][k], one["metrics"][k]
+        tol = max(STEP_LOSS_TOL, grad_tol if k == "grad_norm" else bound(
+            lambda u, w: abs(u["metrics"][k] - w["metrics"][k])
+            / abs(w["metrics"][k])))
+        g[k] = (abs(got - want) / abs(want), tol)
+    # batch-norm statistics and the new parameters: within the gap one ulp
+    # of input opens in the one-rank step, or 1e-5 (statistics) and 2 lr
+    # (Adam's first update is ±lr an element, so one whose gradient is at
+    # noise level may move the other way)
+    for part, floor in (("running", 1e-5), ("params", 2 * lr0 + 1e-6)):
+        keys = [k for k in one["state"]
+                if ("running_" in k) == (part == "running")
+                and not k.endswith("num_batches_tracked")]
+        if not keys:        # a model without batch norms
+            continue
+        got = max(float((mine["state"][k] - one["state"][k])
+                        .abs().max()) for k in keys)
+        tol = max(floor, bound(lambda u, w: max(
+            float((u["state"][k] - w["state"][k]).abs().max())
+            for k in keys)))
+        g[part] = (got, tol)
+    bad = {k: v for k, v in g.items() if not v[0] <= v[1]}
+    if bad:
+        raise RuntimeError(f"{name}: ranks disagree with one: {bad}")
+    return g
+
+
 def parallel_phase(smi: str) -> dict:
     """Phase 21: JAX-trained ``.msgpack`` weights on the card, and
     data-parallel training (``raft_tpu_torch.parallel``); see the module
@@ -3919,59 +4059,14 @@ def parallel_phase(smi: str) -> dict:
                                    f"{text[-6000:]}")
         res = [json.loads([ln for ln in text.splitlines()
                            if ln.startswith("{")][-1]) for text in logs]
-        dev_batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
-        ulp_batch = dict(dev_batch, image1=torch.from_numpy(np.nextafter(
-            batch["image1"].astype(np.float32), np.float32(np.inf))).cuda())
-        lr0 = dp_train_config().lr / 25
         gaps = {}
         for iters in DP_ITERS:
             ranks = [torch.load(os.path.join(tmp, f"rank{r}_iters{iters}.pt"))
                      for r in range(2)]
-            if same_tree(ranks[0]["state"], ranks[1]["state"]):
-                raise RuntimeError(f"iters {iters}: the two ranks' weights "
-                                   "differ")
-            one = dp_one_rank(cfg_c, weights, dev_batch, iters)
-            one_ulp = dp_one_rank(cfg_c, weights, ulp_batch, iters)
-            # phase 8's rule (check_step, across_ranks): each gradient
-            # within the largest relative gap one ulp of input opens in the
-            # one-rank step plus 1e-6 of the model's largest, the median
-            # within the one-ulp median; the loss within STEP_LOSS_TOL, or
-            # its one-ulp gap where that is larger
-            check_step(f"two ranks against one, iters {iters}",
-                       (one["metrics"]["loss"], one["grads"]),
-                       (ranks[0]["metrics"]["loss"], ranks[0]["grads"]),
-                       (one_ulp["metrics"]["loss"], one_ulp["grads"]),
-                       tag="21", across_ranks=True)
-            # the loss and epe within STEP_LOSS_TOL or their one-ulp gap;
-            # the grad norm, a function of the gradients, within the
-            # gradient rule's bound: the largest relative gap one ulp of
-            # input opens in a parameter's gradient
-            grad_tol = step_gap((one_ulp["metrics"]["loss"],
-                                 one_ulp["grads"]),
-                                (one["metrics"]["loss"], one["grads"]))[1]
-            g = {}
-            for k in ("loss", "grad_norm", "epe"):
-                got, want = ranks[0]["metrics"][k], one["metrics"][k]
-                tol = max(STEP_LOSS_TOL, grad_tol if k == "grad_norm"
-                          else abs(one_ulp["metrics"][k] - want) / abs(want))
-                g[k] = (abs(got - want) / abs(want), tol)
-            # batch-norm statistics and the new parameters: within the gap
-            # one ulp of input opens in the one-rank step, or 1e-5
-            # (statistics) and 2 lr (Adam's first update is ±lr an
-            # element, so one whose gradient is at noise level may move
-            # the other way)
-            for part, floor in (("running", 1e-5),
-                                ("params", 2 * lr0 + 1e-6)):
-                keys = [k for k in one["state"]
-                        if ("running_" in k) == (part == "running")
-                        and not k.endswith("num_batches_tracked")]
-                got = max(float((ranks[0]["state"][k] - one["state"][k])
-                                .abs().max()) for k in keys)
-                tol = max(floor, max(float((one_ulp["state"][k]
-                                            - one["state"][k]).abs().max())
-                                     for k in keys))
-                g[part] = (got, tol)
-            gaps[f"iters_{iters}"] = g
+            one, one_ulps = dp_references(cfg_c, weights, batch, iters)
+            gaps[f"iters_{iters}"] = hold_to_one_rank(
+                f"two ranks against one, iters {iters}", "21", ranks, one,
+                one_ulps)
         step_ms = [float(np.median(r["step_ms"])) for r in res]
         reduce_ms = [float(np.median(r["all_reduce_ms"])) for r in res]
         out["two_ranks"] = {
@@ -3990,10 +4085,6 @@ def parallel_phase(smi: str) -> dict:
             f"through the host) {reduce_ms} ms, "
             f"{out['two_ranks']['all_reduce_share']} of the step; launches "
             f"{out['two_ranks']['launches']}; {smi}")
-        bad = {(i, k): v for i, g in gaps.items() for k, v in g.items()
-               if not v[0] <= v[1]}
-        if bad:
-            raise RuntimeError(f"two ranks disagree with one: {bad}")
         want = expected_launches(corr_lookup=TRAIN_ITERS,
                                  corr_scatter=TRAIN_ITERS,
                                  gru_gates=2 * TRAIN_ITERS,
@@ -4006,6 +4097,373 @@ def parallel_phase(smi: str) -> dict:
     finally:
         if tdist.is_initialized():
             tdist.destroy_process_group()
+        torch.backends.cudnn.deterministic = False
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 22: the spatial axis
+# ---------------------------------------------------------------------------
+
+SP_TIMEOUT_S = 300              # bound on a rank's whole run
+SP_SMALL_ITERS = 20             # the trained fixture's iterations in (a)
+SP_TIMED = 2                    # (a)'s timed basic pairs after the counted
+# (b)'s rounding witnesses on each side: the step with one frame moved by
+# one ulp, each frame in turn (at iters 12 random weights amplify
+# rounding chaotically, so one sample of it is a loose yardstick)
+SP_WITNESSES = ("image1", "image2")
+# (b)'s steps, (model, iters): the basic model at iters 1, where its
+# random weights are not yet chaotic, and the small trained fixture over
+# TRAIN_ITERS (a contracting recurrence: at iters 12 the random-init basic
+# model's loss moves with any rounding, PERF.md §6, PR 12)
+SP_STEPS = (("basic", 1), ("small", TRAIN_ITERS))
+SPATIAL_CHILD = """import json, sys, time
+import numpy as np, torch
+import torch.distributed as tdist
+torch.backends.cudnn.deterministic = True
+torch.backends.cudnn.benchmark = False
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+from raft_tpu_torch import kernels
+from raft_tpu_torch.models import raft as raft_module
+from raft_tpu_torch.parallel import distributed
+from raft_tpu_torch.parallel.mesh import make_mesh, shard_batch
+from raft_tpu_torch.serving import RAFTEngine
+from raft_tpu_torch.training.train_step import (create_train_state,
+                                                make_train_step)
+import chip_smoke as c
+d, r = sys.argv[1], int(sys.argv[2])
+dev = torch.device("cuda:0")
+torch.cuda.set_device(dev)
+# gloo: NCCL refuses two ranks on one device; gloo carries CUDA tensors
+distributed.initialize(f"file://{d}/store", 2, r, backend="gloo")
+mesh = make_mesh(spatial=2)
+pair = dict(np.load(d + "/pair.npz"))
+built = c.record_pyramids(raft_module)
+out = {"rank": r, "mesh": repr(mesh), "engine": {}, "train": {}}
+flows = {}
+# (a) the sharded engine at 1080x1920
+for name, cfg, weights, iters in c.sp_models(d):
+    eng = RAFTEngine(weights, cfg, iters=iters, mesh=mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    flows[name] = eng.infer_batch(pair["image1"], pair["image2"])
+    torch.cuda.synchronize()
+    e = {"first_ms": (time.perf_counter() - t0) * 1e3,
+         "launches": kernels.launch_counts(),
+         "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20,
+         "pyramid_bytes": built[-1], "stats": eng.aot_stats()}
+    if name == "basic":
+        ms = []
+        for _ in range(c.SP_TIMED):
+            distributed.barrier()
+            t0 = time.perf_counter()
+            eng.infer_batch(pair["image1"], pair["image2"])
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        e["ms"] = ms
+        # every all-reduce timed alone (the card synchronised first): the
+        # halos, the norms' sums, the fmap2 gather and the output gather
+        spent = []
+        real = tdist.all_reduce
+        def timed(t, *a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = real(t, *a, **k)
+            torch.cuda.synchronize()
+            spent.append((time.perf_counter() - t0,
+                          t.numel() * t.element_size()))
+            return res
+        tdist.all_reduce = timed
+        distributed.barrier()
+        t0 = time.perf_counter()
+        eng.infer_batch(pair["image1"], pair["image2"])
+        torch.cuda.synchronize()
+        e["instrumented_ms"] = (time.perf_counter() - t0) * 1e3
+        tdist.all_reduce = real
+        e["all_reduce_ms"] = sum(t for t, _ in spent) * 1e3
+        e["all_reduces"] = len(spent)
+        e["all_reduce_mbytes"] = sum(b for _, b in spent) / 1e6
+    out["engine"][name] = e
+    del eng
+# (b) the spatial train step on phase 21's rows
+whole = dict(np.load(d + "/batch.npz"))
+# the step, and its witnesses: each frame moved by one ulp
+runs = [("", shard_batch(whole, mesh))] + [
+    ("_" + f, shard_batch(dict(whole, **{f: np.nextafter(
+        whole[f].astype(np.float32), np.float32(np.inf))}), mesh))
+    for f in c.SP_WITNESSES]
+for name, iters in c.SP_STEPS:
+    cfg, weights = c.sp_step_model(d, name)
+    for tag, rows in runs:
+        model = c.RAFT_for(cfg, weights).to(dev)
+        tc = c.dp_train_config(iters=iters)
+        state = create_train_state(model, tc)
+        step = make_train_step(cfg, tc, mesh)
+        distributed.barrier()
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        m = step(state, rows)
+        torch.cuda.synchronize()
+        if not tag:
+            out["train"][name] = {"ms": (time.perf_counter() - t0) * 1e3,
+                                  "launches": kernels.launch_counts()}
+        torch.save({"metrics": {k: float(v) for k, v in m.items()},
+                    "state": {k: v.cpu()
+                              for k, v in model.state_dict().items()},
+                    "grads": {k: p.grad.cpu() for k, p in
+                              model.named_parameters()}},
+                   f"{d}/rank{r}_{name}{tag}.pt")
+torch.save(flows, f"{d}/flows{r}.pt")
+print(json.dumps(out), flush=True)
+"""
+
+
+def record_pyramids(raft_module) -> list:
+    """From now on, the bytes of every correlation pyramid the model
+    module builds, appended to the list returned."""
+    built = []
+    real = raft_module.build_corr_pyramid
+
+    def build(*a, **k):
+        levels = real(*a, **k)
+        built.append(sum(v.nbytes for v in levels))
+        return levels
+
+    raft_module.build_corr_pyramid = build
+    return built
+
+
+def sp_models(d: str):
+    """(a)'s two models: ``(name, config, weights, iters)``, the basic one
+    (``pallas`` + ``fused``) from ``d/weights.pt`` at iters 1, the small
+    trained fixture at SP_SMALL_ITERS."""
+    from raft_tpu_torch.config import RAFTConfig
+    from raft_tpu_torch.tools.convert import load_pth
+
+    basic = RAFTConfig(corr_impl="pallas", gru_impl="fused")
+    small = RAFTConfig(small=True, corr_impl="pallas")
+    fixture = os.path.join(REPO, "tests", "fixtures",
+                           "raft-small-cputrained.pth")
+    return [("basic", basic, torch.load(os.path.join(d, "weights.pt")), 1),
+            ("small", small, load_pth(fixture, small).state_dict(),
+             SP_SMALL_ITERS)]
+
+
+def sp_train_cfg():
+    """(b)'s basic step: phase 21 (c)'s config, so its one-rank steps
+    serve."""
+    from raft_tpu_torch.config import RAFTConfig
+
+    return RAFTConfig(corr_impl="pallas", gru_impl="fused",
+                      split_encode=True)
+
+
+def sp_step_model(d: str, name: str):
+    """(b)'s ``(config, weights)`` of ``name`` (SP_STEPS): the basic
+    model's from ``d/weights.pt``, the small trained fixture's."""
+    from raft_tpu_torch.config import RAFTConfig
+    from raft_tpu_torch.tools.convert import load_pth
+
+    if name == "basic":
+        return sp_train_cfg(), torch.load(os.path.join(d, "weights.pt"))
+    cfg = RAFTConfig(small=True, corr_impl="pallas", split_encode=True)
+    fixture = os.path.join(REPO, "tests", "fixtures",
+                           "raft-small-cputrained.pth")
+    return cfg, load_pth(fixture, cfg).state_dict()
+
+
+def spatial_phase(smi: str) -> dict:
+    """Phase 22: the ``spatial`` mesh axis (``parallel.halo``,
+    ``RAFTEngine(mesh=)``, the train step over bands); see the module
+    docstring."""
+    import tempfile
+
+    from raft_tpu_torch import kernels
+    from raft_tpu_torch.models import RAFT
+    from raft_tpu_torch.models import raft as raft_module
+    from raft_tpu_torch.serving import RAFTEngine
+
+    out = {}
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    tmp = tempfile.mkdtemp(prefix="raft_phase22_")
+    t_phase = time.perf_counter()
+    real_build = None
+    try:
+        frames = synthetic_frames(22, 2, HD_HW)
+        pair = {"image1": frames[0][None], "image2": frames[1][None]}
+        np.savez(os.path.join(tmp, "pair.npz"), **pair)
+        cfg_t = sp_train_cfg()
+        weights = RAFT(cfg_t, torch.Generator().manual_seed(0)).state_dict()
+        torch.save(weights, os.path.join(tmp, "weights.pt"))
+        batch = dp_batch(21)
+        np.savez(os.path.join(tmp, "batch.npz"), **batch)
+        env = dict(os.environ, PYTHONPATH=REPO)
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", SPATIAL_CHILD, tmp, str(r)], cwd=REPO,
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True) for r in range(2)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=SP_TIMEOUT_S)[0])
+        finally:
+            for p in procs:     # a rank that failed leaves the other hung
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        for p, text in zip(procs, logs):
+            if p.returncode != 0:
+                raise RuntimeError(f"a spatial rank failed ({p.returncode})"
+                                   f":\n{text[-6000:]}")
+        res = [json.loads([ln for ln in text.splitlines()
+                           if ln.startswith("{")][-1]) for text in logs]
+        t_ranks = time.perf_counter() - t_phase
+
+        # -- (a) against the one-device engine on the same card ------------
+        flows = [torch.load(os.path.join(tmp, f"flows{r}.pt"),
+                            weights_only=False) for r in range(2)]
+        real_build = raft_module.build_corr_pyramid
+        built = record_pyramids(raft_module)
+        engine = {}
+        # the sharded engine's bucket: its height rounded to 8·spatial
+        bucket = (1, -(-HD_HW[0] // 16) * 16, HD_HW[1])
+        for name, cfg, w, iters in sp_models(tmp):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            # built (and captured) here, under the peak's window
+            eng = RAFTEngine(w, cfg, iters=iters, envelope=[bucket])
+            want = eng.infer_batch(pair["image1"], pair["image2"])
+            peak = torch.cuda.max_memory_allocated() / 2 ** 20
+            t0 = time.perf_counter()
+            eng.infer_batch(pair["image1"], pair["image2"])
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            tol = BASIC_STEP_TOL if name == "basic" else SMALL_TOL
+            err = float(np.abs(flows[0][name] - want).max())
+            ranks = [r["engine"][name] for r in res]
+            engine[name] = {
+                "max_abs_err_px": err, "tol_px": tol, "iters": iters,
+                "flow_max_px": float(np.abs(want).max()),
+                "ranks_bitwise": bool(np.array_equal(flows[0][name],
+                                                     flows[1][name])),
+                "peak_mib_rank": [e["peak_mib"] for e in ranks],
+                "peak_mib_one_device": peak,
+                "pyramid_bytes_rank": [e["pyramid_bytes"] for e in ranks],
+                "pyramid_bytes_one_device": built[0],
+                "one_device_ms": ms, "first_ms_rank": [e["first_ms"]
+                                                       for e in ranks],
+                "launches": [e["launches"] for e in ranks],
+                "captures_rank": [e["stats"]["captures"] for e in ranks]}
+            if name == "basic":
+                ms_rank = [float(np.median(e["ms"])) for e in ranks]
+                engine[name].update(
+                    ms_rank=ms_rank,
+                    instrumented_ms_rank=[e["instrumented_ms"]
+                                          for e in ranks],
+                    all_reduce_ms_rank=[e["all_reduce_ms"] for e in ranks],
+                    all_reduces=ranks[0]["all_reduces"],
+                    all_reduce_mbytes=ranks[0]["all_reduce_mbytes"],
+                    all_reduce_share=[e["all_reduce_ms"]
+                                      / e["instrumented_ms"]
+                                      for e in ranks])
+            built.clear()
+            del eng
+            g = engine[name]
+            log(f"[22] (a) {name}, {HD_HW[0]}x{HD_HW[1]} (bucket {bucket}, "
+                f"{bucket[1] // 16} feature rows a band), iters {iters}, "
+                f"two gloo ranks through RAFTEngine(mesh=(1, 2)): "
+                f"{err:.3e} px from the one-device engine (tol {tol}, "
+                f"largest |flow| {g['flow_max_px']:.2f}), ranks bitwise "
+                f"{g['ranks_bitwise']}; pyramid bytes a rank "
+                f"{g['pyramid_bytes_rank']} vs "
+                f"{g['pyramid_bytes_one_device']} one device; peak MiB a rank {g['peak_mib_rank']} vs "
+                f"{peak:.0f}; "
+                + (f"ms a pair a rank {g['ms_rank']} (one device, a "
+                   f"replay, {ms:.2f}), all-reduces {g['all_reduces']} a "
+                   f"pair ({g['all_reduce_mbytes']:.1f} MB) taking "
+                   f"{g['all_reduce_ms_rank']} ms, "
+                   f"{g['all_reduce_share']} of the instrumented pair; "
+                   if name == "basic" else "")
+                + f"launches {g['launches']}; {smi}")
+            if not (err <= tol and g["ranks_bitwise"]):
+                raise RuntimeError(f"spatial engine {name}: {err} px "
+                                   f"(tol {tol}), ranks bitwise "
+                                   f"{g['ranks_bitwise']}")
+            if any(2 * b != g["pyramid_bytes_one_device"]
+                   for b in g["pyramid_bytes_rank"]):
+                raise RuntimeError(f"spatial engine {name}: a rank's pyramid"
+                                   f" {g['pyramid_bytes_rank']} is not half "
+                                   f"of {g['pyramid_bytes_one_device']}")
+            want_launches = (
+                expected_launches(corr_lookup=1, gru_gates=2, gru_blend=2)
+                if name == "basic"
+                else expected_launches(corr_lookup=SP_SMALL_ITERS))
+            if any(n != want_launches for n in g["launches"]) or any(
+                    g["captures_rank"]):
+                raise RuntimeError(f"spatial engine {name} launches "
+                                   f"{g['launches']}, want {want_launches} "
+                                   f"a rank; captures {g['captures_rank']}")
+        out["engine"] = engine
+
+        # -- (b) the spatial train step against one rank --------------------
+        gaps, losses, want = {}, {}, {
+            "basic": expected_launches(corr_lookup=1, corr_scatter=1,
+                                       gru_gates=2, gru_blend=2,
+                                       gru_gates_bwd=2, gru_blend_bwd=2),
+            "small": expected_launches(corr_lookup=TRAIN_ITERS,
+                                       corr_scatter=TRAIN_ITERS)}
+        for name, iters in SP_STEPS:
+            ranks = [torch.load(os.path.join(tmp, f"rank{r}_{name}.pt"))
+                     for r in range(2)]
+            cfg, w = sp_step_model(tmp, name)
+            one, one_ulps = dp_references(cfg, w, batch, iters,
+                                          SP_WITNESSES, name)
+            # the bands round every conv and norm another way than one
+            # rank does: their own one-ulp steps witness their side
+            ranks_ulps = [torch.load(os.path.join(
+                tmp, f"rank0_{name}_{f}.pt")) for f in SP_WITNESSES]
+            gaps[name] = hold_to_one_rank(
+                f"two spatial ranks against one, {name}, iters {iters}",
+                "22", ranks, one, one_ulps, ranks_ulps)
+            losses[name] = (ranks[0]["metrics"]["loss"],
+                            one["metrics"]["loss"])
+        train = {"gaps": gaps, "loss_ranks_one": losses,
+                 "ms_rank": {n: [r["train"][n]["ms"] for r in res]
+                             for n, _ in SP_STEPS},
+                 "launches": {n: [r["train"][n]["launches"] for r in res]
+                              for n, _ in SP_STEPS}}
+        out["train"] = train
+        log(f"[22] (b) two spatial gloo ranks on cuda:0, the chairs step "
+            f"at batch {DP_B}, {TRAIN_HW[0]}x{TRAIN_HW[1]} "
+            f"({TRAIN_HW[0] // 16} feature rows a band), {SP_STEPS}: "
+            f"ranks' weights bitwise equal; against one rank on the whole "
+            f"batch (gap, bound): {gaps}; a step (one run each) "
+            f"{train['ms_rank']} ms; launches {train['launches']}; {smi}")
+        for name, runs in train["launches"].items():
+            if any(n != want[name] for n in runs):
+                raise RuntimeError(f"spatial {name} step launches {runs}, "
+                                   f"want {want[name]} a rank")
+        # (c) every counted run's launches, both ranks
+        out["launches_spatial"] = {
+            k: sum(e[k] for g in engine.values() for e in g["launches"])
+            + sum(n[k] for runs in train["launches"].values() for n in runs)
+            for k in want["basic"]}
+        out["seconds"] = {"ranks": t_ranks,
+                          "phase": time.perf_counter() - t_phase}
+        out["meshes"] = [r["mesh"] for r in res]
+        log(f"[22] (c) launches, both ranks' counted runs: "
+            f"{out['launches_spatial']}; the ranks took {t_ranks:.1f} s, "
+            f"the phase {out['seconds']['phase']:.1f} s")
+    finally:
+        if real_build is not None:
+            raft_module.build_corr_pyramid = real_build
         torch.backends.cudnn.deterministic = False
         shutil.rmtree(tmp, ignore_errors=True)
     return out
@@ -4720,7 +5178,10 @@ def main() -> int:
     parallel = parallel_phase(smi)
     parallel["seconds"] = time.perf_counter() - t21
 
-    # -- 22. result ----------------------------------------------------------
+    # -- 22. the spatial axis ------------------------------------------------
+    spatial = spatial_phase(smi)
+
+    # -- 23. result ----------------------------------------------------------
     sources = {"corr_lookup": ("raft_tpu_torch/csrc/corr_lookup.cu",
                                "raft_tpu/kernels/corr_pallas.py:177"),
                "gru_gates": ("raft_tpu_torch/csrc/gru.cu",
@@ -4790,6 +5251,9 @@ def main() -> int:
         # phase 21 (c): both ranks' launches in the two-rank step
         row["launches_parallel"] = sum(
             r[name] for r in parallel["two_ranks"]["launches"])
+        # phase 22: both spatial ranks' counted runs (the sharded engine's
+        # two pairs, the two steps)
+        row["launches_spatial"] = spatial["launches_spatial"][name]
         row["dtypes_train_cli"] = cli["dtypes"].get(name, {})
         if name in err_bf16:
             row["max_abs_err_bf16"] = err_bf16[name]
@@ -4845,6 +5309,7 @@ def main() -> int:
     print(json.dumps({"serving_registry": registry}), flush=True)
     print(json.dumps({"serving_store_hosts": hosts}), flush=True)
     print(json.dumps({"parallel": parallel}), flush=True)
+    print(json.dumps({"spatial": spatial}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -32,15 +32,19 @@ from raft_tpu_torch.ops.pooling import avg_pool2x2
 
 def all_pairs_correlation(fmap1: torch.Tensor,
                           fmap2: torch.Tensor) -> torch.Tensor:
-    """(B,H,W,C) x2 -> (B, H*W, H, W) all-pairs dot products / sqrt(C), fp32
-    (``CorrBlock.corr``, corr.py:52-60; the reference casts the fmaps to
-    fp32 first, core/raft.py:102-103)."""
+    """(B,H,W,C) x (B,H2,W2,C) -> (B, H*W, H2, W2) all-pairs dot products /
+    sqrt(C), fp32 (``CorrBlock.corr``, corr.py:52-60; the reference casts
+    the fmaps to fp32 first, core/raft.py:102-103). fmap1 may be a band of
+    the image's rows and fmap2 the whole image (the query-sharded volume
+    of a ``spatial`` mesh axis: this band's queries against every
+    target)."""
     B, H, W, C = fmap1.shape
+    H2, W2 = fmap2.shape[1:3]
     f1 = fmap1.float().reshape(B, H * W, C)
-    f2 = fmap2.float().reshape(B, H * W, C)
+    f2 = fmap2.float().reshape(B, H2 * W2, C)
     corr = torch.matmul(f1, f2.transpose(1, 2))
     corr = corr / math.sqrt(C)
-    return corr.reshape(B, H * W, H, W)
+    return corr.reshape(B, H * W, H2, W2)
 
 
 def build_corr_pyramid(fmap1: torch.Tensor, fmap2: torch.Tensor,

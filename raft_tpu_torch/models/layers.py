@@ -34,30 +34,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from raft_tpu_torch.parallel.halo import all_sum, conv_halo, halo
+
 #: flax ``BatchNorm(momentum=0.9)``: new = 0.9·running + 0.1·batch
 BN_MOMENTUM = 0.9
-
-
-class _AllReduceSum(torch.autograd.Function):
-    """A sum over the ranks of ``group``; its adjoint is the same sum of
-    the cotangents (every rank's loss reads the summed value)."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        import torch.distributed as dist
-
-        ctx.group = group
-        y = x.clone()
-        dist.all_reduce(y, group=group)
-        return y
-
-    @staticmethod
-    def backward(ctx, g):
-        import torch.distributed as dist
-
-        g = g.clone()
-        dist.all_reduce(g, group=ctx.group)
-        return g, None
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -106,7 +86,7 @@ class BatchNorm2d(nn.BatchNorm2d):
     def _global_batch(self, x: torch.Tensor) -> torch.Tensor:
         c = x.shape[1]
         n = x.new_full((1,), float(x.numel() // c))
-        stats = _AllReduceSum.apply(
+        stats = all_sum(
             torch.cat([x.sum((0, 2, 3)), (x * x).sum((0, 2, 3)), n]),
             self.process_group)
         mean = stats[:c] / stats[-1]
@@ -125,11 +105,40 @@ def apply_norm(norm: nn.Module, x: torch.Tensor,
     norms fp32 out, instance norm in fp32 and back to ``x``'s dtype."""
     if isinstance(norm, BatchNorm2d):
         return norm(x.float(), use_running_average)
+    sp = getattr(norm, "spatial", None)
     if isinstance(norm, nn.GroupNorm):
+        if sp is not None:
+            return _group_norm_band(norm, x.float(), sp)
         return norm(x.float())
     if isinstance(norm, nn.InstanceNorm2d):
+        if sp is not None:
+            return _band_normalize(x.float().unsqueeze(2), norm.eps,
+                                   sp).squeeze(2).to(x.dtype)
         return norm(x.float()).to(x.dtype)
     return norm(x)
+
+
+def _band_normalize(x: torch.Tensor, eps: float, sp) -> torch.Tensor:
+    """``(x − mean) / sqrt(var + eps)`` per (sample, group) of ``x`` (B, G,
+    C/G, h, W), the statistics over every band of the ``spatial`` group
+    (biased variance). Two passes, each one all-reduce: the mean, then the
+    mean square deviation from it (E[x²]−E[x]² loses digits the
+    recurrence amplifies)."""
+    dims = (2, 3, 4)
+    n = x[0, 0].numel() * sp.size
+    mean = all_sum(x.sum(dims, keepdim=True), sp.group) / n
+    d = x - mean
+    var = all_sum((d * d).sum(dims, keepdim=True), sp.group) / n
+    return d * torch.rsqrt(var + eps)
+
+
+def _group_norm_band(norm: nn.GroupNorm, x: torch.Tensor,
+                     sp) -> torch.Tensor:
+    """``nn.GroupNorm`` over a band, its statistics over the whole image."""
+    B, C, h, W = x.shape
+    y = _band_normalize(x.reshape(B, norm.num_groups, -1, h, W), norm.eps,
+                        sp).reshape(B, C, h, W)
+    return y * norm.weight[:, None, None] + norm.bias[:, None, None]
 
 
 def norm_layer(norm_fn: str, features: int,
@@ -150,14 +159,30 @@ def norm_layer(norm_fn: str, features: int,
 
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` computing in ``compute_dtype`` (the JAX ``TorchConv``'s
-    ``dtype``): input, kernel and bias cast to it, fp32 parameters kept."""
+    ``dtype``): input, kernel and bias cast to it, fp32 parameters kept.
+
+    Under a ``spatial`` context (:func:`set_spatial`) the input is a band
+    of the image's rows: the conv takes the rows of the bands above and
+    below that its kernel, stride and padding read (:meth:`halo_rows`,
+    zeros past the image's edges) and pads only the width."""
 
     compute_dtype = torch.float32
+    #: the ``spatial`` axis this conv's input is a band of (None: whole)
+    spatial = None
+
+    def halo_rows(self):
+        """Rows above and below a band that this conv reads."""
+        return conv_halo(self.kernel_size[0], self.stride[0],
+                         self.padding[0])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        return self._conv_forward(x.to(dt), self.weight.to(dt),
-                                  self.bias.to(dt))
+        if self.spatial is None:
+            return self._conv_forward(x.to(dt), self.weight.to(dt),
+                                      self.bias.to(dt))
+        return F.conv2d(halo(x.to(dt), *self.halo_rows(), self.spatial),
+                        self.weight.to(dt), self.bias.to(dt), self.stride,
+                        (0, self.padding[1]), self.dilation, self.groups)
 
 
 def set_process_group(module: nn.Module, group) -> None:
@@ -166,6 +191,19 @@ def set_process_group(module: nn.Module, group) -> None:
     for m in module.modules():
         if isinstance(m, BatchNorm2d):
             m.process_group = group
+
+
+def set_spatial(module: nn.Module, sp) -> None:
+    """Every layer under ``module`` that reads across rows (the convs, the
+    instance and group norms, and a model's own ops: ``RAFT.spatial``)
+    takes its input as a band of the ``spatial`` axis ``sp``
+    (``parallel.halo.Spatial``); None: whole images, the layers' own code
+    bit for bit. Batch norms take their group from
+    :func:`set_process_group`."""
+    for m in module.modules():
+        if isinstance(m, (nn.InstanceNorm2d, nn.GroupNorm)) \
+                or hasattr(type(m), "spatial"):
+            m.spatial = sp
 
 
 def set_compute_dtype(module: nn.Module, dtype: torch.dtype) -> None:

@@ -36,6 +36,16 @@ The serving engine's two forwards share the refinement loop
 box of mixed request shapes with per-row valid extents (the masked
 correlation of ``serving.ragged``), ``forward_cached`` encodes only the new
 frame and takes the first frame's features from the caller.
+
+Under a ``spatial`` mesh axis (``models.layers.set_spatial``, which sets
+:attr:`RAFT.spatial`) the images are this rank's band of rows: the convs
+and norms exchange their halos and statistics with the other bands
+(``parallel.halo``), fmap2 is gathered whole so the volume holds this
+band's queries against every target (1/spatial of the whole volume a
+rank), the coordinates are the whole image's, and the test-mode return is
+this band's rows of ``(flow_low, flow_up)``. ``forward_ragged`` and
+``forward_cached`` refuse it, as the JAX engine refuses ragged and cached
+serving under a mesh.
 """
 
 from __future__ import annotations
@@ -58,6 +68,7 @@ from raft_tpu_torch.ops.flow_ops import (convex_upsample,
                                          convex_upsample_batched_raw,
                                          initialize_flow, subpixel_to_standard,
                                          upflow8, upflow8_batched)
+from raft_tpu_torch.parallel.halo import gather_rows
 
 
 _DOTS = (torch.ops.aten.convolution.default, torch.ops.aten.mm.default,
@@ -77,6 +88,10 @@ class RAFT(nn.Module):
     Weights are drawn from ``generator`` (a CPU ``torch.Generator``; seed 0
     when none is given) on the CPU; move the module with ``.to(device)``.
     """
+
+    #: the ``spatial`` axis the images are a band of (None: whole images;
+    #: ``models.layers.set_spatial``)
+    spatial = None
 
     def __init__(self, config: RAFTConfig = RAFTConfig(),
                  generator: Optional[torch.Generator] = None):
@@ -107,6 +122,9 @@ class RAFT(nn.Module):
         ``forward_cached`` share it."""
         cfg = self.config
         r = cfg.corr_radius
+        if self.spatial is not None:
+            # the query-sharded volume: this band's queries, every target
+            fmap2 = gather_rows(fmap2, self.spatial, dim=1)
         if cfg.alternate_corr:
             block = AlternateCorrBlock(fmap1, fmap2, cfg.corr_levels, r)
             if cfg.corr_impl == "gather":
@@ -193,7 +211,9 @@ class RAFT(nn.Module):
         model's ``_refine``, ``raft.py:145``), shared by ``forward``,
         ``forward_ragged`` and ``forward_cached``."""
         cfg = self.config
-        coords0, coords1 = initialize_flow(B, H // 8, W // 8, device)
+        sp = self.spatial
+        row0 = 0 if sp is None else sp.band(H // 8)[0]
+        coords0, coords1 = initialize_flow(B, H // 8, W // 8, device, row0)
         if flow_init is not None:
             coords1 = coords1 + flow_init
         step = functools.partial(self._step, lookup)
@@ -220,13 +240,13 @@ class RAFT(nn.Module):
         if test_mode:
             flow_lr = coords1 - coords0
             if cfg.small:
-                return flow_lr, upflow8(flow_lr)
+                return flow_lr, upflow8(flow_lr, sp)
             return flow_lr, convex_upsample(flow_lr,
-                                            up_mask.permute(0, 2, 3, 1))
+                                            up_mask.permute(0, 2, 3, 1), sp)
         flows = torch.stack(flows)
         if cfg.small:
-            return upflow8_batched(flows)
-        up = convex_upsample_batched_raw(flows, torch.stack(masks))
+            return upflow8_batched(flows, sp)
+        up = convex_upsample_batched_raw(flows, torch.stack(masks), sp)
         if raw_predictions:
             return up
         return subpixel_to_standard(up, H // 8, W // 8)
@@ -239,6 +259,12 @@ class RAFT(nn.Module):
         net = torch.tanh(cnet[:, :cfg.hidden_dim]).to(dt)
         inp = torch.relu(cnet[:, cfg.hidden_dim:]).to(dt)
         return net, inp
+
+    def _whole_images(self, name: str) -> None:
+        if self.spatial is not None:
+            raise ValueError(f"{name} under a 'spatial' mesh axis: ragged "
+                             "and feature-cache serving take whole images, "
+                             "as the JAX engine refuses them under a mesh")
 
     def forward_ragged(self, image1: torch.Tensor, image2: torch.Tensor,
                        valid_h8: torch.Tensor, valid_w8: torch.Tensor,
@@ -262,6 +288,7 @@ class RAFT(nn.Module):
         """
         from raft_tpu_torch.serving.ragged import mask_features
 
+        self._whole_images("forward_ragged")
         B, H, W, _ = image1.shape
         if H % 8 or W % 8:
             raise ValueError(f"capacity box {H}x{W}: boxes are ÷8-aligned")
@@ -297,6 +324,7 @@ class RAFT(nn.Module):
         its flow is meaningless, its cache outputs are this frame's
         features.
         """
+        self._whole_images("forward_cached")
         B, H, W, _ = image2.shape
         if H % 8 or W % 8:
             raise ValueError(f"image size {H}x{W}: pad inputs to a multiple "

@@ -23,16 +23,22 @@ from torch import nn
 from raft_tpu_torch.kernels.gru import (gru_blend, gru_blend_plain, gru_gates,
                                         gru_gates_plain)
 from raft_tpu_torch.models.layers import conv
+from raft_tpu_torch.parallel.halo import halo
 
 
 def _pair_conv(conv_a: nn.Conv2d, conv_b: nn.Conv2d, x: torch.Tensor):
     """Two same-geometry convs over the same input as one double-width conv
     in their compute dtype; returns the two outputs as channel-slice views
-    of it."""
+    of it. Under a ``spatial`` context the input band takes its halo once
+    for both (``Conv2d.forward``'s rule)."""
     dt = conv_a.compute_dtype
     w = torch.cat([conv_a.weight, conv_b.weight], 0).to(dt)
     b = torch.cat([conv_a.bias, conv_b.bias], 0).to(dt)
-    y = F.conv2d(x.to(dt), w, b, padding=conv_a.padding)
+    x, pad = x.to(dt), conv_a.padding
+    if conv_a.spatial is not None:
+        x = halo(x, *conv_a.halo_rows(), conv_a.spatial)
+        pad = (0, pad[1])
+    y = F.conv2d(x, w, b, padding=pad)
     n = conv_a.out_channels
     return y[:, :n], y[:, n:]
 

@@ -4,6 +4,11 @@ Initialization, align-corners bilinear resize, ``upflow8`` and the learned
 convex upsampler (``core/raft.py:63-83``, ``core/utils/utils.py:80-82``),
 with the batched forms train mode uses on the per-iteration stack and the
 subpixel-domain transforms of the fused sequence loss.
+
+Under a ``spatial`` mesh axis (``sp``, a ``parallel.halo.Spatial``) a flow
+is this rank's band of rows: the coordinates are the whole image's
+(``initialize_flow``'s ``row0``), and the upsamplers take the rows of the
+neighbouring bands they read (one each way) through ``parallel.halo``.
 """
 
 from __future__ import annotations
@@ -12,12 +17,16 @@ import torch
 import torch.nn.functional as F
 
 from raft_tpu_torch.ops.sampling import coords_grid, grid_sample_nhwc
+from raft_tpu_torch.parallel.halo import halo
 
 
-def initialize_flow(batch: int, ht: int, wd: int, device=None):
-    """coords0, coords1 at 1/8 resolution; flow = coords1 - coords0."""
-    coords0 = coords_grid(batch, ht, wd, device=device)
-    coords1 = coords_grid(batch, ht, wd, device=device)
+def initialize_flow(batch: int, ht: int, wd: int, device=None,
+                    row0: int = 0):
+    """coords0, coords1 at 1/8 resolution; flow = coords1 - coords0.
+    ``row0``: the first row's index in the whole image (a band's), so the
+    lookups index the whole target."""
+    coords0 = coords_grid(batch, ht, wd, device=device, row0=row0)
+    coords1 = coords_grid(batch, ht, wd, device=device, row0=row0)
     return coords0, coords1
 
 
@@ -35,14 +44,40 @@ def resize_bilinear_align_corners(x: torch.Tensor, out_hw) -> torch.Tensor:
                             gy[None].expand(B, oh, ow))
 
 
-def upflow8(flow: torch.Tensor) -> torch.Tensor:
+def upflow8(flow: torch.Tensor, sp=None) -> torch.Tensor:
     """8x bilinear upsample of a (B, H, W, 2) flow field, values scaled by 8
-    (the small model, which has no learned mask)."""
+    (the small model, which has no learned mask).
+
+    With ``sp``, ``flow`` is a band of ``h`` rows: output row ``y`` of the
+    band samples the whole image's row ``y·(H−1)/(8H−1)`` (align-corners on
+    the global H), which lies at most one row past either end of the band
+    (the shift stays under 7/8 of a row). The band takes one halo row each
+    way and samples it at the global coordinate less the integer row it
+    starts on, which leaves the coordinate's bits and so the weights as
+    the whole image's."""
     B, H, W, _ = flow.shape
-    return 8.0 * resize_bilinear_align_corners(flow, (8 * H, 8 * W))
+    if sp is None:
+        return 8.0 * resize_bilinear_align_corners(flow, (8 * H, 8 * W))
+    row0, Hg = sp.band(H)
+    ext = halo(flow, 1, 1, sp, dim=1)
+    # the band's first row is global row0 - 1, except on the top band,
+    # whose zero halo no output reads (its coordinates start at 0)
+    base = max(row0 - 1, 0)
+    if row0 == 0:
+        ext = ext[:, 1:]
+    oh, ow = 8 * H, 8 * W
+    sy = (Hg - 1) / (8 * Hg - 1) if Hg > 1 else 0.0
+    sx = (W - 1) / (ow - 1) if ow > 1 else 0.0
+    ys = torch.arange(8 * row0, 8 * row0 + oh, dtype=torch.float32,
+                      device=flow.device) * sy - base
+    xs = torch.arange(ow, dtype=torch.float32, device=flow.device) * sx
+    gy, gx = torch.meshgrid(ys, xs, indexing="ij")
+    return 8.0 * grid_sample_nhwc(ext, gx[None].expand(B, oh, ow),
+                                  gy[None].expand(B, oh, ow))
 
 
-def convex_upsample(flow: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+def convex_upsample(flow: torch.Tensor, mask: torch.Tensor,
+                    sp=None) -> torch.Tensor:
     """Learned convex-combination 8x upsample: flow (B,H,W,2) fp32, mask
     (B,H,W,576) -> (B,8H,8W,2) fp32.
 
@@ -55,23 +90,28 @@ def convex_upsample(flow: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """
     B, H, W, _ = flow.shape
     return subpixel_to_standard(
-        convex_upsample_batched_raw(flow[None], mask[None]), H, W)[0]
+        convex_upsample_batched_raw(flow[None], mask[None], sp), H, W)[0]
 
 
-def convex_upsample_batched_raw(flow: torch.Tensor,
-                                mask: torch.Tensor) -> torch.Tensor:
+def convex_upsample_batched_raw(flow: torch.Tensor, mask: torch.Tensor,
+                                sp=None) -> torch.Tensor:
     """Convex 8x upsample of a stack of iterations, in the subpixel domain:
     flow (T, B, H, W, 2) fp32, mask (T, B, H, W, 576) -> (T, B, 2, 64, H*W)
     fp32, subpixel s = 8i + j on dim 3 and n = W·h + w on dim 4.
     :func:`subpixel_to_standard` finishes the layout; the fused sequence
     loss meets the stack here, so the (T, B, 8H, 8W, 2) stack never
     materializes. The convex combination is 9 shifted multiply-adds, in the
-    JAX package's order."""
+    JAX package's order. With ``sp`` the flow is a band, padded with a row
+    of each neighbouring band (zeros past the image's edges)."""
     T, B, H, W, _ = flow.shape
     HW = H * W
     m = mask.float().reshape(T, B, HW, 9, 64).permute(0, 1, 3, 4, 2)
     w9 = torch.softmax(m, dim=2)                          # (T,B,9,64,HW)
-    fp = F.pad(8.0 * flow.float(), (0, 0, 1, 1, 1, 1))
+    if sp is None:
+        fp = F.pad(8.0 * flow.float(), (0, 0, 1, 1, 1, 1))
+    else:
+        fp = F.pad(halo(8.0 * flow.float(), 1, 1, sp, dim=2),
+                   (0, 0, 1, 1))
     up = None
     for k in range(9):
         dy, dx = divmod(k, 3)
@@ -101,8 +141,8 @@ def standard_to_subpixel(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(B, C, 64, H * W)
 
 
-def upflow8_batched(flow: torch.Tensor) -> torch.Tensor:
+def upflow8_batched(flow: torch.Tensor, sp=None) -> torch.Tensor:
     """:func:`upflow8` over a (T, B, H, W, 2) iteration stack at once."""
     T, B, H, W, _ = flow.shape
-    out = upflow8(flow.reshape(T * B, H, W, 2))
+    out = upflow8(flow.reshape(T * B, H, W, 2), sp)
     return out.reshape(T, B, 8 * H, 8 * W, 2)

@@ -13,9 +13,11 @@ import torch
 
 
 def coords_grid(batch: int, ht: int, wd: int, dtype=torch.float32,
-                device=None) -> torch.Tensor:
-    """Pixel-coordinate grid, shape (batch, ht, wd, 2), last dim (x, y)."""
-    ys, xs = torch.meshgrid(torch.arange(ht, dtype=dtype, device=device),
+                device=None, row0: int = 0) -> torch.Tensor:
+    """Pixel-coordinate grid, shape (batch, ht, wd, 2), last dim (x, y);
+    rows numbered from ``row0``."""
+    ys, xs = torch.meshgrid(torch.arange(row0, row0 + ht, dtype=dtype,
+                                         device=device),
                             torch.arange(wd, dtype=dtype, device=device),
                             indexing="ij")
     return torch.stack([xs, ys], dim=-1)[None].repeat(batch, 1, 1, 1)

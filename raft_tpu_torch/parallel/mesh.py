@@ -9,14 +9,16 @@ the mesh is the ``torch.distributed`` processes laid out as ``(data,
 spatial)``: rank ``r`` sits at ``(r // spatial, r % spatial)``. A
 :class:`Mesh` carries the JAX names the partitioner reads (``axis_names``,
 ``shape`` as a mapping, ``devices`` as a ``(data, spatial)`` array of
-device names), this rank's coordinates and device, and the process group of
-its ``data`` axis, over which the train step sums gradients and batch-norm
-statistics.
+device names), this rank's coordinates and device, the process group of
+its ``data`` axis and that of its ``spatial`` axis.
 
-The ``spatial`` axis is laid out and fenced (:func:`validate_spatial_extent`,
-the partitioner's grain) but not executed: the port has no conv halo
-exchange and no sharded volume, and the train step refuses ``spatial > 1``
-(ROADMAP.md §1, "the spatial axis").
+The ``spatial`` axis cuts the image height: the ranks of one ``spatial``
+group hold the bands of the same images (:meth:`Mesh.band`), their convs
+exchange halos and their norms sum statistics over the group, and fmap2
+is gathered whole so each rank holds its band's queries of the volume
+(``parallel.halo``, ``models.layers.set_spatial``). The train step then
+sums gradients and batch-norm statistics over every rank of the mesh
+(:attr:`Mesh.world_group`).
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import numpy as np
 import torch
 
 from raft_tpu_torch.parallel import distributed
+from raft_tpu_torch.parallel.halo import Spatial
 
 # The JAX package found XLA's in-loop conv halo exchange wrong when a
 # shard holds no more feature rows (H/8) than the largest halo inside the
@@ -54,7 +57,7 @@ class Mesh:
     axis_names = ("data", "spatial")
 
     def __init__(self, devices: np.ndarray, rank: int, device: torch.device,
-                 group=None):
+                 group=None, spatial_group=None):
         data, spatial = devices.shape
         #: device names, one per rank, shaped (data, spatial)
         self.devices = devices
@@ -67,10 +70,42 @@ class Mesh:
         #: the process group of this rank's 'data' axis (None when the
         #: axis is one device wide: nothing to sum over)
         self.group = group
+        #: the process group of this rank's 'spatial' axis: the ranks
+        #: holding the other bands of its images (None when one wide)
+        self.spatial_group = spatial_group
 
     @property
     def size(self) -> int:
         return self.devices.size
+
+    @property
+    def world_group(self):
+        """The group of every rank of the mesh (None on one device): the
+        train step's gradient and batch-norm sums."""
+        if self.size == 1:
+            return None
+        import torch.distributed as tdist
+
+        return tdist.group.WORLD
+
+    def band(self, image_h: int) -> Dict[str, int]:
+        """This rank's rows of ``image_h``-high images (the whole height
+        on a one-wide ``spatial`` axis): first row and row count at image
+        resolution (``start``, ``rows``) and at 1/8 (``start8``,
+        ``rows8``)."""
+        spatial = self.shape["spatial"]
+        rows = image_h // spatial
+        s = self.coords[1]
+        return {"start": s * rows, "rows": rows,
+                "start8": s * (rows // 8), "rows8": rows // 8}
+
+    def spatial_context(self) -> Optional[Spatial]:
+        """The ``spatial`` axis as the model's layers take it
+        (``models.layers.set_spatial``); None when one wide."""
+        if self.shape["spatial"] == 1:
+            return None
+        return Spatial(self.spatial_group, self.coords[1],
+                       self.shape["spatial"])
 
     def __repr__(self) -> str:
         return (f"Mesh(data={self.shape['data']}, "
@@ -120,20 +155,29 @@ def make_mesh(n_devices: Optional[int] = None, spatial: int = 1,
     grid = np.asarray([str(d) for d in devices], dtype=object).reshape(
         n // spatial, spatial)
     rank = distributed.rank()
-    group = None
-    if n // spatial > 1:
+    data = n // spatial
+    group = spatial_group = None
+    if n > 1:
         import torch.distributed as tdist
-
+    if data > 1:
         if spatial == 1:
             group = tdist.group.WORLD
         else:
             # every rank creates every group, in one order
             for s in range(spatial):
-                g = tdist.new_group([d * spatial + s
-                                     for d in range(n // spatial)])
+                g = tdist.new_group([d * spatial + s for d in range(data)])
                 if s == rank % spatial:
                     group = g
-    return Mesh(grid, rank, torch.device(grid.reshape(-1)[rank]), group)
+    if spatial > 1:
+        if data == 1:
+            spatial_group = tdist.group.WORLD
+        else:
+            for d in range(data):
+                g = tdist.new_group([d * spatial + s for s in range(spatial)])
+                if d == rank // spatial:
+                    spatial_group = g
+    return Mesh(grid, rank, torch.device(grid.reshape(-1)[rank]), group,
+                spatial_group)
 
 
 def validate_batch_extent(batch: dict, mesh: Mesh) -> None:
@@ -152,21 +196,34 @@ def _to_device(v, device: torch.device) -> torch.Tensor:
     return v.to(device, non_blocking=True)
 
 
+def block(name: str, v, mesh: Mesh):
+    """This rank's block of a global value with a batch dim and a height
+    dim (``(B, H, ...)``, the ``("data", "spatial", ...)`` kinds of
+    :data:`PARTITION_RULES`): its rows of the ``data`` axis and its band
+    of the ``spatial`` axis; a view, numpy or tensor. ``name`` is for the
+    error a dim the axis does not divide raises."""
+    for dim, axis in enumerate(("data", "spatial")):
+        n = mesh.shape[axis]
+        if n == 1:
+            continue
+        per, rem = divmod(v.shape[dim], n)
+        if rem:
+            what = "a batch" if dim == 0 else "a height"
+            raise ValueError(f"{name}: {what} of {v.shape[dim]} does not "
+                             f"split over {axis}={n}")
+        start = mesh.coords[dim] * per
+        v = v[start:start + per] if dim == 0 else v[:, start:start + per]
+    return v
+
+
 def shard_batch(batch: dict, mesh: Mesh) -> dict:
     """A global batch dict as this rank's share on its device: every
-    entry with a batch dim (3-d and 4-d, the ``data``-sharded kinds of
-    :data:`PARTITION_RULES`) cut to this rank's rows of the ``data``
-    axis, the rest moved whole. On a one-device mesh, a move."""
+    entry with a batch and a height dim (3-d and 4-d, the ``("data",
+    "spatial", ...)`` kinds of :data:`PARTITION_RULES`) cut to this rank's
+    rows of the ``data`` axis and its band of the ``spatial`` axis
+    (:func:`block`), after the extent fence; the rest moved whole. On a
+    one-device mesh, a move."""
     validate_batch_extent(batch, mesh)
-    data = mesh.shape["data"]
-    out = {}
-    for k, v in batch.items():
-        if data > 1 and v.ndim in (3, 4):
-            per, rem = divmod(v.shape[0], data)
-            if rem:
-                raise ValueError(f"{k}: a batch of {v.shape[0]} does not "
-                                 f"split over data={data}")
-            start = mesh.coords[0] * per
-            v = v[start:start + per]
-        out[k] = _to_device(v, mesh.device)
-    return out
+    return {k: _to_device(block(k, v, mesh) if v.ndim in (3, 4) else v,
+                          mesh.device)
+            for k, v in batch.items()}

@@ -8,8 +8,9 @@ are decided here for every consumer: the serving engine's ``mesh=``
 store's partition fingerprint over ``declared_specs``) and the trainer
 (``mesh_model_config``). The JAX ``sharding`` returns a
 ``NamedSharding``; here it returns what the port applies to a tensor:
-this rank's rows of a ``data``-sharded value on its device, or the whole
-value on its device for a replicated one.
+this rank's block of a sharded value (its rows of the ``data`` axis, its
+band of the ``spatial`` axis) on its device, or the whole value on its
+device for a replicated one.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
-from raft_tpu_torch.parallel.mesh import (PARTITION_RULES, Mesh,
+from raft_tpu_torch.parallel.mesh import (PARTITION_RULES, Mesh, block,
                                           validate_spatial_extent)
 
 
@@ -38,23 +39,20 @@ class Partitioner:
         return tuple(PARTITION_RULES[kind])
 
     def sharding(self, kind: str) -> Callable[[torch.Tensor], torch.Tensor]:
-        """What the port does to a value of ``kind``: a ``data``-sharded
-        value gives this rank its rows (dim 0) on its device; a replicated
-        one goes whole to its device. The ``spatial`` dim is not cut (the
-        port does not execute that axis)."""
+        """What the port does to a value of ``kind``: a sharded value gives
+        this rank its block (:meth:`block`) on its device; a replicated one
+        goes whole to its device."""
         dev = self.mesh.device
-        if "data" not in self.spec(kind) or self.data == 1:
-            return lambda t: t.to(dev)
-        index = self.mesh.coords[0]
+        return lambda t: self.block(kind, t).to(dev)
 
-        def rows(t: torch.Tensor) -> torch.Tensor:
-            per, rem = divmod(t.shape[0], self.data)
-            if rem:
-                raise ValueError(f"{kind}: a batch of {t.shape[0]} does "
-                                 f"not split over data={self.data}")
-            return t[index * per:(index + 1) * per].to(dev)
-
-        return rows
+    def block(self, kind: str, v):
+        """This rank's block of a global value of ``kind`` (numpy or
+        tensor, a view): its rows of dim 0 over ``data`` and its band of
+        dim 1 over ``spatial``, as the kind's spec says; a replicated kind
+        whole."""
+        if not self.spec(kind):
+            return v
+        return block(kind, v, self.mesh)
 
     @property
     def replicated(self) -> Callable[[torch.Tensor], torch.Tensor]:

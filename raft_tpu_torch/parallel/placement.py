@@ -177,12 +177,22 @@ class Placement:
         extents): ``"replicate"`` (default — whole micro-batches fan
         out across replica lanes) or ``"shard"`` (4K-class frames on a
         mesh-armed primary: the batch shards, so the bucket pins
-        to the primary lane)."""
+        to the primary lane). A ``"shard"`` bucket on a mesh of more
+        than one rank raises ``NotImplementedError``: a scheduler that
+        drives follower ranks is not written."""
         if self.partitioner is None:
             return "replicate"
         h, w = int(key[0]), int(key[1])
-        return ("shard" if h * w >= self.shard_px_threshold
-                else "replicate")
+        if h * w < self.shard_px_threshold:
+            return "replicate"
+        ranks = getattr(getattr(self.partitioner, "mesh", None), "size", 1)
+        if ranks > 1:
+            raise NotImplementedError(
+                f"the 'shard' route for a {h}x{w} bucket on a mesh of "
+                f"{ranks} ranks: the other ranks "
+                "must follow the primary's dispatches; ROADMAP.md §1 'the "
+                "scheduler's shard route with follower ranks'")
+        return "shard"
 
     # -- bucket capacity / warming (ex scheduler._shape_capacity) ---------
 

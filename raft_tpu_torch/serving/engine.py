@@ -55,15 +55,26 @@ tensors, so both paths capture one program and a weight swap reaches the
 replay. A hit replaces the trace, not the capture: a CUDA graph never
 outlives its process. Without a store nothing of this runs.
 
-``mesh=`` takes a one-device ``parallel.mesh.Mesh``: the engine then
-runs on the mesh's device and asks its ``Partitioner`` for the bucket
-grain (``validate_bucket``, ``validate_extent``, ``round_bucket`` for a
+``mesh=`` takes a ``parallel.mesh.Mesh``: the engine then runs on the
+mesh's device and asks its ``Partitioner`` for the bucket grain
+(``validate_bucket``, ``validate_extent``, ``round_bucket`` for a
 build-on-miss bucket), builds the model with ``mesh_model_config``, and
 keys the store with the mesh's partition fingerprint, as the JAX engine
-does (raft_tpu/serving/engine.py:444-456, :581). A mesh of more than one
-device raises ``NotImplementedError``: a sharded engine is ROADMAP.md §1,
-"the spatial axis and the sharded engine". Without a mesh nothing of this
-runs and the store keys say ``"single"``.
+does (raft_tpu/serving/engine.py:444-456, :581). Without a mesh nothing of
+this runs and the store keys say ``"single"``.
+
+A mesh of more than one rank serves sharded buckets, in the
+``torchrun`` idiom: every rank builds the engine with the same mesh and
+calls ``infer_batch`` with the same whole inputs; each pads them, runs
+its block of the bucket (its rows of the ``data`` axis, its band of the
+``spatial`` axis: halo convs and the query-sharded volume,
+``models.layers.set_spatial``) and gathers every rank's block of the
+outputs, so every rank returns the whole result, as JAX's single
+controller does. Its programs run eagerly: gloo's host-side collectives
+cannot be captured, and a capture under NCCL is not verified (ROADMAP.md
+§1, "capture a multi-rank bucket under NCCL"), so ``captures`` stays 0.
+The program store, replicas and the scheduler's ``"shard"`` route refuse
+a multi-rank mesh (ROADMAP.md §1, each its row).
 """
 
 from __future__ import annotations
@@ -79,7 +90,9 @@ import torch
 from raft_tpu_torch.config import ITERS_EXPORT, RAFTConfig
 from raft_tpu_torch.evaluation.evaluate import resolve_device
 from raft_tpu_torch.models import RAFT
+from raft_tpu_torch.models.layers import set_spatial
 from raft_tpu_torch.ops.padding import pad_amounts
+from raft_tpu_torch.parallel.halo import gather_blocks
 from raft_tpu_torch.serving import aot as _aotmod
 from raft_tpu_torch.serving.export import bind_program, export_bucket
 from raft_tpu_torch.testing.faults import fault_point
@@ -92,6 +105,9 @@ SHAPE_ENVELOPE_WINDOWS: List[Tuple[int, int, int]] = [
     (1, 256, 256), (1, 512, 800), (1, 512, 1024)]
 
 _KINDS = ("plain", "cached", "ragged")
+#: the partition kind of each host input of a plain program
+_INPUT_KINDS = {"image1": "frames", "image2": "frames",
+                "flow_init": "flow_init"}
 
 #: one capture at a time in the process: every engine's capture (a
 #: replica's too) takes it, outside every engine lock, so no capture
@@ -304,9 +320,11 @@ class RAFTEngine:
         ``device``: the card unless ``"cpu"`` is asked for; on the CPU the
         programs run the eager forward.
 
-        ``mesh``: a one-device ``parallel.mesh.Mesh``; the engine runs on
-        its device (``device`` is not read) under its ``Partitioner``. A
-        larger mesh raises ``NotImplementedError``.
+        ``mesh``: a ``parallel.mesh.Mesh``; the engine runs on its device
+        (``device`` is not read) under its ``Partitioner``. Over more than
+        one rank every rank makes the same calls with the same whole
+        inputs and gets the whole result; ``aot_cache`` then raises
+        ``NotImplementedError``.
         """
         if wire not in ("f32", "u8"):
             raise ValueError(f"wire={wire!r}: choose 'f32' or 'u8'")
@@ -348,11 +366,11 @@ class RAFTEngine:
 
             if not isinstance(mesh, Mesh):
                 raise TypeError("mesh: a raft_tpu_torch.parallel.mesh.Mesh")
-            if mesh.size > 1:
+            if mesh.size > 1 and aot_cache is not None:
                 raise NotImplementedError(
-                    f"mesh of {mesh.size} devices: a sharded serving "
-                    "engine is ROADMAP.md §1 'the spatial axis and the "
-                    "sharded engine'; serve from a one-device mesh or none")
+                    f"aot_cache under a mesh of {mesh.size} ranks: the "
+                    "store holds one-device captured programs; ROADMAP.md "
+                    "§1 'the store and replicas under a multi-rank mesh'")
             self.partitioner = Partitioner(mesh)
             self._partition_fp = _aotmod.partition_fingerprint(
                 mesh, self.partitioner.declared_specs())
@@ -383,6 +401,11 @@ class RAFTEngine:
         self.model = RAFT(config)
         self.model.load_state_dict(_state_dict(weights), strict=True)
         self.model = self.model.to(dev).eval().requires_grad_(False)
+        #: the mesh when it spans more than one rank: sharded eager
+        #: programs, their outputs gathered (None otherwise)
+        self._ranks = mesh if mesh is not None and mesh.size > 1 else None
+        if self._ranks is not None:
+            set_spatial(self.model, mesh.spatial_context())
         if dev.type == "cuda":
             self._stream = torch.cuda.Stream(dev)
             self._capture_stream = torch.cuda.Stream(dev)
@@ -531,6 +554,9 @@ class RAFTEngine:
 
     def _static_inputs(self, shape, kind: str) -> Dict[str, torch.Tensor]:
         b, h, w = shape
+        if self._ranks is not None:     # this rank's block of the bucket
+            b //= self._ranks.shape["data"]
+            h //= self._ranks.shape["spatial"]
         dev = self.device
 
         def frames():
@@ -579,8 +605,19 @@ class RAFTEngine:
             return lambda x: model.forward_ragged(
                 x["image1"], x["image2"], x["valid_h8"], x["valid_w8"],
                 x.get("flow_init"), iters=iters)
+        if self._ranks is not None:
+            return lambda x: self._gather(model(
+                x["image1"], x["image2"], iters=iters,
+                flow_init=x.get("flow_init"), test_mode=True))
         return lambda x: model(x["image1"], x["image2"], iters=iters,
                                flow_init=x.get("flow_init"), test_mode=True)
+
+    def _gather(self, outputs):
+        """Every rank's blocks of a sharded program's outputs, whole."""
+        mesh = self._ranks
+        grid = (mesh.shape["data"], mesh.shape["spatial"])
+        return tuple(gather_blocks(t, grid, mesh.coords, mesh.world_group)
+                     for t in outputs)
 
     def _build(self, shape, kind: str, inputs, fn) -> _Program:
         """A bucket's program over ``fn`` (the live forward, or an
@@ -588,7 +625,7 @@ class RAFTEngine:
         warm-up run on the capture stream (it builds the kernel library
         and the cuDNN and cuBLAS state, so nothing of that happens inside
         the capture), then the capture into the engine's shared pool."""
-        if self.device.type != "cuda":
+        if self.device.type != "cuda" or self._ranks is not None:
             return _Program(inputs, torch.no_grad()(fn))
         from raft_tpu_torch import kernels
 
@@ -686,7 +723,8 @@ class RAFTEngine:
             if prog is not None:
                 return prog
             with self._lock:
-                self.capture_count += 1
+                if self._ranks is None:     # a sharded program is eager
+                    self.capture_count += 1
                 if loaded is None:
                     self.compiles += 1
             inputs = self._static_inputs(shape, kind)
@@ -730,6 +768,9 @@ class RAFTEngine:
         ``on_device`` for device-resident inputs, the run, and ``keep``'s
         clones of the outputs; returns them and the event after them."""
         cuda = self.device.type == "cuda"
+        if self._ranks is not None:     # this rank's block of each input
+            host = {k: self.partitioner.block(_INPUT_KINDS[k], a)
+                    for k, a in host.items()}
         staged = {k: torch.from_numpy(np.ascontiguousarray(a))
                   for k, a in host.items()}
         if cuda:
@@ -800,6 +841,7 @@ class RAFTEngine:
         verdict's ``drop_bucket`` on one replica never touches
         another's graph, and its stream, pool and weight storage are its
         own, so its replays and swaps run beside this engine's."""
+        self._one_rank("spawn_replica")
         rep = RAFTEngine(
             self.weights_copy(), self.config, iters=self.iters,
             envelope=(), precompile=False,
@@ -817,6 +859,8 @@ class RAFTEngine:
         placeholders stay placeholders. Returns how many programs were
         captured: one per built program of ``source`` this engine
         lacked, and no more."""
+        self._one_rank("adopt_executables")
+        source._one_rank("adopt_executables")
         with source._lock:
             tables = {k: dict(t) for k, t in source._tables.items()}
         before = self.capture_count
@@ -828,6 +872,13 @@ class RAFTEngine:
                 else:
                     self._get_program(shape, kind)
         return self.capture_count - before
+
+    def _one_rank(self, name: str) -> None:
+        if self._ranks is not None:
+            raise NotImplementedError(
+                f"{name} under a mesh of {self._ranks.size} ranks: a "
+                "sharded engine's replica needs every rank; ROADMAP.md §1 "
+                "'the store and replicas under a multi-rank mesh'")
 
     # -- shape routing -------------------------------------------------------
 
@@ -1030,6 +1081,11 @@ class RAFTEngine:
         if self.warm_start:
             want = (b, hp // 8, wp // 8, 2)
             full = (bb, bh // 8, bw // 8, 2)
+            if isinstance(flow_init, torch.Tensor) and self._ranks is not None:
+                # the block is cut on the host: every rank holds the whole
+                if tuple(flow_init.shape) == full:
+                    flow_init = flow_init[:b, :hp // 8, :wp // 8]
+                flow_init = flow_init.detach().cpu().numpy()
             if isinstance(flow_init, torch.Tensor):
                 if tuple(flow_init.shape) not in (want, full):
                     raise ValueError(

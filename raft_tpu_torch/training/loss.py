@@ -1,11 +1,13 @@
 """Sequence loss over the iterations' flow predictions (train.py:47-72),
 port of ``raft_tpu/training/loss.py``.
 
-In a data-parallel step (``group``: the ``data`` axis's process group)
-each rank holds an equal share of the batch: the loss, a mean over all of
-its elements, is the mean of the ranks' losses (the step averages it and
-the gradients), while the metrics, means over the VALID pixels only, are
-summed as (sum, count) across the ranks, not averaged as means."""
+In a step over a mesh (``group``: every rank of it) each rank holds an
+equal share of the batch's elements, its rows of the ``data`` axis and
+its band of the ``spatial`` axis: the loss, each iteration's mean over
+all of its elements, is the mean of the ranks' losses (the step averages
+it and the gradients), while the metrics, means over the VALID pixels
+only, are summed as (sum, count) across the ranks, not averaged as
+means."""
 
 from __future__ import annotations
 

@@ -25,6 +25,16 @@ compute what one rank computes on the whole batch (within the sums'
 rounding). No ``DistributedDataParallel``: its ``module.`` prefix would
 reach the saved weights and its bucketed overlap reorders the sums; a
 one-device mesh runs no collective, bitwise the mesh-less step.
+
+A ``spatial`` axis over 1 cuts the height as well: each rank's batch is
+its rows of the ``data`` axis and its band of the ``spatial`` axis
+(``parallel.mesh.shard_batch``), the model runs on the band
+(``models.layers.set_spatial``: halo convs, norms over the band's group,
+the query-sharded volume), the noise is the global image's, cut to the
+band, and the sums above run over every rank of the mesh: each holds an
+equal share of the elements, so the mean of the ranks' losses is the
+global loss and one flat all-reduce of the gradients over the world,
+divided by its size, is its gradient.
 """
 
 from __future__ import annotations
@@ -38,8 +48,9 @@ import torch
 import torch.distributed as dist
 
 from raft_tpu_torch.config import RAFTConfig, TrainConfig
-from raft_tpu_torch.models.layers import set_process_group
+from raft_tpu_torch.models.layers import set_process_group, set_spatial
 from raft_tpu_torch.models.raft import RAFT
+from raft_tpu_torch.parallel.mesh import validate_spatial_extent
 from raft_tpu_torch.training.loss import sequence_loss, sequence_loss_subpixel
 from raft_tpu_torch.training.optim import clip_by_global_norm_, make_optimizer
 
@@ -82,17 +93,22 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
     return gen
 
 
-def add_noise(image1, image2, gen: torch.Generator, draw_rows=None):
+def add_noise(image1, image2, gen: torch.Generator, draw_rows=None,
+              band=None):
     """train.py:167-170: one stdv ~ U[0, 5) for the pair, then Gaussian
     noise of that stdv on each image, clipped to [0, 255].
     ``draw_rows=(start, global_batch)``: the images are rows ``start..``
-    of a global batch, whose whole noise is drawn."""
+    of a global batch, whose whole noise is drawn. ``band=(row0,
+    global_h)``: the images are rows ``row0..`` of ``global_h``-high
+    images (a ``spatial`` band), whose whole noise is drawn."""
     dev = image1.device
-    b = image1.shape[0]
+    b, h = image1.shape[:2]
     start, total = draw_rows if draw_rows is not None else (0, b)
+    row0, height = band if band is not None else (0, h)
     stdv = 5.0 * torch.rand((), generator=gen, device=dev)
     return tuple((im + stdv * torch.randn(
-        (total,) + im.shape[1:], generator=gen, device=dev)[start:start + b])
+        (total, height) + im.shape[2:], generator=gen,
+        device=dev)[start:start + b, row0:row0 + h])
         .clamp(0.0, 255.0) for im in (image1, image2))
 
 
@@ -115,18 +131,16 @@ def make_train_step(model_cfg: RAFTConfig, train_cfg: TrainConfig,
     (B,H,W,3) and valid (B,H,W), uint8 or float32, and flow (B,H,W,2)
     float32, on any device; metrics are the 0-dim tensors
     :data:`METRICS` on the model's device (nothing waits for the card).
-    ``grad_norm`` is the global norm before the clip. With a ``mesh`` of a
-    ``data`` axis over 1, ``batch`` is this rank's rows (rank ``i`` of the
-    axis holds rows ``i·B..``) and the metrics are the global batch's; a
-    ``spatial`` axis over 1 is not executed and raises."""
-    data, group = 1, None
+    ``grad_norm`` is the global norm before the clip. With a ``mesh`` of
+    more than one rank, ``batch`` is this rank's block of the global batch
+    (``parallel.mesh.shard_batch``: rank ``i`` of the ``data`` axis holds
+    rows ``i·B..``, rank ``s`` of the ``spatial`` axis band ``s`` of the
+    height) and the metrics are the global batch's."""
+    data = spatial = n = 1
+    group = sp = None
     if mesh is not None:
-        if mesh.shape["spatial"] > 1:
-            raise NotImplementedError(
-                "a 'spatial' mesh axis over 1 (conv halo exchange, a "
-                "query-sharded volume) is ROADMAP.md §1 'the spatial "
-                "axis and the sharded engine'")
-        data, group = mesh.shape["data"], mesh.group
+        data, spatial = mesh.shape["data"], mesh.shape["spatial"]
+        n, group, sp = mesh.size, mesh.world_group, mesh.spatial_context()
         if data > 1 and not model_cfg.split_encode:
             raise ValueError("a data axis over 1 needs split_encode "
                              "(parallel.partitioner.mesh_model_config)")
@@ -151,14 +165,19 @@ def make_train_step(model_cfg: RAFTConfig, train_cfg: TrainConfig,
         valid = _as_float(batch["valid"], dev)
         flow = _as_float(batch["flow"], dev)
         gen = step_generator(train_cfg.seed, state.step, dev)
-        rows = None
+        rows = band = None
+        b, h = image1.shape[:2]
         if data > 1:
-            b = image1.shape[0]
             rows = (mesh.coords[0] * b, data * b)
+        if spatial > 1:
+            # before any collective: a band the fence refuses raises here
+            validate_spatial_extent(h * spatial, mesh)
+            band = (mesh.coords[1] * h, spatial * h)
         if train_cfg.add_noise:
-            image1, image2 = add_noise(image1, image2, gen, rows)
+            image1, image2 = add_noise(image1, image2, gen, rows, band)
         model.train()
         set_process_group(model, group)
+        set_spatial(model, sp)
         preds = model(image1, image2, iters=train_cfg.iters, test_mode=False,
                       train=True, freeze_bn=freeze_bn, raw_predictions=fused,
                       generator=gen, draw_rows=rows)
@@ -171,10 +190,10 @@ def make_train_step(model_cfg: RAFTConfig, train_cfg: TrainConfig,
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         if group is not None:
-            all_reduce_mean_([p.grad for p in params], group, data)
+            all_reduce_mean_([p.grad for p in params], group, n)
             loss = loss.detach().clone()
             dist.all_reduce(loss, group=group)
-            loss /= data
+            loss /= n
         grad_norm = clip_by_global_norm_([p.grad for p in params],
                                          train_cfg.clip)
         state.optimizer.step()

@@ -187,8 +187,8 @@ def test_later_slices_raise_not_implemented(tmp_path):
     model(img, img, iters=1, test_mode=False, train=True)
     # the serving forwards (M10), the front end (M11a), the registry and
     # the replica fleet (M11b), the program store and the host lanes
-    # (M11c), a one-device mesh and .msgpack weights (M9, M1) are ported;
-    # a sharded engine and the serving video are not
+    # (M11c), a mesh (M9) and .msgpack weights (M1) are ported; the store
+    # under a multi-rank mesh and the serving video are not
     full = torch.full((1,), 4, dtype=torch.int32)
     assert model.forward_ragged(img, img, full, full, iters=1)[1].shape == (
         1, 32, 32, 2)
@@ -203,7 +203,8 @@ def test_later_slices_raise_not_implemented(tmp_path):
     two = Mesh(np.asarray(["cpu", "cpu"], dtype=object).reshape(2, 1), 0,
                "cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        RAFTEngine(model, model.config, mesh=two, device="cpu")
+        RAFTEngine(model, model.config, mesh=two,
+                   aot_cache=str(tmp_path / "meshed"), device="cpu")
     with pytest.raises(TypeError):
         RAFTEngine(model, model.config, mesh=object(), device="cpu")
     eng = RAFTEngine(model, model.config, aot_cache=str(tmp_path),

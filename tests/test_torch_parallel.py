@@ -8,7 +8,8 @@
   ``partition_fingerprint`` (``"single"`` without a mesh, one per mesh
   shape, JAX's digest for the same shape and table);
   ``process_batch_slice``'s arithmetic; ``shard_batch``; the serving
-  engine on a one-device mesh and its refusal of a larger one.
+  engine on a one-device mesh, and on a larger one what it builds and
+  what it refuses (it serves in ``tests/test_torch_spatial.py``).
 - Two gloo processes (a ``FileStore`` under the test's directory, each
   with ``jax``, ``flax`` and ``raft_tpu`` blocked, at most 120 s each,
   both killed when one fails) run one basic-model chairs step at 64x64,
@@ -191,8 +192,11 @@ def test_shard_batch_moves_one_rank_and_cuts_rows_on_many():
 def test_engine_serves_from_a_one_device_mesh_and_refuses_a_larger_one(
         tmp_path):
     """A one-device mesh serves bitwise what no mesh serves, under the
-    mesh's fingerprint in the store; ``mesh=None`` keeps ``"single"``; a
-    mesh of two devices raises naming ROADMAP.md."""
+    mesh's fingerprint in the store; ``mesh=None`` keeps ``"single"``. A
+    mesh of two ranks builds sharded eager programs (they serve in
+    ``tests/test_torch_spatial.py``, across processes): its envelope is
+    held to the mesh grain, it captures nothing, and the store and
+    replicas under it raise naming ROADMAP.md."""
     from raft_tpu_torch.serving import RAFTEngine
 
     torch.set_num_threads(1)
@@ -216,13 +220,38 @@ def test_engine_serves_from_a_one_device_mesh_and_refuses_a_larger_one(
     assert meshed.infer_batch(i1[:, :24], i2[:, :24]).shape == (1, 24, 40, 2)
     two, _ = _meshes(2, 1)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        RAFTEngine(model, cfg, mesh=two, aot_cache=str(tmp_path / "c"), **kw)
+    with pytest.raises(ValueError, match="not mesh-divisible"):
         RAFTEngine(model, cfg, mesh=two, **kw)
+    sharded = RAFTEngine(model, cfg, mesh=two,
+                         **{**kw, "envelope": [(2, 32, 40)]})
+    assert sharded.bucket_shapes() == [(2, 32, 40)]
+    assert sharded._programs[(2, 32, 40)].graph is None
+    assert sharded._programs[(2, 32, 40)].inputs["image1"].shape == (
+        1, 32, 40, 3)
+    assert sharded.aot_stats()["captures"] == 0
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        sharded.spawn_replica()
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        plain.adopt_executables(sharded)
 
 
 def test_train_step_refuses_a_spatial_axis():
+    """A ``spatial`` axis over 1 now builds a step (it runs across
+    processes in ``tests/test_torch_spatial.py``); a band whose feature
+    rows do not exceed the 7x7 conv's halo is refused before any
+    collective, with the JAX fence's message."""
     sp, _ = _meshes(1, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        make_train_step(RAFTConfig(), TrainConfig(), sp)
+    cfg, tc = RAFTConfig(), TrainConfig()
+    step = make_train_step(cfg, tc, sp)
+    state = create_train_state(RAFT(cfg), tc)
+    band = {"image1": np.zeros((1, 24, 32, 3), np.float32),
+            "image2": np.zeros((1, 24, 32, 3), np.float32),
+            "flow": np.zeros((1, 24, 32, 2), np.float32),
+            "valid": np.ones((1, 24, 32), np.float32)}
+    with pytest.raises(ValueError, match="halo"):
+        step(state, band)
+    assert state.step == 0
 
 
 # -- two processes --------------------------------------------------------
