@@ -278,16 +278,36 @@ Phases, each of which fails loudly (nothing is caught):
    rounding witnessed by its own steps on image1, then image2, moved by
    one ulp (the bounds the largest witness a side, summed over the
    sides); (c) each rank's launches in the counted runs;
-23. print the drill's, the envelope's, the serving phases', phase 21's
-   and phase 22's numbers (``{"serving_frontend": ...}``,
+23. follower ranks (``parallel.follow``): the scheduler's ``"shard"``
+   route and a replica lane over the ``(1, 2)`` mesh, TF32 off, cuDNN
+   deterministic, two processes on cuda:0 joined by gloo (a subprocess
+   each, FW_TIMEOUT_S each, both killed when one fails). Rank 0 runs
+   ``MicroBatchScheduler`` over the leading primary engine (wire u8,
+   buckets 1x1088x1920 and 4x368x496) with one replica lane on a sibling
+   mesh and ``shard_px_threshold`` 1080x1920 (the key is the request's
+   extent); rank 1 runs ``follow.follow``. (a) The basic model at iters 1:
+   2 seeded 1080x1920 pairs on the ``"shard"`` route and 8 368x496 pairs
+   on the ``"replicate"`` route, a weight swap, the same again on the
+   second weights; (b) the small trained fixture at iters 20: the 4
+   1080x1920 pairs on the ``"shard"`` route. Each future within
+   BASIC_STEP_TOL (basic) or SMALL_TOL (small) of a one-device engine on
+   the same card on its own micro-batch, bucket and weights; rank 1's
+   flows bitwise rank 0's futures; pairs/s and p50/p99 ms per route; the
+   channel's bytes and ms a dispatch and their share of a sharded pair;
+   each rank's launches (K1, K2), counted from zero before each session;
+   (c) the kill drill: rank 1 SIGKILLed with futures in flight: every
+   future settled exactly once, with an error, and the seconds from the
+   SIGKILL to the last; the scheduler closes;
+24. print the drill's, the envelope's, the serving phases', phase 21's,
+   phase 22's and phase 23's numbers (``{"serving_frontend": ...}``,
    ``{"serving_registry": ...}``, ``{"serving_store_hosts": ...}``,
-   ``{"parallel": ...}`` and ``{"spatial": ...}`` lines), the
-   ``{"kernels": [...]}`` line (with ``launches_serving``,
+   ``{"parallel": ...}``, ``{"spatial": ...}`` and ``{"follow": ...}``
+   lines), the ``{"kernels": [...]}`` line (with ``launches_serving``,
    ``launches_serving_frontend``, ``launches_registry``,
    ``launches_fleet`` and ``launches_store_hosts`` on K1 and K2,
-   ``launches_parallel`` and ``launches_spatial`` on K1-K4), the
-   ``nvidia-smi`` line, and last the ``{"ok": true, "device": ...}``
-   line.
+   ``launches_parallel`` and ``launches_spatial`` on K1-K4,
+   ``launches_follow`` a rank on every kernel), the ``nvidia-smi`` line,
+   and last the ``{"ok": true, "device": ...}`` line.
 
 Exits non-zero, printing no result, when there is no CUDA device.
 """
@@ -4469,6 +4489,391 @@ def spatial_phase(smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 23: follower ranks
+# ---------------------------------------------------------------------------
+
+FW_TIMEOUT_S = 300              # bound on a rank's whole run
+FW_SHARD_PAIRS = 4              # 1080x1920 pairs, the "shard" route
+FW_REPL_PAIRS = 16              # 368x496 pairs, the "replicate" route
+FW_BATCH = 4                    # max_batch: the replicate bucket's batch
+FW_REPL_HW = TRAIN_HW
+FW_SHARD_BUCKET = (1, -(-HD_HW[0] // 16) * 16, HD_HW[1])
+FW_REPL_BUCKET = (FW_BATCH,) + FW_REPL_HW
+FW_GATHER_S = 0.05
+FW_KILL_TIMEOUT_S = 30.0        # the kill drill's watchdog deadline
+FW_KILL_PAIRS = 6               # the kill drill's requests (2 shard)
+FOLLOW_CHILD = """import json, os, sys, time
+import numpy as np, torch
+import torch.distributed as tdist
+torch.backends.cudnn.deterministic = True
+torch.backends.cudnn.benchmark = False
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+from raft_tpu_torch import kernels
+from raft_tpu_torch.parallel import distributed, follow
+from raft_tpu_torch.parallel.mesh import make_mesh
+from raft_tpu_torch.serving import RAFTEngine
+import chip_smoke as c
+d, r = sys.argv[1], int(sys.argv[2])
+torch.cuda.set_device(torch.device("cuda:0"))
+distributed.initialize(f"file://{d}/store", 2, r, backend="gloo")
+pids = [None, None]
+tdist.all_gather_object(pids, os.getpid())
+mesh = make_mesh(spatial=2)
+x = dict(np.load(d + "/pairs.npz"))
+out = {"rank": r, "mesh": repr(mesh), "sessions": {}}
+flows = {}
+for name, cfg, weights, iters in c.sp_models(d):
+    eng = RAFTEngine(weights, cfg, iters=iters, mesh=mesh, wire="u8",
+                     envelope=[c.FW_SHARD_BUCKET, c.FW_REPL_BUCKET])
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    if r == 0:
+        s, flows[name] = c.fw_primary(name, eng, x, d)
+    else:
+        got = []
+        ends = follow.follow(eng, on_output=lambda e, f: got.append(f))
+        flows[name] = [row for f in got for row in f]
+        s = {"engines": {str(k): v["weights_version"]
+                         for k, v in ends.items()},
+             "dispatches": sum(v["dispatches"] for v in ends.values())}
+    torch.cuda.synchronize()
+    s["seconds"] = time.perf_counter() - t0
+    s["launches"] = kernels.launch_counts()
+    out["sessions"][name] = s
+    del eng
+torch.save(flows, f"{d}/flows{r}.pt")
+print(json.dumps(out), flush=True)
+# (c) the kill drill: rank 1 SIGKILLed with futures in flight
+name, cfg, weights, iters = c.sp_models(d)[0]
+eng = RAFTEngine(weights, cfg, iters=iters, mesh=mesh, wire="u8",
+                 envelope=[c.FW_SHARD_BUCKET, c.FW_REPL_BUCKET])
+if r == 0:
+    print(json.dumps({"kill": c.fw_kill(eng, x, pids[1])}), flush=True)
+else:
+    follow.follow(eng)
+sys.stdout.flush()
+os._exit(0)     # a process group a dead peer left cannot be torn down
+"""
+
+
+def fw_pairs():
+    """The seeded u8 frames: FW_SHARD_PAIRS 1080x1920 pairs and
+    FW_REPL_PAIRS 368x496 pairs."""
+    hd = [np.round(f).astype(np.uint8)
+          for f in synthetic_frames(23, FW_SHARD_PAIRS + 1, HD_HW)]
+    sm = [np.round(f).astype(np.uint8)
+          for f in synthetic_frames(24, FW_REPL_PAIRS + 1, FW_REPL_HW)]
+    return {"hd1": np.stack(hd[:-1]), "hd2": np.stack(hd[1:]),
+            "sm1": np.stack(sm[:-1]), "sm2": np.stack(sm[1:])}
+
+
+def fw_waves(name: str):
+    """A session's waves: ``(wave, swap to, shard pair indices, replicate
+    pair indices)``; (a) swaps between its two halves."""
+    if name != "basic":
+        return [("a", None, list(range(FW_SHARD_PAIRS)), [])]
+    hs, hr = FW_SHARD_PAIRS // 2, FW_REPL_PAIRS // 2
+    return [("a", None, list(range(hs)), list(range(hr))),
+            ("b", "weights_b.pt", list(range(hs, 2 * hs)),
+             list(range(hr, 2 * hr)))]
+
+
+def _pct(v, q):
+    return float(np.percentile(v, q)) if v else None
+
+
+def fw_primary(name: str, eng, x, d: str):
+    """Rank 0's session: the leading engine under a scheduler with one
+    replica lane; every future's flow, latency and route. Returns the
+    numbers and the flows (by route, in submission order)."""
+    from raft_tpu_torch.parallel import follow
+    from raft_tpu_torch.parallel.placement import Placement
+    from raft_tpu_torch.serving.scheduler import MicroBatchScheduler
+
+    channel = follow.lead(eng)
+    # each dispatch of the primary engine, from its call until the card
+    # is done with it
+    real = eng.infer_batch_async
+    spans = []
+
+    def timed(*a, **k):
+        t0 = time.perf_counter()
+        pending = real(*a, **k)
+        torch.cuda.synchronize()
+        spans.append((pending.bucket, time.perf_counter() - t0))
+        return pending
+    eng.infer_batch_async = timed
+    t_spawn = time.perf_counter()
+    sched = MicroBatchScheduler(
+        eng, max_batch=FW_BATCH, gather_window_s=FW_GATHER_S,
+        placement=Placement(eng, replicas=2,
+                            shard_px_threshold=HD_HW[0] * HD_HW[1]))
+    spawn_s = time.perf_counter() - t_spawn
+    routes = {"shard": sched.placement.decide(HD_HW),
+              "replicate": sched.placement.decide(FW_REPL_HW)}
+    lat = {"shard": [], "replicate": []}
+    flows = {"shard": [], "replicate": []}
+    span = {"shard": [None, None], "replicate": [None, None]}
+    swap_s = None
+    for wave, swap, hd, sm in fw_waves(name):
+        if swap is not None:
+            t0 = time.perf_counter()
+            sched.update_weights(torch.load(os.path.join(d, swap)))
+            swap_s = time.perf_counter() - t0
+        futs = []
+        for route, idx, a, b in (("shard", hd, "hd1", "hd2"),
+                                 ("replicate", sm, "sm1", "sm2")):
+            for i in idx:
+                futs.append((route, time.perf_counter(),
+                             sched.submit(x[a][i], x[b][i])))
+        for route, t0, f in futs:
+            flows[route].append(f.result(timeout=FW_TIMEOUT_S).flow)
+            t1 = time.perf_counter()
+            lat[route].append((t1 - t0) * 1e3)
+            first, last = span[route]
+            span[route] = [t0 if first is None else min(first, t0),
+                           t1 if last is None else max(last, t1)]
+    lanes = [lane.dispatches for lane in sched._lanes]
+    sched.close()
+    stats = dict(channel.stats)
+    shard_ms = [t * 1e3 for b, t in spans if tuple(b) == FW_SHARD_BUCKET]
+    out = {"routes": routes, "spawn_s": spawn_s, "swap_s": swap_s,
+           "lane_dispatches": lanes, "channel": stats,
+           "closed": channel.closed,
+           "engines": {str(e._eid): e.weights_version
+                       for e in sched.placement.engines}}
+    for route, ms in lat.items():
+        if not ms:
+            continue
+        first, last = span[route]
+        out[route] = {"pairs": len(ms), "pairs_per_s": len(ms) / (last - first),
+                      "p50_ms": _pct(ms, 50), "p99_ms": _pct(ms, 99)}
+    key = "infer {}x{}x{}".format(*FW_SHARD_BUCKET)
+    if key in stats:
+        n, nbytes, sec = stats[key]
+        out["shard_channel"] = {
+            "dispatches": n, "mbytes_per_dispatch": nbytes / n / 1e6,
+            "ms_per_dispatch": sec / n * 1e3,
+            "pair_ms": shard_ms, "pair_ms_median": _pct(shard_ms, 50),
+            "share_of_pair": sec / n * 1e3 / _pct(shard_ms, 50)}
+    key = "infer {}x{}x{}".format(*FW_REPL_BUCKET)
+    repl_ms = [t * 1e3 for b, t in spans if tuple(b) == FW_REPL_BUCKET]
+    if key in stats:
+        n, nbytes, sec = stats[key]
+        out["replicate_channel"] = {
+            "dispatches": n, "mbytes_per_dispatch": nbytes / n / 1e6,
+            "ms_per_dispatch": sec / n * 1e3,
+            # the primary lane's replicate dispatches (the replica's are
+            # not timed)
+            "dispatch_ms_primary": repl_ms}
+    return out, flows
+
+
+def fw_kill(eng, x, pid: int) -> dict:
+    """(c): the scheduler over the leading engine and a replica lane,
+    FW_KILL_PAIRS requests (two 1080x1920, the rest 368x496), rank 1
+    SIGKILLed once the first dispatch is announced: each future's settle
+    (seconds after the SIGKILL, its error) and the close's seconds."""
+    import signal
+
+    from raft_tpu_torch.parallel import follow
+    from raft_tpu_torch.parallel.placement import Placement
+    from raft_tpu_torch.serving.scheduler import MicroBatchScheduler
+
+    channel = follow.lead(eng)
+    sched = MicroBatchScheduler(
+        eng, max_batch=FW_BATCH, gather_window_s=FW_GATHER_S,
+        dispatch_timeout_s=FW_KILL_TIMEOUT_S,
+        placement=Placement(eng, replicas=2,
+                            shard_px_threshold=HD_HW[0] * HD_HW[1]))
+    settled = []
+    futs = []
+    for i in range(FW_KILL_PAIRS):
+        a, b = (("hd1", "hd2") if i < 2 else ("sm1", "sm2"))
+        f = sched.submit(x[a][i % 2], x[b][i % 2])
+        f.add_done_callback(lambda f: settled.append((
+            time.perf_counter(), None if f.exception() is None
+            else type(f.exception()).__name__)))
+        futs.append(f)
+    t_wait = time.perf_counter()
+    while channel.stats.get("infer", [0])[0] < 1:
+        if time.perf_counter() - t_wait > FW_TIMEOUT_S / 2:
+            raise RuntimeError("no dispatch announced for the kill drill")
+        time.sleep(0.01)
+    pending = sum(not f.done() for f in futs)
+    t_kill = time.perf_counter()
+    os.kill(pid, signal.SIGKILL)
+    for f in futs:
+        try:
+            f.result(timeout=FW_KILL_TIMEOUT_S + 30)
+        except Exception:  # noqa: BLE001 — the drill's errors
+            pass
+    t0 = time.perf_counter()
+    sched.close(timeout=60)
+    return {"futures": len(futs), "pending_at_kill": pending,
+            "settled": [(t - t_kill, e) for t, e in settled],
+            "settled_once": len(settled) == len(futs),
+            "close_s": time.perf_counter() - t0,
+            "channel_failed": repr(channel.failed)[:200]}
+
+
+def follow_phase(smi: str) -> dict:
+    """Phase 23: follower ranks (``parallel.follow``); see the module
+    docstring."""
+    from raft_tpu_torch.models import RAFT
+    from raft_tpu_torch.serving import RAFTEngine
+
+    out = {}
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    tmp = tempfile.mkdtemp(prefix="raft_phase23_")
+    t_phase = time.perf_counter()
+    try:
+        x = fw_pairs()
+        np.savez(os.path.join(tmp, "pairs.npz"), **x)
+        from raft_tpu_torch.config import RAFTConfig
+
+        basic = RAFTConfig(corr_impl="pallas", gru_impl="fused")
+        torch.save(RAFT(basic, torch.Generator().manual_seed(0)).state_dict(),
+                   os.path.join(tmp, "weights.pt"))
+        torch.save(RAFT(basic, torch.Generator().manual_seed(1)).state_dict(),
+                   os.path.join(tmp, "weights_b.pt"))
+        env = dict(os.environ, PYTHONPATH=REPO)
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", FOLLOW_CHILD, tmp, str(r)], cwd=REPO,
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True) for r in range(2)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=FW_TIMEOUT_S)[0])
+        finally:
+            for p in procs:     # a rank that failed leaves the other hung
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        if procs[0].returncode != 0 or procs[1].returncode != -9:
+            raise RuntimeError(
+                f"follower ranks ended {[p.returncode for p in procs]} "
+                f"(want 0, and -9 from the kill drill):\n"
+                f"{logs[0][-6000:]}\n{logs[1][-3000:]}")
+        lines = [[json.loads(ln) for ln in text.splitlines()
+                  if ln.startswith("{")] for text in logs]
+        res = [ln[0] for ln in lines]
+        kill = lines[0][1]["kill"]
+        t_ranks = time.perf_counter() - t_phase
+
+        # -- (a), (b) against one-device engines on the same card ----------
+        flows = [torch.load(os.path.join(tmp, f"flows{r}.pt"),
+                            weights_only=False) for r in range(2)]
+        sessions = {}
+        for name, cfg, w, iters in sp_models(tmp):
+            prim = res[0]["sessions"][name]
+            got = flows[0][name]
+            eng = RAFTEngine(w, cfg, iters=iters, wire="u8",
+                             envelope=[FW_SHARD_BUCKET, FW_REPL_BUCKET],
+                             precompile=False)
+            errs = {route: 0.0 for route in ("shard", "replicate")
+                    if got[route]}
+            k = {"shard": 0, "replicate": 0}
+            for wave, swap, hd, sm in fw_waves(name):
+                if swap is not None:
+                    eng.update_weights(torch.load(os.path.join(tmp, swap)))
+                for i in hd:
+                    want = eng.infer_batch(x["hd1"][i:i + 1],
+                                           x["hd2"][i:i + 1])[0]
+                    errs["shard"] = max(errs["shard"], float(np.abs(
+                        got["shard"][k["shard"]] - want).max()))
+                    k["shard"] += 1
+                for j in range(0, len(sm), FW_BATCH):
+                    rows = sm[j:j + FW_BATCH]
+                    want = eng.infer_batch(x["sm1"][rows], x["sm2"][rows])
+                    for row in want:
+                        errs["replicate"] = max(errs["replicate"], float(
+                            np.abs(got["replicate"][k["replicate"]]
+                                   - row).max()))
+                        k["replicate"] += 1
+            del eng
+            tol = BASIC_STEP_TOL if name == "basic" else SMALL_TOL
+            mine = sorted(np.ascontiguousarray(f).tobytes()
+                          for f in got["shard"] + got["replicate"])
+            theirs = sorted(np.ascontiguousarray(f).tobytes()
+                            for f in flows[1][name])
+            g = dict(prim, max_abs_err_px=errs, tol_px=tol, iters=iters,
+                     ranks_bitwise=mine == theirs,
+                     follower=res[1]["sessions"][name],
+                     launches=[r["sessions"][name]["launches"]
+                               for r in res])
+            g.pop("channel")
+            g["channel_ops"] = {n: v[0] for n, v in prim["channel"].items()}
+            sessions[name] = g
+            log(f"[23] ({'a' if name == 'basic' else 'b'}) {name}, iters "
+                f"{iters}, two gloo ranks, rank 1 following: routes "
+                f"{g['routes']}; against one-device engines (tol {tol}) "
+                f"{errs} px; ranks bitwise {g['ranks_bitwise']}; "
+                + "; ".join(f"{route} {g[route]['pairs']} pairs "
+                            f"{g[route]['pairs_per_s']:.3f} pairs/s, p50 "
+                            f"{g[route]['p50_ms']:.1f} ms, p99 "
+                            f"{g[route]['p99_ms']:.1f} ms"
+                            for route in ("shard", "replicate")
+                            if route in g)
+                + f"; channel a shard dispatch {g.get('shard_channel')}; "
+                f"a replicate dispatch {g.get('replicate_channel')}; "
+                f"spawn {g['spawn_s']:.3f} s, swap {g['swap_s']}; lane "
+                f"dispatches {g['lane_dispatches']}; launches "
+                f"{g['launches']}; {smi}")
+            if not (max(errs.values()) <= tol and g["ranks_bitwise"]
+                    and g["closed"]
+                    and g["routes"] == {"shard": "shard",
+                                        "replicate": "replicate"}):
+                raise RuntimeError(f"follower session {name}: {errs} px "
+                                   f"(tol {tol}), ranks bitwise "
+                                   f"{g['ranks_bitwise']}, closed "
+                                   f"{g['closed']}, routes {g['routes']}")
+            if g["follower"]["engines"] != g["engines"]:
+                raise RuntimeError(f"follower session {name}: engines "
+                                   f"{g['follower']['engines']} against "
+                                   f"{g['engines']}")
+            need = (("corr_lookup", "gru_gates", "gru_blend")
+                    if name == "basic" else ("corr_lookup",))
+            if any(n[k] == 0 for n in g["launches"] for k in need):
+                raise RuntimeError(f"follower session {name}: a rank "
+                                   f"launched no {need}: {g['launches']}")
+        out["sessions"] = sessions
+        out["launches_follow"] = [
+            {k: sum(s["launches"][r][k] for s in sessions.values())
+             for k in sessions["basic"]["launches"][r]} for r in range(2)]
+
+        # -- (c) the kill drill ---------------------------------------------
+        late = [t for t, _ in kill["settled"]]
+        kill["last_settle_s"] = max(late) if late else None
+        out["kill"] = kill
+        errors = [e for t, e in kill["settled"] if t >= 0]
+        log(f"[23] (c) rank 1 SIGKILLed with {kill['pending_at_kill']} of "
+            f"{kill['futures']} futures pending: settled once "
+            f"{kill['settled_once']}, errors {errors}, the last "
+            f"{kill['last_settle_s']:.3f} s after the SIGKILL; close "
+            f"{kill['close_s']:.3f} s; channel {kill['channel_failed']}")
+        if not (kill["settled_once"] and kill["pending_at_kill"]
+                and all(e is not None for e in errors)
+                and len(errors) >= kill["pending_at_kill"]
+                and kill["last_settle_s"] <= FW_KILL_TIMEOUT_S + 10):
+            raise RuntimeError(f"the kill drill: {kill}")
+        out["seconds"] = {"ranks": t_ranks,
+                          "phase": time.perf_counter() - t_phase}
+        out["meshes"] = [r["mesh"] for r in res]
+        log(f"[23] launches a rank {out['launches_follow']}; the ranks took "
+            f"{t_ranks:.1f} s, the phase {out['seconds']['phase']:.1f} s")
+    finally:
+        torch.backends.cudnn.deterministic = False
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     import faulthandler
 
@@ -5181,7 +5586,10 @@ def main() -> int:
     # -- 22. the spatial axis ------------------------------------------------
     spatial = spatial_phase(smi)
 
-    # -- 23. result ----------------------------------------------------------
+    # -- 23. follower ranks --------------------------------------------------
+    followers = follow_phase(smi)
+
+    # -- 24. result ----------------------------------------------------------
     sources = {"corr_lookup": ("raft_tpu_torch/csrc/corr_lookup.cu",
                                "raft_tpu/kernels/corr_pallas.py:177"),
                "gru_gates": ("raft_tpu_torch/csrc/gru.cu",
@@ -5254,6 +5662,10 @@ def main() -> int:
         # phase 22: both spatial ranks' counted runs (the sharded engine's
         # two pairs, the two steps)
         row["launches_spatial"] = spatial["launches_spatial"][name]
+        # phase 23: each rank's sessions (the scheduler's shard and
+        # replicate dispatches on rank 0, their repeats on rank 1)
+        row["launches_follow"] = [n[name]
+                                  for n in followers["launches_follow"]]
         row["dtypes_train_cli"] = cli["dtypes"].get(name, {})
         if name in err_bf16:
             row["max_abs_err_bf16"] = err_bf16[name]
@@ -5292,6 +5704,8 @@ def main() -> int:
                  "bound_envelope_ms": envelope_bound_ms(t, env, tf32=True)[0],
                  "launches_clis": {k: v["corr_alt"] for k, v in
                                    clis["launches"].items() if "corr_alt" in v},
+                 "launches_follow": [n["corr_alt"] for n in
+                                     followers["launches_follow"]],
                  "tiled_share_kitti_eval": share(branches["alternate"]),
                  "tiled_share_sintel": share(branches["sintel_alternate"]),
                  "materialized_build_ms": mat_build_ms,
@@ -5310,6 +5724,7 @@ def main() -> int:
     print(json.dumps({"serving_store_hosts": hosts}), flush=True)
     print(json.dumps({"parallel": parallel}), flush=True)
     print(json.dumps({"spatial": spatial}), flush=True)
+    print(json.dumps({"follow": followers}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

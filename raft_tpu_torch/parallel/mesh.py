@@ -19,6 +19,15 @@ is gathered whole so each rank holds its band's queries of the volume
 (``parallel.halo``, ``models.layers.set_spatial``). The train step then
 sums gradients and batch-norm statistics over every rank of the mesh
 (:attr:`Mesh.world_group`).
+
+Engines that serve side by side (a primary and its replicas, each on its
+own scheduler lane) must not share process groups: gloo requires every
+rank to issue a group's collectives in one order, and two lanes'
+dispatches interleave. :meth:`Mesh.sibling` gives a replica the same
+layout over groups of its own. Every mesh over more than one rank also
+carries the run's control group (:attr:`Mesh.control_group`, gloo, CPU
+tensors): the channel over which follower ranks receive the primary's
+engine calls (``parallel.follow``).
 """
 
 from __future__ import annotations
@@ -57,7 +66,7 @@ class Mesh:
     axis_names = ("data", "spatial")
 
     def __init__(self, devices: np.ndarray, rank: int, device: torch.device,
-                 group=None, spatial_group=None):
+                 group=None, spatial_group=None, world=None, control=None):
         data, spatial = devices.shape
         #: device names, one per rank, shaped (data, spatial)
         self.devices = devices
@@ -73,6 +82,12 @@ class Mesh:
         #: the process group of this rank's 'spatial' axis: the ranks
         #: holding the other bands of its images (None when one wide)
         self.spatial_group = spatial_group
+        #: the group of every rank of the mesh, when it is not the default
+        #: group (a sibling's; see :attr:`world_group`)
+        self._world = world
+        #: every rank of the run, gloo whatever the data backend is: the
+        #: follower ranks' op channel (None on one rank)
+        self.control_group = control
 
     @property
     def size(self) -> int:
@@ -81,12 +96,26 @@ class Mesh:
     @property
     def world_group(self):
         """The group of every rank of the mesh (None on one device): the
-        train step's gradient and batch-norm sums."""
+        train step's gradient and batch-norm sums, the serving engine's
+        output gather."""
         if self.size == 1:
             return None
+        if self._world is not None:
+            return self._world
         import torch.distributed as tdist
 
         return tdist.group.WORLD
+
+    def sibling(self) -> "Mesh":
+        """The same layout and coordinates over process groups of its own
+        (its world, its ``data`` and ``spatial`` axes; the control group
+        is shared): a replica's mesh, so its collectives never interleave
+        with this mesh's on one group. A mesh of more than one rank; every
+        rank must call it, in one order, as :func:`make_mesh`."""
+        world, group, spatial_group = _make_groups(
+            self.shape["data"], self.shape["spatial"], self.rank, True)
+        return Mesh(self.devices, self.rank, self.device, group,
+                    spatial_group, world, self.control_group)
 
     def band(self, image_h: int) -> Dict[str, int]:
         """This rank's rows of ``image_h``-high images (the whole height
@@ -155,29 +184,45 @@ def make_mesh(n_devices: Optional[int] = None, spatial: int = 1,
     grid = np.asarray([str(d) for d in devices], dtype=object).reshape(
         n // spatial, spatial)
     rank = distributed.rank()
-    data = n // spatial
-    group = spatial_group = None
+    groups, control = (None, None, None), None
     if n > 1:
         import torch.distributed as tdist
+
+        groups = _make_groups(n // spatial, spatial, rank, False)
+        control = tdist.new_group(backend="gloo")
+    whole, group, spatial_group = groups
+    return Mesh(grid, rank, torch.device(grid.reshape(-1)[rank]), group,
+                spatial_group, whole, control)
+
+
+def _make_groups(data: int, spatial: int, rank: int, fresh: bool):
+    """``(world, data group, spatial group)`` of ``rank`` on a ``(data,
+    spatial)`` mesh of more than one rank; every rank creates every
+    group, in one order. ``fresh``: new groups throughout, where
+    :func:`make_mesh` takes the default group for an axis (or the world)
+    that spans every rank (world None: the default group)."""
+    import torch.distributed as tdist
+
+    world = group = spatial_group = None
+    if fresh:
+        world = tdist.new_group(list(range(data * spatial)))
     if data > 1:
         if spatial == 1:
-            group = tdist.group.WORLD
+            group = world if fresh else tdist.group.WORLD
         else:
-            # every rank creates every group, in one order
             for s in range(spatial):
                 g = tdist.new_group([d * spatial + s for d in range(data)])
                 if s == rank % spatial:
                     group = g
     if spatial > 1:
         if data == 1:
-            spatial_group = tdist.group.WORLD
+            spatial_group = world if fresh else tdist.group.WORLD
         else:
             for d in range(data):
                 g = tdist.new_group([d * spatial + s for s in range(spatial)])
                 if d == rank // spatial:
                     spatial_group = g
-    return Mesh(grid, rank, torch.device(grid.reshape(-1)[rank]), group,
-                spatial_group)
+    return world, group, spatial_group
 
 
 def validate_batch_extent(batch: dict, mesh: Mesh) -> None:
@@ -196,12 +241,14 @@ def _to_device(v, device: torch.device) -> torch.Tensor:
     return v.to(device, non_blocking=True)
 
 
-def block(name: str, v, mesh: Mesh):
+def block(name: str, v, mesh: Mesh, coords=None):
     """This rank's block of a global value with a batch dim and a height
     dim (``(B, H, ...)``, the ``("data", "spatial", ...)`` kinds of
     :data:`PARTITION_RULES`): its rows of the ``data`` axis and its band
-    of the ``spatial`` axis; a view, numpy or tensor. ``name`` is for the
-    error a dim the axis does not divide raises."""
+    of the ``spatial`` axis; a view, numpy or tensor. ``coords``: another
+    rank's ``(data, spatial)`` coordinates, whose block is cut instead.
+    ``name`` is for the error a dim the axis does not divide raises."""
+    coords = mesh.coords if coords is None else coords
     for dim, axis in enumerate(("data", "spatial")):
         n = mesh.shape[axis]
         if n == 1:
@@ -211,7 +258,7 @@ def block(name: str, v, mesh: Mesh):
             what = "a batch" if dim == 0 else "a height"
             raise ValueError(f"{name}: {what} of {v.shape[dim]} does not "
                              f"split over {axis}={n}")
-        start = mesh.coords[dim] * per
+        start = coords[dim] * per
         v = v[start:start + per] if dim == 0 else v[:, start:start + per]
     return v
 

@@ -177,21 +177,25 @@ class Placement:
         extents): ``"replicate"`` (default — whole micro-batches fan
         out across replica lanes) or ``"shard"`` (4K-class frames on a
         mesh-armed primary: the batch shards, so the bucket pins
-        to the primary lane). A ``"shard"`` bucket on a mesh of more
-        than one rank raises ``NotImplementedError``: a scheduler that
-        drives follower ranks is not written."""
+        to the primary lane). On a mesh of more than one rank the
+        primary must lead follower ranks (``parallel.follow``), which
+        repeat its dispatches: a ``"shard"`` bucket there raises
+        ``NotImplementedError`` when it leads none (the ``torchrun``
+        idiom, where every rank calls the engine itself and no
+        scheduler can drive the other ranks)."""
         if self.partitioner is None:
             return "replicate"
         h, w = int(key[0]), int(key[1])
         if h * w < self.shard_px_threshold:
             return "replicate"
         ranks = getattr(getattr(self.partitioner, "mesh", None), "size", 1)
-        if ranks > 1:
+        if ranks > 1 and not getattr(self.primary, "leads", False):
             raise NotImplementedError(
                 f"the 'shard' route for a {h}x{w} bucket on a mesh of "
-                f"{ranks} ranks: the other ranks "
-                "must follow the primary's dispatches; ROADMAP.md §1 'the "
-                "scheduler's shard route with follower ranks'")
+                f"{ranks} ranks whose primary leads no follower ranks: a "
+                "scheduler on one rank reaches the others only through "
+                "parallel.follow (follow.lead on rank 0, follow.follow on "
+                "every other rank)")
         return "shard"
 
     # -- bucket capacity / warming (ex scheduler._shape_capacity) ---------

@@ -63,18 +63,33 @@ keys the store with the mesh's partition fingerprint, as the JAX engine
 does (raft_tpu/serving/engine.py:444-456, :581). Without a mesh nothing of
 this runs and the store keys say ``"single"``.
 
-A mesh of more than one rank serves sharded buckets, in the
-``torchrun`` idiom: every rank builds the engine with the same mesh and
-calls ``infer_batch`` with the same whole inputs; each pads them, runs
-its block of the bucket (its rows of the ``data`` axis, its band of the
-``spatial`` axis: halo convs and the query-sharded volume,
-``models.layers.set_spatial``) and gathers every rank's block of the
-outputs, so every rank returns the whole result, as JAX's single
-controller does. Its programs run eagerly: gloo's host-side collectives
-cannot be captured, and a capture under NCCL is not verified (ROADMAP.md
-§1, "capture a multi-rank bucket under NCCL"), so ``captures`` stays 0.
-The program store, replicas and the scheduler's ``"shard"`` route refuse
-a multi-rank mesh (ROADMAP.md §1, each its row).
+A mesh of more than one rank serves sharded buckets: every rank holds
+an engine built the same way with the same mesh, runs its block of each
+bucket (its rows of the ``data`` axis, its band of the ``spatial`` axis:
+halo convs and the query-sharded volume, ``models.layers.set_spatial``)
+and gathers every rank's block of the outputs, so every rank holds the
+whole result, as JAX's single controller does. The ranks make the same
+calls in one of two ways:
+
+- the ``torchrun`` idiom: every rank calls ``infer_batch`` (and the rest)
+  with the same whole inputs;
+- follower ranks (``parallel.follow``): rank 0 leads (``follow.lead``),
+  and runs the scheduler and its replica lanes; every other rank runs
+  ``follow.follow(engine)``. Each call of rank 0's engines that issues
+  collectives or changes what later ones see (a dispatch, a table entry
+  built or dropped, a weight swap, a replica spawned, an engine closed)
+  is announced on the channel under the engine's lock before it runs, a
+  dispatch with each follower's block of the filled bucket, and the
+  followers repeat it. A replica gets a sibling mesh (``Mesh.sibling``:
+  the same layout over groups of its own), so two lanes' collectives
+  never share a group. Once the channel fails (a follower died, or a
+  sharded program's collective raised), every later call on a leading
+  engine raises ``follow.ChannelDead`` at once.
+
+Its programs run eagerly: gloo's host-side collectives cannot be
+captured, and a capture under NCCL is not verified (ROADMAP.md §1,
+"capture a multi-rank bucket under NCCL, and the store"), so
+``captures`` stays 0, and the program store refuses a multi-rank mesh.
 """
 
 from __future__ import annotations
@@ -92,10 +107,18 @@ from raft_tpu_torch.evaluation.evaluate import resolve_device
 from raft_tpu_torch.models import RAFT
 from raft_tpu_torch.models.layers import set_spatial
 from raft_tpu_torch.ops.padding import pad_amounts
+from raft_tpu_torch.parallel import follow as _follow
 from raft_tpu_torch.parallel.halo import gather_blocks
 from raft_tpu_torch.serving import aot as _aotmod
 from raft_tpu_torch.serving.export import bind_program, export_bucket
 from raft_tpu_torch.testing.faults import fault_point
+
+#: the process's capture lock is taken before an engine's lock; a leading
+#: engine announces each op on the follower channel under its own lock
+#: (the channel's lock nests inside it: ``parallel/follow.py``), so the
+#: engine's lock is not a leaf
+LOCK_ORDER = (("engine._CAPTURE_LOCK", "engine.RAFTEngine._lock",
+               "follow.Channel._lock"),)
 
 # cvt2trt.sh:1 envelope (min 1x3x256x256 / opt 2x3x800x800 / max 8x3x1024x1024)
 SHAPE_ENVELOPE_LINUX: List[Tuple[int, int, int]] = [
@@ -322,8 +345,10 @@ class RAFTEngine:
 
         ``mesh``: a ``parallel.mesh.Mesh``; the engine runs on its device
         (``device`` is not read) under its ``Partitioner``. Over more than
-        one rank every rank makes the same calls with the same whole
-        inputs and gets the whole result; ``aot_cache`` then raises
+        one rank every rank holds such an engine and gets the whole
+        result; either every rank makes the same calls with the same whole
+        inputs, or rank 0 leads and the others follow
+        (``parallel.follow``). ``aot_cache`` then raises
         ``NotImplementedError``.
         """
         if wire not in ("f32", "u8"):
@@ -368,9 +393,11 @@ class RAFTEngine:
                 raise TypeError("mesh: a raft_tpu_torch.parallel.mesh.Mesh")
             if mesh.size > 1 and aot_cache is not None:
                 raise NotImplementedError(
-                    f"aot_cache under a mesh of {mesh.size} ranks: the "
-                    "store holds one-device captured programs; ROADMAP.md "
-                    "§1 'the store and replicas under a multi-rank mesh'")
+                    f"aot_cache under a mesh of {mesh.size} ranks: a "
+                    "multi-rank program is eager, neither traced nor "
+                    "captured, so the store would have nothing to save; "
+                    "ROADMAP.md §1 'capture a multi-rank bucket under "
+                    "NCCL, and the store'")
             self.partitioner = Partitioner(mesh)
             self._partition_fp = _aotmod.partition_fingerprint(
                 mesh, self.partitioner.declared_specs())
@@ -406,6 +433,14 @@ class RAFTEngine:
         self._ranks = mesh if mesh is not None and mesh.size > 1 else None
         if self._ranks is not None:
             set_spatial(self.model, mesh.spatial_context())
+        #: the follower channel this engine leads, and its id on it
+        #: (``parallel.follow.lead``; None: it leads nothing)
+        self._channel: Optional[_follow.Channel] = None
+        self._eid: Optional[int] = None
+        #: a leading engine that was closed (its followers' copies ended)
+        self._closed = False
+        #: dispatches run as a follower
+        self._followed = 0
         if dev.type == "cuda":
             self._stream = torch.cuda.Stream(dev)
             self._capture_stream = torch.cuda.Stream(dev)
@@ -528,7 +563,12 @@ class RAFTEngine:
         # entries are unreachable from here until it is swapped back
         new_fp = (_aotmod.weights_fingerprint(state)
                   if self._aot is not None else None)
+        payload = (_follow.pack_state(state, self.model.state_dict())
+                   if self._channel is not None else None)
         with self._lock:
+            if payload is not None:
+                self._announce(_follow.SWAP, payload.numel(),
+                               payload=payload)
             with self._on_stream(), torch.no_grad():
                 for k, t in self.model.state_dict().items():
                     src = staged[k]
@@ -738,6 +778,8 @@ class RAFTEngine:
                 # a precompile=False placeholder (None) is filled
                 cur = table.get(shape)
                 if cur is None:
+                    self._announce(_follow.ENSURE, _KINDS.index(kind),
+                                   *shape, 1)
                     table[shape] = cur = prog
         return cur
 
@@ -762,13 +804,19 @@ class RAFTEngine:
     def _dispatch(self, prog: _Program, host: Dict[str, np.ndarray],
                   keep: Callable[[tuple], tuple],
                   on_device: Optional[Callable[[Dict], None]] = None,
-                  expect_version: Optional[int] = None):
+                  expect_version: Optional[int] = None,
+                  op: Tuple[int, ...] = ()):
         """One dispatch atom under the lock: the host arrays into the
         program's static inputs (through pinned buffers on the card),
         ``on_device`` for device-resident inputs, the run, and ``keep``'s
-        clones of the outputs; returns them and the event after them."""
+        clones of the outputs; returns them and the event after them.
+        A leading engine announces the dispatch first (``op``: the
+        bucket and the request's crop), with each follower's block."""
         cuda = self.device.type == "cuda"
+        blocks = None
         if self._ranks is not None:     # this rank's block of each input
+            if self._channel is not None:
+                blocks = self._rank_blocks(host)
             host = {k: self.partitioner.block(_INPUT_KINDS[k], a)
                     for k, a in host.items()}
         staged = {k: torch.from_numpy(np.ascontiguousarray(a))
@@ -783,19 +831,45 @@ class RAFTEngine:
                     f"{expect_version} but the engine is at "
                     f"{self.weights_version} — a weight swap raced "
                     "this dispatch; streams re-prime")
-            with self._on_stream(), torch.no_grad():
-                for k, t in staged.items():
-                    prog.inputs[k].copy_(t, non_blocking=cuda)
-                if on_device is not None:
-                    on_device(prog.inputs)
-                kept = keep(prog.run())
-                event = None
-                if cuda:
-                    event = torch.cuda.Event()
-                    event.record(self._stream)
+            if blocks is not None:
+                self._announce(_follow.INFER, *op, blocks[0].numel(),
+                               scatter=blocks)
+            try:
+                with self._on_stream(), torch.no_grad():
+                    for k, t in staged.items():
+                        prog.inputs[k].copy_(t, non_blocking=cuda)
+                    if on_device is not None:
+                        on_device(prog.inputs)
+                    kept = keep(prog.run())
+                    event = None
+                    if cuda:
+                        event = torch.cuda.Event()
+                        event.record(self._stream)
+            except Exception as exc:
+                if blocks is not None:
+                    # a sharded program failed part way: the ranks are
+                    # out of step for good
+                    self._channel.fail(exc)
+                raise
             for k, n in prog.launches.items():
                 self._replayed[k] = self._replayed.get(k, 0) + n
         return kept, event
+
+    def _rank_blocks(self, host: Dict[str, np.ndarray]) -> List[torch.Tensor]:
+        """Each rank's block of the filled bucket's inputs, in rank order,
+        packed as one uint8 tensor a rank (frames in the wire dtype, then
+        ``flow_init``): a dispatch's payload on the follower channel."""
+        from raft_tpu_torch.parallel.mesh import block
+
+        mesh = self._ranks
+        out = []
+        for r in range(mesh.size):
+            coords = divmod(r, mesh.shape["spatial"])
+            out.append(torch.from_numpy(np.concatenate([
+                np.ascontiguousarray(block(k, host[k], mesh, coords))
+                .reshape(-1).view(np.uint8)
+                for k in ("image1", "image2", "flow_init") if k in host])))
+        return out
 
     def _device_tensor(self, t) -> torch.Tensor:
         """A caller's device-resident input on the engine's device, kept
@@ -840,17 +914,42 @@ class RAFTEngine:
         placeholders are mirrored as placeholders. The sibling's tables are its own, so a wedge
         verdict's ``drop_bucket`` on one replica never touches
         another's graph, and its stream, pool and weight storage are its
-        own, so its replays and swaps run beside this engine's."""
-        self._one_rank("spawn_replica")
-        rep = RAFTEngine(
-            self.weights_copy(), self.config, iters=self.iters,
-            envelope=(), precompile=False,
+        own, so its replays and swaps run beside this engine's.
+
+        On a mesh of more than one rank the sibling runs on a sibling
+        mesh (``Mesh.sibling``: the same layout over process groups of
+        its own), made on every rank: each rank spawns in the ``torchrun``
+        idiom, or a leading engine announces the spawn and its followers
+        spawn their own (the new engine leads them too)."""
+        eid = None
+        try:
+            with self._lock:
+                if self._channel is not None:
+                    new = self._channel.new_id()
+                    self._announce(_follow.SPAWN, new)
+                    eid = new
+                weights = self.weights_copy()
+            mesh = self._ranks.sibling() if self._ranks is not None else None
+        except Exception as exc:
+            if eid is not None:     # the followers wait in the new groups
+                self._channel.fail(exc)
+            raise
+        rep = self._sibling(weights, mesh)
+        if eid is not None:
+            rep._lead(self._channel, eid)
+        rep.adopt_executables(self)
+        return rep
+
+    def _sibling(self, weights, mesh) -> "RAFTEngine":
+        """An empty engine like this one over ``weights`` (and ``mesh``,
+        None: this engine's device alone)."""
+        return RAFTEngine(
+            weights, self.config, iters=self.iters,
+            envelope=(), precompile=False, mesh=mesh,
             exact_shapes=self.exact_shapes, warm_start=self.warm_start,
             wire=self.wire, feature_cache=self.feature_cache,
             ragged=self.ragged, ragged_grain=self.ragged_grain,
             aot_cache=self._aot, device=str(self.device))
-        rep.adopt_executables(self)
-        return rep
 
     def adopt_executables(self, source: "RAFTEngine") -> int:
         """Mirror ``source``'s table keys here and capture each program
@@ -858,9 +957,10 @@ class RAFTEngine:
         pool and stream: a graph cannot be shared); ``source``'s
         placeholders stay placeholders. Returns how many programs were
         captured: one per built program of ``source`` this engine
-        lacked, and no more."""
-        self._one_rank("adopt_executables")
-        source._one_rank("adopt_executables")
+        lacked, and no more. On a multi-rank mesh the programs are eager
+        (nothing is captured): the same table of programs and
+        placeholders, on every rank (a leading engine announces each
+        entry)."""
         with source._lock:
             tables = {k: dict(t) for k, t in source._tables.items()}
         before = self.capture_count
@@ -868,17 +968,140 @@ class RAFTEngine:
             for shape, prog in sorted(tables[kind].items()):
                 if prog is None:
                     with self._lock:
-                        self._tables[kind].setdefault(shape, None)
+                        if shape not in self._tables[kind]:
+                            self._announce(_follow.ENSURE,
+                                           _KINDS.index(kind), *shape, 0)
+                            self._tables[kind][shape] = None
                 else:
                     self._get_program(shape, kind)
         return self.capture_count - before
 
-    def _one_rank(self, name: str) -> None:
-        if self._ranks is not None:
-            raise NotImplementedError(
-                f"{name} under a mesh of {self._ranks.size} ranks: a "
-                "sharded engine's replica needs every rank; ROADMAP.md §1 "
-                "'the store and replicas under a multi-rank mesh'")
+    # -- follower ranks (parallel/follow.py) ---------------------------------
+
+    @property
+    def mesh(self):
+        """The engine's ``parallel.mesh.Mesh`` (None without one)."""
+        return None if self.partitioner is None else self.partitioner.mesh
+
+    @property
+    def channel(self) -> Optional["_follow.Channel"]:
+        """The follower channel this engine leads (None: it leads none)."""
+        return self._channel
+
+    @property
+    def leads(self) -> bool:
+        """True when follower ranks repeat this engine's calls."""
+        return self._channel is not None
+
+    def _lead(self, channel: "_follow.Channel", eid: int) -> None:
+        self._channel, self._eid = channel, eid
+
+    def _alive(self) -> None:
+        """Raise ``follow.ChannelDead`` on a leading engine whose channel
+        failed or closed, or that was closed itself: without the lock."""
+        if self._channel is None:
+            return
+        self._channel.alive()
+        if self._closed:
+            raise _follow.ChannelDead(f"engine {self._eid} was closed")
+
+    def _announce(self, op: int, *args, scatter=None, payload=None) -> None:
+        """On a leading engine, one op on the channel (the caller holds
+        the lock); nothing otherwise."""
+        if self._channel is None:
+            return
+        self._alive()
+        self._channel.send(op, self._eid, args, scatter=scatter,
+                           payload=payload)
+
+    def _lock_leading(self) -> bool:
+        """A leading engine's lock for a call the scheduler's dispatcher
+        makes (a wedge verdict's drop, a lane's close): False at once
+        when the channel is dead, and False after
+        ``follow.LOCK_WAIT_S`` (failing the channel) when a lane holds
+        the lock that long: it sits in a collective its peers left."""
+        if self._channel.failed is not None or self._closed:
+            return False
+        if self._lock.acquire(timeout=_follow.LOCK_WAIT_S):
+            return True
+        self._channel.fail(TimeoutError(
+            f"engine {self._eid}'s lock held past "
+            f"{_follow.LOCK_WAIT_S} s: a collective whose peers left"))
+        return False
+
+    def close(self) -> None:
+        """Retire a leading engine: its followers' copies end, and later
+        calls on it raise ``follow.ChannelDead``. An engine that leads no
+        followers is left as it is."""
+        if self._channel is None or self._closed:
+            return
+        if self._lock_leading():
+            try:
+                self._announce(_follow.RETIRE)
+            except _follow.ChannelDead:
+                pass
+            finally:
+                self._lock.release()
+        self._closed = True
+
+    def tables(self) -> Dict[str, List[Tuple[Tuple[int, int, int], bool]]]:
+        """Each table's buckets and whether each is built (False: a
+        ``precompile=False`` placeholder)."""
+        with self._lock:
+            return {k: sorted((s, p is not None) for s, p in t.items())
+                    for k, t in self._tables.items()}
+
+    def follower_state(self) -> Dict:
+        """What a follower reports of its copy of an engine at the end."""
+        return {"tables": self.tables(),
+                "weights_version": self.weights_version,
+                "dispatches": self._followed}
+
+    def _follow_infer(self, bucket, crop, packed: torch.Tensor) -> np.ndarray:
+        """A follower's part of a dispatch: its block of the filled
+        ``bucket`` (``packed``, as :meth:`_rank_blocks` cut it) through
+        the program; returns the whole flow cropped as the primary
+        crops it (``crop``: rows, height, width, top and left pad)."""
+        prog = self._get_program(tuple(bucket))
+        b, h, w, top, left = crop
+        mesh = self._ranks
+        bb = bucket[0] // mesh.shape["data"]
+        bh = bucket[1] // mesh.shape["spatial"]
+        bw = bucket[2]
+        buf = packed.numpy()
+        size = bb * bh * bw * 3 * np.dtype(self._wire_np).itemsize
+        shapes = [("image1", self._wire_np, (bb, bh, bw, 3), size),
+                  ("image2", self._wire_np, (bb, bh, bw, 3), size)]
+        if self.warm_start:
+            shapes.append(("flow_init", np.float32, (bb, bh // 8, bw // 8, 2),
+                           bb * (bh // 8) * (bw // 8) * 2 * 4))
+        host, off = {}, 0
+        for name, dt, shape, n in shapes:
+            host[name] = buf[off:off + n].copy().view(dt).reshape(shape)
+            off += n
+        with self._lock, self._on_stream(), torch.no_grad():
+            for k, a in host.items():
+                prog.inputs[k].copy_(torch.from_numpy(a))
+            up = prog.run()[1]
+            flow = up[:b, top:top + h, left:left + w].cpu().numpy()
+            self._followed += 1
+        return flow
+
+    def _follow_ensure(self, kind: int, b: int, h: int, w: int,
+                       built: int) -> None:
+        shape, kind = (b, h, w), _KINDS[kind]
+        if built:
+            self._get_program(shape, kind)
+        else:
+            with self._lock:
+                self._tables[kind].setdefault(shape, None)
+
+    def _follow_drop(self, kind: int, b: int, h: int, w: int) -> None:
+        self.drop_bucket((b, h, w), cached=kind == 1, ragged=kind == 2)
+
+    def _follow_swap(self, payload: torch.Tensor) -> None:
+        self.update_weights(_follow.unpack_state(payload,
+                                                 self.model.state_dict()))
 
     # -- shape routing -------------------------------------------------------
 
@@ -948,8 +1171,24 @@ class RAFTEngine:
         was present (placeholders count)."""
         kind = "ragged" if ragged else ("cached" if cached else "plain")
         missing = object()
-        with self._lock:
-            return self._tables[kind].pop(shape, missing) is not missing
+        if self._channel is None:
+            with self._lock:
+                return self._tables[kind].pop(shape, missing) is not missing
+        # a leading engine: announced, and never waiting on a lane that
+        # sits in a collective (the caller is the scheduler's dispatcher)
+        if not self._lock_leading():
+            return False
+        try:
+            if shape not in self._tables[kind]:
+                return False
+            try:
+                self._announce(_follow.DROP, _KINDS.index(kind), *shape)
+            except _follow.ChannelDead:
+                pass
+            del self._tables[kind][shape]
+            return True
+        finally:
+            self._lock.release()
 
     def ensure_bucket(self, batch: int, h: int, w: int,
                       cached: bool = False) -> Tuple[int, int, int]:
@@ -1063,6 +1302,7 @@ class RAFTEngine:
             raise ValueError(
                 "flow_init/return_low need a warm_start=True engine — "
                 "this engine compiled the single-output serving fn")
+        self._alive()
         image1 = self._wire(image1)
         image2 = self._wire(image2)
         b, h, w, _ = image1.shape
@@ -1118,7 +1358,9 @@ class RAFTEngine:
                     low[:b, :hp // 8, :wp // 8].clone() if return_low
                     else None)
 
-        (flow, low), event = self._dispatch(prog, host, keep, on_device)
+        (flow, low), event = self._dispatch(
+            prog, host, keep, on_device,
+            op=(*bucket, b, h, w, top, left))
         return PendingBatch(flow, low, bucket, h2d, return_low, low_device,
                             event)
 

@@ -1826,6 +1826,13 @@ class MicroBatchScheduler:
         lane.prev_pending = None
         lane.active = False
         lane.quarantined = True
+        if lane.index > 0 and lane.host is None:
+            # a quarantined replica never serves again: an engine that
+            # leads follower ranks ends their copies (a no-op otherwise;
+            # the primary stays, as the spawn source of later replicas)
+            close = getattr(lane.engine, "close", None)
+            if close is not None:
+                close()
         self.metrics.record_quarantined(label, alive=alive)
         self.metrics.record_event(
             "replica_quarantined", replica=lane.index,
@@ -2790,6 +2797,12 @@ class MicroBatchScheduler:
                 raise RuntimeError(
                     "completion stage failed to drain within "
                     f"{timeout}s")
+        # an engine that leads follower ranks (parallel.follow; its
+        # replicas lead on its channel): every lane has stopped, so the
+        # channel closes and the followers return
+        channel = getattr(self.engine, "channel", None)
+        if channel is not None:
+            channel.close()
         if first and self._fcache is not None:
             # retired variants keep their scheduler objects (frozen
             # snapshots) — the pool must not pin per-stream device

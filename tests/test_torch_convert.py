@@ -187,7 +187,8 @@ def test_later_slices_raise_not_implemented(tmp_path):
     model(img, img, iters=1, test_mode=False, train=True)
     # the serving forwards (M10), the front end (M11a), the registry and
     # the replica fleet (M11b), the program store and the host lanes
-    # (M11c), a mesh (M9) and .msgpack weights (M1) are ported; the store
+    # (M11c), a mesh (M9) with follower ranks (the "shard" route and
+    # replicas over ranks) and .msgpack weights (M1) are ported; the store
     # under a multi-rank mesh and the serving video are not
     full = torch.full((1,), 4, dtype=torch.int32)
     assert model.forward_ragged(img, img, full, full, iters=1)[1].shape == (

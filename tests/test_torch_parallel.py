@@ -195,8 +195,9 @@ def test_engine_serves_from_a_one_device_mesh_and_refuses_a_larger_one(
     mesh's fingerprint in the store; ``mesh=None`` keeps ``"single"``. A
     mesh of two ranks builds sharded eager programs (they serve in
     ``tests/test_torch_spatial.py``, across processes): its envelope is
-    held to the mesh grain, it captures nothing, and the store and
-    replicas under it raise naming ROADMAP.md."""
+    held to the mesh grain, it captures nothing, the store under it
+    raises naming ROADMAP.md, and its table adopts into a one-device
+    engine."""
     from raft_tpu_torch.serving import RAFTEngine
 
     torch.set_num_threads(1)
@@ -230,10 +231,11 @@ def test_engine_serves_from_a_one_device_mesh_and_refuses_a_larger_one(
     assert sharded._programs[(2, 32, 40)].inputs["image1"].shape == (
         1, 32, 40, 3)
     assert sharded.aot_stats()["captures"] == 0
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        sharded.spawn_replica()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        plain.adopt_executables(sharded)
+    # a sharded engine's table adopts into a one-device engine, which
+    # builds its own program; replicas over ranks are spawned on every
+    # rank (tests/test_torch_follow.py)
+    assert plain.adopt_executables(sharded) == 1
+    assert (2, 32, 40) in plain.bucket_shapes()
 
 
 def test_train_step_refuses_a_spatial_axis():

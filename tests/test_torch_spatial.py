@@ -39,9 +39,9 @@ computes the references.
   ``(2, 80, 64)`` and crops back; the warm-start round trip. In this
   process, on a mesh laid out by hand: non-divisible envelope buckets
   raise ``not mesh-divisible`` (as JAX's), and the refusals (feature cache
-  and ragged as JAX's; the store, replicas and the scheduler's ``"shard"``
-  route naming ROADMAP.md; ``forward_ragged``/``forward_cached`` under a
-  band).
+  and ragged as JAX's; the store naming ROADMAP.md;
+  ``forward_ragged``/``forward_cached`` under a band). Replicas and the
+  scheduler's ``"shard"`` route over ranks: ``tests/test_torch_follow.py``.
 """
 
 import glob
@@ -688,14 +688,10 @@ def test_envelope_bucket_must_be_mesh_divisible(bucket):
         RAFTEngine(_engine_weights(), RAFTConfig(small=True), **kw)
 
 
-@pytest.mark.parametrize("what", ["feature_cache", "ragged", "aot_cache",
-                                  "spawn_replica", "adopt_executables",
-                                  "shard_route"])
+@pytest.mark.parametrize("what", ["feature_cache", "ragged", "aot_cache"])
 def test_multi_rank_engine_refusals(tmp_path, what):
     """Feature-cache and ragged serving raise under a mesh as JAX's do;
-    the store, replicas and the scheduler's ``"shard"`` route raise under
-    a multi-rank mesh, naming ROADMAP.md."""
-    from raft_tpu_torch.parallel.placement import Placement
+    the store raises under a multi-rank mesh, naming ROADMAP.md."""
     from raft_tpu_torch.serving import RAFTEngine
 
     cfg = RAFTConfig(small=True)
@@ -706,21 +702,8 @@ def test_multi_rank_engine_refusals(tmp_path, what):
         with pytest.raises(ValueError, match="mesh"):
             RAFTEngine(_engine_weights(), cfg, **kw, **flags)
         return
-    if what == "aot_cache":
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            RAFTEngine(_engine_weights(), cfg, aot_cache=str(tmp_path), **kw)
-        return
-    eng = RAFTEngine(_engine_weights(), cfg, **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        if what == "spawn_replica":
-            eng.spawn_replica()
-        elif what == "adopt_executables":
-            RAFTEngine(_engine_weights(), cfg, iters=1,
-                       device="cpu").adopt_executables(eng)
-        else:
-            place = Placement(eng)
-            assert place.decide((64, 64)) == "replicate"
-            place.decide((2160, 3840))
+        RAFTEngine(_engine_weights(), cfg, aot_cache=str(tmp_path), **kw)
 
 
 @pytest.mark.parametrize("which", ["ragged", "cached"])
