@@ -298,14 +298,36 @@ Phases, each of which fails loudly (nothing is caught):
    (c) the kill drill: rank 1 SIGKILLed with futures in flight: every
    future settled exactly once, with an error, and the seconds from the
    SIGKILL to the last; the scheduler closes;
-24. print the drill's, the envelope's, the serving phases', phase 21's,
-   phase 22's and phase 23's numbers (``{"serving_frontend": ...}``,
-   ``{"serving_registry": ...}``, ``{"serving_store_hosts": ...}``,
-   ``{"parallel": ...}``, ``{"spatial": ...}`` and ``{"follow": ...}``
+24. JPEG frames, the flow video and the native flow codec, TF32 off:
+   (a) the 10 ``demo-frames/`` PNGs written by ``data.jpeg.write_jpeg`` at
+   its default (quality 90, 4:2:0) and at quality 95 4:4:4, read back by
+   ``data.frame_utils.read_gen``: each setting's worst PSNR against its PNG
+   (at least VIDEO_PSNR_MIN, what cv2's MJPG writer, the JAX package's
+   video path, gives frame_0016) and ms a frame to encode and to decode
+   (host clock); (b) ``cli/parity.main --small --path <the default-quality
+   JPEGs> --video``: the small fixture, plain forward against the engine
+   within SMALL_TOL, the AVI read back by ``testing.avi.read_mjpg_avi`` and
+   ``read_jpeg``: 9 frames of 872x1024 at 30 fps, each within
+   VIDEO_PSNR_MIN of ``flow_to_image`` of the engine's flow under its
+   frame, the launches (the plain path, the capture's warm-up and capture,
+   and the replays); (c) ``cli/demo.main`` over the same frames, the basic
+   model with seeded weights saved as a ``.pth``, iters 20, cuDNN
+   deterministic: its PNGs bitwise ``flow_to_image`` of ``flow_pairs`` on
+   the decoded frames, 180 K1, 360 gates and 360 blends; (d) the native
+   ``.flo``/``.pfm`` codec (``raft_tpu_torch.native``, g++ at first use):
+   built, a seeded 436x1024 ``.flo`` written and read by native and numpy
+   bitwise both ways, a 540x960x3 ``.pfm`` read by both bitwise, each one's
+   ms, and phase 16's ``loader_bench`` (on the native reader) beside the
+   18.39 pairs/s it gave on the numpy reader (``PERF.md`` §5);
+25. print the drill's, the envelope's, the serving phases', phase 21's,
+   phase 22's, phase 23's and phase 24's numbers
+   (``{"serving_frontend": ...}``, ``{"serving_registry": ...}``,
+   ``{"serving_store_hosts": ...}``, ``{"parallel": ...}``,
+   ``{"spatial": ...}``, ``{"follow": ...}`` and ``{"video": ...}``
    lines), the ``{"kernels": [...]}`` line (with ``launches_serving``,
    ``launches_serving_frontend``, ``launches_registry``,
-   ``launches_fleet`` and ``launches_store_hosts`` on K1 and K2,
-   ``launches_parallel`` and ``launches_spatial`` on K1-K4,
+   ``launches_fleet``, ``launches_store_hosts`` and ``launches_video`` on
+   K1 and K2, ``launches_parallel`` and ``launches_spatial`` on K1-K4,
    ``launches_follow`` a rank on every kernel), the ``nvidia-smi`` line,
    and last the ``{"ok": true, "device": ...}`` line.
 
@@ -4874,6 +4896,233 @@ def follow_phase(smi: str) -> dict:
     return out
 
 
+VIDEO_PSNR_MIN = 33.93          # dB: cv2's MJPG writer on frame_0016, 4:2:0
+VIDEO_ITERS = 20                # the parity and demo CLIs' default iters
+LOADER_NUMPY_PAIRS_S = 18.39    # phase 16's loader_bench on the numpy .flo
+                                # reader (PERF.md §5)
+NATIVE_FLO_HW = (436, 1024)
+NATIVE_PFM_SHAPE = (540, 960, 3)
+
+
+def psnr(a, b) -> float:
+    mse = np.mean((np.asarray(a, np.float64) - np.asarray(b, np.float64)) ** 2)
+    return float(10 * np.log10(255.0 ** 2 / mse)) if mse else float("inf")
+
+
+def video_phase(smi: str, loader: dict) -> dict:
+    """Phase 24: JPEG frames in, the MJPG flow video out, and the native
+    flow codec; see the module docstring. ``loader`` is phase 16's
+    ``loader_bench`` result."""
+    import contextlib
+    import io
+
+    from raft_tpu_torch import kernels, native
+    from raft_tpu_torch.cli.demo import flow_pairs
+    from raft_tpu_torch.cli.demo import main as demo_main
+    from raft_tpu_torch.cli.parity import main as parity_main
+    from raft_tpu_torch.config import RAFTConfig
+    from raft_tpu_torch.data import frame_utils as fu
+    from raft_tpu_torch.data.jpeg import (DEFAULT_QUALITY, decode_jpeg,
+                                          write_jpeg)
+    from raft_tpu_torch.data.png import read_png
+    from raft_tpu_torch.evaluation.evaluate import make_forward
+    from raft_tpu_torch.models import RAFT
+    from raft_tpu_torch.testing.avi import read_mjpg_avi
+    from raft_tpu_torch.tools.convert import load_weights, save_pth
+    from raft_tpu_torch.utils.flow_viz import flow_to_image
+
+    out = {}
+    names = sorted(glob.glob(os.path.join(REPO, "demo-frames", "*.png")))
+    pngs = [read_png(f) for f in names]
+    pairs = len(pngs) - 1
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tmp = tempfile.mkdtemp(prefix="raft_phase24_")
+    try:
+        # -- (a) the codec on demo-frames ------------------------------------
+        settings = {"default": (DEFAULT_QUALITY, "4:2:0"),
+                    "q95_444": (95, "4:4:4")}
+        codec = {}
+        for tag, (q, sub) in settings.items():
+            d = os.path.join(tmp, tag)
+            os.makedirs(d)
+            enc, dec, worst = [], [], float("inf")
+            for name, img in zip(names, pngs):
+                path = os.path.join(d, os.path.basename(name)[:-4] + ".jpg")
+                t0 = time.perf_counter()
+                write_jpeg(path, img, q, sub)
+                enc.append((time.perf_counter() - t0) * 1e3)
+                t0 = time.perf_counter()
+                back = fu.read_gen(path)
+                dec.append((time.perf_counter() - t0) * 1e3)
+                worst = min(worst, psnr(back, img))
+            codec[tag] = {"quality": q, "subsampling": sub,
+                          "worst_psnr_db": worst,
+                          "encode_ms": float(np.median(enc)),
+                          "decode_ms": float(np.median(dec)),
+                          "bytes": sum(os.path.getsize(p) for p in
+                                       glob.glob(os.path.join(d, "*.jpg")))}
+            log(f"[24] (a) write_jpeg q{q} {sub} over demo-frames: worst "
+                f"PSNR {worst:.2f} dB against the PNG (bound "
+                f"{VIDEO_PSNR_MIN}), encode {codec[tag]['encode_ms']:.1f} ms, "
+                f"read_gen decode {codec[tag]['decode_ms']:.1f} ms a 436x1024 "
+                f"frame (medians, host clock), {codec[tag]['bytes']} bytes "
+                f"for 10; {smi}")
+            if not worst >= VIDEO_PSNR_MIN:
+                raise RuntimeError(f"write_jpeg {tag}: PSNR {worst:.2f} dB")
+        out["codec"] = codec
+        jpeg_dir = os.path.join(tmp, "default")
+        jpegs = [fu.read_gen(p) for p in
+                 sorted(glob.glob(os.path.join(jpeg_dir, "*.jpg")))]
+
+        # -- (b) cli/parity over the JPEG frames, with the video -------------
+        fixture = os.path.join(REPO, "tests", "fixtures",
+                               "raft-small-cputrained.pth")
+        avi = os.path.join(tmp, "flow.avi")
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            par, flows = parity_main(["--model", fixture, "--small",
+                                      "--path", jpeg_dir, "--video", avi,
+                                      "--corr_impl", "pallas"])
+        par_s = time.perf_counter() - t0
+        par_launches = kernels.launch_counts()
+        video = read_mjpg_avi(avi)
+        frames = [decode_jpeg(f) for f in video.frames]
+        want_hw = (2 * FRAME_HW[0], FRAME_HW[1])
+        psnrs = [psnr(f, np.concatenate([j, flow_to_image(fl)], axis=0))
+                 for f, j, fl in zip(frames, jpegs, flows)]
+        out["parity"] = {
+            "pairs": par["pairs"], "max_diff_px": par["max_diff_px"],
+            "ms_plain_median": par["ms_plain_median"],
+            "ms_engine_median": par["ms_engine_median"],
+            "captures": par["captures"], "seconds": par_s,
+            "launches": {k: v for k, v in par_launches.items() if v},
+            "replayed_launches": par["replayed_launches"],
+            "video": {"frames": len(frames), "fps": video.fps,
+                      "size": list(video.size),
+                      "bytes": os.path.getsize(avi),
+                      "psnr_db_min": min(psnrs), "psnr_db": psnrs}}
+        log(f"[24] (b) python -m raft_tpu_torch.cli.parity --small --path "
+            f"<{pairs + 1} JPEG frames> --video: largest difference "
+            f"{par['max_diff_px']:.3e} px (tol {SMALL_TOL:g}); ms a pair "
+            f"plain {par['ms_plain_median']:.2f}, engine "
+            f"{par['ms_engine_median']:.2f}; captures {par['captures']}; "
+            f"launches {out['parity']['launches']} (wrapper calls: plain "
+            f"path, the capture's warm-up and the capture) and replayed "
+            f"{par['replayed_launches']}; the AVI: {len(frames)} frames of "
+            f"{video.size[0]}x{video.size[1]} at {video.fps:g} fps, "
+            f"{out['parity']['video']['bytes']} bytes, PSNR against "
+            f"flow_to_image under the frame {min(psnrs):.2f}-{max(psnrs):.2f}"
+            f" dB (bound {VIDEO_PSNR_MIN}); {par_s:.1f} s; {smi}")
+        if not par["max_diff_px"] <= SMALL_TOL:
+            raise RuntimeError("cli/parity on JPEG frames: the engine "
+                               "disagrees with plain")
+        if not (len(frames) == pairs and video.fps == 30.0
+                and tuple(video.size) == (want_hw[1], want_hw[0])
+                and all(f.shape == want_hw + (3,) for f in frames)
+                and min(psnrs) >= VIDEO_PSNR_MIN):
+            raise RuntimeError(f"the parity video: {out['parity']['video']}")
+        if not par_launches["corr_lookup"] > 0:
+            raise RuntimeError("cli/parity launched no K1")
+
+        # -- (c) cli/demo over the JPEG frames, basic model ------------------
+        torch.backends.cudnn.deterministic = True
+        cfg = RAFTConfig(corr_impl="pallas", gru_impl="fused")
+        weights = os.path.join(tmp, "basic-seed0.pth")
+        save_pth(RAFT(cfg, torch.Generator().manual_seed(0)), weights)
+        demo_out = os.path.join(tmp, "demo_out")
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            demo_main(["--model", weights, "--path", jpeg_dir, "--out",
+                       demo_out, "--iters", str(VIDEO_ITERS), "--corr_impl",
+                       "pallas", "--gru_impl", "fused"])
+        demo_s = time.perf_counter() - t0
+        demo_launches = kernels.launch_counts()
+        fwd, _ = make_forward(cfg, VIDEO_ITERS, "cuda")
+        again = flow_pairs(functools.partial(fwd, load_weights(weights, cfg)),
+                           jpegs)
+        written = sorted(glob.glob(os.path.join(demo_out, "*.png")))
+        same = [np.array_equal(read_png(p), np.concatenate(
+            [j, flow_to_image(f)], axis=0))
+            for p, j, f in zip(written, jpegs, again)]
+        out["demo"] = {"pngs": len(written), "bitwise": all(same),
+                       "seconds": demo_s,
+                       "launches": {k: v for k, v in demo_launches.items()
+                                    if v}}
+        log(f"[24] (c) python -m raft_tpu_torch.cli.demo --path <JPEG "
+            f"frames>, basic model, seeded weights, iters {VIDEO_ITERS}: "
+            f"{len(written)} PNGs in {demo_s:.1f} s, each bitwise "
+            f"flow_to_image of flow_pairs on the decoded frames: {all(same)};"
+            f" launches {out['demo']['launches']} (predicted corr_lookup "
+            f"{pairs * VIDEO_ITERS}, gru_gates and gru_blend "
+            f"{2 * pairs * VIDEO_ITERS})")
+        want = {"corr_lookup": pairs * VIDEO_ITERS,
+                "gru_gates": 2 * pairs * VIDEO_ITERS,
+                "gru_blend": 2 * pairs * VIDEO_ITERS}
+        if not (len(written) == pairs and all(same)
+                and all(demo_launches[k] == n for k, n in want.items())):
+            raise RuntimeError(f"cli/demo on JPEG frames: {out['demo']}")
+
+        # -- (d) the native flow codec ---------------------------------------
+        avail = native.available()
+        rng = np.random.RandomState(24)
+        uv = (rng.randn(*NATIVE_FLO_HW, 2) * 10).astype(np.float32)
+        pfm = rng.randn(*NATIVE_PFM_SHAPE).astype(np.float32)
+
+        def timed(fn, *a):
+            t0 = time.perf_counter()
+            r = fn(*a)
+            return r, (time.perf_counter() - t0) * 1e3
+
+        f_nat, f_np = (os.path.join(tmp, f"{t}.flo") for t in ("nat", "np"))
+        ok_w, w_nat = timed(native.write_flo, f_nat, uv)
+        _, w_np = timed(fu.write_flow_numpy, f_np, uv)
+        reads = {}
+        for src in (f_nat, f_np):
+            for tag, fn in (("native", native.read_flo),
+                            ("numpy", fu.read_flow_numpy)):
+                reads[(src, tag)] = timed(fn, src)
+        p_file = os.path.join(tmp, "x.pfm")
+        fu.write_pfm(p_file, pfm)
+        p_nat, r_pfm_nat = timed(native.read_pfm, p_file)
+        p_np, r_pfm_np = timed(fu.read_pfm_numpy, p_file)
+        flo_ok = (ok_w and open(f_nat, "rb").read() == open(f_np, "rb").read()
+                  and all(np.array_equal(r, uv) for r, _ in reads.values()))
+        pfm_ok = (np.array_equal(p_nat, pfm) and np.array_equal(p_np, pfm))
+        out["native"] = {
+            "available": avail, "build_seconds": native.build_seconds,
+            "flo_bitwise": flo_ok, "pfm_bitwise": pfm_ok,
+            "flo_write_ms": {"native": w_nat, "numpy": w_np},
+            "flo_read_ms": {"native": reads[(f_nat, "native")][1],
+                            "numpy": reads[(f_nat, "numpy")][1]},
+            "pfm_read_ms": {"native": r_pfm_nat, "numpy": r_pfm_np},
+            "loader_bench_pairs_per_s": loader["pairs_per_s"],
+            "loader_bench_pairs_per_s_numpy": LOADER_NUMPY_PAIRS_S}
+        log(f"[24] (d) native flow codec: available {avail} (first build "
+            f"{native.build_seconds:.2f} s); a {NATIVE_FLO_HW[0]}x"
+            f"{NATIVE_FLO_HW[1]} .flo written native {w_nat:.2f} ms / numpy "
+            f"{w_np:.2f} ms, read native "
+            f"{out['native']['flo_read_ms']['native']:.2f} ms / numpy "
+            f"{out['native']['flo_read_ms']['numpy']:.2f} ms, bitwise both "
+            f"ways {flo_ok}; a {NATIVE_PFM_SHAPE} .pfm read native "
+            f"{r_pfm_nat:.2f} ms / numpy {r_pfm_np:.2f} ms, bitwise "
+            f"{pfm_ok}; phase 16's loader_bench on the native reader "
+            f"{loader['pairs_per_s']:.2f} pairs/s (on the numpy reader: "
+            f"{LOADER_NUMPY_PAIRS_S}); {smi}")
+        if not (avail and flo_ok and pfm_ok):
+            raise RuntimeError(f"the native codec: {out['native']}")
+    finally:
+        (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.deterministic) = flags
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     import faulthandler
 
@@ -5589,7 +5838,13 @@ def main() -> int:
     # -- 23. follower ranks --------------------------------------------------
     followers = follow_phase(smi)
 
-    # -- 24. result ----------------------------------------------------------
+    # -- 24. JPEG frames, the flow video and the native flow codec ----------
+    t24 = time.perf_counter()
+    video = video_phase(smi, clis["loader_bench"])
+    video["seconds"] = time.perf_counter() - t24
+    log(f"[24] the phase took {video['seconds']:.1f} s")
+
+    # -- 25. result ----------------------------------------------------------
     sources = {"corr_lookup": ("raft_tpu_torch/csrc/corr_lookup.cu",
                                "raft_tpu/kernels/corr_pallas.py:177"),
                "gru_gates": ("raft_tpu_torch/csrc/gru.cu",
@@ -5666,6 +5921,15 @@ def main() -> int:
         # replicate dispatches on rank 0, their repeats on rank 1)
         row["launches_follow"] = [n[name]
                                   for n in followers["launches_follow"]]
+        if name in SERVE_KERNELS:
+            # phase 24: cli/parity over JPEG frames (wrapper calls: the
+            # plain path, the capture's warm-up and the capture; then the
+            # replays) and cli/demo, the basic model
+            row["launches_video"] = {
+                "parity": video["parity"]["launches"].get(name, 0),
+                "parity_replayed": video["parity"]["replayed_launches"].get(
+                    name, 0),
+                "demo": video["demo"]["launches"].get(name, 0)}
         row["dtypes_train_cli"] = cli["dtypes"].get(name, {})
         if name in err_bf16:
             row["max_abs_err_bf16"] = err_bf16[name]
@@ -5725,6 +5989,7 @@ def main() -> int:
     print(json.dumps({"parallel": parallel}), flush=True)
     print(json.dumps({"spatial": spatial}), flush=True)
     print(json.dumps({"follow": followers}), flush=True)
+    print(json.dumps({"video": video}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

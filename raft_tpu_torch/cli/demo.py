@@ -3,9 +3,9 @@
 Globs a frame directory, runs consecutive-pair flow at ``iters=20``
 (demo.py:62) and writes side-by-side image/flow PNGs, with the fork's fixed
 color normalization (rad=3). Same flags as the JAX demo, plus ``--device``
-(the card by default). Frames are read and written with the port's own PNG
-codec (``data.png``), since the card's machine has no PIL; the work over
-numpy frames is :func:`flow_pairs`.
+(the card by default). PNG and JPEG frames are read, and the PNGs written,
+with the port's own codecs (``data.png``, ``data.jpeg``), since the card's
+machine has no PIL; the work over numpy frames is :func:`flow_pairs`.
 
     python -m raft_tpu_torch.cli.demo --model raft-small.pth --small \\
         --path demo-frames --out demo_out [--device cpu]

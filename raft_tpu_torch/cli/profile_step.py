@@ -11,8 +11,13 @@ memory of the timed steps. bf16 mixed precision unless ``--fp32``, as in
 the JAX package.
 
     python -m raft_tpu_torch.cli.profile_step --batch 8 \\
-        --corr_impl pallas --gru_impl fused [--remat] [--fp32] \\
-        [--trace-dir runs/profile]
+        --corr_impl pallas --gru_impl fused [--remat [--remat_policy dots]] \\
+        [--no-fused-loss] [--fp32] [--trace-dir runs/profile]
+
+``--remat_policy`` and ``--fused_loss`` feed ``RAFTConfig.remat_policy`` and
+``TrainConfig.fused_loss`` as in the JAX CLI; ``--small`` profiles the small
+model, which has no fused loss, so ``--small --fused_loss`` raises rather
+than trace the standard loss in its place.
 
 ``--trace-dir`` also writes the profiled step's chrome trace there
 (``*.pt.trace.json``), which ``cli/trace_summary`` reads. Prints a table of
@@ -85,7 +90,17 @@ def main(argv=None) -> dict:
     p.add_argument("--top", type=int, default=15,
                    help="ops in the table, by device time")
     add_corr_args(p)
+    p.add_argument("--small", action="store_true")
     p.add_argument("--remat", action="store_true")
+    p.add_argument("--remat_policy", "--remat-policy", default=None,
+                   choices=["full", "dots"],
+                   help="remat granularity (with --remat)")
+    p.add_argument("--fused_loss", "--fused-loss",
+                   action=argparse.BooleanOptionalAction, default=None,
+                   help="loss path to trace; default None = the config's "
+                        "auto (fused for the basic model), as default "
+                        "training runs; --no-fused-loss traces the "
+                        "full-resolution sequence loss")
     p.add_argument("--fp32", action="store_true",
                    help="disable bf16 mixed precision")
     p.add_argument("--trace-dir", default=None,
@@ -95,6 +110,11 @@ def main(argv=None) -> dict:
                    help="torch device; the card unless 'cpu' is asked for")
     args = p.parse_args(argv)
     args.warmup, args.steps = max(1, args.warmup), max(1, args.steps)
+    if args.fused_loss and args.small:
+        raise ValueError("--fused_loss with --small: the small model has no "
+                         "fused loss (its upsampling is a plain 8x "
+                         "interpolate), so the step would trace the standard "
+                         "loss instead")
 
     from raft_tpu_torch import kernels
     from raft_tpu_torch.config import RAFTConfig, stage_config
@@ -104,10 +124,14 @@ def main(argv=None) -> dict:
                                                     make_train_step)
 
     dev = resolve_device(args.device)
-    model_cfg = RAFTConfig(mixed_precision=not args.fp32, remat=args.remat,
-                           **corr_overrides(args))
+    overrides = corr_overrides(args)
+    if args.remat_policy:
+        overrides["remat_policy"] = args.remat_policy
+    model_cfg = RAFTConfig(small=args.small, mixed_precision=not args.fp32,
+                           remat=args.remat, **overrides)
     train_cfg = stage_config("chairs", batch_size=args.batch,
-                             iters=args.iters, validation=())
+                             iters=args.iters, validation=(),
+                             fused_loss=args.fused_loss)
     h, w = args.hw
     t0 = time.perf_counter()
     model = RAFT(model_cfg, torch.Generator().manual_seed(args.seed))
@@ -121,6 +145,8 @@ def main(argv=None) -> dict:
         "valid": np.ones((args.batch, h, w), np.float32)}.items()}
     print(f"device={dev} batch={args.batch} hw={h}x{w} iters={args.iters} "
           f"bf16={not args.fp32} remat={args.remat} "
+          f"remat_policy={model_cfg.remat_policy} fused_loss="
+          f"{'auto' if args.fused_loss is None else args.fused_loss} "
           f"corr_impl={model_cfg.corr_impl} gru_impl={model_cfg.gru_impl}; "
           f"set-up {time.perf_counter() - t0:.1f}s", flush=True)
 
@@ -167,7 +193,9 @@ def main(argv=None) -> dict:
               flush=True)
     out = {"metric": "profile_step", **device_info(dev),
            "batch": args.batch, "hw": [h, w], "iters": args.iters,
-           "bf16": not args.fp32, "remat": args.remat,
+           "bf16": not args.fp32, "small": args.small,
+           "remat": args.remat, "remat_policy": model_cfg.remat_policy,
+           "fused_loss": args.fused_loss,
            "corr_impl": model_cfg.corr_impl, "gru_impl": model_cfg.gru_impl,
            "ms_per_step": med, "ms_steps": ms,
            "pairs_per_s": args.batch / med * 1e3, "peak_mib": peak,

@@ -1,5 +1,11 @@
 """Flow-file I/O, port of ``raft_tpu/data/frame_utils.py`` with numpy and the
-port's own PNG codec (``data.png``) in place of PIL and cv2.
+port's own PNG and JPEG codecs (``data.png``, ``data.jpeg``) in place of PIL
+and cv2.
+
+``.flo`` and ``.pfm`` go through the native codec (``raft_tpu_torch.native``,
+built with g++ at first use) first, as in the JAX package, and through the
+numpy readers (``read_flow_numpy``, ``write_flow_numpy``, ``read_pfm_numpy``)
+where it cannot be built or fails on a file.
 
 - ``.flo``: float32 tag 202021.25, int32 w/h, interleaved (u, v) rows
   (frame_utils.py:10-31,70-99).
@@ -17,6 +23,8 @@ from os.path import splitext
 
 import numpy as np
 
+from raft_tpu_torch import native
+from raft_tpu_torch.data.jpeg import read_jpeg
 from raft_tpu_torch.data.png import read_png, read_ppm, write_png
 
 TAG_FLO = 202021.25
@@ -24,6 +32,11 @@ TAG_FLO = 202021.25
 
 def read_flow(path: str) -> np.ndarray:
     """Read a Middlebury .flo file -> (H, W, 2) float32."""
+    out = native.read_flo(path)       # GIL-free when built
+    return read_flow_numpy(path) if out is None else out
+
+
+def read_flow_numpy(path: str) -> np.ndarray:
     with open(path, "rb") as f:
         magic = np.fromfile(f, np.float32, count=1)
         if magic.size == 0 or magic[0] != np.float32(TAG_FLO):
@@ -39,6 +52,12 @@ def write_flow(path: str, uv: np.ndarray) -> None:
     uv = np.asarray(uv, np.float32)
     if uv.ndim != 3 or uv.shape[2] != 2:
         raise ValueError(f"flow must be (H, W, 2), got {uv.shape}")
+    if not native.write_flo(path, uv):
+        write_flow_numpy(path, uv)
+
+
+def write_flow_numpy(path: str, uv: np.ndarray) -> None:
+    uv = np.asarray(uv, np.float32)
     h, w = uv.shape[:2]
     with open(path, "wb") as f:
         np.array([TAG_FLO], np.float32).tofile(f)
@@ -48,6 +67,11 @@ def write_flow(path: str, uv: np.ndarray) -> None:
 
 
 def read_pfm(path: str) -> np.ndarray:
+    out = native.read_pfm(path)
+    return read_pfm_numpy(path) if out is None else out
+
+
+def read_pfm_numpy(path: str) -> np.ndarray:
     with open(path, "rb") as f:
         header = f.readline().rstrip()
         if header == b"PF":
@@ -111,9 +135,7 @@ def read_gen(path: str):
     if ext == ".ppm":
         return read_ppm(path)
     if ext in (".jpeg", ".jpg"):
-        raise NotImplementedError(
-            f"{path}: the port reads PNG and PPM frames; JPEG decoding is "
-            "ROADMAP M14 of the port (no stage mix reads JPEG frames)")
+        return read_jpeg(path)
     if ext in (".bin", ".raw"):
         return np.load(path)
     if ext == ".flo":

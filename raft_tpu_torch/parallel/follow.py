@@ -53,7 +53,6 @@ import sys
 import threading
 import time
 import traceback
-from concurrent.futures import Future
 from typing import Callable, Dict, Mapping, Optional
 
 import torch
@@ -209,6 +208,13 @@ class _Worker:
                                        name=f"follow-e{eid}")
         self.thread.start()
 
+    def stop(self) -> None:
+        """End the thread once it has run the ops queued before this."""
+        self.q.put(None)
+
+    def join(self) -> None:
+        self.thread.join()
+
     def _run(self) -> None:
         task = None
         try:
@@ -266,13 +272,14 @@ def follow(engine, on_output: Optional[Callable] = None) -> Dict[int, Dict]:
         # the primary makes them right after announcing the spawn
         sib = meshes[src].sibling()
         meshes[new] = sib
-        got: Future = Future()
-        workers[src].q.put(_task("spawn", lambda w: got.set_result(
+        # the source's worker hands its engine and weights to the new one
+        got: "queue.SimpleQueue" = queue.SimpleQueue()
+        workers[src].q.put(_task("spawn", lambda w: got.put(
             (w.engine, w.engine.weights_copy()))))
         workers[new] = _Worker(new)
 
         def build(w):
-            source, weights = got.result()
+            source, weights = got.get()
             w.engine = source._sibling(weights, sib)
         workers[new].q.put(_task("spawn", build))
 
@@ -310,7 +317,7 @@ def follow(engine, on_output: Optional[Callable] = None) -> Dict[int, Dict]:
             elif op == RETIRE:
                 retired.add(eid)
                 workers[eid].q.put(end(eid, True))
-                workers[eid].q.put(None)
+                workers[eid].stop()
             else:
                 raise ValueError(f"follow: unknown op {op}")
     except Exception:   # noqa: BLE001 — never sit in a collective
@@ -318,9 +325,9 @@ def follow(engine, on_output: Optional[Callable] = None) -> Dict[int, Dict]:
     for eid, w in workers.items():
         if eid not in retired:
             w.q.put(end(eid, False))
-            w.q.put(None)
+            w.stop()
     for w in workers.values():
-        w.thread.join()
+        w.join()
     return ends
 
 

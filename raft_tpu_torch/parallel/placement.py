@@ -52,6 +52,10 @@ from typing import Dict, List, Optional, Tuple
 #: acquire anything of its own.
 LOCK_ORDER = ()
 
+GRAFTTHREAD = {
+    "locks": (),
+}
+
 #: padded H*W at/above which a bucket is 4K-class: one pair's FLOPs are
 #: worth sharding across the mesh instead of replicating the whole
 #: micro-batch (2160x3840 = UHD)

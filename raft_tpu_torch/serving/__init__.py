@@ -27,7 +27,10 @@ process loads instead of tracing), the transport (``transport.py``:
 loopback and socket, one wire protocol with the JAX package's), and the
 host fleet (``hosts.py``: workers that take no traffic until their pushed
 programs verify, heartbeats, failover and rejoin; ``host_worker.py`` is a
-worker's process). ``serving/video.py`` is ROADMAP M14.
+worker's process).
+
+Beside them, ``video.py`` renders flows, under their frames, into an MJPG
+AVI with the port's own JPEG codec.
 """
 
 from raft_tpu_torch.serving.aot import AOTCache, key_digest
@@ -66,6 +69,7 @@ from raft_tpu_torch.serving.trace import TraceLedger
 from raft_tpu_torch.serving.transport import (LoopbackTransport,
                                               SocketTransport,
                                               TransportError)
+from raft_tpu_torch.serving.video import optical_flow_visualize
 
 __all__ = ["RAFTEngine", "PendingBatch", "RaggedPendingBatch",
            "StaleFeatureError", "SHAPE_ENVELOPE_LINUX",
@@ -82,4 +86,5 @@ __all__ = ["RAFTEngine", "PendingBatch", "RaggedPendingBatch",
            "RolloutInProgress", "UnknownModel", "SLOGuardian",
            "GuardianPolicy", "AdmissionBudget", "AOTCache", "key_digest",
            "HostFleet", "HostWorker", "RemoteEngine", "HostDead",
-           "LoopbackTransport", "SocketTransport", "TransportError"]
+           "LoopbackTransport", "SocketTransport", "TransportError",
+           "optical_flow_visualize"]

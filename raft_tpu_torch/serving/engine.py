@@ -87,7 +87,7 @@ calls in one of two ways:
   engine raises ``follow.ChannelDead`` at once.
 
 Its programs run eagerly: gloo's host-side collectives cannot be
-captured, and a capture under NCCL is not verified (ROADMAP.md §1,
+captured, and a capture under NCCL is not verified (ROADMAP.md §3,
 "capture a multi-rank bucket under NCCL, and the store"), so
 ``captures`` stays 0, and the program store refuses a multi-rank mesh.
 """
@@ -396,7 +396,7 @@ class RAFTEngine:
                     f"aot_cache under a mesh of {mesh.size} ranks: a "
                     "multi-rank program is eager, neither traced nor "
                     "captured, so the store would have nothing to save; "
-                    "ROADMAP.md §1 'capture a multi-rank bucket under "
+                    "ROADMAP.md §3 'capture a multi-rank bucket under "
                     "NCCL, and the store'")
             self.partitioner = Partitioner(mesh)
             self._partition_fp = _aotmod.partition_fingerprint(

@@ -58,6 +58,10 @@ from typing import Dict, Hashable, Optional, Tuple
 #: Nothing may call back into scheduler/registry/metrics from under it.
 LOCK_ORDER = (("feature_cache.FeatureCachePool._lock",),)
 
+#: graftthread declarations: one lock, no callbacks, no threads, no
+#: futures; every method is dict bookkeeping under ``_lock``.
+GRAFTTHREAD = {"locks": ("_lock",)}
+
 
 class FeatureCacheMiss(RuntimeError):
     """A cached submit found no valid slot for its stream (never

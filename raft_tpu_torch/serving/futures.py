@@ -22,6 +22,10 @@ from __future__ import annotations
 from concurrent.futures import Future, InvalidStateError
 from typing import Callable, Optional, Union
 
+#: graftthread: this module defines the one raw-settle site (T2)
+GRAFTTHREAD = {"settle_helper": True}
+
+
 def settle_future(fut: Future,
                   result_or_exc: Union[BaseException, object],
                   raced: Optional[Callable[[], None]] = None) -> bool:

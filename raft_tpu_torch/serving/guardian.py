@@ -74,7 +74,9 @@ LOCK_ORDER = (
 )
 
 #: ``_decided`` is a Condition OVER ``_lock`` (the same lock, not a
-#: second one).
+#: second one): declared lockish and aliased, so the lock graph sees one
+#: node and the T1 same-receiver wait exemption applies.
+GRAFTTHREAD = {"locks": ("_decided",), "aliases": {"_decided": "_lock"}}
 
 
 class GuardianPolicy:

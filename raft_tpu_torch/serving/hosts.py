@@ -65,6 +65,29 @@ LOCK_ORDER = (
     ("hosts.HostFleet._lock",),
 )
 
+#: heartbeat verdicts ride the scheduler's verdict discipline: the fleet
+#: only queues them (``pop_notices``); their consequences land in
+#: ``scheduler._wedge_host`` before any future is touched.
+GRAFTTHREAD = {
+    "locks": ("_lock",),
+}
+
+#: graftwire declarations. Every worker method is idempotent by contract
+#: (a TransportError is always retryable): ping, stats and capacity are
+#: reads; put_artifact re-verifies and does nothing for a digest already
+#: installed; prewarm re-warms to the same engine; ensure, route and drop
+#: converge on the same bucket table; infer is pure; update_weights sets
+#: the same value on a re-send. A method that is not safe to re-send must
+#: carry a request_id in its payload instead of a row here (W2 holds every
+#: call site to one or the other). ``_emit`` wraps
+#: ``metrics.record_event``, so its literals are schema-checked (W6).
+GRAFTWIRE = {
+    "idempotent": ("ping", "put_artifact", "prewarm", "capacity",
+                   "ensure", "route", "drop", "infer",
+                   "update_weights", "stats"),
+    "event_emitters": ("_emit",),
+}
+
 HOST_HEALTHY = "healthy"
 HOST_SUSPECT = "suspect"
 HOST_DEAD = "dead"

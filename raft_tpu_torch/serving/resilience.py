@@ -48,10 +48,11 @@ LOCK_ORDER = (
     ("resilience.DispatchExecutor._lock",),
 )
 
-#: transition listeners are caller-supplied code that reads OTHER
-#: locked state (the scheduler's health recompute walks the whole
-#: breaker board) — they fire via the _set/_notify split, never inside
-#: the breaker lock.
+#: graftthread T4: transition listeners are caller-supplied code that
+#: reads OTHER locked state (the scheduler's health recompute walks the
+#: whole breaker board) — they fire via the _set/_notify split, never
+#: inside the breaker lock.
+GRAFTTHREAD = {"callbacks": ("_on_transition", "on_transition")}
 
 
 class DispatchWedged(RuntimeError):

@@ -199,6 +199,31 @@ LOCK_ORDER = (
      "trace.TraceLedger._lock"),
 )
 
+#: graftthread T6: wedge verdicts land every consequence (drop the suspect
+#: program, record the breaker failure, quarantine the stuck thread)
+#: before any future settles: a woken caller sees consistent state, never
+#: a half-applied verdict.
+GRAFTTHREAD = {
+    "verdicts": ("_wedge_verdict", "_wedge_completion",
+                 "_wedge_replica", "_wedge_host"),
+    "consequences": ("drop_bucket", "record_failure",
+                     "quarantine_and_replace"),
+    "settles": ("_fail_requests",),
+}
+
+#: graftwire W4: the dead-host verdict lands every cross-seam consequence
+#: (breaker, executor quarantine, placement mark, transport poison: the
+#: one that unsticks a thread blocked in the dead host's recv) before the
+#: in-flight batch is failed over or failed; ``_failover_requeue`` counts
+#: as a settle because requeued requests are visible to the surviving
+#: lanes the moment they are queued.
+GRAFTWIRE = {
+    "verdicts": ("_wedge_host",),
+    "consequences": ("record_failure", "quarantine_and_replace",
+                     "mark_host", "poison"),
+    "settles": ("_fail_requests", "_failover_requeue"),
+}
+
 
 class ConfigError(ValueError):
     """A constructor-time knob combination that could only misbehave

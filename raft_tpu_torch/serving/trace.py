@@ -66,6 +66,11 @@ from typing import Dict, List, Optional
 #: with NO lock held.
 LOCK_ORDER = (("trace.TraceLedger._lock",),)
 
+#: graftthread declarations: one leaf lock, no callbacks, no threads, no
+#: futures; every method is dict and list bookkeeping under ``_lock``
+#: except ``flush``'s lock-free file append.
+GRAFTTHREAD = {"locks": ("_lock",)}
+
 #: accounting-identity classes a request span may close under — the
 #: four counters of submitted == completed + failed + deadline_missed
 #: + cancelled (serving/metrics.py)

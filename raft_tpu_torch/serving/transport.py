@@ -58,6 +58,20 @@ LOCK_ORDER = (
     ("transport.LoopbackTransport._lock",),
 )
 
+GRAFTTHREAD = {
+    "locks": ("_lock",),
+}
+
+#: graftwire declarations: holding ``_lock`` across the socket I/O is the
+#: transport contract (one request in flight per connection), so it is a
+#: wire lock, not a W3 finding; ``_send_msg`` and ``_recv_exact`` are the
+#: only functions that touch raw socket send/recv, and all framing lives
+#: there (W6).
+GRAFTWIRE = {
+    "wire_locks": ("_lock",),
+    "framed_helpers": ("_send_msg", "_recv_exact"),
+}
+
 _LEN = struct.Struct(">Q")
 #: sanity bound on a single message (a corrupted length prefix must read
 #: as a protocol error, not a 2**60-byte allocation)

@@ -117,7 +117,8 @@ for n in ("training.loss", "training.optim", "training.train_step",
           "serving.registry", "serving.guardian", "serving.aot",
           "serving.transport", "serving.hosts", "serving.host_worker",
           "tools.msgpack", "parallel.distributed", "parallel.mesh",
-          "parallel.partitioner"):
+          "parallel.partitioner", "data.jpeg", "serving.video",
+          "testing.avi", "native"):
     assert "raft_tpu_torch." + n in names, n
 import chip_smoke, profile_corr_alt, profile_hd_pair, profile_train_convs
 import profile_serving_fp32, profile_serving_rows, profile_graph_churn
@@ -131,7 +132,7 @@ def test_port_and_chip_smoke_import_with_jax_blocked():
     r = subprocess.run([sys.executable, "-c", _BLOCKER], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
-    assert int(r.stdout.split()[0]) >= 73
+    assert int(r.stdout.split()[0]) >= 77
 
 
 def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
@@ -176,11 +177,14 @@ def test_later_slices_raise_not_implemented(tmp_path):
     from raft_tpu_torch.data.frame_utils import read_gen
     from raft_tpu_torch.ops.interp import forward_interpolate_device
 
-    # mixed precision, dropout, training's augmentation and the serving
-    # layer's on-device warm start are ported; JPEG frames are not
+    # mixed precision, dropout, training's augmentation, the serving
+    # layer's on-device warm start and JPEG frames are ported
+    from raft_tpu_torch.data.jpeg import write_jpeg
     RAFT(RAFTConfig(mixed_precision=True))
-    with pytest.raises(NotImplementedError, match="M14"):
-        read_gen(str(tmp_path / "frame.jpg"))
+    frame = np.full((9, 11, 3), 77, np.uint8)
+    write_jpeg(str(tmp_path / "frame.jpg"), frame)
+    np.testing.assert_array_equal(read_gen(str(tmp_path / "frame.jpg")),
+                                  frame)
     assert not forward_interpolate_device(torch.zeros(8, 8, 2)).any()
     model = RAFT(RAFTConfig(small=True, dropout=0.1))
     img = torch.zeros(1, 32, 32, 3)
@@ -188,8 +192,8 @@ def test_later_slices_raise_not_implemented(tmp_path):
     # the serving forwards (M10), the front end (M11a), the registry and
     # the replica fleet (M11b), the program store and the host lanes
     # (M11c), a mesh (M9) with follower ranks (the "shard" route and
-    # replicas over ranks) and .msgpack weights (M1) are ported; the store
-    # under a multi-rank mesh and the serving video are not
+    # replicas over ranks), .msgpack weights (M1) and the serving video
+    # (M14) are ported; the store under a multi-rank mesh is not
     full = torch.full((1,), 4, dtype=torch.int32)
     assert model.forward_ragged(img, img, full, full, iters=1)[1].shape == (
         1, 32, 32, 2)
@@ -211,9 +215,10 @@ def test_later_slices_raise_not_implemented(tmp_path):
     eng = RAFTEngine(model, model.config, aot_cache=str(tmp_path),
                      device="cpu")
     assert eng.aot_stats()["enabled"] == 1
-    with pytest.raises(NotImplementedError, match="M14"):
-        parity(["--model", "unused.pth", "--path", str(tmp_path),
-                "--video", "out.avi", "--device", "cpu"])
+    with pytest.raises(ValueError, match="fewer than two frames"):
+        parity(["--model", osp.join(FIXTURES, "raft-small-cputrained.pth"),
+                "--small", "--path", str(tmp_path),
+                "--video", str(tmp_path / "out.avi"), "--device", "cpu"])
     from raft_tpu_torch.serving import (HostFleet, HostWorker,
                                         LoopbackTransport,
                                         MicroBatchScheduler, ModelRegistry)

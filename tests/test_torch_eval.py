@@ -482,7 +482,7 @@ def test_unstaged_data_raises_file_not_found(tmp_path, fn, match):
 def test_training_data_waits_for_m13(tmp_path):
     """Training's data pipeline (M13) is ported: its datasets construct,
     and an unstaged stage mix raises ``FileNotFoundError``. JPEG frames,
-    which no stage mix reads, wait as ROADMAP M14."""
+    which no stage mix reads, decode too (ROADMAP M14)."""
     from raft_tpu_torch.data import datasets
 
     kitti = datasets.KITTI(aug_params={"crop_size": (64, 64)},
@@ -492,5 +492,8 @@ def test_training_data_waits_for_m13(tmp_path):
         assert len(cls(root=str(tmp_path))) == 0
     with pytest.raises(FileNotFoundError, match="not staged"):
         datasets.fetch_dataset("chairs", (64, 64), data_root=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="M14"):
-        fu.read_gen(str(tmp_path / "frame.jpg"))
+    from raft_tpu_torch.data.jpeg import write_jpeg
+    gray = np.full((5, 7), 200, np.uint8)
+    write_jpeg(str(tmp_path / "frame.jpg"), gray)
+    np.testing.assert_array_equal(fu.read_gen(str(tmp_path / "frame.jpg")),
+                                  gray)

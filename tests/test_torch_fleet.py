@@ -215,17 +215,64 @@ def test_bucket_fit_matches_jax():
 
 # -- the fleet dispatcher on fake engines --------------------------------------
 
+class _WaveGate:
+    """One lane's gate: each dispatch waits for a pass, which the test hands
+    out one a wave. ``passed`` counts the passes used."""
+
+    def __init__(self):
+        self._cv = threading.Condition()
+        self.waiting = 0
+        self.passed = 0
+        self._passes = 0
+
+    def wait(self, timeout):
+        with self._cv:
+            self.waiting += 1
+            ok = self._cv.wait_for(lambda: self._passes > 0, timeout)
+            if ok:
+                self._passes -= 1
+                self.passed += 1
+            self.waiting -= 1
+            return ok
+
+    def release(self, n=1):
+        with self._cv:
+            self._passes += n
+            self._cv.notify_all()
+
+
 def test_fanout_concurrency_and_balance(rng):
+    """Four lanes run micro-batches at once, and least-loaded picking
+    spreads them. The traffic goes in waves: every lane blocked in its
+    dispatch, one pass each, then every lane blocked again, so each pick
+    sees all lanes free and no lane's thread wins on CPU scheduling alone
+    (with one gate for all, whichever lane's thread ran first under load
+    kept winning: loads [12, 7, 5, 7])."""
     eng = _FleetEngine()
     sched = _sched(eng, replicas=4, dispatch_timeout_s=WAIT)
-    gate = threading.Event()
-    for lane in sched._lanes:
+    gates = [_WaveGate() for _ in sched._lanes]
+    for lane, gate in zip(sched._lanes, gates):
         lane.engine.gates.update({(32, 32): gate, (40, 40): gate})
+
+    def settled():
+        # every lane blocked at its gate, or the queue empty and every
+        # busy lane blocked there
+        waiting = sum(g.waiting for g in gates)
+        return waiting == 4 or (sched.health()["queue_depth"] == 0
+                                and _busy(sched) == waiting)
+
     try:
         futs = [sched.submit(*_pair(rng, *s))
                 for s in [(32, 32), (40, 40)] * 20]
         assert _wait(lambda: _busy(sched) == 4)
-        gate.set()
+        for _ in range(len(futs)):
+            if all(f.done() for f in futs):
+                break
+            assert _wait(settled)
+            wave = {g: g.passed + 1 for g in gates if g.waiting}
+            for g in wave:
+                g.release()
+            assert _wait(lambda: all(g.passed >= n for g, n in wave.items()))
         for f in futs:
             assert f.result(timeout=WAIT).flow.shape[-1] == 2
         fleet = sched.health()["fleet"]
@@ -241,7 +288,8 @@ def test_fanout_concurrency_and_balance(rng):
         # each lane's breaker-less labels carry its replica suffix
         assert any(k.endswith("/r3") for k in snap["buckets"])
     finally:
-        gate.set()
+        for g in gates:
+            g.release(1 << 20)
         sched.close()
 
 

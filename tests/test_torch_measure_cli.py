@@ -234,3 +234,44 @@ def test_measuring_clis_need_the_card_unless_asked_for_cpu(monkeypatch):
         corr_bench.main(["--hw", "8", "12"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         profile_step.main(["--hw", "64", "64"])
+
+
+@pytest.mark.parametrize("flags,policy,fused", [
+    (["--remat", "--remat_policy", "full", "--fused_loss"], "full", True),
+    (["--remat", "--remat-policy", "dots", "--no-fused-loss"], "dots", False),
+    ([], "full", None)], ids=["full-fused", "dots-standard", "defaults"])
+def test_profile_step_remat_policy_and_fused_loss(flags, policy, fused,
+                                                  monkeypatch, capsys):
+    """``--remat_policy`` and ``--fused_loss`` reach the configs the train
+    step is built from, as in the JAX CLI, and the JSON line records both."""
+    from raft_tpu_torch.training import train_step
+
+    seen = []
+    real = train_step.make_train_step
+
+    def spy(model_cfg, train_cfg, *a, **kw):
+        seen.append((model_cfg, train_cfg))
+        return real(model_cfg, train_cfg, *a, **kw)
+
+    monkeypatch.setattr(train_step, "make_train_step", spy)
+    out = profile_step.main(
+        ["--device", "cpu", "--batch", "1", "--hw", "32", "32", "--iters",
+         "1", "--steps", "1", "--warmup", "1", "--top", "3"] + flags)
+    (model_cfg, train_cfg), = seen
+    assert model_cfg.remat_policy == policy and train_cfg.fused_loss is fused
+    assert model_cfg.remat is ("--remat" in flags) and not model_cfg.small
+    assert out["remat_policy"] == policy and out["fused_loss"] is fused
+    _, line = _json_line(capsys)
+    assert line["remat_policy"] == policy and line["fused_loss"] is fused
+
+
+def test_profile_step_fused_loss_with_small_raises():
+    """The small model has no fused loss (``training/train_step.py``):
+    asking the profiler to trace it raises instead of tracing the standard
+    loss; ``--small`` alone profiles the small model."""
+    with pytest.raises(ValueError, match="no fused loss"):
+        profile_step.main(["--device", "cpu", "--small", "--fused_loss"])
+    out = profile_step.main(
+        ["--device", "cpu", "--small", "--batch", "1", "--hw", "32", "32",
+         "--iters", "1", "--steps", "1", "--warmup", "1", "--top", "3"])
+    assert out["small"] is True and out["fused_loss"] is None

@@ -213,7 +213,10 @@ def test_queued_deadline_expires_inflight_completes():
     eng = _FakeEngine()
     eng.gates[(32, 32)] = gate = threading.Event()
     sched = MicroBatchScheduler(eng, max_batch=1, gather_window_s=0.0)
-    inflight = sched.submit(_frame(0), _frame(0), deadline_s=0.01)
+    # a deadline that cannot pass: under CPU load the dispatcher may take
+    # over 10 ms to pick a request up, and a 10 ms deadline then expired
+    # this one in the queue, before it was ever in flight
+    inflight = sched.submit(_frame(0), _frame(0), deadline_s=3600.0)
     assert _wait(lambda: eng.calls)
     doomed = sched.submit(_frame(1), _frame(1), deadline_s=0.01)
     time.sleep(0.05)
