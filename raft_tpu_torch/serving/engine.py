@@ -111,6 +111,7 @@ from raft_tpu_torch.parallel import follow as _follow
 from raft_tpu_torch.parallel.halo import gather_blocks
 from raft_tpu_torch.serving import aot as _aotmod
 from raft_tpu_torch.serving.export import bind_program, export_bucket
+from raft_tpu_torch.serving.trace import span as layer_span
 from raft_tpu_torch.testing.faults import fault_point
 
 #: the process's capture lock is taken before an engine's lock; a leading
@@ -168,15 +169,17 @@ class PendingBatch:
     flight at once: each holds its own clone of the outputs.
 
     ``h2d_bytes``: host bytes shipped to the device (padded frames and any
-    host-built ``flow_init``). ``t_ready``: monotonic time the outputs were
-    known complete (set by ``fetch``). ``span_ctx``: the request-trace
-    spans of the batch, set by a tracing scheduler so its completion stage
-    marks ``fetch_start`` on the pending it fetches.
+    host-built ``flow_init``). ``t_synced``: monotonic time the outputs
+    were known complete on the device, and ``t_ready``: the time they were
+    handed over on the host, after the copies (both set by ``fetch``).
+    ``span_ctx``: the request-trace spans of the batch, set by a tracing
+    scheduler so its completion stage marks ``fetch_start`` on the pending
+    it fetches.
     """
 
-    __slots__ = ("bucket", "h2d_bytes", "t_ready", "span_ctx", "_flow",
-                 "_flow_low", "_return_low", "_low_device", "_cache",
-                 "_event")
+    __slots__ = ("bucket", "h2d_bytes", "t_synced", "t_ready", "span_ctx",
+                 "_flow", "_flow_low", "_return_low", "_low_device",
+                 "_cache", "_event")
 
     def __init__(self, flow, flow_low, bucket, h2d_bytes, return_low,
                  low_device, event, cache=None):
@@ -188,6 +191,7 @@ class PendingBatch:
         self._low_device = low_device
         self._event = event
         self._cache = cache
+        self.t_synced: Optional[float] = None
         self.t_ready: Optional[float] = None
         self.span_ctx = None
 
@@ -198,19 +202,22 @@ class PendingBatch:
         # chaos site: a hang here models a device whose compute (or D2H)
         # never completes
         fault_point("serve.fetch")
-        if self._event is not None:
-            self._event.synchronize()
-        flow = self._flow.cpu().numpy()
-        if self._cache is not None:
-            fmap2, cnet2 = self._cache
-            out = (flow, _handed(self._flow_low), _handed(fmap2),
-                   _handed(cnet2))
-        elif self._return_low:
-            low = (_handed(self._flow_low) if self._low_device
-                   else self._flow_low.cpu().numpy())
-            out = (flow, low)
-        else:
-            out = flow
+        with layer_span("engine.fetch_wait"):
+            if self._event is not None:
+                self._event.synchronize()
+        self.t_synced = time.monotonic()
+        with layer_span("engine.d2h"):
+            flow = self._flow.cpu().numpy()
+            if self._cache is not None:
+                fmap2, cnet2 = self._cache
+                out = (flow, _handed(self._flow_low), _handed(fmap2),
+                       _handed(cnet2))
+            elif self._return_low:
+                low = (_handed(self._flow_low) if self._low_device
+                       else self._flow_low.cpu().numpy())
+                out = (flow, low)
+            else:
+                out = flow
         self._flow = self._flow_low = self._cache = None
         self.t_ready = time.monotonic()
         return out
@@ -224,9 +231,9 @@ class RaggedPendingBatch:
     request. ``real_px``/``padded_px``: request pixels against box
     pixels."""
 
-    __slots__ = ("bucket", "h2d_bytes", "t_ready", "span_ctx", "real_px",
-                 "padded_px", "_flows", "_lows", "_return_low", "_low_device",
-                 "_event")
+    __slots__ = ("bucket", "h2d_bytes", "t_synced", "t_ready", "span_ctx",
+                 "real_px", "padded_px", "_flows", "_lows", "_return_low",
+                 "_low_device", "_event")
 
     def __init__(self, flows, lows, bucket, h2d_bytes, return_low,
                  low_device, event, real_px=0, padded_px=0):
@@ -239,6 +246,7 @@ class RaggedPendingBatch:
         self._event = event
         self.real_px = real_px
         self.padded_px = padded_px
+        self.t_synced: Optional[float] = None
         self.t_ready: Optional[float] = None
         self.span_ctx = None
 
@@ -249,13 +257,16 @@ class RaggedPendingBatch:
             raise RuntimeError("RaggedPendingBatch.fetch() already "
                                "consumed")
         fault_point("serve.fetch")
-        if self._event is not None:
-            self._event.synchronize()
-        out = [f.cpu().numpy() for f in self._flows]
-        if self._return_low:
-            lows = [_handed(lo) if self._low_device else lo.cpu().numpy()
-                    for lo in self._lows]
-            out = (out, lows)
+        with layer_span("engine.fetch_wait"):
+            if self._event is not None:
+                self._event.synchronize()
+        self.t_synced = time.monotonic()
+        with layer_span("engine.d2h"):
+            out = [f.cpu().numpy() for f in self._flows]
+            if self._return_low:
+                lows = [_handed(lo) if self._low_device
+                        else lo.cpu().numpy() for lo in self._lows]
+                out = (out, lows)
         self._flows = self._lows = None
         self.t_ready = time.monotonic()
         return out

@@ -150,7 +150,8 @@ from raft_tpu_torch.serving.resilience import (BREAKER_CLOSED,
                                                CircuitOpen,
                                                DispatchExecutor,
                                                DispatchWedged, _DispatchJob)
-from raft_tpu_torch.serving.trace import TraceLedger
+from raft_tpu_torch.serving.trace import UNARMED, TraceLedger
+from raft_tpu_torch.serving.trace import span as layer_span
 from raft_tpu_torch.serving.transport import TransportError
 from raft_tpu_torch.testing.faults import fault_point
 
@@ -1428,14 +1429,15 @@ class MicroBatchScheduler:
         watchdog while waiting so neither stalls behind the wait."""
         if self._completion is None:
             return
-        while True:
-            with self._pipe_lock:
-                n = len(self._pending_jobs)
-            if n < self.pipeline_depth:
-                return
-            self._expiry_scan()
-            self._check_completions()
-            time.sleep(0.001)
+        with layer_span("sched.slot_wait"):
+            while True:
+                with self._pipe_lock:
+                    n = len(self._pending_jobs)
+                if n < self.pipeline_depth:
+                    return
+                self._expiry_scan()
+                self._check_completions()
+                time.sleep(0.001)
 
     def _select_locked(self) -> Tuple[Tuple[int, int], Optional[str]]:
         """Dispatch-head choice (caller holds ``_cv``, queue
@@ -2062,37 +2064,38 @@ class MicroBatchScheduler:
         inline on the dispatcher thread (no watchdog), on the
         supervised executor, or — fleet mode — on ``lane``'s executor
         against ``lane``'s engine."""
-        try:
-            # capacity may capture a bucket — never under the queue
-            # lock (submitters would shed through the whole capture)
-            capacity = self._shape_capacity(key, lane)
-        except Exception as exc:
-            if (lane is not None and lane.host is not None
-                    and isinstance(exc, TransportError)):
-                # the probe died with the HOST, not the shape: take
-                # nothing — the queued work stays for the surviving
-                # lanes, the lane breaker records the failure (through
-                # _after_dispatch) and the heartbeat verdict owns the
-                # quarantine and the failover
-                job.error = exc
+        with layer_span("sched.gather"):
+            try:
+                # capacity may capture a bucket — never under the queue
+                # lock (submitters would shed through the whole capture)
+                capacity = self._shape_capacity(key, lane)
+            except Exception as exc:
+                if (lane is not None and lane.host is not None
+                        and isinstance(exc, TransportError)):
+                    # the probe died with the HOST, not the shape: take
+                    # nothing — the queued work stays for the surviving
+                    # lanes, the lane breaker records the failure (through
+                    # _after_dispatch) and the heartbeat verdict owns the
+                    # quarantine and the failover
+                    job.error = exc
+                    job.outcome = "failed"
+                    return
+                # an unservable shape (a capture failure) fails ITS
+                # requests — it must not kill the dispatcher and strand
+                # every queued future unsettled behind a dead thread
+                doomed = self._take(key, self.max_batch)
+                job.batch = doomed
+                self.metrics.record_failure(self._fail_requests(doomed, exc))
                 job.outcome = "failed"
                 return
-            # an unservable shape (a capture failure) fails ITS
-            # requests — it must not kill the dispatcher and strand
-            # every queued future unsettled behind a dead thread
-            doomed = self._take(key, self.max_batch)
-            job.batch = doomed
-            self.metrics.record_failure(self._fail_requests(doomed, exc))
-            job.outcome = "failed"
-            return
-        if job.abandoned:
-            # the capacity probe (a capture) outlived the watchdog: a
-            # quarantined thread must not take fresh work — but its
-            # capture was NOT wasted (first-insert-wins means the
-            # replacement's probe finds the bucket ready)
-            return
-        self._gather(key, capacity)
-        batch = self._take(key, capacity, prefer)
+            if job.abandoned:
+                # the capacity probe (a capture) outlived the watchdog: a
+                # quarantined thread must not take fresh work — but its
+                # capture was NOT wasted (first-insert-wins means the
+                # replacement's probe finds the bucket ready)
+                return
+            self._gather(key, capacity)
+            batch = self._take(key, capacity, prefer)
         job.batch = batch
         if job.abandoned:
             # verdict landed between the check above and the take: the
@@ -2109,12 +2112,13 @@ class MicroBatchScheduler:
                     batch, self._wedge_error(key)))
             return
         if batch:
-            if len(key) > 2 and key[2] == "ragged":
-                self._dispatch_ragged(key, batch, job, lane)
-            elif len(key) > 2:
-                self._dispatch_cached(key, batch, job)
-            else:
-                self._dispatch(key, batch, job, lane)
+            with layer_span("sched.assemble") as assemble:
+                if len(key) > 2 and key[2] == "ragged":
+                    self._dispatch_ragged(key, batch, job, lane, assemble)
+                elif len(key) > 2:
+                    self._dispatch_cached(key, batch, job, assemble)
+                else:
+                    self._dispatch(key, batch, job, lane, assemble)
 
     def _assemble_flow_init(self, live: List[_Request], key):
         """The micro-batch's coalesced warm start, or None when every
@@ -2155,44 +2159,47 @@ class MicroBatchScheduler:
         per-replica metrics block; ``host`` set means a lost settle race
         is a ZOMBIE answer — the request already failed over and settled
         elsewhere — counted as a drop, never settled twice)."""
-        if warm:
-            flows, lows = outs
-        else:
-            flows, lows = outs, None
-        raced = (None if host is None
-                 else lambda: self.metrics.record_host_zombie_drop(host))
-        t_done = time.monotonic()
-        for i, r in enumerate(live):
-            low = None
-            if lows is not None and r.want_low:
-                low = lows[i]
-                if not r.low_device and isinstance(low, torch.Tensor):
-                    low = low.cpu().numpy()
-            if not settle_future(r.future, ServeResult(flows[i], low),
-                                 raced):
-                # wedge verdict settled it first (and owns the span
-                # close); a raced caller cancel owns nothing — close
-                # the span cancelled (idempotent either way)
-                if r.future.cancelled():
-                    self._trace_cancel(r)
-                continue
-            queue_ms = (t_disp - r.t_submit) * 1e3
-            device_ms = (t_done - t_disp) * 1e3
-            tail = self.metrics.record_complete(
-                label, queue_ms=queue_ms, device_ms=device_ms,
-                priority=r.priority,
-                trace_id=(r.span.trace_id if r.span is not None
-                          else None),
-                replica=replica)
-            if self.tracer is not None and r.span is not None:
-                # observed_ms: the exact value the latency histogram
-                # binned — serve_trace's top-bucket selection must
-                # reproduce the histogram's membership, not re-derive
-                # it from the span's own (ms-skewed) close clock
-                self.tracer.close(
-                    r.span, "completed", "completed", tail=tail,
-                    observed_ms=round(queue_ms + device_ms, 3))
-        self._trace_close_dispatch(live, "ok")
+        with layer_span("sched.settle") as settle:
+            if warm:
+                flows, lows = outs
+            else:
+                flows, lows = outs, None
+            raced = (None if host is None
+                     else lambda: self.metrics.record_host_zombie_drop(host))
+            t_done = time.monotonic()
+            for i, r in enumerate(live):
+                low = None
+                if lows is not None and r.want_low:
+                    low = lows[i]
+                    if not r.low_device and isinstance(low, torch.Tensor):
+                        low = low.cpu().numpy()
+                if not settle_future(r.future, ServeResult(flows[i], low),
+                                     raced):
+                    # wedge verdict settled it first (and owns the span
+                    # close); a raced caller cancel owns nothing — close
+                    # the span cancelled (idempotent either way)
+                    if r.future.cancelled():
+                        self._trace_cancel(r)
+                    continue
+                settle.add("sched.request", r.t_submit, t_done,
+                           taken=t_disp)
+                queue_ms = (t_disp - r.t_submit) * 1e3
+                device_ms = (t_done - t_disp) * 1e3
+                tail = self.metrics.record_complete(
+                    label, queue_ms=queue_ms, device_ms=device_ms,
+                    priority=r.priority,
+                    trace_id=(r.span.trace_id if r.span is not None
+                              else None),
+                    replica=replica)
+                if self.tracer is not None and r.span is not None:
+                    # observed_ms: the exact value the latency histogram
+                    # binned — serve_trace's top-bucket selection must
+                    # reproduce the histogram's membership, not re-derive
+                    # it from the span's own (ms-skewed) close clock
+                    self.tracer.close(
+                        r.span, "completed", "completed", tail=tail,
+                        observed_ms=round(queue_ms + device_ms, 3))
+            self._trace_close_dispatch(live, "ok")
 
     def _run_completion(self, key, live: List[_Request], pending,
                         job: _DispatchJob, settle) -> None:
@@ -2301,8 +2308,11 @@ class MicroBatchScheduler:
         t_call_end = time.monotonic()
         gap_ms = None
         if prev is not None:
-            gap_ms = (0.0 if prev.t_ready is None
-                      else max(0.0, (t_call_end - prev.t_ready) * 1e3))
+            # the previous outputs' completion on the device, before their
+            # copies out (a pending without that stamp: its hand-over)
+            t_known = getattr(prev, "t_synced", prev.t_ready)
+            gap_ms = (0.0 if t_known is None
+                      else max(0.0, (t_call_end - t_known) * 1e3))
         self.metrics.record_hot_path(
             gap_ms=gap_ms, assembly_ms=(t_call_end - t_asm0) * 1e3,
             overlapped=overlapped, h2d_bytes=pending.h2d_bytes,
@@ -2356,7 +2366,12 @@ class MicroBatchScheduler:
 
     def _dispatch(self, key: Tuple[int, int], batch: List[_Request],
                   job: _DispatchJob,
-                  lane: Optional[_ReplicaLane] = None) -> None:
+                  lane: Optional[_ReplicaLane] = None,
+                  assemble=UNARMED) -> None:
+        """One micro-batch of one shape through the engine's (or
+        ``lane``'s) bucketed program. ``assemble``: the open
+        ``sched.assemble`` span, which ends where ``sched.ship`` (the
+        engine call) begins."""
         eng = lane.engine if lane is not None else self.engine
         replica = lane.index if lane is not None else None
         live = self._claim(batch)
@@ -2411,6 +2426,7 @@ class MicroBatchScheduler:
             i2 = np.stack([r.image2 for r in live])
             finit = self._assemble_flow_init(live, key) if warm else None
             call_async = getattr(eng, "infer_batch_async", None)
+            assemble.end()
             if call_async is None:
                 # duck-typed engine without the async API: synchronous
                 # call, settled inline (no pipelining, no gap stats)
@@ -2438,12 +2454,14 @@ class MicroBatchScheduler:
                                    else None))
                 job.outcome = "ok"
                 return
-            if warm:
-                low_dev = any(r.want_low and r.low_device for r in live)
-                pending = call_async(i1, i2, flow_init=finit,
-                                     return_low=True, low_device=low_dev)
-            else:
-                pending = call_async(i1, i2)
+            with layer_span("sched.ship", getattr(eng, "device", None)):
+                if warm:
+                    low_dev = any(r.want_low and r.low_device for r in live)
+                    pending = call_async(i1, i2, flow_init=finit,
+                                         return_low=True,
+                                         low_device=low_dev)
+                else:
+                    pending = call_async(i1, i2)
             self._hot_path(prev, overlapped, t_asm0, pending, live, lane)
             self._hand_off(
                 key, job, live, pending,
@@ -2483,7 +2501,8 @@ class MicroBatchScheduler:
 
     def _dispatch_ragged(self, key, batch: List[_Request],
                          job: _DispatchJob,
-                         lane: Optional[_ReplicaLane] = None) -> None:
+                         lane: Optional[_ReplicaLane] = None,
+                         assemble=UNARMED) -> None:
         """One MIXED-SHAPE micro-batch through a capacity-class
         program: every request in ``batch`` mapped to the same class
         box (the submit-time key), whatever its own ``(h, w)``.
@@ -2542,13 +2561,15 @@ class MicroBatchScheduler:
             # same-key sibling class the batch's own maxima would
             # route to
             pairs = [(r.image1, r.image2) for r in live]
-            if warm:
-                low_dev = any(r.want_low and r.low_device for r in live)
-                pending = eng.infer_ragged_async(
-                    pairs, flow_inits=[r.flow_init for r in live],
-                    return_low=True, low_device=low_dev, box=(ch, cw))
-            else:
-                pending = eng.infer_ragged_async(pairs, box=(ch, cw))
+            assemble.end()
+            with layer_span("sched.ship", getattr(eng, "device", None)):
+                if warm:
+                    low_dev = any(r.want_low and r.low_device for r in live)
+                    pending = eng.infer_ragged_async(
+                        pairs, flow_inits=[r.flow_init for r in live],
+                        return_low=True, low_device=low_dev, box=(ch, cw))
+                else:
+                    pending = eng.infer_ragged_async(pairs, box=(ch, cw))
             self._hot_path(prev, overlapped, t_asm0, pending, live, lane)
             # per-row fetch output matches _settle's (flows, lows)
             # protocol — the settle/accounting path is shared
@@ -2574,40 +2595,43 @@ class MicroBatchScheduler:
         Prime rows store a flow-less slot and resolve to
         ``ServeResult(None, None)`` — their flow is refinement against
         zero features, never surfaced."""
-        flow, low_full, fmap2, ctx2 = outs
-        hw = (key[0], key[1])
-        t_done = time.monotonic()
-        for i, r in enumerate(live):
-            # each slot holds CLONES of its own row: a view would pin
-            # the whole batch output (about 58 MB at batch 4,
-            # 440x1024, basic model) for as long as the slot lives,
-            # and eviction would free nothing
-            fl = None if r.prime else low_full[i, :lh, :lw].clone()
-            self._fcache.store(r.stream, hw, r.seq, ver,
-                               fmap2[i, :lh, :lw].clone(),
-                               ctx2[i, :lh, :lw].clone(), fl)
-            res = ServeResult(None if r.prime else flow[i], None)
-            if not settle_future(r.future, res):
-                # wedge verdict settled it first (owns the span
-                # close); a raced cancel owns nothing — close here
-                if r.future.cancelled():
-                    self._trace_cancel(r)
-                continue
-            queue_ms = (t_disp - r.t_submit) * 1e3
-            device_ms = (t_done - t_disp) * 1e3
-            tail = self.metrics.record_complete(
-                label, queue_ms=queue_ms, device_ms=device_ms,
-                priority=r.priority,
-                trace_id=(r.span.trace_id if r.span is not None
-                          else None))
-            if self.tracer is not None and r.span is not None:
-                self.tracer.close(
-                    r.span, "completed", "completed", tail=tail,
-                    observed_ms=round(queue_ms + device_ms, 3))
-        self._trace_close_dispatch(live, "ok")
+        with layer_span("sched.settle") as settle:
+            flow, low_full, fmap2, ctx2 = outs
+            hw = (key[0], key[1])
+            t_done = time.monotonic()
+            for i, r in enumerate(live):
+                # each slot holds CLONES of its own row: a view would pin
+                # the whole batch output (about 58 MB at batch 4,
+                # 440x1024, basic model) for as long as the slot lives,
+                # and eviction would free nothing
+                fl = None if r.prime else low_full[i, :lh, :lw].clone()
+                self._fcache.store(r.stream, hw, r.seq, ver,
+                                   fmap2[i, :lh, :lw].clone(),
+                                   ctx2[i, :lh, :lw].clone(), fl)
+                res = ServeResult(None if r.prime else flow[i], None)
+                if not settle_future(r.future, res):
+                    # wedge verdict settled it first (owns the span
+                    # close); a raced cancel owns nothing — close here
+                    if r.future.cancelled():
+                        self._trace_cancel(r)
+                    continue
+                settle.add("sched.request", r.t_submit, t_done,
+                           taken=t_disp)
+                queue_ms = (t_disp - r.t_submit) * 1e3
+                device_ms = (t_done - t_disp) * 1e3
+                tail = self.metrics.record_complete(
+                    label, queue_ms=queue_ms, device_ms=device_ms,
+                    priority=r.priority,
+                    trace_id=(r.span.trace_id if r.span is not None
+                              else None))
+                if self.tracer is not None and r.span is not None:
+                    self.tracer.close(
+                        r.span, "completed", "completed", tail=tail,
+                        observed_ms=round(queue_ms + device_ms, 3))
+            self._trace_close_dispatch(live, "ok")
 
     def _dispatch_cached(self, key, batch: List[_Request],
-                         job: _DispatchJob) -> None:
+                         job: _DispatchJob, assemble=UNARMED) -> None:
         """One feature-cached micro-batch: acquire every returning
         row's pool slot (seq/geometry/weights-version exact — invalid
         rows fail fast with ``FeatureCacheMiss``, they must not poison
@@ -2711,8 +2735,11 @@ class MicroBatchScheduler:
             overlapped = prev is not None and prev.t_ready is None
             t_asm0 = time.monotonic()
             i2 = np.stack([r.image2 for r in live])
-            pending = self.engine.infer_cached_async(
-                i2, slots, expect_version=ver)
+            assemble.end()
+            with layer_span("sched.ship",
+                            getattr(self.engine, "device", None)):
+                pending = self.engine.infer_cached_async(
+                    i2, slots, expect_version=ver)
             self._hot_path(prev, overlapped, t_asm0, pending, live)
             self._hand_off(
                 key, job, live, pending,

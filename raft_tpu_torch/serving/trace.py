@@ -46,6 +46,31 @@ is eventually consistent while serving and complete after a drain.
 
 Tracing defaults OFF everywhere (no ledger constructed ⇒ every
 serving path runs untraced — the standing knob convention).
+
+**Layer spans** (:class:`SpanRecorder`, one per process:
+:data:`RECORDER`, whose :func:`span`, :func:`records` and
+:func:`markers` are the module's functions). Apart from the ledger,
+the train step, the scheduler and the engine time the boundaries
+between their layers: ``train.step`` and its phases, the
+dispatcher's slot wait, gather, assembly and ship, the completion
+stage's fetch wait, D2H copy and settle, and one ``sched.request``
+record per completed request. The record lives in memory only (never
+in ``spans.jsonl``, whose schema the JAX package validates) and is
+armed exactly while a ``torch.profiler`` session is active, the
+convention of ``torch.profiler.record_function``: unarmed, a span
+site costs one flag read. To get the spans, run any profiler session
+(``torch.profiler.profile``, the trainer's ``profile_steps`` window,
+``cli/profile_step``) over the work and call :func:`records` once it
+has stopped; the first span of the next session clears them.
+
+Spans stamp ``time.perf_counter_ns()``. A span whose thread issues
+device work (``train.*``, ``sched.ship``) launches, while armed, a
+one-thread marker kernel (``torch.cuda._sleep``, named
+``spin_kernel`` in the trace) on a stream of its own, and
+:func:`markers` keeps the host stamp taken just before each launch.
+The least of (the marker's device start − its stamp) over the
+markers is the offset that puts the spans on the device trace's
+clock; the benchmark's ``flowbench/spans.py`` reads them so.
 """
 
 from __future__ import annotations
@@ -56,7 +81,10 @@ import os
 import sys
 import threading
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, NamedTuple, Optional
+
+import torch
+import torch.autograd.profiler as _profiler
 
 #: the ledger lock is a LEAF — span opens/closes arrive
 #: from under the scheduler's queue lock (``_cv``, the deadline sweep)
@@ -347,3 +375,211 @@ class TraceLedger:
                     "discarded": self.discarded,
                     "write_errors": self.write_errors,
                     "buffered": len(self._buffer)}
+
+
+# -- layer spans on the profiler's clock -------------------------------------
+
+#: the records one armed stretch keeps; any more are counted in ``dropped``
+MAX_RECORDS = 1 << 18
+
+#: ``time.perf_counter_ns()`` less ``time.monotonic_ns()``: the scheduler
+#: stamps its requests by ``time.monotonic()`` (0 where both read one clock)
+_PERF_LESS_MONOTONIC_NS = time.perf_counter_ns() - time.monotonic_ns()
+
+
+def _perf_ns(t_monotonic: float) -> int:
+    """A ``time.monotonic()`` reading on the spans' clock, in ns."""
+    return int(t_monotonic * 1e9) + _PERF_LESS_MONOTONIC_NS
+
+
+class SpanRecord(NamedTuple):
+    """One closed span: ``parent`` is the name of the span its thread was
+    inside when it began; ``marks`` hold further instants (ns) of a
+    record that is not a block of one thread (``sched.request``'s
+    ``taken``)."""
+
+    name: str
+    thread: int
+    start_ns: int
+    end_ns: int
+    parent: Optional[str]
+    marks: Optional[Dict[str, int]] = None
+
+
+class _Unarmed:
+    """The span every site gets while no profiler runs: does nothing, and
+    is false, so a site can skip work only an armed span needs."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+    def __bool__(self) -> bool:
+        return False
+
+    def end(self) -> None:
+        pass
+
+    def add(self, name: str, start_s: float, end_s: float,
+            **marks: float) -> None:
+        pass
+
+
+UNARMED = _Unarmed()
+
+
+class _OpenSpan:
+    """An open armed span; ``end()`` (or leaving its ``with`` block)
+    closes it once, into the stretch it began in."""
+
+    __slots__ = ("_rec", "_into", "name", "thread", "start_ns", "parent",
+                 "_done")
+
+    def __init__(self, rec: "SpanRecorder", into: List, name: str,
+                 parent: Optional[str], start_ns: Optional[int] = None):
+        self._rec = rec
+        self._into = into
+        self.name = name
+        self.thread = threading.get_ident()
+        self.parent = parent
+        self._done = False
+        self.start_ns = (time.perf_counter_ns() if start_ns is None
+                         else start_ns)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.end()
+        return False
+
+    def __bool__(self) -> bool:
+        return True
+
+    def end(self) -> None:
+        if self._done:
+            return
+        self._done = True
+        t = time.perf_counter_ns()
+        stack = self._rec._stack()
+        if self in stack:
+            stack.remove(self)
+        self._rec._keep(self._into, SpanRecord(
+            self.name, self.thread, self.start_ns, t, self.parent))
+
+    def add(self, name: str, start_s: float, end_s: float,
+            **marks: float) -> None:
+        """A record of ``name`` from ``start_s`` to ``end_s`` with
+        ``marks``, all ``time.monotonic()`` readings, as a child of this
+        span: an interval no single block of code spans (a request's
+        life from its submit)."""
+        self._rec._keep(self._into, SpanRecord(
+            name, self.thread, _perf_ns(start_s), _perf_ns(end_s), self.name,
+            {k: _perf_ns(v) for k, v in marks.items()}))
+
+
+class SpanRecorder:
+    """Spans at the boundaries between layers, kept in memory while a
+    ``torch.profiler`` session is active (see the module's docstring).
+
+    A stretch is the run of armed spans of one profiler session: its
+    first span clears the records of the stretch before. A stretch ends
+    at the first :meth:`span` or :meth:`records` call that finds no
+    profiler running, so two sessions with neither call between them
+    share one stretch."""
+
+    def __init__(self, limit: int = MAX_RECORDS):
+        self.limit = limit
+        self._lock = threading.Lock()
+        self._tls = threading.local()
+        self._stretch = False
+        self._records: List[SpanRecord] = []
+        self._markers: List[int] = []
+        self._streams: Dict = {}
+        self.dropped = 0
+
+    def span(self, name: str, marker=None):
+        """A context manager timing its block as ``name``; unarmed, a
+        no-op. ``marker``: the device the block's thread issues work to;
+        on a CUDA device whose current stream is not capturing, an armed
+        span launches the marker kernel there as it begins, and the
+        marker's stamp is the span's start."""
+        if not _profiler._is_profiler_enabled:
+            if self._stretch:
+                self._stretch = False
+            return UNARMED
+        if not self._stretch:
+            self._begin_stretch()
+        stack = self._stack()
+        start = None if marker is None else self._mark(marker)
+        s = _OpenSpan(self, self._records, name,
+                      stack[-1].name if stack else None, start)
+        stack.append(s)
+        return s
+
+    def records(self) -> List[SpanRecord]:
+        """The records of the latest armed stretch, in the order they
+        closed."""
+        if not _profiler._is_profiler_enabled:
+            self._stretch = False
+        return list(self._records)
+
+    def markers(self) -> List[int]:
+        """The host stamps (ns) of the latest stretch's marker launches,
+        one per marker kernel in the device trace."""
+        return list(self._markers)
+
+    def _begin_stretch(self) -> None:
+        with self._lock:
+            if not self._stretch:
+                self._records = []
+                self._markers = []
+                self.dropped = 0
+                self._stretch = True
+
+    def _stack(self) -> List[_OpenSpan]:
+        stack = getattr(self._tls, "stack", None)
+        if stack is None:
+            stack = self._tls.stack = []
+        return stack
+
+    def _keep(self, into: List, rec: SpanRecord) -> None:
+        if len(into) < self.limit:
+            into.append(rec)
+        else:
+            with self._lock:
+                self.dropped += 1
+
+    def _mark(self, device) -> Optional[int]:
+        """Launch the marker kernel on ``device``'s marker stream; the
+        host stamp taken just before the launch, or None if none was
+        launched."""
+        if isinstance(device, str):
+            device = torch.device(device)
+        if (not isinstance(device, torch.device) or device.type != "cuda"
+                or torch.cuda.is_current_stream_capturing()):
+            return None
+        index = (device.index if device.index is not None
+                 else torch.cuda.current_device())
+        stream = self._streams.get(index)
+        if stream is None:
+            stream = self._streams.setdefault(
+                index, torch.cuda.Stream(index))
+        markers = self._markers
+        with torch.cuda.stream(stream):
+            t = time.perf_counter_ns()
+            torch.cuda._sleep(1)
+        if len(markers) < self.limit:
+            markers.append(t)
+        return t
+
+
+#: the process's span record; ``span``, ``records`` and ``markers`` are its
+RECORDER = SpanRecorder()
+span = RECORDER.span
+records = RECORDER.records
+markers = RECORDER.markers

@@ -35,6 +35,12 @@ band, and the sums above run over every rank of the mesh: each holds an
 equal share of the elements, so the mean of the ranks' losses is the
 global loss and one flat all-reduce of the gradients over the world,
 divided by its size, is its gradient.
+
+While a ``torch.profiler`` session runs, the step records its host phases
+as layer spans (``serving/trace.py``): ``train.step`` around
+``train.inputs``, ``train.forward``, ``train.loss``, ``train.backward``
+and ``train.optimizer``, each launching a marker kernel on a CUDA device.
+Unprofiled, each span site costs a flag read.
 """
 
 from __future__ import annotations
@@ -51,6 +57,7 @@ from raft_tpu_torch.config import RAFTConfig, TrainConfig
 from raft_tpu_torch.models.layers import set_process_group, set_spatial
 from raft_tpu_torch.models.raft import RAFT
 from raft_tpu_torch.parallel.mesh import validate_spatial_extent
+from raft_tpu_torch.serving.trace import span
 from raft_tpu_torch.training.loss import sequence_loss, sequence_loss_subpixel
 from raft_tpu_torch.training.optim import clip_by_global_norm_, make_optimizer
 
@@ -160,47 +167,57 @@ def make_train_step(model_cfg: RAFTConfig, train_cfg: TrainConfig,
             raise ValueError("the state's model was built for another "
                              "RAFTConfig")
         dev = next(model.parameters()).device
-        image1 = _as_float(batch["image1"], dev)
-        image2 = _as_float(batch["image2"], dev)
-        valid = _as_float(batch["valid"], dev)
-        flow = _as_float(batch["flow"], dev)
-        gen = step_generator(train_cfg.seed, state.step, dev)
-        rows = band = None
-        b, h = image1.shape[:2]
-        if data > 1:
-            rows = (mesh.coords[0] * b, data * b)
-        if spatial > 1:
-            # before any collective: a band the fence refuses raises here
-            validate_spatial_extent(h * spatial, mesh)
-            band = (mesh.coords[1] * h, spatial * h)
-        if train_cfg.add_noise:
-            image1, image2 = add_noise(image1, image2, gen, rows, band)
-        model.train()
-        set_process_group(model, group)
-        set_spatial(model, sp)
-        preds = model(image1, image2, iters=train_cfg.iters, test_mode=False,
-                      train=True, freeze_bn=freeze_bn, raw_predictions=fused,
-                      generator=gen, draw_rows=rows)
-        loss, metrics = loss_impl(preds, flow, valid, train_cfg.gamma,
-                                  group=group)
-        state.optimizer.zero_grad()
-        loss.backward()
-        params = list(model.parameters())
-        for p in params:   # optax updates every leaf; a missing grad is 0
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        if group is not None:
-            all_reduce_mean_([p.grad for p in params], group, n)
-            loss = loss.detach().clone()
-            dist.all_reduce(loss, group=group)
-            loss /= n
-        grad_norm = clip_by_global_norm_([p.grad for p in params],
-                                         train_cfg.clip)
-        state.optimizer.step()
-        state.scheduler.step()
-        state.step += 1
-        out = {k: v.detach() for k, v in metrics.items()}
-        out.update(loss=loss.detach(), grad_norm=grad_norm)
+        with span("train.step", dev):
+            with span("train.inputs", dev):
+                image1 = _as_float(batch["image1"], dev)
+                image2 = _as_float(batch["image2"], dev)
+                valid = _as_float(batch["valid"], dev)
+                flow = _as_float(batch["flow"], dev)
+                gen = step_generator(train_cfg.seed, state.step, dev)
+                rows = band = None
+                b, h = image1.shape[:2]
+                if data > 1:
+                    rows = (mesh.coords[0] * b, data * b)
+                if spatial > 1:
+                    # before any collective: a band the fence refuses
+                    # raises here
+                    validate_spatial_extent(h * spatial, mesh)
+                    band = (mesh.coords[1] * h, spatial * h)
+                if train_cfg.add_noise:
+                    image1, image2 = add_noise(image1, image2, gen, rows,
+                                               band)
+            with span("train.forward", dev):
+                model.train()
+                set_process_group(model, group)
+                set_spatial(model, sp)
+                preds = model(image1, image2, iters=train_cfg.iters,
+                              test_mode=False, train=True,
+                              freeze_bn=freeze_bn, raw_predictions=fused,
+                              generator=gen, draw_rows=rows)
+            with span("train.loss", dev):
+                loss, metrics = loss_impl(preds, flow, valid,
+                                          train_cfg.gamma, group=group)
+            with span("train.backward", dev):
+                state.optimizer.zero_grad()
+                loss.backward()
+                params = list(model.parameters())
+                # optax updates every leaf; a missing grad is 0
+                for p in params:
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+            with span("train.optimizer", dev):
+                if group is not None:
+                    all_reduce_mean_([p.grad for p in params], group, n)
+                    loss = loss.detach().clone()
+                    dist.all_reduce(loss, group=group)
+                    loss /= n
+                grad_norm = clip_by_global_norm_([p.grad for p in params],
+                                                 train_cfg.clip)
+                state.optimizer.step()
+                state.scheduler.step()
+            state.step += 1
+            out = {k: v.detach() for k, v in metrics.items()}
+            out.update(loss=loss.detach(), grad_norm=grad_norm)
         return out
 
     return train_step
