@@ -12,7 +12,14 @@ Phases, each of which fails loudly (nothing is caught):
    memory, and the tensor-core instructions in K5's SASS by ``cuobjdump``);
 3. hold each kernel against its plain PyTorch version at the main path's
    shapes (the Sintel demo geometry padded to 440x1024: the 1/8 grid is
-   55x128, N = 7040, levels 55x128, 27x64, 13x32, 6x16);
+   55x128, N = 7040, levels 55x128, 27x64, 13x32, 6x16); the four GRU
+   kernels also on operands as the update block hands them (the z and r
+   halves of a channels-last double-width gate conv output, ``drh`` a
+   channel slice of a channels-last concatenation's gradient) and on the
+   same views of NCHW tensors, at that grid at batch 1 and 4 and at the
+   training grid at batch 10, fp32 and bf16: each output dense in its
+   operands' layout, each launch counted by ``kernels.launch_layouts()``
+   under that layout;
 4. time each kernel, its plain version and, for the lookup, the reference's
    formulation (one ``F.grid_sample`` per level): device time from
    ``torch.profiler`` with the L2 flushed before each call (and warm, for
@@ -21,12 +28,15 @@ Phases, each of which fails loudly (nothing is caught):
    included), beside its bound: the larger of its bytes at 3.35 TB/s and
    its operations at 67 TFLOP/s (the H100 SXM's HBM rate and fp32
    non-tensor-core peak); K1's in-range window rows also counted in whole
-   32-byte sectors;
+   32-byte sectors; each GRU kernel (K2's gates and blend, K4's backward
+   of each) also on the operands phase 3 holds in both layouts, at the
+   serving grid (batch 1 and 4) and the training one (batch 10);
 5. drive the main path through ``cli/demo.flow_pairs`` on 4 pairs of
    seeded synthetic 436x1024 frames at iters=20: the basic model at full
    width with seeded random weights (``corr_impl="pallas",
    gru_impl="fused"``, every launch counted) against the plain
-   configuration (``corr_impl="gather", gru_impl="xla"``), held after one
+   configuration (``corr_impl="gather", gru_impl="xla"``; every GRU
+   launch on the ``channels_last`` route), held after one
    step to a bound and after 20 steps to the gap the plain path opens
    against itself on frames moved by one ulp; and the small model with
    its trained fixture, kernel lookup against plain lookup; one
@@ -43,8 +53,9 @@ Phases, each of which fails loudly (nothing is caught):
    model at full width, batch 10, 368x496, iters 12, lr 4e-4, fp32, batch
    norms trained, ``pallas``+``fused``) for 6 steps on seeded synthetic
    batches whose ground truth is their known shift: ms per step, pairs per
-   second, peak memory, launches per step of each kernel, the idle share
-   of one profiled step and its top device ops; the ``.pth`` it writes
+   second, peak memory, launches per step of each kernel (every GRU
+   launch on the ``channels_last`` route), the idle share of one profiled
+   step and its top device ops; the ``.pth`` it writes
    loads back with ``strict=True``;
 8. from the same weights and batch, one step's loss and gradients with the
    kernels against the plain configuration, the gradients held to the gap
@@ -723,19 +734,131 @@ def scatter_bytes(pyramid, coords, radius: int) -> float:
 
 
 def gru_bwd_inputs(gen: torch.Generator, dtype: torch.dtype, B: int = TRAIN_B,
-                   grid=TRAIN_GRID):
+                   grid=TRAIN_GRID, layout: str = "channels_last"):
     """A path's GRU operands, forward and backward, by default the training
-    path's (10, 128, 46, 62): zl and rl as the strided channel halves of a
-    double-width conv output, as the update block hands them."""
-    shape = (B, 128) + tuple(grid)
+    path's (10, 128, 46, 62) as the update block hands them: zl and rl the
+    channel halves of a double-width gate conv output, ``drh`` a channel
+    slice of a concatenation's gradient, all channels-last (NHWC rows of
+    128 channels, 256 or 384 apart); ``layout="contiguous"`` gives the
+    same views of NCHW tensors (one run a batch element)."""
+    fmt = (torch.channels_last if layout == "channels_last"
+           else torch.contiguous_format)
 
-    def rand(*s):
-        return (3 * torch.randn(s, generator=gen, device=gen.device)).to(dtype)
+    def rand(C):
+        return (3 * torch.randn((B, C) + tuple(grid), generator=gen,
+                                device=gen.device)).to(dtype).contiguous(
+                                    memory_format=fmt)
 
-    zr = rand(B, 256, *grid)
-    h, ql, dz, drh, g = (rand(*shape) / 3 for _ in range(5))
-    z = torch.sigmoid(rand(*shape).float()).to(dtype)
-    return zr[:, :128], zr[:, 128:], h, ql, dz, drh, g, z
+    zl, rl = rand(256).split(128, 1)
+    h, ql, dz, g = (rand(128) / 3 for _ in range(4))
+    drh = (rand(384) / 3)[:, :128]
+    z = torch.sigmoid(rand(128).float()).to(dtype)
+    return zl, rl, h, ql, dz, drh, g, z
+
+
+#: the GRU layout holds' and times' geometries: the serving cells' 1/8 grid
+#: of 440x1024 at batch 1 and 4, and the chairs recipe's at batch 10
+GRU_GEOMETRIES = {"inference_b1": (1, GRID), "inference_b4": (4, GRID),
+                  "training_b10": (TRAIN_B, TRAIN_GRID)}
+GRU_NAMES = ("gru_gates", "gru_blend", "gru_gates_bwd", "gru_blend_bwd")
+#: operands read and written a call, in units of one (B, 128, H, W) tensor
+GRU_TENSORS = {"gru_gates": 5, "gru_blend": 4, "gru_gates_bwd": 8,
+               "gru_blend_bwd": 7}
+GRU_OPS = {"gru_gates": 9, "gru_blend": 6, "gru_gates_bwd": 16,
+           "gru_blend_bwd": 12}
+
+
+def gru_calls(zl, rl, h, ql, dz, drh, g, z):
+    """``name: (kernel call, plain call)`` for the four GRU kernels."""
+    from raft_tpu_torch.kernels import gru as kg
+
+    return {"gru_gates": (lambda: kg.gru_gates(zl, rl, h),
+                          lambda: kg.gru_gates_plain(zl, rl, h)),
+            "gru_blend": (lambda: (kg.gru_blend(z, h, ql),),
+                          lambda: (kg.gru_blend_plain(z, h, ql),)),
+            "gru_gates_bwd": (lambda: kg.gru_gates_bwd(zl, rl, h, dz, drh),
+                              lambda: kg.gru_gates_bwd_plain(zl, rl, h, dz,
+                                                             drh)),
+            "gru_blend_bwd": (lambda: kg.gru_blend_bwd(z, h, ql, g),
+                              lambda: kg.gru_blend_bwd_plain(z, h, ql, g))}
+
+
+def hold_gru_layouts(tag: str, gen: torch.Generator, err, err_bf16) -> None:
+    """Phase 3: the four GRU kernels against their plain versions on
+    operands built as :func:`gru_bwd_inputs` builds them, channels-last
+    (the main path's route) and NCHW, at each of :data:`GRU_GEOMETRIES`, in
+    fp32 and bf16: within GRU_TOL or one bf16 ulp (:func:`hold_gru`), each
+    output dense in the operands' layout, and each launch counted by
+    ``kernels.launch_layouts()`` under that layout and no other."""
+    from raft_tpu_torch import kernels
+
+    for geo, (B, grid) in GRU_GEOMETRIES.items():
+        for layout in ("channels_last", "contiguous"):
+            fmt = (torch.channels_last if layout == "channels_last"
+                   else torch.contiguous_format)
+            for dtype in (torch.float32, torch.bfloat16):
+                ops = gru_bwd_inputs(gen, dtype, B, grid, layout)
+                before = kernels.launch_layouts()
+                pairs = {name: (kern(), plain()) for name, (kern, plain)
+                         in gru_calls(*ops).items()}
+                torch.cuda.synchronize()
+                after = kernels.launch_layouts()
+                for name in GRU_NAMES:
+                    moved = {r: after[name][r] - before[name][r]
+                             for r in after[name]}
+                    want = {r: int(r == layout) for r in after[name]}
+                    if moved != want:
+                        raise RuntimeError(
+                            f"{name} on {layout} operands: launch_layouts "
+                            f"moved by {moved}, want {want}")
+                    for a in pairs[name][0]:
+                        if not a.is_contiguous(memory_format=fmt):
+                            raise RuntimeError(
+                                f"{name}'s output {tuple(a.stride())} is "
+                                f"not dense {layout}")
+                hold_gru(tag, pairs, dtype,
+                         f"{geo} {layout} {tuple(ops[2].shape)}", err,
+                         err_bf16)
+                del ops, pairs
+
+
+def time_gru_layouts(tag: str, gen: torch.Generator, smi: str) -> dict:
+    """Phase 4: each GRU kernel's device time (:func:`kernel_ms`, L2
+    flushed before every call) on :func:`gru_bwd_inputs`' fp32 operands in
+    both layouts at each of :data:`GRU_GEOMETRIES`, beside the bound its
+    bytes set at HBM_BYTES_PER_S."""
+    flush = l2_flusher()
+    out = {}
+    for geo, (B, grid) in GRU_GEOMETRIES.items():
+        for layout in ("channels_last", "contiguous"):
+            ops = gru_bwd_inputs(gen, torch.float32, B, grid, layout)
+            n = ops[2].numel()
+            for name, (kern, _) in gru_calls(*ops).items():
+                nbytes = GRU_TENSORS[name] * n * 4
+                bound = bound_ms(nbytes, GRU_OPS[name] * n)[0]
+                ms = kernel_ms(kern, 50, flush=flush)
+                out[f"{geo}.{layout}.{name}"] = dict(
+                    ms=ms, bound_ms=bound, mbytes=nbytes / 1e6,
+                    share_pct=100.0 * bound / ms)
+                log(f"[{tag}] {name} {geo} {layout} {tuple(ops[2].shape)}: "
+                    f"{ms:.4f} ms (profiler, L2 cold), bound {bound:.4f} ms "
+                    f"({100 * bound / ms:.1f}%); {smi}")
+            del ops
+    return out
+
+
+def gru_layouts_all(tag: str, launched: dict, layouts: dict) -> None:
+    """The main path's GRU launches (``launched``, from
+    ``kernels.launch_counts()``) all on the channels-last route by
+    ``layouts`` (``kernels.launch_layouts()`` over the same calls)."""
+    for name in GRU_NAMES:
+        n = launched.get(name, 0)
+        want = {"channels_last": n, "contiguous": 0}
+        if layouts[name] != want:
+            raise RuntimeError(f"{name}: launch_layouts {layouts[name]}, "
+                               f"want {want}")
+    log(f"[{tag}] launch_layouts {layouts}: every GRU launch on the "
+        "channels_last route")
 
 
 def train_batch(seed: int):
@@ -5220,6 +5343,8 @@ def main() -> int:
                        "gru_blend": ((gru_blend(z, h, ql),),
                                      (gru_blend_plain(z, h, ql),))},
                  dtype, "(1,7040,128)", err, err_bf16)
+    # and all four on operands as the model hands them, in both layouts
+    hold_gru_layouts("3", gen, err, err_bf16)
 
     # -- 4. times ------------------------------------------------------------
     pyramid, coords = lookup_inputs(gen, torch.float32)
@@ -5257,6 +5382,7 @@ def main() -> int:
             f"{t['bound'][0]:.4f} ms: {t['bound'][0] / cold[0]:.1%} of it "
             f"cold, {t['bound'][0] / warm[0]:.1%} warm; {smi}")
     note_sectors("4", times["corr_lookup"], pyramid, coords, smi)
+    gru_layout_times = time_gru_layouts("4", gen, smi)
     for name, (kern, *_) in work.items():
         times[name]["call_ms"] = elapsed_ms(kern, 200, cuda, warmup=10)
         log(f"[4] {name}: one wrapper call back-to-back "
@@ -5274,6 +5400,7 @@ def main() -> int:
     kernels.reset_launch_counts()
     flows_k, ms_k, peak_k = run_pairs(model_k, cfg_k, frames, ITERS)
     launches = kernels.launch_counts()
+    gru_layouts_all("5", launches, kernels.launch_layouts())
     per_pair = {k: v / PAIRS for k, v in launches.items()}
     log(f"[5] basic model, pallas+fused, iters={ITERS}: {ms_k:.2f} ms/pair, "
         f"peak {peak_k:.0f} MiB, launches {launches} over {PAIRS} pairs, "
@@ -5444,6 +5571,7 @@ def main() -> int:
         kernels.reset_launch_counts()
         state = train(cfg_k, tc, loader=loader, device="cuda")
         train_launches = kernels.launch_counts()
+        gru_layouts_all("7", train_launches, kernels.launch_layouts())
         peak_train = torch.cuda.max_memory_allocated() / 2 ** 20
         step_ms = [1e3 * (b - a) for a, b in zip(loader.marks, loader.marks[1:])]
         ms_step = float(np.median(step_ms[1:]))
@@ -5875,6 +6003,10 @@ def main() -> int:
                                   "bound_ms": tt["bound"][0],
                                   "bound_by": tt["bound"][1],
                                   "mbytes": tt["mbytes"]}}
+        if name in GRU_NAMES:
+            row["layouts_ms"] = {k.replace(f".{name}", ""): v
+                                 for k, v in gru_layout_times.items()
+                                 if k.endswith(f".{name}")}
         if name in times:
             row["launches_inference"] = launches[name]
             row["call_ms"] = t["call_ms"]

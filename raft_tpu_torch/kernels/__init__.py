@@ -5,8 +5,9 @@ Sources live in ``raft_tpu_torch/csrc/`` and are built at first use by
 ``kernels._build`` (nothing is built or imported from a GPU toolchain when
 this package is imported). Each wrapper counts its launches in its
 module's ``launches`` dict of plain integers; :func:`launch_counts` reads
-them, :func:`launch_dtypes` the same counts by operand dtype, and
-:func:`reset_launch_counts` sets both to 0.
+them, :func:`launch_dtypes` the same counts by operand dtype,
+:func:`launch_layouts` the GRU kernels' by operand layout, and
+:func:`reset_launch_counts` sets all three to 0.
 
 Importing this package also registers the serving forward kernels as
 ``torch.library`` operators in the namespace ``raft_tpu_torch``
@@ -44,8 +45,18 @@ def launch_dtypes() -> dict:
     return out
 
 
+def launch_layouts() -> dict:
+    """``{kernel: {"channels_last": n, "contiguous": n}}`` for K2 and K4
+    (the GRU kernels, ``gru.ROUTES``) since the counts were last set to 0:
+    the layout of the operands each launch read in place."""
+    return {name: {route: _build.layout_launches.get((name, route), 0)
+                   for route in sorted(gru.ROUTES)}
+            for name in gru.launches}
+
+
 def reset_launch_counts() -> None:
     for counts in _COUNTS:
         for k in counts:
             counts[k] = 0
     _build.dtype_launches.clear()
+    _build.layout_launches.clear()

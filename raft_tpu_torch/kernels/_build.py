@@ -38,13 +38,13 @@ _F = ctypes.c_float
 # (ctypes would otherwise pass them as 32-bit ints and cut them)
 SIGNATURES = {
     "corr_lookup_launch": [_P, _P, _P, _I, _P, _P, _LL, _I, _I, _P],
-    "gru_gates_launch": [_P, _P, _P, _P, _P, _LL, _I, _LL, _LL, _LL, _I, _P],
-    "gru_blend_launch": [_P, _P, _P, _P, _LL, _I, _LL, _LL, _LL, _I, _P],
+    "gru_gates_launch": [_P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _P],
+    "gru_blend_launch": [_P, _P, _P, _P, _P, _LL, _LL, _I, _I, _P],
     "corr_scatter_launch": [_P, _P, _P, _I, _P, _P, _LL, _I, _I, _P],
-    "gru_gates_bwd_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _LL,
-                             _LL, _LL, _LL, _LL, _I, _P],
-    "gru_blend_bwd_launch": [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _LL, _LL,
-                             _LL, _LL, _I, _P],
+    "gru_gates_bwd_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL,
+                             _I, _I, _P],
+    "gru_blend_bwd_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _I,
+                             _I, _P],
     "corr_alt_launch": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                         _P, _P],
 }
@@ -197,11 +197,18 @@ def check(code: int, what: str) -> None:
 #: launches by (kernel, operand dtype) since the counts were last set to 0;
 #: ``kernels.launch_dtypes`` reads them
 dtype_launches: dict = {}
+#: launches by (kernel, operand layout), the same way;
+#: ``kernels.launch_layouts`` reads them
+layout_launches: dict = {}
 
 
-def count_launch(launches: dict, name: str, dtype) -> None:
+def count_launch(launches: dict, name: str, dtype, layout=None) -> None:
     """One launch of kernel ``name`` on operands of ``dtype``: its module's
-    count and the count by dtype."""
+    count, the count by dtype and, for a kernel that reads more than one
+    layout, by ``layout``."""
     launches[name] += 1
     key = (name, str(dtype).removeprefix("torch."))
     dtype_launches[key] = dtype_launches.get(key, 0) + 1
+    if layout is not None:
+        key = (name, layout)
+        layout_launches[key] = layout_launches.get(key, 0) + 1

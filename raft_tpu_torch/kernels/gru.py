@@ -20,17 +20,27 @@ inputs. All take fp32 or bf16 operands of one shape, compute in fp32 and
 store in the operands' dtype; the ``*_plain`` functions are their plain
 versions, with the same rounding points. Each wrapper takes the plain
 version only for CPU tensors; for CUDA tensors it launches its kernel or
-raises. An input may be any strided view whose per-batch slices ``t[b]``
-are contiguous (the z and r halves of the double-width gate conv's NCHW
-output are such views when B > 1); the kernel reads it in place. Outputs
-are contiguous. Traced by ``torch.export`` (or ``torch.compile``),
-:func:`gru_gates` and :func:`gru_blend` call the operators
-``torch.ops.raft_tpu_torch.gru_gates`` and ``.gru_blend`` instead, the
-forwards alone, with the same two routes.
+raises. The kernels read their inputs in place, in one of two layouts
+(:func:`layout`), all operands of a launch in the same one:
+
+- ``"channels_last"``: (B, C, H, W) views whose C channels are contiguous
+  at each pixel and whose pixels are evenly spaced, such as the z and r
+  halves of the double-width gate conv's channels-last output (pixel
+  stride 2C) or a channel slice of a concatenation's gradient;
+- ``"contiguous"``: views whose per-batch slices ``t[b]`` are contiguous,
+  such as the halves of an NCHW conv output.
+
+Any other layout raises; nothing is copied. Outputs take the operands'
+layout, dense: channels-last or contiguous. Traced by ``torch.export`` (or
+``torch.compile``), :func:`gru_gates` and :func:`gru_blend` call the
+operators ``torch.ops.raft_tpu_torch.gru_gates`` and ``.gru_blend``
+instead, the forwards alone, with the same two routes; their fake
+implementations give the outputs the strides the real ones have.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Tuple
 
 import torch
@@ -83,9 +93,49 @@ def gru_blend_bwd_plain(z, h, ql, g):
             (gf * zf * (1.0 - t * t)).to(z.dtype))
 
 
+def _rows(t, route):
+    """``t`` as ``route`` reads it: ``(batch stride, row stride, rows,
+    row length)``, or None when ``t`` does not fit that route."""
+    shape, stride = t.shape, t.stride()
+    if route == "channels_last":
+        if t.dim() != 4:
+            return None
+        _, C, H, W = shape
+        if C != 1 and stride[1] != 1:
+            return None
+        # the pixels (h, w) evenly spaced: one row stride for both
+        step = stride[3] if W != 1 else stride[2]
+        if H != 1 and W != 1 and stride[2] != W * step:
+            return None
+        return stride[0], step, H * W, C
+    inner = 1
+    for size, step in zip(reversed(shape[1:]), reversed(stride[1:])):
+        if size != 1 and step != inner:
+            return None
+        inner *= size
+    return stride[0], inner, 1, inner
+
+
+#: the two layouts, in the order a tie is settled (a tensor with one
+#: channel, or one pixel, fits both, and is dense either way)
+ROUTES = ("contiguous", "channels_last")
+FORMATS = {"contiguous": torch.contiguous_format,
+           "channels_last": torch.channels_last}
+
+
+def layout(*ts):
+    """The layout every one of ``ts`` can be read in (:data:`ROUTES`), or
+    None."""
+    for route in ROUTES:
+        if all(_rows(t, route) is not None for t in ts):
+            return route
+    return None
+
+
 def _operands(name, *ts):
-    """Check the operands the kernel reads; return (batch, inner, batch
-    strides, dtype code)."""
+    """Check the operands the kernel reads; return (layout, batch, rows,
+    row length, each operand's (batch stride, row stride), dtype code).
+    A batch element whose rows are back to back is one row."""
     t0 = ts[0]
     for t in ts:
         if t.device != t0.device or t.dtype != t0.dtype:
@@ -97,41 +147,49 @@ def _operands(name, *ts):
     if t0.dim() < 2 or t0.shape[0] > 65535:
         raise ValueError(f"{name}: operands must be (B, ...) with B <= 65535, "
                          f"got {tuple(t0.shape)}")
-    inner = 1
-    for size in t0.shape[1:]:
-        inner *= size
-    for t in ts:
-        expected = 1     # each batch slice t[b] must be contiguous
-        for size, step in zip(reversed(t.shape[1:]), reversed(t.stride()[1:])):
-            if size != 1 and step != expected:
-                raise ValueError(
-                    f"{name}: each batch slice must be contiguous (strides "
-                    f"{t.stride()}); the kernel reads operands in place and "
-                    "does not copy")
-            expected *= size
-    return t0.shape[0], inner, [t.stride(0) for t in ts], code
+    route = layout(*ts)
+    if route is None:
+        raise ValueError(
+            f"{name}: each batch slice must be contiguous, or channels-last "
+            f"with evenly spaced pixels (strides {[t.stride() for t in ts]}); "
+            "the kernel reads operands in place and does not copy")
+    views = [_rows(t, route) for t in ts]
+    _, _, outer, inner = views[0]
+    strides = [(bs, os) for bs, os, _, _ in views]
+    if all(os == inner for _, os in strides):
+        outer, inner = 1, outer * inner
+        strides = [(bs, inner) for bs, _ in strides]
+    return route, t0.shape[0], outer, inner, strides, code
+
+
+def _empty(like, route):
+    """A dense output shaped and typed like ``like``, in ``route``'s
+    layout."""
+    return torch.empty(like.shape, dtype=like.dtype, device=like.device,
+                       memory_format=FORMATS[route])
 
 
 def _launch(name, plain, n_out, *ts):
     """Kernel ``name`` on the operands ``ts``: ``plain(*ts)`` for CPU
-    tensors; for CUDA tensors the kernel, into ``n_out`` contiguous outputs
-    shaped and typed like the operands. Every ``<name>_launch`` in
-    ``csrc/gru.cu`` takes (operands, outputs, inner, batch, each operand's
-    batch stride, dtype code, stream)."""
+    tensors; for CUDA tensors the kernel, into ``n_out`` dense outputs
+    shaped, typed and laid out like the operands. Every ``<name>_launch``
+    in ``csrc/gru.cu`` takes (operands, outputs, each operand's (batch
+    stride, row stride), rows, row length, batch, dtype code, stream)."""
     t0 = ts[0]
     if t0.device.type == "cpu":
         return plain(*ts)
     if t0.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for {t0.device}")
-    batch, inner, strides, code = _operands(name, *ts)
-    outs = tuple(torch.empty(t0.shape, dtype=t0.dtype, device=t0.device)
-                 for _ in range(n_out))
+    route, batch, outer, inner, strides, code = _operands(name, *ts)
+    outs = tuple(_empty(t0, route) for _ in range(n_out))
     if t0.numel():
+        flat = [s for pair in strides for s in pair]
         err = getattr(library().lib, f"{name}_launch")(
             *(t.data_ptr() for t in ts), *(o.data_ptr() for o in outs),
-            inner, batch, *strides, code, stream(t0))
+            (ctypes.c_longlong * len(flat))(*flat), outer, inner, batch,
+            code, stream(t0))
         check(err, name)
-        count_launch(launches, name, t0.dtype)
+        count_launch(launches, name, t0.dtype, route)
     return outs[0] if n_out == 1 else outs
 
 
@@ -148,10 +206,17 @@ def gru_blend_bwd(z, h, ql, g) -> Tuple[torch.Tensor, ...]:
     return _launch("gru_blend_bwd", gru_blend_bwd_plain, 3, z, h, ql, g)
 
 
-def _cotangent(g, like):
-    """An output's cotangent as the backward kernels take it: zeros when
-    the output was unused, contiguous otherwise."""
-    return torch.zeros_like(like) if g is None else g.contiguous()
+def _cotangent(g, like, route):
+    """An output's cotangent as the backward kernels take it: zeros in
+    ``like``'s layout when the output was unused; otherwise ``g`` itself
+    when it fits ``route``, the layout of the saved operands (None on
+    the CPU, where the plain version takes any), else a dense copy in
+    that layout."""
+    if g is None:
+        return torch.zeros_like(like)
+    if route is None or _rows(g, route) is not None:
+        return g
+    return g.contiguous(memory_format=FORMATS[route])
 
 
 class GruGates(torch.autograd.Function):
@@ -166,9 +231,11 @@ class GruGates(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, dz, drh):
         zl, rl, h = ctx.saved_tensors
+        route = layout(zl, rl, h) if h.is_cuda else None
         # each half gets its own gradient; autograd assembles the gradient
         # of the double-width conv output that zl and rl are views of
-        return gru_gates_bwd(zl, rl, h, _cotangent(dz, h), _cotangent(drh, h))
+        return gru_gates_bwd(zl, rl, h, _cotangent(dz, h, route),
+                             _cotangent(drh, h, route))
 
 
 class GruBlend(torch.autograd.Function):
@@ -183,7 +250,8 @@ class GruBlend(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, g):
         z, h, ql = ctx.saved_tensors
-        return gru_blend_bwd(z, h, ql, _cotangent(g, h))
+        route = layout(z, h, ql) if h.is_cuda else None
+        return gru_blend_bwd(z, h, ql, _cotangent(g, h, route))
 
 
 @torch.library.custom_op(
@@ -196,8 +264,8 @@ def gru_gates_op(zl, rl, h):
 
 @gru_gates_op.register_fake
 def _(zl, rl, h):
-    return (torch.empty(zl.shape, dtype=zl.dtype, device=zl.device),
-            torch.empty(zl.shape, dtype=zl.dtype, device=zl.device))
+    route = _operands("gru_gates", zl, rl, h)[0]
+    return _empty(zl, route), _empty(zl, route)
 
 
 @torch.library.custom_op(
@@ -210,7 +278,7 @@ def gru_blend_op(z, h, ql):
 
 @gru_blend_op.register_fake
 def _(z, h, ql):
-    return torch.empty(z.shape, dtype=z.dtype, device=z.device)
+    return _empty(z, _operands("gru_blend", z, h, ql)[0])
 
 
 def gru_gates(zl, rl, h) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -1,10 +1,18 @@
 """Feature/context encoders (extractor.py:118-267), port of
 ``raft_tpu/models/encoders.py``.
 
-3-stage residual CNNs with total stride 8, NCHW. ``forward(x, train=False,
-freeze_bn=False)`` normalizes with the batch's statistics (and updates the
-running ones) only when ``train`` and not ``freeze_bn``, as the JAX
-encoders' ``use_running_average = not train or freeze_bn``.
+3-stage residual CNNs with total stride 8, on (B, C, H, W) tensors. An
+encoder runs in the memory layout :func:`memory_format` gives its norm:
+channels-last, except under the instance and group norms, which normalise
+NCHW copies on the card (``F.instance_norm`` and CUDA's group norm make
+their input contiguous), so those encoders keep NCHW weights and take an
+NCHW copy of their input, and cuDNN transposes around each conv where a
+channels-last encoder would copy before every conv and after every norm.
+
+``forward(x, train=False, freeze_bn=False)`` normalizes with the batch's
+statistics (and updates the running ones) only when ``train`` and not
+``freeze_bn``, as the JAX encoders' ``use_running_average = not train or
+freeze_bn``.
 
 ``dropout > 0`` drops whole channels of the output in train mode only, as
 flax's ``Dropout(broadcast_dims=(1, 2))`` (torch's ``Dropout2d``,
@@ -31,8 +39,8 @@ def channel_dropout(x: torch.Tensor, p: float,
                     generator: Optional[torch.Generator],
                     draw_rows: Optional[Tuple[int, int]] = None
                     ) -> torch.Tensor:
-    """flax ``Dropout(p, broadcast_dims=(1, 2))`` on NCHW: each (sample,
-    channel) kept with probability 1-p, kept ones divided by it.
+    """flax ``Dropout(p, broadcast_dims=(1, 2))`` on (B, C, H, W): each
+    (sample, channel) kept with probability 1-p, kept ones divided by it.
     ``draw_rows=(start, global_batch)``: ``x`` is rows ``start..`` of a
     global batch, whose whole mask is drawn."""
     keep_prob = 1.0 - p
@@ -43,10 +51,19 @@ def channel_dropout(x: torch.Tensor, p: float,
     return torch.where(draw < keep_prob, x / keep_prob, torch.zeros_like(x))
 
 
+def memory_format(norm_fn: str) -> torch.memory_format:
+    """The layout an encoder with norm ``norm_fn`` computes in (see the
+    module's note)."""
+    if norm_fn in ("instance", "group"):
+        return torch.contiguous_format
+    return torch.channels_last
+
+
 def _encode(enc: nn.Module, x: torch.Tensor, train: bool, freeze_bn: bool,
             generator: Optional[torch.Generator],
             draw_rows: Optional[Tuple[int, int]]) -> torch.Tensor:
     ura = (not train) or freeze_bn
+    x = x.contiguous(memory_format=enc.memory_format)
     x = enc.relu1(apply_norm(enc.norm1, enc.conv1(x), ura))
     for layer in (enc.layer1, enc.layer2, enc.layer3):
         for block in layer:
@@ -64,6 +81,7 @@ class BasicEncoder(nn.Module):
                  dropout: float = 0.0):
         super().__init__()
         self.dropout = dropout
+        self.memory_format = memory_format(norm_fn)
         self.conv1 = conv(3, 64, 7, 2, 3)
         # stem GroupNorm uses 8 groups, not 64//8 (extractor.py:124)
         self.norm1 = norm_layer(norm_fn, 64, num_groups=8)
@@ -92,6 +110,7 @@ class SmallEncoder(nn.Module):
                  dropout: float = 0.0):
         super().__init__()
         self.dropout = dropout
+        self.memory_format = memory_format(norm_fn)
         self.conv1 = conv(3, 32, 7, 2, 3)
         self.norm1 = norm_layer(norm_fn, 32, num_groups=8)
         self.relu1 = nn.ReLU()

@@ -1,4 +1,9 @@
-"""Building-block layers (NCHW inside), port of ``raft_tpu/models/layers.py``.
+"""Building-block layers, port of ``raft_tpu/models/layers.py``.
+
+Tensors are (B, C, H, W) in PyTorch's convention, in the memory layout of
+the module that holds the layer (channels-last, or NCHW in an encoder
+whose instance or group norm normalises NCHW copies: ``models.encoders``);
+the layers keep whatever layout PyTorch's ops propagate.
 
 Submodule names are the reference's ``state_dict`` names
 (``core/extractor.py:6-116``), so a reference ``.pth`` loads with

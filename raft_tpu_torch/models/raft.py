@@ -2,7 +2,15 @@
 
 ``RAFT.forward(image1, image2, iters, flow_init=None, test_mode=True)``
 returns ``(flow_low, flow_up)`` with images and flows NHWC, as the JAX
-model does; inside, the encoders and the update block run NCHW. The scanned
+model does. Inside, the (B, C, H, W) tensors are channels-last in memory
+(``torch.channels_last``, NHWC) from the images to the flow, as are the
+conv weights (set at construction; ``.to(device)`` and ``load_state_dict``
+keep it), so cuDNN's NHWC convolutions run with no layout conversion
+around them: the lookup's (B, H, W, levels·K²) output and the flow enter
+the update block as ``permute`` views, and ``delta`` and the upsampling
+mask leave it as NHWC views, none of them copied. An encoder whose norm
+normalises NCHW copies (instance, group) computes in NCHW instead
+(``models.encoders.memory_format``). The scanned
 refinement loop becomes a Python loop, and ``coords1.detach()`` plays the
 part of ``stop_gradient`` (core/raft.py:123).
 
@@ -112,6 +120,9 @@ class RAFT(nn.Module):
             generator = torch.Generator().manual_seed(0)
         init_weights(self, generator)
         set_compute_dtype(self, cfg.compute_dtype)
+        self.to(memory_format=torch.channels_last)
+        for enc in (self.fnet, self.cnet):
+            enc.to(memory_format=enc.memory_format)
 
     def _corr_setup(self, fmap1: torch.Tensor, fmap2: torch.Tensor
                     ) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -146,8 +157,8 @@ class RAFT(nn.Module):
         corr = lookup(coords1)
         flow = coords1 - coords0
         net, up_mask, delta = self.update_block(
-            net, inp, corr.to(dt).permute(0, 3, 1, 2).contiguous(),
-            flow.to(dt).permute(0, 3, 1, 2).contiguous())
+            net, inp, corr.to(dt).permute(0, 3, 1, 2),
+            flow.to(dt).permute(0, 3, 1, 2))
         coords1 = coords1 + delta.permute(0, 2, 3, 1).float()
         return (net, coords1) if up_mask is None else (net, coords1, up_mask)
 
@@ -178,10 +189,10 @@ class RAFT(nn.Module):
             raise ValueError(f"image size {H}x{W}: pad inputs to a multiple "
                              "of 8 with InputPadder first")
 
-        # normalize to [-1, 1] (core/raft.py:89-90), then NCHW
+        # normalize to [-1, 1] (core/raft.py:89-90), then (B, 3, H, W)
+        # views of the NHWC images: channels-last
         x1 = (2.0 * (image1.float() / 255.0) - 1.0).permute(0, 3, 1, 2)
         x2 = (2.0 * (image2.float() / 255.0) - 1.0).permute(0, 3, 1, 2)
-        x1, x2 = x1.contiguous(), x2.contiguous()
 
         if draw_rows is not None and not cfg.split_encode:
             raise ValueError("draw_rows needs split_encode: the batch-concat "
@@ -253,7 +264,7 @@ class RAFT(nn.Module):
 
     def _encode_context(self, cnet: torch.Tensor):
         """The context split (core/raft.py:110-114): ``(net, inp)`` in the
-        compute dtype from the context encoder's NCHW output."""
+        compute dtype from the context encoder's (B, C, H, W) output."""
         cfg = self.config
         dt = cfg.compute_dtype
         net = torch.tanh(cnet[:, :cfg.hidden_dim]).to(dt)
@@ -294,7 +305,6 @@ class RAFT(nn.Module):
             raise ValueError(f"capacity box {H}x{W}: boxes are ÷8-aligned")
         x1 = (2.0 * (image1.float() / 255.0) - 1.0).permute(0, 3, 1, 2)
         x2 = (2.0 * (image2.float() / 255.0) - 1.0).permute(0, 3, 1, 2)
-        x1, x2 = x1.contiguous(), x2.contiguous()
         fmaps = self.fnet(torch.cat([x1, x2], 0))
         fmap1 = mask_features(fmaps[:B].float().permute(0, 2, 3, 1),
                               valid_h8, valid_w8)
@@ -330,12 +340,11 @@ class RAFT(nn.Module):
             raise ValueError(f"image size {H}x{W}: pad inputs to a multiple "
                              "of 8 with InputPadder first")
         x2 = (2.0 * (image2.float() / 255.0) - 1.0).permute(0, 3, 1, 2)
-        x2 = x2.contiguous()
         fmap2 = self.fnet(x2).float().permute(0, 2, 3, 1)
         # speculative context for the next pair, whose first frame this is
         cnet2 = self.cnet(x2)
         lookup = self._corr_setup(fmap1.float(), fmap2)
-        cnet1 = cnet1.to(cnet2.dtype).permute(0, 3, 1, 2).contiguous()
+        cnet1 = cnet1.to(cnet2.dtype).permute(0, 3, 1, 2)
         net, inp = self._encode_context(cnet1)
         flow_low, flow_up = self._refine(lookup, net, inp, B, H, W, iters,
                                          flow_init, True, False,

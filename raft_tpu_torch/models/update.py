@@ -1,4 +1,6 @@
-"""Recurrent update blocks (NCHW), port of ``raft_tpu/models/update.py``.
+"""Recurrent update blocks, port of ``raft_tpu/models/update.py``.
+
+Tensors are (B, C, H, W), channels-last in memory (see ``models.raft``).
 
 Channel arithmetic is the parity surface: basic corr feature
 4·(2·4+1)²=324, motion feature 126+2=128, GRU input 128+128
@@ -9,7 +11,9 @@ as the JAX package leaves them to XLA outside Pallas.
 Each GRU half computes its z and r pre-activations as one double-width conv
 over the shared input (the weights of ``convz*`` and ``convr*``
 concatenated; identical values, one conv call instead of two) and hands
-the two halves of its output, as views, to the gate tail. Under mixed
+the two halves of its output, as views, to the gate tail: channels-last,
+each half is every pixel's first or last C channels, which the gate
+kernels read in place. Under mixed
 precision every conv here computes in bf16 and the blocks take and give
 bf16, so the gate and blend kernels run in bf16.
 """
@@ -29,8 +33,9 @@ from raft_tpu_torch.parallel.halo import halo
 def _pair_conv(conv_a: nn.Conv2d, conv_b: nn.Conv2d, x: torch.Tensor):
     """Two same-geometry convs over the same input as one double-width conv
     in their compute dtype; returns the two outputs as channel-slice views
-    of it. Under a ``spatial`` context the input band takes its halo once
-    for both (``Conv2d.forward``'s rule)."""
+    of it (one ``split``, whose backward concatenates the halves'
+    gradients in their layout). Under a ``spatial`` context the input band
+    takes its halo once for both (``Conv2d.forward``'s rule)."""
     dt = conv_a.compute_dtype
     w = torch.cat([conv_a.weight, conv_b.weight], 0).to(dt)
     b = torch.cat([conv_a.bias, conv_b.bias], 0).to(dt)
@@ -39,8 +44,7 @@ def _pair_conv(conv_a: nn.Conv2d, conv_b: nn.Conv2d, x: torch.Tensor):
         x = halo(x, *conv_a.halo_rows(), conv_a.spatial)
         pad = (0, pad[1])
     y = F.conv2d(x, w, b, padding=pad)
-    n = conv_a.out_channels
-    return y[:, :n], y[:, n:]
+    return y.split(conv_a.out_channels, 1)
 
 
 class FlowHead(nn.Module):

@@ -82,6 +82,16 @@ def all_sum(x: torch.Tensor, group) -> torch.Tensor:
     return _AllReduceSum.apply(x, group)
 
 
+def _layout_of(rows: torch.Tensor, band: torch.Tensor) -> torch.Tensor:
+    """Borrowed ``rows`` in ``band``'s layout when that is channels-last,
+    so the concatenation keeps it (``torch.cat`` of mixed layouts returns
+    NCHW, which the next conv would convert back)."""
+    if (band.dim() == 4 and not band.is_contiguous()
+            and band.is_contiguous(memory_format=torch.channels_last)):
+        return rows.contiguous(memory_format=torch.channels_last)
+    return rows
+
+
 class _Halo(torch.autograd.Function):
     """The band with ``top`` rows above it and ``bottom`` below it, along
     ``dim``; zero rows past the image's edges."""
@@ -105,7 +115,8 @@ class _Halo(torch.autograd.Function):
                  else rows(buf[s], bottom, top).zero_())
         below = (rows(buf[s + 1], 0, bottom) if s < S - 1
                  else rows(buf[s], 0, bottom).zero_())
-        return torch.cat([above, x, below], dim)
+        return torch.cat([_layout_of(above, x), x, _layout_of(below, x)],
+                         dim)
 
     @staticmethod
     def backward(ctx, g):
@@ -131,10 +142,10 @@ class _Halo(torch.autograd.Function):
 
 def halo(x: torch.Tensor, top: int, bottom: int, sp: Spatial,
          dim: int = 2) -> torch.Tensor:
-    """``x``'s band along ``dim`` (the height: 2 for NCHW) with ``top``
-    rows of the band above and ``bottom`` of the band below; zero rows
-    past the image's first and last. No rows asked for: ``x`` itself, and
-    no collective."""
+    """``x``'s band along ``dim`` (the height: 2 for (B, C, H, W)) with
+    ``top`` rows of the band above and ``bottom`` of the band below; zero
+    rows past the image's first and last. No rows asked for: ``x`` itself,
+    and no collective."""
     if top == 0 and bottom == 0:
         return x
     h = x.shape[dim]

@@ -217,6 +217,85 @@ def test_gru_backward_kernels_match_plain(cuda, dtype, B):
                 assert bool((diff <= 2 ** -7 * w.float().abs().clamp(min=1)).all())
 
 
+@pytest.mark.parametrize("hw", [(55, 128), (46, 62)],
+                         ids=["440x1024", "368x496"])
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["channels_last", "contiguous"])
+def test_gru_kernels_read_nhwc_and_nchw_halves(cuda, layout, dtype, B, hw):
+    """K2 and K4 at the inference and training 1/8 grids, on the halves of
+    a double-width gate conv output in either layout (NHWC: rows of 128
+    channels 256 apart; NCHW: one run a batch element) and, for the gates'
+    backward, a channel slice of a concatenation's gradient as ``drh``:
+    each equals its plain version, its outputs take the operands' layout,
+    and ``launch_layouts()`` counts each launch under that layout."""
+    fmt = torch.channels_last if layout == "channels_last" else \
+        torch.contiguous_format
+    g = torch.Generator(device="cuda").manual_seed(100 * B + hw[0])
+
+    def rand(C):
+        return (3 * torch.randn((B, C) + hw, generator=g, device=cuda)).to(
+            dtype).contiguous(memory_format=fmt)
+
+    zl, rl = rand(256).split(128, 1)
+    h, ql, dz, go = (rand(128) for _ in range(4))
+    drh = rand(384)[:, :128]
+    z = torch.sigmoid(rand(128).float()).to(dtype)
+    before = kernels.launch_layouts()
+    pairs = {"gru_gates": (gru_gates(zl, rl, h), gru_gates_plain(zl, rl, h)),
+             "gru_blend": ((gru_blend(z, h, ql),),
+                           (gru_blend_plain(z, h, ql),)),
+             "gru_gates_bwd": (gru_gates_bwd(zl, rl, h, dz, drh),
+                               gru_gates_bwd_plain(zl, rl, h, dz, drh)),
+             "gru_blend_bwd": (gru_blend_bwd(z, h, ql, go),
+                               gru_blend_bwd_plain(z, h, ql, go))}
+    torch.cuda.synchronize()
+    after = kernels.launch_layouts()
+    other = "contiguous" if layout == "channels_last" else "channels_last"
+    for name, (got, want) in pairs.items():
+        assert after[name][layout] == before[name][layout] + 1
+        assert after[name][other] == before[name][other]
+        for a, w in zip(got, want):
+            assert a.dtype == dtype and a.shape == w.shape
+            assert a.is_contiguous(memory_format=fmt)
+            diff = (a.float() - w.float()).abs()
+            if dtype == torch.float32:
+                assert float(diff.max()) <= 1e-6 * max(1.0,
+                                                       float(w.abs().max()))
+            else:
+                assert bool((diff <= 2 ** -7 * w.float().abs().clamp(min=1))
+                            .all())
+
+
+def test_channels_last_gru_gradients_match_plain(cuda):
+    """The SepConvGRU as the model runs it, channels-last weights and
+    activations: the gradients through K2 and K4 equal the plain tails'
+    (1e-4 of the largest, as for NCHW below), and every GRU launch takes
+    the channels-last route."""
+    from raft_tpu_torch.models.update import SepConvGRU
+
+    torch.manual_seed(1)
+    cl = torch.channels_last
+    fused = SepConvGRU(128, 256, fused=True).to(cuda, memory_format=cl)
+    plain = SepConvGRU(128, 256, fused=False).to(cuda, memory_format=cl)
+    plain.load_state_dict(fused.state_dict())
+    h0, x0, Gh = (torch.randn(2, c, 23, 31, device=cuda)
+                  .contiguous(memory_format=cl) for c in (128, 256, 128))
+    kernels.reset_launch_counts()
+    res = {}
+    for name, mod in (("fused", fused), ("plain", plain)):
+        h, x = h0.clone().requires_grad_(), x0.clone().requires_grad_()
+        out = mod(h, x)
+        assert out.is_contiguous(memory_format=cl)
+        (out * Gh).sum().backward()
+        res[name] = [h.grad, x.grad] + [p.grad for p in mod.parameters()]
+    layouts = kernels.launch_layouts()
+    for name in ("gru_gates", "gru_blend", "gru_gates_bwd", "gru_blend_bwd"):
+        assert layouts[name] == {"channels_last": 2, "contiguous": 0}
+    for a, b in zip(res["fused"], res["plain"]):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
 def test_gradients_flow_through_the_forward_kernels(cuda):
     """A backward through the lookup kernel and the fused SepConvGRU gives
     the gradients of the plain versions (1e-5 of the largest for the

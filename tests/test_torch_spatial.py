@@ -29,9 +29,15 @@ computes the references.
   metrics within 1e-5 relative of the port's one-rank step on the whole
   batch (the 1/3/5 px shares within two pixels), gradients within
   ``tests/test_torch_train_step.py``'s rule, every rank's weights bitwise
-  equal. Image noise is on except in the ``(2, 2)`` small step, which is
-  also held to JAX's ``make_train_step`` on ``make_mesh(4, spatial=2)``
-  with ``corr_impl="onehot"``: its loss within 1e-4 relative.
+  equal. The bands sum every conv another way than the whole image, so a
+  metric, a parameter's gradient and the gradients' median gap may also
+  differ by twice what summing every conv in the NCHW kernel's order does
+  to the one-rank step (``tests/conv_order.py``; on the CPU the basic
+  model's channels-last weight gradients move by ~2e-3 of a parameter's
+  largest at the median). Image noise is on except in the ``(2, 2)``
+  small step, which is also held to JAX's ``make_train_step`` on
+  ``make_mesh(4, spatial=2)`` with ``corr_impl="onehot"``: its loss within
+  1e-4 relative.
 - Engine, on ``(2, 2)``: ``RAFTEngine(mesh=)`` on
   ``tests/test_serving.py``'s mesh inputs held to the port's one-device
   engine and to JAX's ``RAFTEngine(mesh=make_mesh(4, spatial=2))`` with
@@ -140,6 +146,26 @@ def _one_step(small: bool, noise: bool, batch, mesh=None):
     return {"metrics": {k: float(v) for k, v in m.items()},
             "state": model.state_dict(),
             "grads": {k: p.grad.clone() for k, p in model.named_parameters()}}
+
+
+def _conv_order_gap(one, small: bool, noise: bool, batch):
+    """What summing every conv in the NCHW kernel's order does to the
+    one-rank step ``one``: each metric's relative gap, each parameter's
+    largest gradient gap, and the median over the parameters of that gap
+    relative to the parameter's largest gradient (those over 1e-4 of the
+    model's largest)."""
+    from tests.conv_order import nchw_conv_order
+
+    with nchw_conv_order():
+        other = _one_step(small, noise, batch)
+    gmax = max(float(w.abs().max()) for w in one["grads"].values())
+    gap = {k: float((other["grads"][k] - w).abs().max())
+           for k, w in one["grads"].items()}
+    rel = [gap[k] / float(w.abs().max()) for k, w in one["grads"].items()
+           if float(w.abs().max()) > 1e-4 * gmax]
+    return {"metrics": {k: abs(other["metrics"][k] - v) / abs(v)
+                        for k, v in one["metrics"].items() if v},
+            "grads": gap, "median": float(np.median(rel))}
 
 
 def _engine_inputs():
@@ -442,7 +468,8 @@ def _jax_references():
 def _port_references():
     from raft_tpu_torch.serving import RAFTEngine
 
-    out = {"forward": {}, "pyramid_bytes": {}, "train": {}}
+    out = {"forward": {}, "pyramid_bytes": {}, "train": {},
+           "train_witness": {}}
     for name in FWD_ITERS:
         model = _fwd_model(name)
         im1, im2 = (torch.from_numpy(f) for f in _frames())
@@ -459,7 +486,10 @@ def _port_references():
     for small in (True, False):
         for noise in (True, False):
             if small or noise:
-                out["train"][(small, noise)] = _one_step(small, noise, batch)
+                one = out["train"][(small, noise)] = _one_step(small, noise,
+                                                               batch)
+                out["train_witness"][(small, noise)] = _conv_order_gap(
+                    one, small, noise, batch)
     cfg = RAFTConfig(small=True)
     i1, i2, j, finit = _engine_inputs()
     # the sharded engine's buckets, so the fill rows are the same
@@ -566,20 +596,24 @@ def test_each_rank_holds_its_share_of_the_volume(runs, world, name):
 # -- train step -------------------------------------------------------------
 
 
-def _hold_grads(grads, want):
+def _hold_grads(grads, want, witness):
     """``tests/test_torch_train_step.py``'s rule for the basic model: each
     parameter within 5e-2 of its largest gradient plus 1e-6 of the model's
-    largest; the median of those errors within 1e-3."""
+    largest, the median of those errors within 1e-3; where the
+    ``witness`` (:func:`_conv_order_gap`) is larger, a parameter within
+    twice its witness gap and the median within twice the witness
+    median."""
     gmax = max(float(w.abs().max()) for w in want.values())
     rel = {}
     for k, g in grads.items():
         w = want[k]
         scale = float(w.abs().max())
         err = float((g - w).abs().max())
-        assert err <= 5e-2 * scale + 1e-6 * gmax, (k, err, scale)
+        bound = max(5e-2 * scale, 2 * witness["grads"][k])
+        assert err <= bound + 1e-6 * gmax, (k, err, scale)
         if scale > 1e-4 * gmax:
             rel[k] = err / scale
-    assert np.median(list(rel.values())) <= 1e-3
+    assert np.median(list(rel.values())) <= max(1e-3, 2 * witness["median"])
 
 
 @pytest.mark.parametrize("world", [2, 4])
@@ -587,7 +621,9 @@ def _hold_grads(grads, want):
 def test_spatial_train_step_matches_one_rank(runs, world, model):
     ranks = runs["ranks"][world]
     small = model == "small"
-    one = runs["port"]["train"][(small, _train_noise(world, small))]
+    key = (small, _train_noise(world, small))
+    one = runs["port"]["train"][key]
+    witness = runs["port"]["train_witness"][key]
     steps = [r["train"][model] for r in ranks]
     for s in steps[1:]:
         assert s["metrics"] == steps[0]["metrics"]
@@ -599,8 +635,9 @@ def test_spatial_train_step_matches_one_rank(runs, world, model):
         if k in ("1px", "3px", "5px"):
             assert abs(got - want) <= 2 / n, k
         else:
-            np.testing.assert_allclose(got, want, rtol=1e-5, err_msg=k)
-    _hold_grads(steps[0]["grads"], one["grads"])
+            rtol = max(1e-5, 2 * witness["metrics"].get(k, 0.0))
+            np.testing.assert_allclose(got, want, rtol=rtol, err_msg=k)
+    _hold_grads(steps[0]["grads"], one["grads"], witness)
     for k, v in one["state"].items():
         if "running_" in k:
             torch.testing.assert_close(steps[0]["state"][k], v, atol=1e-5,
