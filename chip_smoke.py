@@ -330,9 +330,26 @@ Phases, each of which fails loudly (nothing is caught):
    bitwise both ways, a 540x960x3 ``.pfm`` read by both bitwise, each one's
    ms, and phase 16's ``loader_bench`` (on the native reader) beside the
    18.39 pairs/s it gave on the numpy reader (``PERF.md`` §5);
-25. print the drill's, the envelope's, the serving phases', phase 21's,
-   phase 22's, phase 23's and phase 24's numbers
-   (``{"serving_frontend": ...}``, ``{"serving_registry": ...}``,
+25. GMA (``kernels.gma``, ``csrc/gma.cu``), TF32 off but where said:
+   (a) K6 and K7 at the GMA cell's 135x240 grid (1080x1920 frames),
+   batch 1 and 2, on q and k as halves of one channels-last tensor: each
+   against float64 on 256 sampled rows within twice its plain version's
+   own error there (cuBLAS in float32) or 1e-5 of the largest value, the
+   largest gap to the plain version on the whole output, and device times
+   of the kernel and the plain version beside the bound at TF32's 495
+   TFLOP/s (and at fp32's 67); K7 must beat its plain version at both
+   batches; (b) ``RAFTEngine`` on a GMA bucket (2, 1080, 1920), iters 20,
+   TF32 convolutions as the cell runs them, cuDNN deterministic (so that
+   the replay and the eager forward take the same algorithms; the eager
+   forward runs first, the two together outgrow the card): the capture's
+   launches, one replay
+   with the counts set to 0 just before it (1 K6 and 20 K7 replayed, by
+   the engine's count and by the device trace's kernel names; no wrapper
+   call), its busy time and K6+K7's share, the peak memory, the flow
+   against the eager forward within 1e-3 px on the mean;
+26. print the drill's, the envelope's, the serving phases', phase 21's,
+   phase 22's, phase 23's, phase 24's and phase 25's numbers
+   (``{"gma": ...}``, ``{"serving_frontend": ...}``, ``{"serving_registry": ...}``,
    ``{"serving_store_hosts": ...}``, ``{"parallel": ...}``,
    ``{"spatial": ...}``, ``{"follow": ...}`` and ``{"video": ...}``
    lines), the ``{"kernels": [...]}`` line (with ``launches_serving``,
@@ -5246,6 +5263,207 @@ def video_phase(smi: str, loader: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 25: GMA's kernels (K6, K7) and a GMA bucket of the serving engine
+# ---------------------------------------------------------------------------
+
+GMA_HW = (1080, 1920)           # gma-1080p-serve-c8's frames: grid 135x240
+GMA_DIM = 128                   # dim_head, the context width
+# K6/K7 hold float32 accuracy: each against float64 on sampled rows within
+# twice the plain version's own error there (cuBLAS in float32, TF32 off),
+# or GMA_REL_FLOOR of the largest value where that is less
+GMA_REL_FLOOR = 1e-5
+GMA_ROWS = 256                  # rows sampled for the float64 witness
+GMA_FLOW_TOL = 1e-3             # px, mean: a replay against eager
+
+
+def gma_operands(B: int, H: int, W: int, seed: int):
+    """q and k as the halves of one (B, N, 256) tensor (the W_qk conv's
+    channels-last output), logits of about 4 in spread, v and m."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    qk = torch.randn(B, H * W, 2 * GMA_DIM, generator=g, device="cuda") * 2.0
+    q, k = qk.split(GMA_DIM, -1)
+    v = torch.randn(B, H * W, GMA_DIM, generator=g, device="cuda")
+    m = torch.randn(B, H * W, GMA_DIM, generator=g, device="cuda")
+    return q, k, v, m
+
+
+def gma_costs(B: int, n: int):
+    """(bytes, operations) of one K6 and one K7 launch over a batch of B
+    at a grid of n (``flowbench/counts_gma.py``'s counts)."""
+    d = GMA_DIM
+    return ((B * (2 * n * d * 4 + n * n * 4), B * 2 * n * n * d),
+            (B * (n * n * 4 + 3 * n * d * 4), B * 2 * n * n * d))
+
+
+def gma_phase(smi: str) -> dict:
+    """Phase 25: K6 and K7 at the GMA cell's grid, batch 1 and 2, held
+    against float64 beside their plain versions and timed against them;
+    then a GMA bucket of ``RAFTEngine`` at 1080x1920, its replay's launches
+    read from the counts and from the device trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from raft_tpu_torch import kernels
+    from raft_tpu_torch.config import RAFTConfig
+    from raft_tpu_torch.kernels.gma import (gma_aggregate, gma_aggregate_plain,
+                                            gma_attention, gma_attention_plain)
+    from raft_tpu_torch.models import RAFT
+    from raft_tpu_torch.serving.engine import RAFTEngine
+
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.deterministic)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    H, W = GMA_HW[0] // 8, GMA_HW[1] // 8
+    n = H * W
+    scale = GMA_DIM ** -0.5
+    out = {"grid": [H, W], "batches": {}}
+
+    def rel(got, want):
+        return float((got.double() - want).abs().max() / want.abs().max())
+
+    try:
+        for B in (1, 2):
+            q, k, v, m = gma_operands(B, H, W, 25 + B)
+            gamma = torch.tensor([0.7], device="cuda")
+            rows = torch.randperm(n, device="cuda")[:GMA_ROWS]
+            attn = gma_attention(q, k, scale)
+            plain_a = gma_attention_plain(q, k, scale)
+            want_a = torch.softmax((q[:, rows].double() * scale)
+                                   @ k.double().transpose(1, 2), -1)
+            e6, e6_plain = rel(attn[:, rows], want_a), rel(plain_a[:, rows],
+                                                          want_a)
+            gap6 = max_err(attn, plain_a)
+            del plain_a, want_a
+            g = gma_aggregate(attn, v, m, gamma)
+            plain_g = gma_aggregate_plain(attn, v, m, gamma)
+            want_g = m[:, rows].double() + 0.7 * (attn[:, rows].double()
+                                                  @ v.double())
+            e7, e7_plain = rel(g[:, rows], want_g), rel(plain_g[:, rows],
+                                                       want_g)
+            gap7 = max_err(g, plain_g)
+            del plain_g, want_g
+            torch.cuda.synchronize()
+            (b6, o6), (b7, o7) = gma_costs(B, n)
+            t = {"attention": dict(
+                     ms=kernel_ms(lambda: gma_attention(q, k, scale), 5),
+                     plain_ms=kernel_ms(
+                         lambda: gma_attention_plain(q, k, scale), 3),
+                     rel_err=e6, plain_rel_err=e6_plain, max_abs_gap=gap6,
+                     bound=bound_ms(b6, o6, TF32_FLOPS_PER_S),
+                     bound_fp32_ms=bound_ms(b6, o6)[0], mbytes=b6 / 1e6),
+                 "aggregate": dict(
+                     ms=kernel_ms(lambda: gma_aggregate(attn, v, m, gamma),
+                                  20),
+                     plain_ms=kernel_ms(
+                         lambda: gma_aggregate_plain(attn, v, m, gamma), 10),
+                     rel_err=e7, plain_rel_err=e7_plain, max_abs_gap=gap7,
+                     bound=bound_ms(b7, o7, TF32_FLOPS_PER_S),
+                     bound_fp32_ms=bound_ms(b7, o7)[0], mbytes=b7 / 1e6)}
+            for name, r in t.items():
+                tol = max(2 * r["plain_rel_err"], GMA_REL_FLOOR)
+                log(f"[25] gma_{name} B={B} {H}x{W} (N = {n}): kernel "
+                    f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+                    f"{r['bound'][0]:.4f} ms by {r['bound'][1]} at TF32's "
+                    f"495 TFLOP/s ({r['bound_fp32_ms']:.4f} at fp32's 67); "
+                    f"error against float64 on {GMA_ROWS} rows "
+                    f"{r['rel_err']:.3e} of the largest value (plain "
+                    f"{r['plain_rel_err']:.3e}; fail above {tol:.3e}), "
+                    f"largest gap to plain {r['max_abs_gap']:.3e}; {smi}")
+                if not r["rel_err"] <= tol:
+                    raise RuntimeError(f"gma_{name} misses float32 accuracy")
+            if not t["aggregate"]["ms"] < t["aggregate"]["plain_ms"]:
+                raise RuntimeError("K7 is slower than its plain version "
+                                   "(cuBLAS float32 and the add)")
+            out["batches"][B] = t
+            del q, k, v, m, attn, g
+            torch.cuda.empty_cache()
+
+        # -- a GMA bucket of the serving engine at the cell's frames -------
+        with open(os.path.join(REPO, "flowbench", "configs", "gma.json")) as f:
+            program = json.load(f)["program"]
+        config = RAFTConfig(gma_heads=1, **program)
+        torch.manual_seed(25)
+        model = RAFT(config)
+        with torch.no_grad():
+            model.update_block.aggregator.gamma.fill_(1.0)
+            model.att.to_qk.weight.mul_(12.0)   # peaked rows, as the cell's
+        # TF32 convolutions as the cell runs them, cuDNN deterministic so that
+        # the replay and the eager forward take the same algorithms (in fp32
+        # cuDNN takes FFT convolutions at the encoders' batch of 4, seconds
+        # a replay and tens of GB)
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cudnn.deterministic = True
+        bucket = (2, GMA_HW[0], GMA_HW[1])
+        rng = np.random.default_rng(25)
+        im1, im2 = (rng.integers(0, 256, (2, *GMA_HW, 3), dtype=np.uint8)
+                    for _ in range(2))
+        # the eager forward first, freed before the engine captures (the
+        # two together outgrow the card at this size)
+        eager_model = RAFT(config).cuda().eval()
+        eager_model.load_state_dict(model.state_dict())
+        with torch.no_grad():
+            up = eager_model(torch.from_numpy(im1).cuda().float(),
+                             torch.from_numpy(im2).cuda().float(),
+                             iters=ITERS)[1].cpu().numpy()
+        del eager_model
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        eng = RAFTEngine(model.state_dict(), config=config, iters=ITERS,
+                         envelope=[bucket], wire="u8", device="cuda")
+        capture_s = time.perf_counter() - t0
+        captured = dict(eng._programs[bucket].launches)
+        eng.infer_batch(im1, im2)   # warm
+        kernels.reset_launch_counts()
+        before = dict(eng.replayed_launches())
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            flows = eng.infer_batch(im1, im2)
+            torch.cuda.synchronize()
+        after = eng.replayed_launches()
+        replayed = {k: after[k] - before.get(k, 0) for k in after}
+        wrapper_calls = kernels.launch_counts()
+        evs = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        names = ("gma_attention_kernel", "gma_aggregate_kernel")
+        traced = {name: sum(1 for e in evs if name in e.name)
+                  for name in names}
+        busy = device_busy_ms(prof)
+        gma_ms = sum(e.device_time_total for e in evs
+                     if any(name in e.name for name in names)) / 1e3
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        gap = np.sqrt(((np.asarray(flows) - up) ** 2).sum(-1))
+        expect = {"gma_attention": 1, "gma_aggregate": ITERS}
+        log(f"[25] RAFTEngine GMA bucket {bucket}, iters {ITERS}: captured in "
+            f"{capture_s:.1f} s with launches {captured}; one replay (counts "
+            f"set to 0 before it): replayed {replayed}, wrapper calls "
+            f"{wrapper_calls} (a replay calls none), device trace "
+            f"{traced}; busy {busy:.2f} ms, K6+K7 {gma_ms:.2f} ms "
+            f"({gma_ms / busy:.1%}); peak {peak_gb:.2f} GB; flow against "
+            f"eager mean {float(gap.mean()):.3e} px (fail above "
+            f"{GMA_FLOW_TOL:g}); {smi}")
+        if not (all(replayed.get(k) == v and captured.get(k) == v
+                    for k, v in expect.items())
+                and traced == {"gma_attention_kernel": 1,
+                               "gma_aggregate_kernel": ITERS}
+                and wrapper_calls["gma_attention"] == 0
+                and wrapper_calls["gma_aggregate"] == 0
+                and float(gap.mean()) < GMA_FLOW_TOL):
+            raise RuntimeError("the GMA bucket's launches or flow are wrong")
+        out["engine"] = {"bucket": list(bucket), "capture_s": capture_s,
+                         "launches_per_replay": replayed,
+                         "traced_per_replay": traced, "busy_ms": busy,
+                         "gma_ms": gma_ms, "peak_gb": peak_gb,
+                         "flow_gap_px_mean": float(gap.mean())}
+        del eng, model
+        torch.cuda.empty_cache()
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.deterministic) = flags
+    return out
+
+
 def main() -> int:
     import faulthandler
 
@@ -5972,7 +6190,12 @@ def main() -> int:
     video["seconds"] = time.perf_counter() - t24
     log(f"[24] the phase took {video['seconds']:.1f} s")
 
-    # -- 25. result ----------------------------------------------------------
+    # -- 25. GMA's kernels and a GMA bucket ----------------------------------
+    t25 = time.perf_counter()
+    gma = gma_phase(smi)
+    gma["seconds"] = time.perf_counter() - t25
+
+    # -- 26. result ----------------------------------------------------------
     sources = {"corr_lookup": ("raft_tpu_torch/csrc/corr_lookup.cu",
                                "raft_tpu/kernels/corr_pallas.py:177"),
                "gru_gates": ("raft_tpu_torch/csrc/gru.cu",
@@ -6113,6 +6336,27 @@ def main() -> int:
                                   "k1_ms_median_range": list(hd_k1_ms),
                                   "ms_per_pair": {k: v[1] for k, v in hd.items()},
                                   "peak_mib": {k: v[2] for k, v in hd.items()}}})
+    # K6, K7: times and errors at the GMA cell's grid (phase 25), batch 1,
+    # batch 2 beside them; launches a replay of the GMA bucket
+    for name in ("attention", "aggregate"):
+        t, t2 = gma["batches"][1][name], gma["batches"][2][name]
+        key = f"gma_{name}"
+        rows.append({"name": key, "route": "cuda",
+                     "source": "raft_tpu_torch/csrc/gma.cu", "replaces": None,
+                     "launches": gma["engine"]["launches_per_replay"][key],
+                     "launches_traced": gma["engine"]["traced_per_replay"][
+                         f"{key}_kernel"],
+                     "rel_err": t["rel_err"],
+                     "plain_rel_err": t["plain_rel_err"],
+                     "max_abs_gap": t["max_abs_gap"], "ms": t["ms"],
+                     "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
+                     "bound_by": t["bound"][1],
+                     "bound_fp32_ms": t["bound_fp32_ms"],
+                     "mbytes": t["mbytes"], "grid": gma["grid"],
+                     "batch_2": {k: t2[k] for k in ("ms", "plain_ms",
+                                                    "rel_err",
+                                                    "plain_rel_err")}})
+    print(json.dumps({"gma": gma}), flush=True)
     print(json.dumps({"supervised_drill": drill, "envelope": env,
                       "serving": serving}), flush=True)
     print(json.dumps({"serving_frontend": frontend}), flush=True)

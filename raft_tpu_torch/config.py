@@ -20,6 +20,14 @@ What a field selects differs where the hardware differs:
   the CUDA kernels of ``kernels.gru``; ``"xla"`` runs the plain
   elementwise PyTorch math.
 
+- ``gma_heads``: 0 runs RAFT; 1 runs GMA (Jiang et al., ICCV 2021): RAFT
+  basic with attention over the 1/8 grid's positions, formed once a pair
+  from the context features, and every step's motion features aggregated
+  over it (``models.gma``, the Triton kernels of ``kernels.gma``: K6, K7).
+  It has no counterpart in the JAX package. The small model, a
+  ``spatial`` mesh axis, ragged and cached serving, and training refuse
+  it.
+
 On a CPU tensor every choice runs the plain PyTorch version.
 """
 
@@ -58,6 +66,8 @@ class RAFTConfig:
     # two fnet calls instead of one batch-concat call: identical values
     # (fnet is instance-norm, per-sample statistics)
     split_encode: bool = False
+    # GMA's attention heads: 0 is RAFT, 1 GMA's published single head
+    gma_heads: int = 0
 
     def __post_init__(self):
         if not (isinstance(self.scan_unroll, int)
@@ -84,6 +94,17 @@ class RAFTConfig:
                 "BasicMotionEncoder + SepConvGRU; the small model's "
                 "3x3 ConvGRU has no fused path — drop one of the two "
                 "settings")
+        if (not isinstance(self.gma_heads, int)
+                or isinstance(self.gma_heads, bool)
+                or self.gma_heads not in (0, 1)):
+            raise ValueError(
+                f"gma_heads={self.gma_heads!r}: 0 (RAFT) or 1 (GMA's "
+                "published single head); more heads are not built")
+        if self.gma_heads and self.small:
+            raise ValueError(
+                "gma_heads=1 with small=True: GMA is built on RAFT basic "
+                "(its attention spans the basic model's 128 context "
+                "channels); the small model has no GMA")
         if self.remat_policy not in ("full", "dots"):
             raise ValueError(
                 f"remat_policy={self.remat_policy!r}: choose 'full' or "

@@ -76,6 +76,8 @@
 #include <climits>
 #include <cuda_runtime.h>
 
+#include "tf32_wgmma.cuh"
+
 #define RAFT_ALT_MAX_LEVELS 8
 
 namespace {
@@ -86,15 +88,9 @@ constexpr int NB = 256;              // box pixels per chunk: 4 warpgroups' n64
 constexpr int KC = 32;               // channels per staged slab
 constexpr int STAGES = 2;            // cp.async ring depth
 constexpr int STAGE_FLOATS = (TQ + NB) * KC;
-// A slab holds its rows in wgmma's K-major core matrices, without swizzle:
-// a core matrix is 8 rows x 4 fp32 (16 bytes) stored as 128 contiguous
-// bytes; the KC/4 core matrices of 8 rows follow each other along K (the
-// leading byte offset, 128), the groups of 8 rows at KC/4 * 128 bytes (the
-// stride byte offset)
-constexpr int CORE_LBO = 128;
-constexpr int CORE_SBO = (KC / 4) * 128;
+// A slab holds its rows in wgmma's K-major core matrices (tf32_wgmma.cuh)
 __device__ __forceinline__ int slab_offset(int row, int k4) {
-  return ((row >> 3) * (KC / 4) + k4) * 32 + (row & 7) * 4;
+  return core_offset<KC>(row, k4);
 }
 constexpr int THREADS = 512;         // one block an SM
 // Larger boxes take the per-query branch. A tile's tensor-core time grows
@@ -109,98 +105,11 @@ struct AltLevels {
   int w[RAFT_ALT_MAX_LEVELS];
 };
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           int bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// x rounded to TF32, to nearest on the bits (the tensor core would drop the
-// low 13 bits, rounding toward zero)
-__device__ __forceinline__ unsigned tf32_round(unsigned x) {
-  return (x + 0x1000u) & 0xffffe000u;
-}
-// x as a TF32 big part and the rest, the rest rounded to TF32 too
-__device__ __forceinline__ void split_tf32(unsigned x, unsigned& big,
-                                           unsigned& rest) {
-  big = tf32_round(x);
-  rest = tf32_round(
-      __float_as_uint(__uint_as_float(x) - __uint_as_float(big)));
-}
-
-// four 8x4 fp32 matrices (8 rows of 16 bytes each, one row address per lane)
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const float* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
 // floor(i / d) for 0 <= i < 2^20 through one float multiply: (i + 0.5) / d
 // lies at least 0.5 / d away from an integer, and the multiply by the
 // rounded 1/d is off by under (i + 0.5) / d * 2^-22, which is less.
 __device__ __forceinline__ int div_small(int i, float inv_d) {
   return (int)(((float)i + 0.5f) * inv_d);
-}
-
-// wgmma's shared-memory matrix descriptor: start address, leading and
-// stride byte offsets (each >> 4), no swizzle
-__device__ __forceinline__ unsigned long long core_desc(const float* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  return (unsigned long long)((a & 0x3FFFF) >> 4) |
-         ((unsigned long long)(CORE_LBO >> 4) << 16) |
-         ((unsigned long long)(CORE_SBO >> 4) << 32);
-}
-
-// D (64 x 64, fp32, 32 registers a thread) = A (64 x 8) * B (64 x 8)^T in
-// TF32 (+ D if ``accumulate``), issued by the four warps of a warpgroup: A
-// from registers (each warp its 16 rows, laid out as mma.m16n8k8's A), B
-// from shared memory
-__device__ __forceinline__ void wgmma_tf32(float (&d)[32],
-                                           const unsigned (&a)[4],
-                                           unsigned long long b,
-                                           bool accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
-        "r"((int)accumulate));
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// orders this thread's shared-memory stores before wgmma's reads of them
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 template <int V>
@@ -392,10 +301,7 @@ corr_alt_kernel(const __grid_constant__ AltLevels lv,
       for (int i = tid; i < TQ * KC / 4; i += THREADS) {
         const uint4 x = reinterpret_cast<const uint4*>(slab)[i];
         uint4 hi, lo;
-        split_tf32(x.x, hi.x, lo.x);
-        split_tf32(x.y, hi.y, lo.y);
-        split_tf32(x.z, hi.z, lo.z);
-        split_tf32(x.w, hi.w, lo.w);
+        split_tf32(x, hi, lo);
         reinterpret_cast<uint4*>(qbig)[i] = hi;
         reinterpret_cast<uint4*>(qsmall)[i] = lo;
       }
@@ -413,11 +319,8 @@ corr_alt_kernel(const __grid_constant__ AltLevels lv,
 #pragma unroll
           for (int i = 0; i < 4; ++i) split_tf32(a[i], ab[i], as[i]);
           const int q_off = slab_offset(0, kk);
-          wgmma_fence();
-          wgmma_tf32(part, as, core_desc(qbig + q_off), kk > 0);
-          wgmma_tf32(part, ab, core_desc(qsmall + q_off), true);
-          wgmma_tf32(part, ab, core_desc(qbig + q_off), true);
-          wgmma_commit();
+          wgmma_tf32x3(part, ab, as, core_desc<KC>(qbig + q_off),
+                       core_desc<KC>(qsmall + q_off), kk > 0);
         }
         wgmma_wait<0>();
         // The tensor cores round their sums toward zero, so their error
@@ -535,17 +438,6 @@ extern "C" long long corr_alt_smem_bytes(int radius) {
   return (TQ * P * P + 4 * TQ + 8 + 2LL * TQ * KC +
           (long long)STAGES * STAGE_FLOATS) *
          4;
-}
-
-// Lets a block have ``smem`` bytes (the largest shared-memory carveout).
-template <typename F>
-static cudaError_t set_smem(F* kernel, long long smem) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-      cudaSharedmemCarveoutMaxShared);
 }
 
 extern "C" int corr_alt_launch(const void* const* f2s, const int* hs,

@@ -5,7 +5,8 @@ Route: ``nvcc`` by hand into a library with a plain C interface, loaded with
 PyTorch's headers). Each source compiles in its own ``nvcc`` process, all
 started together, then one link. The library lands in ``build/kernels/`` at
 the repository root (listed in ``.gitignore``) under a name keyed by the
-sources' hash, so an edited source never loads a stale build.
+hash of the sources and of the headers they include (``csrc/*.cuh``), so an
+edited source never loads a stale build.
 
 Nothing here runs at import: :func:`library` builds and loads on its first
 call, which only a wrapper given a CUDA tensor makes.
@@ -47,6 +48,8 @@ SIGNATURES = {
                              _I, _P],
     "corr_alt_launch": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                         _P, _P],
+    "gma_attention_launch": [_P, _P, _P, _I, _I, _F, _P, _P],
+    "gma_aggregate_launch": [_P, _P, _P, _P, _P, _I, _I, _P, _P],
 }
 
 
@@ -97,8 +100,10 @@ def _sources():
 
 
 def _digest(srcs) -> str:
+    """The build's key: the flags, the sources and the headers they
+    include (``csrc/*.cuh``)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
+    for s in srcs + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
         with open(s, "rb") as f:
             h.update(os.path.basename(s).encode() + b"\0" + f.read())
     return h.hexdigest()[:16]

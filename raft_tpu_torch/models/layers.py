@@ -182,11 +182,11 @@ class Conv2d(nn.Conv2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(dt)
         if self.spatial is None:
-            return self._conv_forward(x.to(dt), self.weight.to(dt),
-                                      self.bias.to(dt))
+            return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
         return F.conv2d(halo(x.to(dt), *self.halo_rows(), self.spatial),
-                        self.weight.to(dt), self.bias.to(dt), self.stride,
+                        self.weight.to(dt), bias, self.stride,
                         (0, self.padding[1]), self.dilation, self.groups)
 
 
@@ -218,9 +218,11 @@ def set_compute_dtype(module: nn.Module, dtype: torch.dtype) -> None:
             m.compute_dtype = dtype
 
 
-def conv(cin: int, cout: int, kernel, stride=1, padding=0) -> Conv2d:
+def conv(cin: int, cout: int, kernel, stride=1, padding=0,
+         bias: bool = True) -> Conv2d:
     """torch ``Conv2d``: symmetric padding, as the JAX ``TorchConv`` mimics."""
-    return Conv2d(cin, cout, kernel, stride=stride, padding=padding)
+    return Conv2d(cin, cout, kernel, stride=stride, padding=padding,
+                  bias=bias)
 
 
 class ResidualBlock(nn.Module):

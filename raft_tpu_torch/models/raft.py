@@ -45,6 +45,14 @@ box of mixed request shapes with per-row valid extents (the masked
 correlation of ``serving.ragged``), ``forward_cached`` encodes only the new
 frame and takes the first frame's features from the caller.
 
+``gma_heads=1`` builds GMA (``models.gma``): after the context split
+``forward`` forms the attention ``A`` over the 1/8 grid once (K6), and
+each step's update block aggregates the motion features over it (K7,
+``update.GMAUpdateBlock``); ``_refine`` hands ``A`` to ``_step``, and a
+RAFT step takes none. ``forward_ragged``, ``forward_cached`` and a
+``spatial`` axis refuse GMA: the attention spans every position of the
+whole image.
+
 Under a ``spatial`` mesh axis (``models.layers.set_spatial``, which sets
 :attr:`RAFT.spatial`) the images are this rank's band of rows: the convs
 and norms exchange their halos and statistics with the other bands
@@ -70,8 +78,10 @@ from raft_tpu_torch.config import RAFTConfig
 from raft_tpu_torch.models.corr import (AlternateCorrBlock, build_corr_pyramid,
                                         corr_lookup)
 from raft_tpu_torch.models.encoders import BasicEncoder, SmallEncoder
+from raft_tpu_torch.models.gma import MAX_POS_SIZE, Attention
 from raft_tpu_torch.models.layers import init_weights, set_compute_dtype
-from raft_tpu_torch.models.update import BasicUpdateBlock, SmallUpdateBlock
+from raft_tpu_torch.models.update import (BasicUpdateBlock, GMAUpdateBlock,
+                                          SmallUpdateBlock)
 from raft_tpu_torch.ops.flow_ops import (convex_upsample,
                                          convex_upsample_batched_raw,
                                          initialize_flow, subpixel_to_standard,
@@ -113,12 +123,20 @@ class RAFT(nn.Module):
         else:
             self.fnet = BasicEncoder(cfg.fnet_dim, cfg.fnet_norm, cfg.dropout)
             self.cnet = BasicEncoder(cfg.cnet_dim, cfg.cnet_norm, cfg.dropout)
-            self.update_block = BasicUpdateBlock(
-                cfg.corr_planes, cfg.hidden_dim,
-                fused=cfg.gru_impl == "fused")
+            fused = cfg.gru_impl == "fused"
+            if cfg.gma_heads:
+                self.update_block = GMAUpdateBlock(
+                    cfg.corr_planes, cfg.hidden_dim, fused, cfg.gma_heads)
+                self.att = Attention(cfg.context_dim, cfg.gma_heads,
+                                     cfg.context_dim, MAX_POS_SIZE)
+            else:
+                self.update_block = BasicUpdateBlock(
+                    cfg.corr_planes, cfg.hidden_dim, fused=fused)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         init_weights(self, generator)
+        if cfg.gma_heads:
+            self.att.pos_emb.reset_parameters(generator)
         set_compute_dtype(self, cfg.compute_dtype)
         self.to(memory_format=torch.channels_last)
         for enc in (self.fnet, self.cnet):
@@ -149,16 +167,18 @@ class RAFT(nn.Module):
             pyramid = [v.to(torch.bfloat16) for v in pyramid]
         return lambda coords: corr_lookup(pyramid, coords, r, cfg.corr_impl)
 
-    def _step(self, lookup, net, inp, coords0, coords1):
+    def _step(self, lookup, net, inp, coords0, coords1, attn=None):
         """One refinement step (the JAX model's scan body): lookup, update
         block in the compute dtype, ``delta`` added in fp32. Returns
-        ``(net, coords1)`` and, for the basic model, the upsampling mask."""
+        ``(net, coords1)`` and, for the basic model, the upsampling mask.
+        ``attn``: GMA's attention, which its update block takes."""
         dt = self.config.compute_dtype
         corr = lookup(coords1)
         flow = coords1 - coords0
-        net, up_mask, delta = self.update_block(
-            net, inp, corr.to(dt).permute(0, 3, 1, 2),
-            flow.to(dt).permute(0, 3, 1, 2))
+        args = (net, inp, corr.to(dt).permute(0, 3, 1, 2),
+                flow.to(dt).permute(0, 3, 1, 2))
+        net, up_mask, delta = (self.update_block(*args) if attn is None
+                               else self.update_block(*args, attn))
         coords1 = coords1 + delta.permute(0, 2, 3, 1).float()
         return (net, coords1) if up_mask is None else (net, coords1, up_mask)
 
@@ -188,6 +208,10 @@ class RAFT(nn.Module):
         if H % 8 or W % 8:
             raise ValueError(f"image size {H}x{W}: pad inputs to a multiple "
                              "of 8 with InputPadder first")
+        if cfg.gma_heads and self.spatial is not None:
+            raise ValueError("GMA under a 'spatial' mesh axis: its attention "
+                             "spans every band's positions; run it on whole "
+                             "images")
 
         # normalize to [-1, 1] (core/raft.py:89-90), then (B, 3, H, W)
         # views of the NHWC images: channels-last
@@ -211,23 +235,26 @@ class RAFT(nn.Module):
         # context network (core/raft.py:110-114)
         net, inp = self._encode_context(
             self.cnet(x1, train, freeze_bn, generator, draw_rows))
+        # GMA's attention over the context features, once a pair
+        attn = self.att(inp) if cfg.gma_heads else None
         return self._refine(lookup, net, inp, B, H, W, iters, flow_init,
-                            test_mode, raw_predictions, image1.device)
+                            test_mode, raw_predictions, image1.device, attn)
 
     def _refine(self, lookup, net, inp, B: int, H: int, W: int, iters: int,
                 flow_init: Optional[torch.Tensor], test_mode: bool,
-                raw_predictions: bool, device):
+                raw_predictions: bool, device, attn=None):
         """The refinement recurrence and the upsampling tail, from the
         lookup and the context split to the mode's return values (the JAX
         model's ``_refine``, ``raft.py:145``), shared by ``forward``,
-        ``forward_ragged`` and ``forward_cached``."""
+        ``forward_ragged`` and ``forward_cached``; ``attn`` is GMA's
+        attention (None for RAFT)."""
         cfg = self.config
         sp = self.spatial
         row0 = 0 if sp is None else sp.band(H // 8)[0]
         coords0, coords1 = initialize_flow(B, H // 8, W // 8, device, row0)
         if flow_init is not None:
             coords1 = coords1 + flow_init
-        step = functools.partial(self._step, lookup)
+        step = functools.partial(self._step, lookup, attn=attn)
         if cfg.remat and torch.is_grad_enabled():
             kw = {}
             if cfg.remat_policy == "dots":
@@ -272,6 +299,10 @@ class RAFT(nn.Module):
         return net, inp
 
     def _whole_images(self, name: str) -> None:
+        if self.config.gma_heads:
+            raise ValueError(f"{name} with GMA (gma_heads=1): ragged and "
+                             "feature-cache serving are built for RAFT; "
+                             "serve GMA through the plain buckets")
         if self.spatial is not None:
             raise ValueError(f"{name} under a 'spatial' mesh axis: ragged "
                              "and feature-cache serving take whole images, "

@@ -5,8 +5,10 @@ Tensors are (B, C, H, W), channels-last in memory (see ``models.raft``).
 Channel arithmetic is the parity surface: basic corr feature
 4·(2·4+1)²=324, motion feature 126+2=128, GRU input 128+128
 (update.py:82,87,97,119); small corr feature 4·49=196, motion 80+2=82, GRU
-input 82+64 (update.py:65,103). The motion encoders' convs are cuDNN convs,
-as the JAX package leaves them to XLA outside Pallas.
+input 82+64 (update.py:65,103); GMA's block adds the 128 aggregated
+motion channels, 128+128+128 (:class:`GMAUpdateBlock`). The motion
+encoders' convs are cuDNN convs, as the JAX package leaves them to XLA
+outside Pallas.
 
 Each GRU half computes its z and r pre-activations as one double-width conv
 over the shared input (the weights of ``convz*`` and ``convr*``
@@ -26,6 +28,7 @@ from torch import nn
 
 from raft_tpu_torch.kernels.gru import (gru_blend, gru_blend_plain, gru_gates,
                                         gru_gates_plain)
+from raft_tpu_torch.models.gma import Aggregate
 from raft_tpu_torch.models.layers import conv
 from raft_tpu_torch.parallel.halo import halo
 
@@ -175,4 +178,30 @@ class BasicUpdateBlock(nn.Module):
         net = self.gru(net, torch.cat([inp, motion], 1))
         delta = self.flow_head(net)
         # .25 scale to balance gradients (update.py:134-135)
+        return net, 0.25 * self.mask(net), delta
+
+
+class GMAUpdateBlock(nn.Module):
+    """GMA's update block (zacjiang/GMA ``core/update.py``
+    ``GMAUpdateBlock``): the basic block with the motion features'
+    aggregate over the attention, ``g``, as a third part of the GRU's
+    input (``[inp, motion, g]``, 384 channels, so each gate conv takes
+    512); the gate and blend tails keep their 128 channels."""
+
+    def __init__(self, corr_planes: int, hidden_dim: int = 128,
+                 fused: bool = False, heads: int = 1):
+        super().__init__()
+        self.encoder = BasicMotionEncoder(corr_planes)
+        self.gru = SepConvGRU(hidden_dim, input_dim=128 + 2 * hidden_dim,
+                              fused=fused)
+        self.flow_head = FlowHead(hidden_dim, 256)
+        self.mask = nn.Sequential(conv(hidden_dim, 256, 3, 1, 1), nn.ReLU(),
+                                  conv(256, 64 * 9, 1, 1, 0))
+        self.aggregator = Aggregate(128, heads, 128)
+
+    def forward(self, net, inp, corr, flow, attn):
+        motion = self.encoder(flow, corr)
+        glob = self.aggregator(attn, motion)
+        net = self.gru(net, torch.cat([inp, motion, glob], 1))
+        delta = self.flow_head(net)
         return net, 0.25 * self.mask(net), delta

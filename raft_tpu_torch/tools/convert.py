@@ -252,7 +252,8 @@ def load_verified(path: str):
 def load_pth(path: str, config: RAFTConfig) -> RAFT:
     """A reference ``.pth`` (``module.`` prefixes stripped) loaded into a
     CPU ``RAFT`` with ``strict=True``, after its manifest where it has
-    one."""
+    one. A GMA checkpoint (zacjiang/GMA's names) loads the same way into
+    ``config`` with ``gma_heads=1``."""
     state_dict = load_verified(path)
     state_dict = {k.removeprefix("module."): v for k, v in state_dict.items()}
     model = RAFT(config)

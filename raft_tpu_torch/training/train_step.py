@@ -72,8 +72,15 @@ class TrainState:
     step: int = 0
 
 
+def _refuse_gma(model_cfg: RAFTConfig) -> None:
+    if model_cfg.gma_heads:
+        raise ValueError("training GMA (gma_heads=1) is not built: its "
+                         "attention kernels (kernels.gma) have no backward")
+
+
 def create_train_state(model: RAFT, train_cfg: TrainConfig) -> TrainState:
     """A fresh optimizer and schedule for ``model``, on its device."""
+    _refuse_gma(model.config)
     opt, sched = make_optimizer(model.parameters(), train_cfg.lr,
                                 train_cfg.num_steps, train_cfg.wdecay,
                                 train_cfg.epsilon)
@@ -143,6 +150,7 @@ def make_train_step(model_cfg: RAFTConfig, train_cfg: TrainConfig,
     (``parallel.mesh.shard_batch``: rank ``i`` of the ``data`` axis holds
     rows ``i·B..``, rank ``s`` of the ``spatial`` axis band ``s`` of the
     height) and the metrics are the global batch's."""
+    _refuse_gma(model_cfg)
     data = spatial = n = 1
     group = sp = None
     if mesh is not None:
