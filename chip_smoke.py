@@ -331,13 +331,18 @@ Phases, each of which fails loudly (nothing is caught):
    ms, and phase 16's ``loader_bench`` (on the native reader) beside the
    18.39 pairs/s it gave on the numpy reader (``PERF.md`` §5);
 25. GMA (``kernels.gma``, ``csrc/gma.cu``), TF32 off but where said:
-   (a) K6 and K7 at the GMA cell's 135x240 grid (1080x1920 frames),
+   K7's registers and spills from the build's ``-Xptxas -v`` report (a
+   spill fails), its dynamic shared memory and resident blocks an SM
+   (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` through the
+   library); (a) K6 and K7 at the GMA cell's 135x240 grid (1080x1920 frames),
    batch 1 and 2, on q and k as halves of one channels-last tensor: each
    against float64 on 256 sampled rows within twice its plain version's
    own error there (cuBLAS in float32) or 1e-5 of the largest value, the
    largest gap to the plain version on the whole output, and device times
    of the kernel and the plain version beside the bound at TF32's 495
-   TFLOP/s (and at fp32's 67); K7 must beat its plain version at both
+   TFLOP/s (and at fp32's 67), K7 also with the L2 flushed before each
+   call, beside its bound and the three-product split's compute floor at
+   the measured TF32 envelope; K7 must beat its plain version at both
    batches; (b) ``RAFTEngine`` on a GMA bucket (2, 1080, 1920), iters 20,
    TF32 convolutions as the cell runs them, cuDNN deterministic (so that
    the replay and the eager forward take the same algorithms; the eager
@@ -364,6 +369,7 @@ Exits non-zero, printing no result, when there is no CUDA device.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import glob
 import inspect
@@ -383,6 +389,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
 FP32_FLOPS_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
 TF32_FLOPS_PER_S = 495e12       # H100 SXM TF32 on the tensor cores, dense
+TF32_ENVELOPE_FLOPS_PER_S = 391.23e12   # TF32 matmul, cli.envelope on the H100
 SECTOR = 32                     # bytes the DRAM moves per access, at least
 GRID = (55, 128)                # 1/8 grid of the 440x1024 padded Sintel frame
 FRAME_HW = (436, 1024)
@@ -5288,6 +5295,21 @@ def gma_operands(B: int, H: int, W: int, seed: int):
     return q, k, v, m
 
 
+def ptxas_report(build_log: str, kernel: str) -> list:
+    """The lines ``nvcc -Xptxas -v`` printed for the entry function whose
+    name holds ``kernel``: registers, stack and spills, and any wgmma
+    serialisation it warned of."""
+    lines, keep = [], False
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line:
+            keep = kernel in line
+        elif keep and ("Used" in line or "spill" in line):
+            lines.append(line.replace("ptxas info    :", "").strip())
+        if kernel in line and "Performance Loss" in line:
+            lines.append(line.replace("ptxas info    :", "").strip())
+    return lines
+
+
 def gma_costs(B: int, n: int):
     """(bytes, operations) of one K6 and one K7 launch over a batch of B
     at a grid of n (``flowbench/counts_gma.py``'s counts)."""
@@ -5297,14 +5319,16 @@ def gma_costs(B: int, n: int):
 
 
 def gma_phase(smi: str) -> dict:
-    """Phase 25: K6 and K7 at the GMA cell's grid, batch 1 and 2, held
-    against float64 beside their plain versions and timed against them;
-    then a GMA bucket of ``RAFTEngine`` at 1080x1920, its replay's launches
-    read from the counts and from the device trace."""
+    """Phase 25: K7's ptxas report and residency; K6 and K7 at the GMA
+    cell's grid, batch 1 and 2, held against float64 beside their plain
+    versions and timed against them (K7 L2 warm and flushed); then a GMA
+    bucket of ``RAFTEngine`` at 1080x1920, its replay's launches read from
+    the counts and from the device trace."""
     from torch.profiler import ProfilerActivity, profile
 
     from raft_tpu_torch import kernels
     from raft_tpu_torch.config import RAFTConfig
+    from raft_tpu_torch.kernels import _build
     from raft_tpu_torch.kernels.gma import (gma_aggregate, gma_aggregate_plain,
                                             gma_attention, gma_attention_plain)
     from raft_tpu_torch.models import RAFT
@@ -5321,6 +5345,27 @@ def gma_phase(smi: str) -> dict:
 
     def rel(got, want):
         return float((got.double() - want).abs().max() / want.abs().max())
+
+    # K7's build and residency: registers and spills from the build's
+    # ptxas report (its shared memory is dynamic, so ptxas shows none),
+    # blocks an SM from the CUDA occupancy calculator
+    build = _build.library()
+    report = ptxas_report(build.log, "gma_aggregate")
+    blocks, smem = ctypes.c_int(), ctypes.c_longlong()
+    code = build.lib.gma_aggregate_occupancy(ctypes.byref(blocks),
+                                             ctypes.byref(smem))
+    if code != 0 or not report:
+        raise RuntimeError(f"K7's occupancy query returned {code}, or the "
+                           "build log has no ptxas report for it")
+    out["k7_build"] = {"ptxas": report, "blocks_per_sm": blocks.value,
+                       "dynamic_smem_bytes": smem.value}
+    log(f"[25] gma_aggregate (K7) ptxas: {'; '.join(report)}; dynamic shared "
+        f"memory {smem.value} B a block; {blocks.value} block(s) an SM "
+        "(cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
+    if any("spill" in r and ", 0 bytes spill stores, 0 bytes spill loads"
+           not in r for r in report):
+        raise RuntimeError("K7 spills registers")
+    flush = l2_flusher()
 
     try:
         for B in (1, 2):
@@ -5355,6 +5400,9 @@ def gma_phase(smi: str) -> dict:
                  "aggregate": dict(
                      ms=kernel_ms(lambda: gma_aggregate(attn, v, m, gamma),
                                   20),
+                     ms_l2_flushed=kernel_ms(
+                         lambda: gma_aggregate(attn, v, m, gamma), 20,
+                         flush=flush),
                      plain_ms=kernel_ms(
                          lambda: gma_aggregate_plain(attn, v, m, gamma), 10),
                      rel_err=e7, plain_rel_err=e7_plain, max_abs_gap=gap7,
@@ -5372,6 +5420,15 @@ def gma_phase(smi: str) -> dict:
                     f"largest gap to plain {r['max_abs_gap']:.3e}; {smi}")
                 if not r["rel_err"] <= tol:
                     raise RuntimeError(f"gma_{name} misses float32 accuracy")
+            r = t["aggregate"]
+            log(f"[25] gma_aggregate (K7) B={B}: L2 warm {r['ms']:.4f} ms "
+                f"({r['bound'][0] / r['ms']:.1%} of its bound), L2 flushed "
+                f"before each call {r['ms_l2_flushed']:.4f} ms "
+                f"({r['bound'][0] / r['ms_l2_flushed']:.1%}); bound "
+                f"{r['bound'][0]:.4f} ms by {r['bound'][1]}; compute floor "
+                "of the three-product split at the measured TF32 envelope "
+                f"{3 * B * 2 * n * n * GMA_DIM / TF32_ENVELOPE_FLOPS_PER_S * 1e3:.4f}"
+                f" ms; {smi}")
             if not t["aggregate"]["ms"] < t["aggregate"]["plain_ms"]:
                 raise RuntimeError("K7 is slower than its plain version "
                                    "(cuBLAS float32 and the add)")

@@ -12,47 +12,76 @@
 //      device, so a captured graph reads the live weight.
 //
 // What bounds them on this card, at 1080p's grid (N = 32,400): each moves
-// A once, 4.2 GB (1.26 ms at 3.35 TB/s), against 0.27 TFLOP of products,
-// which float32 accuracy would put at 4.0 ms on the CUDA cores (67 TFLOP/s).
-// On the tensor cores, in the error-compensated TF32 split of
-// tf32_wgmma.cuh (three TF32 products, 1.6 ms at 495 TFLOP/s), bytes and
-// products come out close: K7 reads A once a step with the tensor cores
-// fed; K6 forms each logit once.
+// A once, 4.2 GB (1.27 ms at 3.35 TB/s; 1.40 ms at the measured 3.03 TB/s),
+// against 0.27 TFLOP of products, which float32 accuracy would put at 4.0 ms
+// on the CUDA cores (67 TFLOP/s). On the tensor cores, in the
+// error-compensated TF32 split of tf32_wgmma.cuh (three TF32 products, 0.81
+// TFLOP: 1.63 ms at 495 TFLOP/s, 2.06 ms at the measured 391), the products
+// bound K7 a little above the bytes: K7 reads A once a step with the tensor
+// cores fed; K6 forms each logit once.
 //
-// Design, shared: each warpgroup issues wgmma.m64n64k8 with its register
-// operand from shared memory by ldmatrix or plain loads and its shared
-// operand split once a slab into a big and a small plane. Operands arrive
-// by cp.async, 16 bytes a copy, into wgmma's core-matrix layout; reads past
-// N are zero-filled. Products chain in a fresh accumulator for one slab of
-// 32 reduction elements (12 products: the tensor cores round their sums
-// toward zero) and the slabs add up in fp32. Offsets are 64-bit: B * N^2
-// passes 2^31 at 1080p.
+// Design, shared: the products are wgmma with a register operand split into
+// TF32 big and small parts and a shared operand split once into a big and a
+// small plane in wgmma's K-major core-matrix layout. Products chain in a
+// fresh accumulator for one slab of 32 reduction elements (12 products: the
+// tensor cores round their sums toward zero) and the slabs add up in fp32.
+// Reads past N are zero-filled. Offsets are 64-bit: B * N^2 passes 2^31 at
+// 1080p.
 //
 // K6: a block is one warpgroup and owns 64 queries; their rows, scaled and
 // split, sit in shared memory for the whole launch and are the register
-// operand (each warp its 16 queries). The keys stream through a three-stage
-// ring, 64 keys x 32 channels a stage, split into planes: the shared
-// operand. Each thread holds two queries' logits against 16 of a step's 64
-// keys: it writes them into A (four lanes a row's 32 bytes) and keeps its
-// two rows' running maximum and sum of exponentials (the online softmax).
+// operand (each warp its 16 queries, by ldmatrix). The keys stream through
+// a three-stage cp.async ring, 64 keys x 32 channels a stage, split into
+// planes: the shared operand (wgmma.m64n64k8). Each thread holds two
+// queries' logits against 16 of a step's 64 keys: it writes them into A
+// (four lanes a row's 32 bytes) and keeps its two rows' running maximum and
+// sum of exponentials (the online softmax).
 // After the one sweep over the keys the statistics merge across the four
 // lanes of a row, and the block normalises its rows in place,
 // exp(s - max) / sum: A is written twice and read once (12.6 GB at 1080p),
 // where a second sweep would form every logit again. Two blocks share an
 // SM.
 //
-// K7: a block is two warpgroups and owns 64 rows of A and all 128
-// channels. A stage is a slab of those rows over 32 keys (the shared
-// operand, split in shared memory) and the 32 keys' rows of v (32 x 128,
-// padded rows so that each warp's fragment loads hit 32 banks). v is the
-// register operand transposed: each warpgroup forms (A v)^T for 64 channels
-// x the 64 rows. A is read once a step; v (16.6 MB at 1080p) is read by
-// every block from L2. The epilogue adds gamma times the product to m.
+// K7: a warp-specialised pipeline; a block owns 128 rows of A and all 128
+// channels of g, with three warpgroups and no block barrier in its loop:
+//   - warp 0 (one thread) keeps a four-stage ring of bulk tensor copies
+//     (TMA) in flight, each stage A's slab of the block's rows x 32 keys
+//     (128-byte swizzled rows; L2 evict-first, as A is read once) and v's
+//     32 rows (evict-last, as every block reads all of v, 16.6 MB a pair),
+//     each stage's bytes and each release counted on an mbarrier;
+//   - warps 1-3 transpose and split each slab of v into K-major big and
+//     small planes (a two-plane ring), once for the block: a lane reads a
+//     4 x 4 block (4 keys of 4 channels) and stores its 4 channels; the
+//     planes' groups of 8 channels lie 16 bytes further apart than their
+//     data, so those stores hit every bank;
+//   - two consumer warpgroups, 64 rows each, load their A fragments by
+//     ldmatrix, split them in registers (A never goes through planes), then
+//     issue the slab's 12 wgmma.m64n128k8 (N = the 128 channels) on the
+//     planes, wait, add the chain into the fp32 total and free the planes.
+// setmaxnreg gives the consumers 232 registers a thread (two 64-float
+// accumulators and the slab's 32 fragment registers, which must stay
+// unchanged until the products retire) and the producers 40. A wait_group
+// 1 ping-pong within a warpgroup would hold two slabs' fragments beside
+// three accumulators, over 255 registers; the two consumer warpgroups take
+// turns on the tensor cores instead, one adding while the other's products
+// run. v is read from L2 once a block (4.2 GB a step at 1080p, half as
+// much as with 64-row blocks). The epilogue adds gamma times the product
+// to m. One block an SM (198,752 bytes of shared memory).
+//
+// What now bounds K7 (H100 SXM at 700 W, batch 1 at 1080p's grid): shared
+// memory. A slab moves 192 KB through it: wgmma's reads of the planes (96
+// KB), v's copy, read-back and planes (64 KB), A's copy and ldmatrix (32
+// KB). Without v's transpose-split (a diagnostic copy) a launch takes
+// 1.9-2.0 ms, the products at ~85% of 495 TFLOP/s, near the 2.06 ms
+// compute floor at the measured TF32 envelope; with it 2.4-2.6 ms. Fewer
+// bytes through shared memory a row would need more rows a block, and the
+// registers hold no more (256 rows spill).
 //
 // A's rows must start 16 bytes apart (the wrapper gives K6's output a row
 // stride that is a multiple of 4); q, k and v likewise; m and g any row
 // stride. The C functions return a CUDA error code, 0 on success.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 
 #include "tf32_wgmma.cuh"
@@ -270,121 +299,234 @@ gma_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---- K7 ------------------------------------------------------------------
-constexpr int AG_THREADS = 256;          // two warpgroups
-constexpr int AG_ROWS = 64;              // rows of A a block (wgmma's N)
-constexpr int AG_STAGES = 3;
-constexpr int VS = D + 8;                // v's padded row in a stage
+constexpr int AG_ROWS = 128;             // rows of A a block
+constexpr int AG_THREADS = 384;          // a producer and two consumer groups
+constexpr int AG_STAGES = 4;             // ring of A and v slabs
+constexpr int AG_PLANES = 2;             // ring of v's big and small planes
+constexpr int AG_SPLITTERS = 3;          // warps 1-3: v's transpose-split
+constexpr int AG_CONSUMER_WARPS = 8;
 constexpr int AG_A = AG_ROWS * KC;       // floats of a stage's A slab
-constexpr int AG_STAGE = AG_A + KC * VS;
-constexpr long long AG_SMEM = (2LL * AG_A + AG_STAGES * AG_STAGE) * 4;
+constexpr int AG_V = KC * D;             // floats of a stage's v slab
+constexpr int AG_STAGE = AG_A + AG_V;
+// floats between a plane's groups of 8 channels: their 8 core matrices and
+// 16 bytes more, so that the 8 lanes of a quarter-warp, each storing one
+// channel of its 4 x 4 block, hit 8 different 16-byte bank groups
+constexpr int AG_SBO = 8 * KC + 4;
+constexpr int AG_PLANE = (D / 8) * AG_SBO;   // floats of one plane
+constexpr int AG_BARS = 2 * AG_STAGES + 2 * AG_PLANES;
+constexpr long long AG_SMEM =            // 1024 bytes to align the ring
+    1024 + (AG_STAGES * (long long)AG_STAGE + AG_PLANES * 2LL * AG_PLANE) * 4 +
+    AG_BARS * 8;
+constexpr int AG_PRODUCER_REGS = 40;     // with 232 a consumer thread: the
+constexpr int AG_CONSUMER_REGS = 232;    // 168 x 384 of the launch
+static_assert(AG_PRODUCER_REGS * 128 + AG_CONSUMER_REGS * 256 <= 168 * 384,
+              "setmaxnreg moves no more registers than the launch holds");
+static_assert(KC * 4 == 128, "an A slab's row is one 128-byte swizzle span");
 
-struct AggStrides {
-  long long ab, an, vb, vn, mb, mn, gb, gn;
+struct OutStrides {
+  long long mb, mn, gb, gn;
 };
 
-__global__ void __launch_bounds__(AG_THREADS, 2)
-gma_aggregate_kernel(const float* __restrict__ attn,
-                     const float* __restrict__ v, const float* __restrict__ m,
-                     float* __restrict__ out, const float* __restrict__ gamma,
-                     int N, const AggStrides st) {
-  extern __shared__ __align__(128) float smem[];
-  float* abig = smem;                      // [AG_ROWS x KC], core layout
-  float* asmall = abig + AG_A;
-  float* ring = asmall + AG_A;             // [AG_STAGES][A slab, v rows]
+__global__ void __launch_bounds__(AG_THREADS, 1)
+gma_aggregate_kernel(const __grid_constant__ CUtensorMap a_map,
+                     const __grid_constant__ CUtensorMap v_map,
+                     const float* __restrict__ m, float* __restrict__ out,
+                     const float* __restrict__ gamma, int N,
+                     const OutStrides st) {
+  extern __shared__ __align__(1024) unsigned char ag_smem[];
+  float* ring = reinterpret_cast<float*>(
+      ag_smem + ((1024 - (smem_u32(ag_smem) & 1023)) & 1023));
+  float* planes = ring + AG_STAGES * AG_STAGE;  // [AG_PLANES][big, small]
+  unsigned long long* full = reinterpret_cast<unsigned long long*>(
+      planes + AG_PLANES * 2 * AG_PLANE);
+  unsigned long long* empty = full + AG_STAGES;
+  unsigned long long* pfull = empty + AG_STAGES;
+  unsigned long long* pempty = pfull + AG_PLANES;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int ch0 = (warp >> 2) * 64 + (warp & 3) * 16;  // 16 channels a warp
-  const long long b = blockIdx.y;
+  const int b = blockIdx.y;
   const int row0 = blockIdx.x * AG_ROWS;
-  attn += b * st.ab;
-  v += b * st.vb;
-  m += b * st.mb;
-  out += b * st.gb;
+  const int T = (N + KC - 1) / KC;         // slabs of 32 keys
 
-  const int T = (N + KC - 1) / KC;
-  auto load_stage = [&](int s) {
-    float* dst = ring + (s % AG_STAGES) * AG_STAGE;
-    const int key0 = s * KC;
-#pragma unroll
-    for (int u = 0; u < AG_A / 4 / AG_THREADS; ++u) {
-      const int i = tid + u * AG_THREADS;
-      const int r = row0 + (i / (2 * KC)) * 8 + (i & 7);
-      const int key = key0 + 4 * ((i >> 3) % (KC / 4));
-      const int bytes = r < N ? max(0, min(16, 4 * (N - key))) : 0;
-      cp_async16(dst + 4 * i, bytes ? attn + r * st.an + key : attn, bytes);
+  if (tid == 0) {
+    for (int s = 0; s < AG_STAGES; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, AG_SPLITTERS + AG_CONSUMER_WARPS);
     }
-    float* vt = dst + AG_A;
-#pragma unroll
-    for (int u = 0; u < KC * D / 4 / AG_THREADS; ++u) {
-      const int i = tid + u * AG_THREADS;
-      const int kr = i / (D / 4);
-      const int j = i % (D / 4);
-      const bool ok = key0 + kr < N;
-      cp_async16(vt + kr * VS + 4 * j, ok ? v + (key0 + kr) * st.vn + 4 * j : v,
-                 ok ? 16 : 0);
+    for (int p = 0; p < AG_PLANES; ++p) {
+      mbar_init(pfull + p, AG_SPLITTERS);
+      mbar_init(pempty + p, AG_CONSUMER_WARPS);
     }
-  };
+    fence_mbar_init();
+  }
+  __syncthreads();
 
-  float acc[32], part[32];
+  if (warp < 4) {
+    // -- the producer warpgroup ---------------------------------------------
+    setmaxnreg_dec<AG_PRODUCER_REGS>();
+    if (warp == 0) {
+      // one thread keeps the ring's bulk copies in flight: A's slab (rows x
+      // 32 keys, swizzled, evict first) and v's 32 rows (evict last)
+      if (lane == 0) {
+        const unsigned long long first = l2_evict_first();
+        const unsigned long long last = l2_evict_last();
+        for (int i = 0; i < T; ++i) {
+          const int s = i % AG_STAGES;
+          mbar_wait(empty + s, ((i / AG_STAGES) & 1) ^ 1);
+          mbar_arrive_expect_tx(full + s, AG_STAGE * 4);
+          float* dst = ring + s * AG_STAGE;
+          tma_load_3d(dst, &a_map, full + s, i * KC, row0, b, first);
+          tma_load_3d(dst + AG_A, &v_map, full + s, 0, i * KC, b, last);
+        }
+      }
+    } else {
+      // warps 1-3: each slab's v (32 keys x 128 channels, row-major) into
+      // K-major TF32 big and small planes, once for both consumers; a warp
+      // takes 4 keys of all channels at a time, a lane a 4 x 4 block
+      const int tw = warp - 1;
+      const int c4 = 4 * lane;
+      int off[4];                          // channel c4 + q's 16 bytes
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
+      for (int q = 0; q < 4; ++q) {
+        off[q] = ((c4 + q) >> 3) * AG_SBO + ((c4 + q) & 7) * 4;
+      }
+      for (int i = 0; i < T; ++i) {
+        const int s = i % AG_STAGES;
+        const int p = i % AG_PLANES;
+        mbar_wait(pempty + p, ((i / AG_PLANES) & 1) ^ 1);
+        mbar_wait(full + s, (i / AG_STAGES) & 1);
+        const float* vs = ring + s * AG_STAGE + AG_A;
+        float* big = planes + p * 2 * AG_PLANE;
+        for (int k4 = tw; k4 < KC / 4; k4 += AG_SPLITTERS) {
+          float4 x[4];
 #pragma unroll
-  for (int s = 0; s < AG_STAGES - 1; ++s) {
-    if (s < T) load_stage(s);
-    cp_async_commit();
-  }
-  for (int s = 0; s < T; ++s) {
-    if (s + AG_STAGES - 1 < T) load_stage(s + AG_STAGES - 1);
-    cp_async_commit();
-    cp_async_wait<AG_STAGES - 1>();
-    __syncthreads();
-    const float* slab = ring + (s % AG_STAGES) * AG_STAGE;
-    // the A slab as TF32 big and small planes
-#pragma unroll
-    for (int u = 0; u < AG_A / 4 / AG_THREADS; ++u) {
-      const int i = tid + u * AG_THREADS;
-      uint4 hi, lo;
-      split_tf32(reinterpret_cast<const uint4*>(slab)[i], hi, lo);
-      reinterpret_cast<uint4*>(abig)[i] = hi;
-      reinterpret_cast<uint4*>(asmall)[i] = lo;
+          for (int r = 0; r < 4; ++r) {
+            x[r] = *reinterpret_cast<const float4*>(vs + (4 * k4 + r) * D + c4);
+          }
+          split_tf32_4x4(x, big + k4 * 32, big + AG_PLANE + k4 * 32, off);
+        }
+        fence_proxy_async();
+        __syncwarp();
+        if (lane == 0) {
+          mbar_arrive(pfull + p);
+          mbar_arrive(empty + s);
+        }
+      }
     }
-    fence_proxy_async();
-    __syncthreads();
-    const float* vt = slab + AG_A;
+  } else {
+    // -- two consumer warpgroups, 64 rows each --------------------------------
+    setmaxnreg_inc<AG_CONSUMER_REGS>();
+    const int cw = (warp >> 2) - 1;
+    const int wq = warp & 3;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    // the row this lane addresses for ldmatrix: matrices (rows 0-7 | 8-15)
+    // x (k4, k4 + 1) of the warp's 16 rows
+    const int arow = 64 * cw + 16 * wq + (lane & 7) + ((lane >> 3) & 1) * 8;
+    const int ak4 = lane >> 4;
+    float acc[64], part[64];
 #pragma unroll
-    for (int kk = 0; kk < KC / 4; kk += 2) {  // keys 4kk .. 4kk + 7
-      // v^T's fragment: channels ch0 + g (+8), keys 4kk + t (+4)
-      const float* v0 = vt + (4 * kk + t) * VS + ch0 + g;
-      unsigned a[4], ab[4], as[4];
-      a[0] = __float_as_uint(v0[0]);
-      a[1] = __float_as_uint(v0[8]);
-      a[2] = __float_as_uint(v0[4 * VS]);
-      a[3] = __float_as_uint(v0[4 * VS + 8]);
+    for (int r = 0; r < 64; ++r) acc[r] = 0.0f;
+    for (int i = 0; i < T; ++i) {
+      const int s = i % AG_STAGES;
+      const int p = i % AG_PLANES;
+      // A's fragments (rows of this warp, the slab's 32 keys), split in
+      // registers; the stage is then free as far as this warp goes
+      mbar_wait(full + s, (i / AG_STAGES) & 1);
+      const unsigned char* as =
+          reinterpret_cast<const unsigned char*>(ring + s * AG_STAGE);
+      unsigned abig[4][4], asmall[4][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) split_tf32(a[i], ab[i], as[i]);
-      const int off = core_offset<KC>(0, kk);
-      wgmma_tf32x3(part, ab, as, core_desc<KC>(abig + off),
-                   core_desc<KC>(asmall + off), kk > 0);
+      for (int kk = 0; kk < 4; ++kk) {
+        unsigned a[4];
+        ldmatrix_x4(a, reinterpret_cast<const float*>(
+                           as + swizzle128_offset(arow, 2 * kk + ak4)));
+#pragma unroll
+        for (int r = 0; r < 4; ++r) split_tf32(a[r], abig[kk][r], asmall[kk][r]);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + s);
+      // 12 products into a fresh chain, added into the fp32 total
+      mbar_wait(pfull + p, (i / AG_PLANES) & 1);
+      const float* big = planes + p * 2 * AG_PLANE;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const float* b0 = big + 2 * kk * 32;  // k4 = 2kk: 128 bytes a k4
+        wgmma_tf32x3_n128(part, abig[kk], asmall[kk],
+                          kmajor_desc(b0, 128, AG_SBO * 4),
+                          kmajor_desc(b0 + AG_PLANE, 128, AG_SBO * 4),
+                          kk > 0);
+      }
+      wgmma_wait<0>();
+#pragma unroll
+      for (int r = 0; r < 64; ++r) acc[r] += part[r];
+      __syncwarp();
+      if (lane == 0) mbar_arrive(pempty + p);
     }
-    wgmma_wait<0>();
-#pragma unroll
-    for (int i = 0; i < 32; ++i) acc[i] += part[i];
-    __syncthreads();  // the planes and the stage are written again
-  }
 
-  // acc[i]: channel ch0 + g + 8 * ((i >> 1) & 1) of row 8 * (i >> 2) + 2t +
-  // (i & 1) of the block
-  const float gm = *gamma;
+    // acc[i]: channel 8 * (i >> 2) + 2t + (i & 1) of row 16 * wq + g + 8 *
+    // ((i >> 1) & 1) of the warpgroup's 64
+    const float gm = *gamma;
+    m += b * st.mb;
+    out += b * st.gb;
 #pragma unroll
-  for (int i = 0; i < 32; ++i) {
-    const int ch = ch0 + g + 8 * ((i >> 1) & 1);
-    const int r = row0 + 8 * (i >> 2) + 2 * t + (i & 1);
-    if (r < N) out[r * st.gn + ch] = m[r * st.mn + ch] + gm * acc[i];
+    for (int i = 0; i < 64; ++i) {
+      const int r = row0 + 64 * cw + 16 * wq + g + 8 * ((i >> 1) & 1);
+      const int ch = 8 * (i >> 2) + 2 * t + (i & 1);
+      if (r < N) out[r * st.gn + ch] = m[r * st.mn + ch] + gm * acc[i];
+    }
   }
+}
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (the library
+// links no libcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A (batch, rows, inner) float32 tensor's map for boxes of (1, box1, box0):
+// strides in elements; reads outside it are zeros
+bool encode_map(CUtensorMap* map, const void* ptr, long long inner,
+                long long rows, int batch, long long row_stride,
+                long long batch_stride, unsigned box0, unsigned box1,
+                CUtensorMapSwizzle swizzle, CUtensorMapL2promotion promote) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)inner, (cuuint64_t)rows,
+                              (cuuint64_t)batch};
+  // one batch: any legal stride for the unused dimension
+  const cuuint64_t strides[2] = {
+      (cuuint64_t)row_stride * 4,
+      (cuuint64_t)(batch > 1 ? batch_stride : rows * row_stride) * 4};
+  const cuuint32_t box[3] = {box0, box1, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
+                const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, promote,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 bool aligned16(const void* p, long long n) {
@@ -420,12 +562,22 @@ extern "C" int gma_aggregate_launch(const void* attn, const void* v,
                                     const void* m, void* out,
                                     const void* gamma, int batch, int n,
                                     const long long* strides, void* stream) {
-  const AggStrides st{strides[0], strides[1], strides[2], strides[3],
-                      strides[4], strides[5], strides[6], strides[7]};
+  const long long ab = strides[0], an = strides[1], vb = strides[2],
+                  vn = strides[3];
+  const OutStrides st{strides[4], strides[5], strides[6], strides[7]};
   if (batch < 0 || batch > 65535 || n < 0) return (int)cudaErrorInvalidValue;
   if (batch == 0 || n == 0) return 0;
-  if (!aligned16(attn, st.an) || !aligned16(v, st.vn) || st.ab % 4 != 0 ||
-      st.vb % 4 != 0) {
+  if (!aligned16(attn, an) || !aligned16(v, vn) || ab % 4 != 0 ||
+      vb % 4 != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  CUtensorMap a_map, v_map;
+  if (!encode_map(&a_map, attn, n, n, batch, an, ab, KC, AG_ROWS,
+                  CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_128B) ||
+      !encode_map(&v_map, v, D, n, batch, vn, vb, D, KC,
+                  CU_TENSOR_MAP_SWIZZLE_NONE,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaError_t err = set_smem(gma_aggregate_kernel, AG_SMEM);
@@ -433,8 +585,17 @@ extern "C" int gma_aggregate_launch(const void* attn, const void* v,
   const dim3 grid((unsigned)((n + AG_ROWS - 1) / AG_ROWS), (unsigned)batch);
   gma_aggregate_kernel<<<grid, AG_THREADS, AG_SMEM,
                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(attn), static_cast<const float*>(v),
-      static_cast<const float*>(m), static_cast<float*>(out),
+      a_map, v_map, static_cast<const float*>(m), static_cast<float*>(out),
       static_cast<const float*>(gamma), n, st);
   return (int)cudaGetLastError();
+}
+
+// K7's resident blocks an SM and its dynamic shared memory a block
+extern "C" int gma_aggregate_occupancy(int* blocks_per_sm,
+                                       long long* smem_bytes) {
+  cudaError_t err = set_smem(gma_aggregate_kernel, AG_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  *smem_bytes = AG_SMEM;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, gma_aggregate_kernel, AG_THREADS, AG_SMEM);
 }

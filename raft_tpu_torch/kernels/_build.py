@@ -50,6 +50,7 @@ SIGNATURES = {
                         _P, _P],
     "gma_attention_launch": [_P, _P, _P, _I, _I, _F, _P, _P],
     "gma_aggregate_launch": [_P, _P, _P, _P, _P, _I, _I, _P, _P],
+    "gma_aggregate_occupancy": [ctypes.POINTER(_I), ctypes.POINTER(_LL)],
 }
 
 
@@ -73,6 +74,7 @@ class Build:
     path: str
     seconds: float  # 0.0 when an up-to-date build was found on disk
     log: str        # nvcc's output, -Xptxas -v register/smem use included
+                    # (kept beside the library, read back with a found build)
 
 
 _lock = threading.Lock()
@@ -132,6 +134,9 @@ def _compile(srcs, lib_path: str) -> str:
                     for s, o in zip(srcs, objs)])
     tmp = f"{lib_path}.{tag}.tmp"
     log += _run_all([[nvcc, "-shared", *NVCC_FLAGS[:1], "-o", tmp, *objs]])
+    with open(f"{tmp}.log", "w") as f:
+        f.write(log)
+    os.replace(f"{tmp}.log", f"{lib_path}.log")
     os.replace(tmp, lib_path)
     for o in objs:
         os.unlink(o)
@@ -149,6 +154,9 @@ def library() -> Build:
         path = os.path.join(BUILD_DIR, f"libraft_kernels_{_digest(srcs)}.so")
         seconds = 0.0
         log = "found an up-to-date build; nothing compiled"
+        if os.path.exists(f"{path}.log"):
+            with open(f"{path}.log") as f:
+                log = f"{log}; its log:\n{f.read()}"
         if not os.path.exists(path):
             t0 = time.perf_counter()
             log = _compile(srcs, path)

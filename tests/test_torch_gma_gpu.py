@@ -12,7 +12,9 @@ own float32 products (cuBLAS with TF32 off) on the same rows, or within
 1e-5 of the largest value where cuBLAS errs less (its sums of thousands of
 float32 terms run in another order; one TF32 product errs by ~1e-3), at
 batch 2 on the 1080p cell's 135x240 grid, on the 136x240 grid and at a
-ragged width.
+ragged width; K7 also where its 128-row tiles and 32-key slabs run past N
+and on a padded A. A captured GMA bucket replays one K6 and 20 K7, and
+reads γ swapped after the capture.
 """
 
 import json
@@ -92,6 +94,28 @@ def test_kernels_hold_float32_accuracy(cuda, B, H, W):
     assert _rel(g[:, rows], want_g) <= _fp32(_rel(lib_g, want_g))
 
 
+@pytest.mark.parametrize("B,H,W,pad", [
+    (1, 7, 9, 0),      # N = 63: under one 128-row tile and two 32-key slabs
+    (1, 21, 61, 0),    # N = 1281: one past 10 row tiles and 40 key slabs
+    (2, 24, 40, 12),   # batch 2, A's rows 972 apart (N = 960)
+])
+def test_aggregate_edges_hold_float32_accuracy(cuda, B, H, W, pad):
+    """K7 where its tiles and slabs run past N, and on an A whose rows are
+    padded: every row against float64, within twice cuBLAS's float32 error
+    there."""
+    q, k, v, m = _operands(B, H, W, cuda, 7 * H + W)
+    gamma = torch.tensor([0.7], device=cuda)
+    N = H * W
+    attn = gma_attention(q, k, SCALE)
+    if pad:
+        attn = torch.zeros(B, N, N + pad, device=cuda)[:, :, :N].copy_(attn)
+        assert attn.stride(1) == N + pad
+    g = gma_aggregate(attn, v, m, gamma)
+    want = m.double() + 0.7 * (attn.double() @ v.double())
+    lib = m + gamma * (attn @ v)
+    assert _rel(g, want) <= _fp32(_rel(lib, want))
+
+
 def test_aggregate_reads_a_transposed_view(cuda):
     """``Aᵀ`` (the planted fault's view), which the kernel cannot read in
     place, is copied into a layout it can and gives ``m + γ·(Aᵀ v)``; so
@@ -153,3 +177,37 @@ def test_gma_bucket_replays_one_k6_and_twenty_k7(cuda):
                       torch.from_numpy(im2).to(cuda).float(), iters=20)
     gap = np.sqrt(((np.asarray(flows) - up.cpu().numpy()) ** 2).sum(-1))
     assert float(gap.mean()) < 1e-3
+
+
+def test_gma_replay_reads_gamma_swapped_after_capture(cuda):
+    """γ swapped by ``update_weights`` after a GMA bucket's capture: the
+    next replay's K7 reads the new value on the device, so its flow is the
+    eager forward's at the new γ and not the old one's."""
+    with open(os.path.join(ROOT, "flowbench", "configs", "gma.json")) as f:
+        cfg = json.load(f)
+    config = RAFTConfig(gma_heads=1, **cfg["program"])
+    model = RAFT(config)
+    with torch.no_grad():
+        model.update_block.aggregator.gamma.fill_(1.0)
+        model.att.to_qk.weight.mul_(12.0)     # peaked rows, as the cell's
+    shape = (1, 64, 96)
+    engine = RAFTEngine(model.state_dict(), config=config, iters=6,
+                        envelope=[shape], wire="u8", device="cuda")
+    rng = np.random.default_rng(1)
+    im1, im2 = (rng.integers(0, 256, (1, 64, 96, 3), dtype=np.uint8)
+                for _ in range(2))
+    before_swap = np.asarray(engine.infer_batch(im1, im2))
+    with torch.no_grad():
+        model.update_block.aggregator.gamma.fill_(0.25)
+    engine.update_weights(model.state_dict())
+    before = engine.replayed_launches().get("gma_aggregate", 0)
+    flows = np.asarray(engine.infer_batch(im1, im2))
+    assert engine.replayed_launches()["gma_aggregate"] - before == 6
+    model = model.to(cuda).eval()
+    with torch.no_grad():
+        _, up = model(torch.from_numpy(im1).to(cuda).float(),
+                      torch.from_numpy(im2).to(cuda).float(), iters=6)
+    gap = np.sqrt(((flows - up.cpu().numpy()) ** 2).sum(-1))
+    moved = np.sqrt(((flows - before_swap) ** 2).sum(-1))
+    assert float(gap.mean()) < 1e-3
+    assert float(moved.mean()) > 100 * float(gap.mean())
