@@ -2146,7 +2146,7 @@ def serving_phase(smi: str) -> dict:
         eng.ensure_bucket(b, h, w)
         capture_s[f"{b}x{h}x{w}"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    eng.ensure_ragged(*SERVE_CLASS)
+    eng.ensure_bucket(*SERVE_CLASS, kind="ragged")
     capture_s["ragged_" + "x".join(map(str, SERVE_CLASS))] = (
         time.perf_counter() - t0)
     torch.cuda.synchronize()
@@ -2262,7 +2262,7 @@ def serving_phase(smi: str) -> dict:
         f"(fail above {SERVE_TOL:g})")
     if not (shapes_ok and eng.capture_count == caps and rgap <= SERVE_TOL):
         raise RuntimeError("the ragged class disagrees or captured again")
-    t_ragged = events_ms(eng._programs_ragged[SERVE_CLASS].graph.replay, 3)
+    t_ragged = events_ms(eng._tables["ragged"][SERVE_CLASS].graph.replay, 3)
     log(f"[17] ragged class replay {t_ragged:.2f} ms (CUDA events) against "
         f"the batch-4 bucket's {t['replay_events_b4'] * PAIRS:.2f} ms")
     out.update(ragged_gap_px=rgap, ragged_replay_ms=t_ragged)
@@ -2406,7 +2406,7 @@ def serving_phase(smi: str) -> dict:
         h2d_p.append(plain.h2d_bytes)
         cgap = max(cgap, float(np.abs(flow_c - flow_p).max()))
         init = low_c
-    ev_c = events_ms(cached._programs_cached[(1, 440, 1024)].graph.replay, 5)
+    ev_c = events_ms(cached._tables["cached"][(1, 440, 1024)].graph.replay, 5)
     ev_p = events_ms(twin._programs[(1, 440, 1024)].graph.replay, 5)
     log(f"[17] cached: engine B (small fixture, feature cache) over "
         f"demo-frames, prime then {len(ms_c)} warm pairs, each against the "

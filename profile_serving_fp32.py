@@ -92,7 +92,7 @@ def main() -> int:
         log(f"capture {b}x{h}x{w}: {free_gib():.1f} GiB free before it")
         eng.ensure_bucket(b, h, w)
     log(f"capture the ragged class: {free_gib():.1f} GiB free before it")
-    eng.ensure_ragged(*SERVE_CLASS)
+    eng.ensure_bucket(*SERVE_CLASS, kind="ragged")
     log(f"captured (seconds): {eng.capture_seconds}")
     replay = eng.infer_batch(f1, f2)
     post = eager(eng.model)

@@ -23,7 +23,8 @@ What a field selects differs where the hardware differs:
 - ``gma_heads``: 0 runs RAFT; 1 runs GMA (Jiang et al., ICCV 2021): RAFT
   basic with attention over the 1/8 grid's positions, formed once a pair
   from the context features, and every step's motion features aggregated
-  over it (``models.gma``, the Triton kernels of ``kernels.gma``: K6, K7).
+  over it (``models.gma``; K6 and K7, CUDA C++ in ``csrc/gma.cu``, bound
+  by ``kernels.gma``).
   It has no counterpart in the JAX package. The small model, a
   ``spatial`` mesh axis, ragged and cached serving, and training refuse
   it.

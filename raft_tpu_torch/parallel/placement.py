@@ -205,39 +205,22 @@ class Placement:
     # -- bucket capacity / warming (ex scheduler._shape_capacity) ---------
 
     @staticmethod
-    def bucket_fit(engine, key: Tuple, max_batch: int) -> int:
+    def bucket_fit(engine, h: int, w: int, kind: str, max_batch: int) -> int:
         """Capacity-probe-or-warm for one coalescing key on ONE engine
         — the logic the scheduler's ``_shape_capacity`` carried, now
         engine-parametric so each replica warms its own table (an AOT
-        store would turn the warm into a load). Returns the
-        bucket/class batch fit; may capture a program (never call
-        under a lock)."""
-        h, w = key[0], key[1]
-        if len(key) > 2 and key[2] == "ragged":
-            # capacity-class group: key dims ARE the class box.
-            # Pre-warm ONE class at max_batch so every later fill
-            # count (and shape mix) batch-fills into it — one
-            # program per class, across shapes.
-            fit = engine.ragged_capacity(h, w)
-            if fit is None:
-                fit = engine.ensure_ragged(max_batch, h, w)[0]
-        elif len(key) > 2:
-            # feature-cache group: its own signature table — the
-            # plain kwarg-less calls below stay byte-identical for
-            # duck-typed engines without the cached API
-            fit = engine.bucket_capacity(h, w, cached=True)
-            if fit is None:
-                fit = engine.ensure_bucket(max_batch, h, w,
-                                           cached=True)[0]
-        else:
-            fit = engine.bucket_capacity(h, w)
-            if fit is None:
-                # no built bucket fits this spatial shape: pre-warm
-                # exactly one at max_batch so every later fill count
-                # batch-fills into it (one program per shape). After a
-                # wedge dropped the bucket, this is also the half-open
-                # probe's lazy recapture.
-                fit = engine.ensure_bucket(max_batch, h, w)[0]
+        store would turn the warm into a load). ``(h, w, kind)``: the
+        key's request extents (a capacity class's box) and the engine's
+        program kind. Returns the bucket/class batch fit; may capture a
+        program (never call under a lock)."""
+        fit = engine.bucket_capacity(h, w, kind=kind)
+        if fit is None:
+            # no built bucket fits this spatial shape: pre-warm exactly
+            # one at max_batch so every later fill count (and, for a
+            # capacity class, shape mix) batch-fills into it (one
+            # program per shape or class). After a wedge dropped the
+            # bucket, this is also the half-open probe's lazy recapture.
+            fit = engine.ensure_bucket(max_batch, h, w, kind=kind)[0]
         return fit
 
     # -- scaling policy ----------------------------------------------------

@@ -36,8 +36,8 @@ AVI with the port's own JPEG codec.
 from raft_tpu_torch.serving.aot import AOTCache, key_digest
 from raft_tpu_torch.serving.engine import (SHAPE_ENVELOPE_LINUX,
                                            SHAPE_ENVELOPE_WINDOWS,
-                                           PendingBatch, RaggedPendingBatch,
-                                           RAFTEngine, StaleFeatureError)
+                                           PendingBatch, RAFTEngine,
+                                           StaleFeatureError)
 from raft_tpu_torch.serving.export import (export_program, load_program,
                                            make_serving_fn)
 from raft_tpu_torch.serving.feature_cache import (FeatureCacheMiss,
@@ -71,10 +71,10 @@ from raft_tpu_torch.serving.transport import (LoopbackTransport,
                                               TransportError)
 from raft_tpu_torch.serving.video import optical_flow_visualize
 
-__all__ = ["RAFTEngine", "PendingBatch", "RaggedPendingBatch",
-           "StaleFeatureError", "SHAPE_ENVELOPE_LINUX",
-           "SHAPE_ENVELOPE_WINDOWS", "export_program", "load_program",
-           "make_serving_fn", "RaggedDescriptor",
+__all__ = ["RAFTEngine", "PendingBatch", "StaleFeatureError",
+           "SHAPE_ENVELOPE_LINUX", "SHAPE_ENVELOPE_WINDOWS",
+           "export_program", "load_program", "make_serving_fn",
+           "RaggedDescriptor",
            "make_descriptor", "mask_features", "build_corr_pyramid_ragged",
            "corr_lookup_ragged", "MicroBatchScheduler", "BackpressureError",
            "DeadlineExceeded", "SchedulerClosed", "ServeResult",

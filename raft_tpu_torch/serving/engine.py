@@ -156,17 +156,29 @@ def _handed(t: torch.Tensor) -> torch.Tensor:
     return t
 
 
-class PendingBatch:
-    """One in-flight engine dispatch (``infer_batch_async``).
+def _fetched(t, host: bool):
+    """A kept output handed over: copied to host numpy (``host``) or left
+    on the device; a ragged dispatch's list of per-row crops, row by
+    row."""
+    if isinstance(t, list):
+        return [_fetched(x, host) for x in t]
+    return t.cpu().numpy() if host else _handed(t)
 
-    The dispatch returns as soon as the bucket's program is queued on the
-    engine's stream. ``fetch()`` waits for it and returns what
-    ``infer_batch`` would: the flow (host numpy, cropped to the request),
-    or ``(flow, flow_low)`` with ``return_low`` (``flow_low`` cropped to
-    the ÷8-padded request, a device tensor with ``low_device``). A cached
-    dispatch returns ``(flow, flow_low, fmap2, cnet2)``, the last three
-    full-bucket device tensors. Two dispatches of one bucket may be in
-    flight at once: each holds its own clone of the outputs.
+
+class PendingBatch:
+    """One in-flight engine dispatch (``infer_batch_async``,
+    ``infer_ragged_async``, ``infer_cached_async``).
+
+    The dispatch returns as soon as the program is queued on the engine's
+    stream. ``fetch()`` waits for it and returns what the synchronous call
+    would: the flow (host numpy, cropped to the request), or ``(flow,
+    flow_low)`` with ``return_low`` (``flow_low`` cropped to the
+    ÷8-padded request, a device tensor with ``low_device``). A ragged
+    dispatch returns a list of flows (and of ``flow_low``), each cropped
+    to its own request. A cached dispatch returns ``(flow, flow_low,
+    fmap2, cnet2)``, the last three full-bucket device tensors. Two
+    dispatches of one bucket may be in flight at once: each holds its own
+    clone of the outputs.
 
     ``h2d_bytes``: host bytes shipped to the device (padded frames and any
     host-built ``flow_init``). ``t_synced``: monotonic time the outputs
@@ -174,15 +186,16 @@ class PendingBatch:
     handed over on the host, after the copies (both set by ``fetch``).
     ``span_ctx``: the request-trace spans of the batch, set by a tracing
     scheduler so its completion stage marks ``fetch_start`` on the pending
-    it fetches.
+    it fetches. ``real_px``/``padded_px``: a ragged dispatch's request
+    pixels against its box's (0 for the other kinds).
     """
 
     __slots__ = ("bucket", "h2d_bytes", "t_synced", "t_ready", "span_ctx",
-                 "_flow", "_flow_low", "_return_low", "_low_device",
-                 "_cache", "_event")
+                 "real_px", "padded_px", "_flow", "_flow_low", "_return_low",
+                 "_low_device", "_cache", "_event")
 
     def __init__(self, flow, flow_low, bucket, h2d_bytes, return_low,
-                 low_device, event, cache=None):
+                 low_device, event, cache=None, real_px=0, padded_px=0):
         self._flow = flow
         self._flow_low = flow_low
         self.bucket = bucket
@@ -191,6 +204,8 @@ class PendingBatch:
         self._low_device = low_device
         self._event = event
         self._cache = cache
+        self.real_px = real_px
+        self.padded_px = padded_px
         self.t_synced: Optional[float] = None
         self.t_ready: Optional[float] = None
         self.span_ctx = None
@@ -207,67 +222,17 @@ class PendingBatch:
                 self._event.synchronize()
         self.t_synced = time.monotonic()
         with layer_span("engine.d2h"):
-            flow = self._flow.cpu().numpy()
+            flow = _fetched(self._flow, host=True)
             if self._cache is not None:
                 fmap2, cnet2 = self._cache
                 out = (flow, _handed(self._flow_low), _handed(fmap2),
                        _handed(cnet2))
             elif self._return_low:
-                low = (_handed(self._flow_low) if self._low_device
-                       else self._flow_low.cpu().numpy())
-                out = (flow, low)
+                out = (flow, _fetched(self._flow_low,
+                                      host=not self._low_device))
             else:
                 out = flow
         self._flow = self._flow_low = self._cache = None
-        self.t_ready = time.monotonic()
-        return out
-
-
-class RaggedPendingBatch:
-    """One in-flight ragged dispatch (``infer_ragged_async``): a
-    mixed-shape micro-batch in one capacity class. Same contract as
-    :class:`PendingBatch`, but ``fetch()`` returns a list of flows (and,
-    with ``return_low``, a list of ``flow_low``), each cropped to its own
-    request. ``real_px``/``padded_px``: request pixels against box
-    pixels."""
-
-    __slots__ = ("bucket", "h2d_bytes", "t_synced", "t_ready", "span_ctx",
-                 "real_px", "padded_px", "_flows", "_lows", "_return_low",
-                 "_low_device", "_event")
-
-    def __init__(self, flows, lows, bucket, h2d_bytes, return_low,
-                 low_device, event, real_px=0, padded_px=0):
-        self._flows = flows
-        self._lows = lows
-        self.bucket = bucket
-        self.h2d_bytes = h2d_bytes
-        self._return_low = return_low
-        self._low_device = low_device
-        self._event = event
-        self.real_px = real_px
-        self.padded_px = padded_px
-        self.t_synced: Optional[float] = None
-        self.t_ready: Optional[float] = None
-        self.span_ctx = None
-
-    def fetch(self):
-        """Wait for the device result; ``[flow_i]`` or ``([flow_i],
-        [flow_low_i])`` with ``return_low``. One-shot."""
-        if self._flows is None:
-            raise RuntimeError("RaggedPendingBatch.fetch() already "
-                               "consumed")
-        fault_point("serve.fetch")
-        with layer_span("engine.fetch_wait"):
-            if self._event is not None:
-                self._event.synchronize()
-        self.t_synced = time.monotonic()
-        with layer_span("engine.d2h"):
-            out = [f.cpu().numpy() for f in self._flows]
-            if self._return_low:
-                lows = [_handed(lo) if self._low_device
-                        else lo.cpu().numpy() for lo in self._lows]
-                out = (out, lows)
-        self._flows = self._lows = None
         self.t_ready = time.monotonic()
         return out
 
@@ -483,8 +448,6 @@ class RAFTEngine:
                                      Optional[_Program]]] = {
             k: {} for k in _KINDS}
         self._programs = self._tables["plain"]
-        self._programs_cached = self._tables["cached"]
-        self._programs_ragged = self._tables["ragged"]
 
         for shape in envelope:
             if precompile:
@@ -501,7 +464,7 @@ class RAFTEngine:
             if precompile:
                 self._get_program((b, ch, cw), "ragged")
             else:
-                self._programs_ragged.setdefault((b, ch, cw), None)
+                self._tables["ragged"].setdefault((b, ch, cw), None)
 
     @property
     def compile_count(self) -> int:
@@ -1108,7 +1071,7 @@ class RAFTEngine:
                 self._tables[kind].setdefault(shape, None)
 
     def _follow_drop(self, kind: int, b: int, h: int, w: int) -> None:
-        self.drop_bucket((b, h, w), cached=kind == 1, ragged=kind == 2)
+        self.drop_bucket((b, h, w), kind=_KINDS[kind])
 
     def _follow_swap(self, payload: torch.Tensor) -> None:
         self.update_weights(_follow.unpack_state(payload,
@@ -1122,29 +1085,43 @@ class RAFTEngine:
         with self._lock:
             return sorted(self._programs)
 
-    def _select_bucket(self, b: int, h: int, w: int,
-                       cached: bool = False
-                       ) -> Optional[Tuple[int, int, int]]:
-        table = self._programs_cached if cached else self._programs
-        if self.exact_shapes:
+    def _select_bucket(self, b: int, hp: int, wp: int,
+                       kind: str) -> Optional[Tuple[int, int, int]]:
+        """Smallest bucket of ``kind`` fitting a ÷8-padded ``(b, hp, wp)``
+        (the caller holds the lock): spatially exact under
+        ``exact_shapes``, which capacity classes ignore."""
+        table = self._tables[kind]
+        if self.exact_shapes and kind != "ragged":
             # exact spatially; batch fill is per-sample neutral
             fits = [s for s in table
-                    if s[0] >= b and s[1] == h and s[2] == w]
+                    if s[0] >= b and s[1] == hp and s[2] == wp]
             return min(fits, key=lambda s: s[0]) if fits else None
         fits = [s for s in table
-                if s[0] >= b and s[1] >= h and s[2] >= w]
+                if s[0] >= b and s[1] >= hp and s[2] >= wp]
         if not fits:
             return None
         return min(fits, key=lambda s: s[0] * s[1] * s[2])
 
-    def _route(self, b: int, hp: int, wp: int,
-               cached: bool = False) -> Tuple[int, int, int]:
-        """Bucket a ÷8-padded ``(b, hp, wp)`` request uses: the smallest
-        fit, else the exact build-on-miss bucket."""
+    def _route(self, b: int, hp: int, wp: int, kind: str = "plain",
+               build: bool = False) -> Tuple[int, int, int]:
+        """Bucket of ``kind`` a ÷8-padded ``(b, hp, wp)`` dispatch uses:
+        the smallest fit; else, for a ragged dispatch, a declared class's
+        box with a grown batch, else a ``ragged_grain``-rounded box; else
+        the exact build-on-miss bucket. ``build``: the bucket
+        ``ensure_bucket`` builds, the smallest fit or the exact one."""
         with self._lock:
-            bucket = self._select_bucket(b, hp, wp, cached=cached)
+            bucket = self._select_bucket(b, hp, wp, kind)
+            if bucket is None and kind == "ragged" and not build:
+                sp = [s for s in self._tables["ragged"]
+                      if s[1] >= hp and s[2] >= wp]
+                if sp:
+                    s = min(sp, key=lambda s: s[1] * s[2])
+                    bucket = (b, s[1], s[2])
         if bucket is not None:
             return bucket
+        if kind == "ragged" and not build:
+            g = self.ragged_grain
+            return (b, -(-hp // g) * g, -(-wp // g) * g)
         if self.partitioner is not None:
             # whole examples and feature rows a shard: the zero fill and
             # the output crop absorb the rounding
@@ -1156,31 +1133,32 @@ class RAFTEngine:
         return h + top + bottom, w + left + right
 
     def route_bucket(self, b: int, h: int, w: int,
-                     cached: bool = False) -> Tuple[int, int, int]:
-        """The bucket ``infer_batch`` would use for a raw ``(b, h, w)``
-        request — builds nothing."""
+                     kind: str = "plain") -> Tuple[int, int, int]:
+        """The bucket of ``kind`` (``"plain"``, ``"cached"`` or
+        ``"ragged"``: a capacity class whose box fits ``(h, w)``) a raw
+        ``(b, h, w)`` dispatch would use — builds nothing."""
         hp, wp = self._padded(h, w)
-        return self._route(b, hp, wp, cached=cached)
+        return self._route(b, hp, wp, kind)
 
     def bucket_capacity(self, h: int, w: int,
-                        cached: bool = False) -> Optional[int]:
-        """Largest batch a bucket can carry for an ``(h, w)`` request, or
-        None when no bucket spatially fits."""
+                        kind: str = "plain") -> Optional[int]:
+        """Largest batch a bucket of ``kind`` can carry for an ``(h, w)``
+        request, or None when none spatially fits."""
         hp, wp = self._padded(h, w)
-        table = self._programs_cached if cached else self._programs
+        table = self._tables[kind]
         with self._lock:
-            if self.exact_shapes:
+            if self.exact_shapes and kind != "ragged":
                 fits = [s[0] for s in table if s[1] == hp and s[2] == wp]
             else:
                 fits = [s[0] for s in table if s[1] >= hp and s[2] >= wp]
         return max(fits) if fits else None
 
     def drop_bucket(self, shape: Tuple[int, int, int],
-                    cached: bool = False, ragged: bool = False) -> bool:
-        """Forget one bucket's program (a wedge verdict indicts it); the
-        next dispatch or ``ensure_bucket`` builds it again. True when it
-        was present (placeholders count)."""
-        kind = "ragged" if ragged else ("cached" if cached else "plain")
+                    kind: str = "plain") -> bool:
+        """Forget one bucket's program from the table of ``kind`` (a
+        wedge verdict indicts it); the next dispatch or ``ensure_bucket``
+        builds it again. True when it was present (placeholders
+        count)."""
         missing = object()
         if self._channel is None:
             with self._lock:
@@ -1202,12 +1180,13 @@ class RAFTEngine:
             self._lock.release()
 
     def ensure_bucket(self, batch: int, h: int, w: int,
-                      cached: bool = False) -> Tuple[int, int, int]:
-        """Build (if missing) and return the bucket that serves a
-        ``(batch, h, w)`` request."""
+                      kind: str = "plain") -> Tuple[int, int, int]:
+        """Build (if missing) and return the bucket of ``kind`` that
+        serves a ``(batch, h, w)`` request: the smallest fit, else the
+        exact bucket (a capacity class too: no grown or rounded box)."""
         hp, wp = self._padded(h, w)
-        bucket = self._route(batch, hp, wp, cached=cached)
-        self._get_program(bucket, "cached" if cached else "plain")
+        bucket = self._route(batch, hp, wp, kind, build=True)
+        self._get_program(bucket, kind)
         return bucket
 
     def executable_count(self) -> int:
@@ -1216,80 +1195,23 @@ class RAFTEngine:
         with self._lock:
             return sum(len(t) for t in self._tables.values())
 
-    # -- ragged routing ------------------------------------------------------
-
     def ragged_classes(self) -> List[Tuple[int, int, int]]:
         """Sorted capacity classes this engine owns."""
         with self._lock:
-            return sorted(self._programs_ragged)
-
-    def _select_class(self, b: int, hp: int,
-                      wp: int) -> Optional[Tuple[int, int, int]]:
-        """Smallest capacity class fitting ``(b, hp, wp)`` (caller holds
-        the lock)."""
-        fits = [s for s in self._programs_ragged
-                if s[0] >= b and s[1] >= hp and s[2] >= wp]
-        if not fits:
-            return None
-        return min(fits, key=lambda s: s[0] * s[1] * s[2])
-
-    def _route_ragged(self, b: int, hp: int,
-                      wp: int) -> Tuple[int, int, int]:
-        """Capacity class a ÷8-padded ``(b, hp, wp)`` dispatch uses: the
-        smallest fitting class, else a declared class's box with a grown
-        batch, else a ``ragged_grain``-rounded box."""
-        with self._lock:
-            cls = self._select_class(b, hp, wp)
-            if cls is None:
-                sp = [s for s in self._programs_ragged
-                      if s[1] >= hp and s[2] >= wp]
-                if sp:
-                    s = min(sp, key=lambda s: s[1] * s[2])
-                    cls = (b, s[1], s[2])
-        if cls is None:
-            g = self.ragged_grain
-            cls = (b, -(-hp // g) * g, -(-wp // g) * g)
-        return cls
+            return sorted(self._tables["ragged"])
 
     def ragged_class_for(self, h: int, w: int) -> Tuple[int, int]:
         """The ``(Hcap, Wcap)`` box a raw ``(h, w)`` request coalesces
         under. Builds nothing."""
         hp, wp = self._padded(h, w)
         with self._lock:
-            sp = [s for s in self._programs_ragged
+            sp = [s for s in self._tables["ragged"]
                   if s[1] >= hp and s[2] >= wp]
         if sp:
             s = min(sp, key=lambda s: (s[1] * s[2], s[0]))
             return s[1], s[2]
         g = self.ragged_grain
         return -(-hp // g) * g, -(-wp // g) * g
-
-    def route_ragged(self, b: int, h: int, w: int) -> Tuple[int, int, int]:
-        """The capacity class ``infer_ragged_async`` would use for ``b``
-        rows whose padded extents fit ``(h, w)`` — builds nothing."""
-        hp, wp = self._padded(h, w)
-        return self._route_ragged(b, hp, wp)
-
-    def ragged_capacity(self, h: int, w: int) -> Optional[int]:
-        """Largest batch a class at the ``(h, w)`` request's box can
-        carry, or None when no class spatially fits."""
-        hp, wp = self._padded(h, w)
-        with self._lock:
-            fits = [s[0] for s in self._programs_ragged
-                    if s[1] >= hp and s[2] >= wp]
-        return max(fits) if fits else None
-
-    def ensure_ragged(self, batch: int, h: int, w: int
-                      ) -> Tuple[int, int, int]:
-        """Build (if missing) and return the capacity class serving a
-        ``(batch, h, w)`` box; no grain fallback."""
-        hp, wp = self._padded(h, w)
-        with self._lock:
-            cls = self._select_class(batch, hp, wp)
-        if cls is None:
-            cls = (batch, hp, wp)
-        self._get_program(cls, "ragged")
-        return cls
 
     # -- inference -----------------------------------------------------------
 
@@ -1392,7 +1314,7 @@ class RAFTEngine:
                            return_low: bool = False,
                            low_device: bool = False,
                            box: Optional[Tuple[int, int]] = None
-                           ) -> RaggedPendingBatch:
+                           ) -> PendingBatch:
         """Non-blocking mixed-shape dispatch through one capacity class.
 
         ``pairs``: per-request ``(image1, image2)`` frames, each ``(h_i,
@@ -1435,9 +1357,9 @@ class RAFTEngine:
                 raise ValueError(
                     f"box {box} does not fit the batch's padded "
                     f"extents ({hpmax}, {wpmax})")
-            bucket = self._route_ragged(n, box[0], box[1])
+            bucket = self._route(n, box[0], box[1], "ragged")
         else:
-            bucket = self._route_ragged(n, hpmax, wpmax)
+            bucket = self._route(n, hpmax, wpmax, "ragged")
         bb, bh, bw = bucket
         prog = self._get_program(bucket, "ragged")
         i1b = np.zeros((bb, bh, bw, 3), self._wire_np)
@@ -1505,7 +1427,7 @@ class RAFTEngine:
             return flows, lows
 
         (flows, lows), event = self._dispatch(prog, host, keep, on_device)
-        return RaggedPendingBatch(
+        return PendingBatch(
             flows, lows, bucket, h2d, return_low, low_device, event,
             real_px=sum(h * w for (h, w, _, _, _, _) in rows),
             padded_px=bb * bh * bw)
@@ -1555,7 +1477,7 @@ class RAFTEngine:
                     raise ValueError(
                         f"slot {i}: cache row shape {tuple(t.shape)} != "
                         f"{(lh, lw, c)} (1/8 of the ÷8-padded request)")
-        bucket = self._route(b, hp, wp, cached=True)
+        bucket = self._route(b, hp, wp, "cached")
         prog = self._get_program(bucket, "cached")
         bb, bh, bw = bucket
         align = ((0, 0), (top, bottom), (left, right), (0, 0))

@@ -38,7 +38,7 @@ import time
 
 import numpy as np
 
-from raft_tpu_torch.serving.hosts import HostWorker
+from raft_tpu_torch.serving.hosts import HostWorker, require_plain
 from raft_tpu_torch.serving.transport import serve_forever
 
 
@@ -60,20 +60,24 @@ class StubEngine:
         self.infer_delay_s = float(infer_delay_s)
         self._compiled = {}
 
-    def bucket_capacity(self, h, w):
+    def bucket_capacity(self, h, w, kind="plain"):
+        require_plain(kind)
         fits = [s[0] for s in self._compiled
                 if s[1] == _pad8(h) and s[2] == _pad8(w)]
         return max(fits) if fits else None
 
-    def ensure_bucket(self, b, h, w):
+    def ensure_bucket(self, b, h, w, kind="plain"):
+        require_plain(kind)
         shape = (b, _pad8(h), _pad8(w))
         self._compiled[shape] = object()
         return shape
 
-    def route_bucket(self, b, h, w):
+    def route_bucket(self, b, h, w, kind="plain"):
+        require_plain(kind)
         return (b, _pad8(h), _pad8(w))
 
-    def drop_bucket(self, shape):
+    def drop_bucket(self, shape, kind="plain"):
+        require_plain(kind)
         return self._compiled.pop(shape, None) is not None
 
     def executable_count(self):

@@ -305,6 +305,14 @@ class HostWorker:
 # -- scheduler side -------------------------------------------------------
 
 
+def require_plain(kind: str) -> None:
+    """Remote lanes serve the plain kind of program only (a fleet refuses
+    ragged scheduling and the feature cache)."""
+    if kind != "plain":
+        raise ValueError(f"kind={kind!r}: a remote engine serves the "
+                         "'plain' kind of program only")
+
+
 class RemoteEngine:
     """Engine-shaped proxy over a transport: what a host lane's
     ``_ReplicaLane.engine`` is. Deliberately the *synchronous* engine
@@ -342,22 +350,28 @@ class RemoteEngine:
         path sees ``job.abandoned`` and settles nothing)."""
         self._transport.close()
 
-    def bucket_capacity(self, h: int, w: int, **kw):
-        return self._call("capacity", {"h": h, "w": w, "kw": kw})
+    def bucket_capacity(self, h: int, w: int, kind: str = "plain"):
+        require_plain(kind)
+        return self._call("capacity", {"h": h, "w": w, "kw": {}})
 
-    def ensure_bucket(self, n: int, h: int, w: int, **kw) -> Tuple:
+    def ensure_bucket(self, n: int, h: int, w: int,
+                      kind: str = "plain") -> Tuple:
+        require_plain(kind)
         return tuple(self._call("ensure",
-                                {"n": n, "h": h, "w": w, "kw": kw}))
+                                {"n": n, "h": h, "w": w, "kw": {}}))
 
-    def route_bucket(self, n: int, h: int, w: int) -> Tuple:
+    def route_bucket(self, n: int, h: int, w: int,
+                     kind: str = "plain") -> Tuple:
+        require_plain(kind)
         return tuple(self._call("route", {"n": n, "h": h, "w": w}))
 
-    def drop_bucket(self, bucket, **kw) -> None:
+    def drop_bucket(self, bucket, kind: str = "plain") -> None:
+        require_plain(kind)
         # best-effort: this runs from verdict paths where the host is
         # typically already unreachable, and the worker's table is
         # rebuilt on rejoin anyway (prewarm from the store)
         try:
-            self._call("drop", {"bucket": tuple(bucket), "kw": kw})
+            self._call("drop", {"bucket": tuple(bucket), "kw": {}})
         except TransportError:
             pass
 

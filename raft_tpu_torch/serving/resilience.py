@@ -218,7 +218,7 @@ class _DispatchJob:
     watchdog's clock)."""
 
     __slots__ = ("fn", "done", "error", "outcome", "bucket", "batch",
-                 "abandoned", "key", "t_start", "cached", "ragged")
+                 "abandoned", "key", "t_start", "kind")
 
     def __init__(self, fn: Optional[Callable[["_DispatchJob"], None]]):
         self.fn = fn
@@ -230,12 +230,10 @@ class _DispatchJob:
         self.abandoned = False
         self.key: Optional[Tuple[int, int]] = None
         self.t_start: Optional[float] = None
-        #: feature-cache dispatch: a wedge verdict must drop the
-        #: CACHED executable for ``bucket``, not its plain sibling
-        self.cached = False
-        #: ragged capacity-class dispatch: the verdict's drop target
-        #: is the RAGGED table's executable for ``bucket``
-        self.ragged = False
+        #: the engine's program kind of ``bucket`` (``"plain"``,
+        #: ``"ragged"`` or ``"cached"``): the table a wedge verdict drops
+        #: it from, never a sibling kind's program at the same shape
+        self.kind = "plain"
 
 
 class DispatchExecutor:

@@ -132,6 +132,7 @@ import random
 import threading
 import time
 from concurrent.futures import Future, InvalidStateError
+from functools import partial
 from typing import Deque, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -284,7 +285,7 @@ class _Request:
         self.image1 = image1
         self.image2 = image2
         self.key = key                  # (H, W) — the coalescing group;
-        #                                 (H, W, "cache") for cached rows
+        #                                 (H, W, kind): ragged/cached rows
         self.flow_init = flow_init
         self.want_low = want_low
         self.low_device = low_device    # flow_low stays a device array
@@ -345,7 +346,7 @@ class MicroBatchScheduler:
     ``interactive_weight`` (only observable when BOTH priority classes
     are queued): interactive dequeue picks per batch pick.
     ``namespace``: the model name this scheduler serves under a
-    :class:`~raft_tpu.serving.registry.ModelRegistry` — prefixes
+    :class:`~raft_tpu_torch.serving.registry.ModelRegistry` — prefixes
     breaker labels and stamps metrics records; None (default) keeps
     single-model labels/records byte-identical.
     """
@@ -395,7 +396,7 @@ class MicroBatchScheduler:
         ``BxHxW/ragged``). Default OFF: keys, labels and dispatch are
         byte-identical to the bucketed path.
 
-        ``tracer`` (a :class:`~raft_tpu.serving.trace.TraceLedger`)
+        ``tracer`` (a :class:`~raft_tpu_torch.serving.trace.TraceLedger`)
         arms request-scoped tracing: every ACCEPTED request gets a
         span minted at intake and closed exactly once with the
         accounting class it was counted under; dispatches get fan-in
@@ -706,7 +707,7 @@ class MicroBatchScheduler:
         against a slot at ``seq - 1``. A pair submit with no valid
         slot (never primed, LRU-evicted, flushed by a weight swap, or
         a seq hole left by a failed/expired pair) fails fast with
-        :class:`~raft_tpu.serving.feature_cache.FeatureCacheMiss` —
+        :class:`~raft_tpu_torch.serving.feature_cache.FeatureCacheMiss` —
         the caller cold-restarts by re-priming
         (``VideoSession(feature_cache=True)`` does this itself).
 
@@ -729,7 +730,7 @@ class MicroBatchScheduler:
                 f"priority={priority!r}: choose "
                 f"{PRIORITY_INTERACTIVE!r}, {PRIORITY_BATCH!r} or None")
         h, w = frame.shape[:2]
-        key = (h, w, "cache")
+        key = (h, w, "cached")
         # closed/breaker checks BEFORE the pool probe: a closed (or
         # draining) scheduler must say SchedulerClosed — the registry
         # re-route catches that, while a spurious FeatureCacheMiss
@@ -1084,28 +1085,27 @@ class MicroBatchScheduler:
 
     # -- breakers / health -------------------------------------------------
 
-    #: label suffix marking feature-cache groups/buckets (a different
-    #: executable, a different failure domain than the plain program
-    #: at the same shape) — the one definition ``_key_label`` and the
-    #: cached dispatch's bucket label both use
-    CACHE_LABEL_SUFFIX = "/cache"
-    #: ragged capacity-class groups/buckets: the key dims are the
-    #: CLASS box, not a request shape, and the executable lives in the
-    #: engine's ragged table — its own failure domain too
-    RAGGED_LABEL_SUFFIX = "/ragged"
+    #: label suffix of each program kind's groups and buckets: a kind's
+    #: program is its own failure domain, apart from another kind's at
+    #: the same shape (a ragged key's dims are the CLASS box) — the one
+    #: definition ``_key_label`` and the dispatch's bucket label use
+    KIND_LABEL_SUFFIX = {"plain": "", "ragged": "/ragged",
+                         "cached": "/cache"}
+
+    @staticmethod
+    def _key_parts(key) -> Tuple[int, int, str]:
+        """A coalescing-group key as ``(h, w, kind)``: a plain key is the
+        request's ``(h, w)``; a ragged key (a capacity class's box) and a
+        cached key carry the engine's program kind after the extents."""
+        return (*key, "plain")[:3]
 
     @classmethod
     def _key_label(cls, key) -> str:
-        """Namespace-less label for a coalescing-group key: ``HxW``,
-        plus :attr:`CACHE_LABEL_SUFFIX` / :attr:`RAGGED_LABEL_SUFFIX`
-        for feature-cache / capacity-class groups — shared by
-        ``_label`` and ``health()``."""
-        base = f"{key[0]}x{key[1]}"
-        if len(key) > 2:
-            return base + (cls.RAGGED_LABEL_SUFFIX
-                           if key[2] == "ragged"
-                           else cls.CACHE_LABEL_SUFFIX)
-        return base
+        """Namespace-less label for a coalescing-group key: ``HxW`` and
+        its kind's :attr:`KIND_LABEL_SUFFIX` — shared by ``_label`` and
+        ``health()``."""
+        h, w, kind = cls._key_parts(key)
+        return f"{h}x{w}{cls.KIND_LABEL_SUFFIX[kind]}"
 
     def _label(self, key, lane: Optional[_ReplicaLane] = None) -> str:
         """Breaker/event label for a request shape: ``model/HxW``
@@ -1279,7 +1279,8 @@ class MicroBatchScheduler:
         cap = self._capacity.get(ck)
         if cap is None:
             eng = lane.engine if lane is not None else self.engine
-            fit = Placement.bucket_fit(eng, key, self.max_batch)
+            fit = Placement.bucket_fit(eng, *self._key_parts(key),
+                                       self.max_batch)
             cap = max(1, min(fit, self.max_batch))
             self._capacity[ck] = cap
         return cap
@@ -1561,14 +1562,10 @@ class MicroBatchScheduler:
         # (executable dropped, breaker open, health degraded)
         if job.bucket is not None:
             # engine recovery: the executable that hung is suspect —
-            # drop it (and the cached capacity routed through it) so
-            # the half-open probe recompiles from clean state
-            if job.ragged:
-                self.engine.drop_bucket(job.bucket, ragged=True)
-            elif job.cached:
-                self.engine.drop_bucket(job.bucket, cached=True)
-            else:
-                self.engine.drop_bucket(job.bucket)
+            # drop it from its kind's table (and the cached capacity
+            # routed through it) so the half-open probe recompiles from
+            # clean state
+            self.engine.drop_bucket(job.bucket, kind=job.kind)
         self._capacity.pop(key, None)
         br = self._breaker(key)
         if br is not None:
@@ -1615,16 +1612,9 @@ class MicroBatchScheduler:
         #                        results or record a breaker success
         label = self._label(key)
         if job.bucket is not None:
-            if job.ragged:
-                # a ragged completion hung: indict the capacity-class
-                # executable in the ragged table
-                self.engine.drop_bucket(job.bucket, ragged=True)
-            elif job.cached:
-                # the executable that hung is the CACHED program —
-                # indict it, not its plain sibling at the same shape
-                self.engine.drop_bucket(job.bucket, cached=True)
-            else:
-                self.engine.drop_bucket(job.bucket)
+            # the executable that hung is the one of the job's kind —
+            # indict it, not a sibling kind's program at the same shape
+            self.engine.drop_bucket(job.bucket, kind=job.kind)
         self._capacity.pop(key, None)
         br = self._breaker(key)
         if br is not None:
@@ -1838,10 +1828,7 @@ class MicroBatchScheduler:
             # (the dispatcher must survive; the lane is retired below
             # either way, and a stale remote bucket dies with its worker)
             try:
-                if job.ragged:
-                    lane.engine.drop_bucket(job.bucket, ragged=True)
-                else:
-                    lane.engine.drop_bucket(job.bucket)
+                lane.engine.drop_bucket(job.bucket, kind=job.kind)
             except Exception:
                 if lane.host is None:
                     raise
@@ -2100,27 +2087,25 @@ class MicroBatchScheduler:
         if job.abandoned:
             # verdict landed between the check above and the take: the
             # verdict saw batch=None, so disposing of these is OUR job
-            # — a quarantined thread may never strand what it took. On
-            # a host lane the verdict is a DEAD-HOST failover: the
-            # requests go back to the queue for the survivors; on a
-            # local lane the wedge verdict failed the batch, so these
-            # stragglers fail the same way.
-            if lane is not None and lane.host is not None:
-                self._failover_requeue(lane, batch)
-            else:
-                self.metrics.record_failure(self._fail_requests(
-                    batch, self._wedge_error(key)))
+            self._dispose_abandoned(key, batch, lane)
             return
         if batch:
             with layer_span("sched.assemble") as assemble:
-                if len(key) > 2 and key[2] == "ragged":
-                    self._dispatch_ragged(key, batch, job, lane, assemble)
-                elif len(key) > 2:
-                    self._dispatch_cached(key, batch, job, assemble)
-                else:
-                    self._dispatch(key, batch, job, lane, assemble)
+                self._dispatch(key, batch, job, lane, assemble)
 
-    def _assemble_flow_init(self, live: List[_Request], key):
+    def _dispose_abandoned(self, key, live: List[_Request],
+                        lane: Optional[_ReplicaLane] = None) -> None:
+        """Dispose of requests a thread holds after a verdict abandoned
+        its job (it may have seen none of them): a host lane's go back to
+        the queue for the survivors (a DEAD-HOST failover), any other's
+        fail as the wedged batch did. Nothing is stranded."""
+        if lane is not None and lane.host is not None:
+            self._failover_requeue(lane, live)
+        else:
+            self.metrics.record_failure(self._fail_requests(
+                live, self._wedge_error(key)))
+
+    def _assemble_flow_init(self, live: List[_Request], h: int, w: int):
         """The micro-batch's coalesced warm start, or None when every
         row is cold. Host rows build an np batch (zero rows ARE cold
         starts); if any row is device-resident the batch assembles ON
@@ -2129,7 +2114,6 @@ class MicroBatchScheduler:
         never round-trips through host memory."""
         if not any(r.flow_init is not None for r in live):
             return None
-        h, w = key
         n = len(live)
         left, right, top, bottom = pad_amounts(h, w)
         lh = (h + top + bottom) // 8
@@ -2150,31 +2134,22 @@ class MicroBatchScheduler:
         return finit
 
     def _settle(self, live: List[_Request], outs, label: str,
-                t_disp: float, warm: bool,
-                replica: Optional[int] = None,
+                t_disp: float, row, replica: Optional[int] = None,
                 host: Optional[str] = None) -> None:
         """Resolve a finished micro-batch's futures + per-request
         latency records (inline at depth 1, on the completion worker
-        at depth > 1; ``replica`` stamps fleet completions into the
-        per-replica metrics block; ``host`` set means a lost settle race
-        is a ZOMBIE answer — the request already failed over and settled
-        elsewhere — counted as a drop, never settled twice)."""
+        at depth > 1). ``row(outs, i, r)``: request ``r``'s
+        :class:`ServeResult`, row ``i`` of ``outs`` (a cached row stores
+        its pool slot first); ``replica`` stamps fleet completions into
+        the per-replica metrics block; ``host`` set means a lost settle
+        race is a ZOMBIE answer — the request already failed over and
+        settled elsewhere — counted as a drop, never settled twice."""
         with layer_span("sched.settle") as settle:
-            if warm:
-                flows, lows = outs
-            else:
-                flows, lows = outs, None
             raced = (None if host is None
                      else lambda: self.metrics.record_host_zombie_drop(host))
             t_done = time.monotonic()
             for i, r in enumerate(live):
-                low = None
-                if lows is not None and r.want_low:
-                    low = lows[i]
-                    if not r.low_device and isinstance(low, torch.Tensor):
-                        low = low.cpu().numpy()
-                if not settle_future(r.future, ServeResult(flows[i], low),
-                                     raced):
+                if not settle_future(r.future, row(outs, i, r), raced):
                     # wedge verdict settled it first (and owns the span
                     # close); a raced caller cancel owns nothing — close
                     # the span cancelled (idempotent either way)
@@ -2201,15 +2176,45 @@ class MicroBatchScheduler:
                         observed_ms=round(queue_ms + device_ms, 3))
             self._trace_close_dispatch(live, "ok")
 
+    @staticmethod
+    def _flow_row(outs, i: int, r: _Request, warm: bool) -> ServeResult:
+        """A plain or ragged row's result: its flow and, when asked for,
+        its ``flow_low`` (host numpy unless ``low_device``)."""
+        flows, lows = outs if warm else (outs, None)
+        low = lows[i] if lows is not None and r.want_low else None
+        if isinstance(low, torch.Tensor) and not r.low_device:
+            low = low.cpu().numpy()
+        return ServeResult(flows[i], low)
+
+    def _cached_row(self, outs, i: int, r: _Request, h: int, w: int,
+                    ver: int) -> ServeResult:
+        """A cached row's result, after its pool slot is stored (fmap +
+        context + flow_low, sliced from the full-bucket device outputs):
+        a session harvesting the future must find the slot present. A
+        prime row stores a flow-less slot and resolves to
+        ``ServeResult(None, None)`` (refinement against zero features)."""
+        flow, low_full, fmap2, ctx2 = outs
+        left, right, top, bottom = pad_amounts(h, w)
+        lh = (h + top + bottom) // 8
+        lw = (w + left + right) // 8
+        # each slot holds CLONES of its own row: a view would pin the
+        # whole batch output (about 58 MB at batch 4, 440x1024, basic
+        # model) for as long as the slot lives, and eviction would free
+        # nothing
+        fl = None if r.prime else low_full[i, :lh, :lw].clone()
+        self._fcache.store(r.stream, (h, w), r.seq, ver,
+                           fmap2[i, :lh, :lw].clone(),
+                           ctx2[i, :lh, :lw].clone(), fl)
+        return ServeResult(None if r.prime else flow[i], None)
+
     def _run_completion(self, key, live: List[_Request], pending,
                         job: _DispatchJob, settle) -> None:
         """Completion-stage skeleton (pipeline_depth > 1), shared by
-        the plain and cached paths: the blocking fetch + settle off
-        the dispatch path, on the completion executor's worker.
-        ``settle(outs)`` is the ONLY mode-specific step — the
-        abandoned/breaker/accounting protocol must never diverge
-        between the two. A verdicted (abandoned) job settles nothing
-        and records no breaker outcome."""
+        every kind of program: the blocking fetch + settle off the
+        dispatch path, on the completion executor's worker.
+        ``settle(outs)`` is the dispatch's own step. A verdicted
+        (abandoned) job settles nothing and records no breaker
+        outcome."""
         # the watchdog clock restarts when the worker actually BEGINS
         # this job: queue-wait behind a slow-but-legal predecessor must
         # not count against dispatch_timeout_s, or steady traffic at
@@ -2244,12 +2249,10 @@ class MicroBatchScheduler:
                 return
             if job.abandoned:
                 # verdict landed between the fetch returning and here:
-                # the verdict already failed these futures — the
-                # safety-net settle below covers the race where it saw
-                # an empty batch (guards keep accounting exact)
-                n = self._fail_requests(live, self._wedge_error(key))
-                if n:
-                    self.metrics.record_failure(n)
+                # the verdict already failed these futures — this
+                # safety-net settle covers the race where it saw an
+                # empty batch (guards keep accounting exact)
+                self._dispose_abandoned(key, live)
                 return
             settle(outs)
             job.outcome = "ok"
@@ -2325,20 +2328,17 @@ class MicroBatchScheduler:
             self._prev_pending = pending
 
     def _hand_off(self, key, job: _DispatchJob, live: List[_Request],
-                  pending, settle, *, cached: bool = False,
-                  ragged: bool = False) -> None:
+                  pending, settle) -> None:
         """After the dispatch call: fetch and ``settle(outs)`` inline at
         depth 1, else hand the blocking fetch + settle to the
-        completion worker (:meth:`_run_completion`). A wedge verdict that landed while the
-        engine call was out (a hung capture that eventually returned)
-        already failed these futures, dropped the bucket and opened
-        the breaker — handing off now would record a completion
-        SUCCESS that closes the breaker the verdict just opened:
-        settle any stragglers and stop."""
+        completion worker (:meth:`_run_completion`). A wedge verdict
+        that landed while the engine call was out (a hung capture that
+        eventually returned) already failed these futures, dropped the
+        bucket and opened the breaker — handing off now would record a
+        completion SUCCESS that closes the breaker the verdict just
+        opened: settle any stragglers and stop."""
         if job.abandoned:
-            n = self._fail_requests(live, self._wedge_error(key))
-            if n:
-                self.metrics.record_failure(n)
+            self._dispose_abandoned(key, live)
             return
         if self._completion is None:
             self._trace_mark(live, "fetch_start")
@@ -2349,8 +2349,7 @@ class MicroBatchScheduler:
             lambda j: self._run_completion(key, live, pending, j, settle))
         cjob.key = key
         cjob.bucket = job.bucket
-        cjob.cached = cached
-        cjob.ragged = ragged
+        cjob.kind = job.kind
         cjob.batch = live
         cjob.t_start = time.monotonic()
         # append + mailbox enqueue are one atom under _pipe_lock: a
@@ -2364,119 +2363,120 @@ class MicroBatchScheduler:
         job.outcome = "dispatched"   # the breaker verdict belongs to
         #                              the completion stage now
 
-    def _dispatch(self, key: Tuple[int, int], batch: List[_Request],
-                  job: _DispatchJob,
+    def _dispatch(self, key, batch: List[_Request], job: _DispatchJob,
                   lane: Optional[_ReplicaLane] = None,
                   assemble=UNARMED) -> None:
-        """One micro-batch of one shape through the engine's (or
-        ``lane``'s) bucketed program. ``assemble``: the open
-        ``sched.assemble`` span, which ends where ``sched.ship`` (the
-        engine call) begins."""
+        """One micro-batch of one coalescing key through the engine's (or
+        ``lane``'s) program of the key's kind: one protocol for all three
+        kinds, each supplying its route, record fields, assembly and row
+        settle. ``assemble``: the open ``sched.assemble`` span, which
+        ends where ``sched.ship`` (the engine call) begins."""
         eng = lane.engine if lane is not None else self.engine
         replica = lane.index if lane is not None else None
+        host = lane.host if lane is not None else None
         live = self._claim(batch)
         if not live:
             return
         job.batch = live
-        h, w = key
-        n = len(live)
+        h, w, kind = self._key_parts(key)
         t_disp = time.monotonic()
         try:  # EVERYTHING here routes failures to the batch's futures —
             # nothing may escape and kill the dispatcher thread
-            bucket = eng.route_bucket(n, h, w)
-            job.bucket = bucket
-            label = "x".join(map(str, bucket))
+            bucket = eng.route_bucket(len(live), h, w, kind=kind)
+            job.bucket, job.kind = bucket, kind
+            label = "x".join(map(str, bucket)) + self.KIND_LABEL_SUFFIX[kind]
             if lane is not None:
                 label = f"{label}/r{lane.index}"
+            if kind == "cached":
+                live, slots, ver = self._acquire_slots(live, h, w)
+                if not live:
+                    # nothing reached the engine: a miss is pool churn,
+                    # not a program fault — no breaker outcome (a
+                    # "failed" here would let cache churn open a healthy
+                    # bucket's breaker), and no dispatch/occupancy record
+                    # (nothing dispatched)
+                    return
+                job.batch = live
             with self._cv:
                 depth = len(self._q)
             # padding-waste gauge: requested pixels vs the padded
             # pixels the program actually runs (batch fill + align
-            # pad + bucket fill) — comparable across the bucketed and
-            # ragged paths, shared with the dispatch span
-            real_px = n * h * w
+            # pad + bucket fill) — comparable across the kinds, shared
+            # with the dispatch span
+            real_px = sum(r.image2.shape[0] * r.image2.shape[1]
+                          for r in live)
             padded_px = bucket[0] * bucket[1] * bucket[2]
+            cross = (kind == "ragged"
+                     and len({r.image2.shape for r in live}) > 1)
             self.metrics.record_dispatch(
-                label, filled=n, capacity=bucket[0], depth=depth,
-                real_px=real_px, padded_px=padded_px, replica=replica)
+                label, filled=len(live), capacity=bucket[0], depth=depth,
+                real_px=real_px, padded_px=padded_px,
+                ragged=kind == "ragged", cross_shape=cross, replica=replica)
+            tags = {"plain": {}, "cached": {"cached": True},
+                    "ragged": {"ragged": True, "cross_shape": cross}}[kind]
+            if replica is not None:
+                tags["replica"] = replica
             self._trace_dispatch(live, label, bucket, t_disp,
                                  real_px=real_px, padded_px=padded_px,
-                                 **({"replica": replica}
-                                    if replica is not None else {}))
+                                 **tags)
             fault_point("serve.request")
             if job.abandoned:
                 # wedge verdict landed while we were stuck above:
                 # routing into the engine now would capture a leaked
-                # duplicate. Dispose of anything the verdict's batch
-                # read raced past (it may have seen batch=None) — a
-                # quarantined thread never strands what it took. Host
-                # lanes fail over; local lanes fail.
-                if lane is not None and lane.host is not None:
-                    self._failover_requeue(lane, live)
-                else:
-                    self.metrics.record_failure(self._fail_requests(
-                        live, self._wedge_error(key)))
+                # duplicate
+                self._dispose_abandoned(key, live, lane)
                 return
             warm = getattr(eng, "warm_start", False)
+            # an engine without the async API (a host lane) is called
+            # synchronously, settled inline: no pipelining, no gap stats
+            sync = not hasattr(eng, "infer_batch_async")
             prev = (lane.prev_pending if lane is not None
                     else self._prev_pending)
             overlapped = prev is not None and prev.t_ready is None
             t_asm0 = time.monotonic()
-            i1 = np.stack([r.image1 for r in live])
-            i2 = np.stack([r.image2 for r in live])
-            finit = self._assemble_flow_init(live, key) if warm else None
-            call_async = getattr(eng, "infer_batch_async", None)
+            if kind == "cached":
+                call = partial(eng.infer_cached_async,
+                               np.stack([r.image2 for r in live]), slots,
+                               expect_version=ver)
+                row = partial(self._cached_row, h=h, w=w, ver=ver)
+            else:
+                call = self._flow_call(eng, kind, live, h, w, warm, sync)
+                row = partial(self._flow_row, warm=warm)
             assemble.end()
-            if call_async is None:
-                # duck-typed engine without the async API: synchronous
-                # call, settled inline (no pipelining, no gap stats)
+            if sync:
                 if lane is not None:
                     lane.prev_pending = None
                 else:
                     self._prev_pending = None
-                if warm:
-                    outs = eng.infer_batch(
-                        i1, i2, flow_init=finit, return_low=True)
-                else:
-                    outs = eng.infer_batch(i1, i2)
+                outs = call()
                 if job.abandoned:
                     # a ZOMBIE answer: the dead-host verdict landed while
                     # the RPC was out and already failed over (or failed)
                     # this batch — drop the late result whole
-                    if lane is not None and lane.host is not None:
+                    if host is not None:
                         for _ in live:
-                            self.metrics.record_host_zombie_drop(
-                                lane.host)
+                            self.metrics.record_host_zombie_drop(host)
                     return
-                self._settle(live, outs, label, t_disp, warm,
-                             replica=replica,
-                             host=(lane.host if lane is not None
-                                   else None))
+                self._settle(live, outs, label, t_disp, row,
+                             replica=replica, host=host)
                 job.outcome = "ok"
                 return
             with layer_span("sched.ship", getattr(eng, "device", None)):
-                if warm:
-                    low_dev = any(r.want_low and r.low_device for r in live)
-                    pending = call_async(i1, i2, flow_init=finit,
-                                         return_low=True,
-                                         low_device=low_dev)
-                else:
-                    pending = call_async(i1, i2)
+                pending = call()
             self._hot_path(prev, overlapped, t_asm0, pending, live, lane)
             self._hand_off(
                 key, job, live, pending,
-                lambda outs: self._settle(live, outs, label, t_disp, warm,
+                lambda outs: self._settle(live, outs, label, t_disp, row,
                                           replica=replica))
         except Exception as exc:  # route to the callers; worker survives
-            if job.abandoned and lane is not None and lane.host is not None:
+            if job.abandoned and host is not None:
                 # the raise IS the dead-host verdict unsticking us
                 # (poisoned transport): the verdict already owned the
                 # batch (requeued or failed); settling here would
                 # dispose twice of the futures it failed over
                 job.outcome = "failed"
                 return
-            if (lane is not None and lane.host is not None
-                    and isinstance(exc, TransportError)):
+            if host is not None and isinstance(exc, TransportError):
                 # the transport died mid-dispatch BEFORE any heartbeat
                 # verdict (a socket reset the instant the worker was
                 # killed, an injected host.infer raise): fail over NOW —
@@ -2485,11 +2485,10 @@ class MicroBatchScheduler:
                 # missed-beat ladder delivers the quarantine verdict
                 n = self._failover_requeue(lane, live)
                 self.metrics.record_event(
-                    "failover", host=lane.host, replica=lane.index,
+                    "failover", host=host, replica=lane.index,
                     requeued=n)
                 if self.host_fleet is not None:
-                    self.host_fleet.record_failover(lane.host,
-                                                    requeued=n)
+                    self.host_fleet.record_failover(host, requeued=n)
                 job.batch = []
                 job.error = exc
                 job.outcome = "failed"
@@ -2497,258 +2496,81 @@ class MicroBatchScheduler:
             self.metrics.record_failure(self._fail_requests(live, exc))
             job.outcome = "failed"
 
-    # -- ragged (capacity-class) dispatch ----------------------------------
+    def _flow_call(self, eng, kind: str, live: List[_Request], h: int,
+                   w: int, warm: bool, sync: bool):
+        """The plain or ragged kind's assembly; returns the engine call
+        that ships it. Plain: the frames (and warm starts) stacked into
+        one batch. Ragged: the rows as frame pairs, which the engine pads
+        into the class box ``(h, w)`` the dispatch routed on — so the
+        program that runs, and that a wedge verdict drops, is the one
+        ``job.bucket`` names, never a sibling class."""
+        kw = {}
+        if warm:
+            kw["return_low"] = True
+            if not sync:
+                kw["low_device"] = any(r.want_low and r.low_device
+                                       for r in live)
+        if kind == "ragged":
+            if warm:
+                kw["flow_inits"] = [r.flow_init for r in live]
+            return partial(eng.infer_ragged_async,
+                           [(r.image1, r.image2) for r in live],
+                           box=(h, w), **kw)
+        i1 = np.stack([r.image1 for r in live])
+        i2 = np.stack([r.image2 for r in live])
+        if warm:
+            kw["flow_init"] = self._assemble_flow_init(live, h, w)
+        return partial(eng.infer_batch if sync else eng.infer_batch_async,
+                       i1, i2, **kw)
 
-    def _dispatch_ragged(self, key, batch: List[_Request],
-                         job: _DispatchJob,
-                         lane: Optional[_ReplicaLane] = None,
-                         assemble=UNARMED) -> None:
-        """One MIXED-SHAPE micro-batch through a capacity-class
-        program: every request in ``batch`` mapped to the same class
-        box (the submit-time key), whatever its own ``(h, w)``.
-        Assembly, warm starts and crops are per-row inside
-        ``engine.infer_ragged_async``; everything else — deadlines,
-        watchdog, breaker outcomes, pipelined completion, the
-        accounting identity — is the plain dispatch protocol with a
-        coarser bucket key."""
-        eng = lane.engine if lane is not None else self.engine
-        replica = lane.index if lane is not None else None
-        live = self._claim(batch)
-        if not live:
-            return
-        job.batch = live
-        job.ragged = True
-        ch, cw = key[0], key[1]
-        n = len(live)
-        t_disp = time.monotonic()
-        try:  # EVERYTHING here routes failures to the batch's futures
-            bucket = eng.route_ragged(n, ch, cw)
-            job.bucket = bucket
-            label = ("x".join(map(str, bucket))
-                     + self.RAGGED_LABEL_SUFFIX)
-            if lane is not None:
-                label = f"{label}/r{lane.index}"
-            with self._cv:
-                depth = len(self._q)
-            shapes = {tuple(r.image1.shape[:2]) for r in live}
-            real_px = sum(r.image1.shape[0] * r.image1.shape[1]
-                          for r in live)
-            padded_px = bucket[0] * bucket[1] * bucket[2]
-            self.metrics.record_dispatch(
-                label, filled=n, capacity=bucket[0], depth=depth,
-                real_px=real_px, padded_px=padded_px,
-                ragged=True, cross_shape=len(shapes) > 1,
-                replica=replica)
-            self._trace_dispatch(
-                live, label, bucket, t_disp,
-                real_px=real_px, padded_px=padded_px,
-                ragged=True, cross_shape=len(shapes) > 1,
-                **({"replica": replica} if replica is not None else {}))
-            fault_point("serve.request")
-            if job.abandoned:
-                self.metrics.record_failure(self._fail_requests(
-                    live, self._wedge_error(key)))
-                return
-            warm = getattr(eng, "warm_start", False)
-            prev = (lane.prev_pending if lane is not None
-                    else self._prev_pending)
-            overlapped = prev is not None and prev.t_ready is None
-            t_asm0 = time.monotonic()
-            # box=(ch, cw): the engine routes on the SAME extents
-            # route_ragged above used, so the program dispatched is
-            # exactly the one job.bucket/label name — a wedge verdict
-            # must drop the program that actually hung, never a
-            # same-key sibling class the batch's own maxima would
-            # route to
-            pairs = [(r.image1, r.image2) for r in live]
-            assemble.end()
-            with layer_span("sched.ship", getattr(eng, "device", None)):
-                if warm:
-                    low_dev = any(r.want_low and r.low_device for r in live)
-                    pending = eng.infer_ragged_async(
-                        pairs, flow_inits=[r.flow_init for r in live],
-                        return_low=True, low_device=low_dev, box=(ch, cw))
-                else:
-                    pending = eng.infer_ragged_async(pairs, box=(ch, cw))
-            self._hot_path(prev, overlapped, t_asm0, pending, live, lane)
-            # per-row fetch output matches _settle's (flows, lows)
-            # protocol — the settle/accounting path is shared
-            self._hand_off(
-                key, job, live, pending,
-                lambda outs: self._settle(live, outs, label, t_disp, warm,
-                                          replica=replica),
-                ragged=True)
-        except Exception as exc:  # route to the callers; worker survives
-            self.metrics.record_failure(self._fail_requests(live, exc))
-            job.outcome = "failed"
-
-    # -- feature-cache dispatch --------------------------------------------
-
-    def _settle_cached(self, key, live: List[_Request], outs,
-                       label: str, t_disp: float, lh: int, lw: int,
-                       ver: int) -> None:
-        """Resolve a finished CACHED micro-batch: install every row's
-        pool slot (fmap + speculative context + flow_low, sliced from
-        the full-bucket device outputs), THEN settle its future — a
-        session harvesting the future must find the slot present (the
-        sequential-harvest contract that makes the next pair warm).
-        Prime rows store a flow-less slot and resolve to
-        ``ServeResult(None, None)`` — their flow is refinement against
-        zero features, never surfaced."""
-        with layer_span("sched.settle") as settle:
-            flow, low_full, fmap2, ctx2 = outs
-            hw = (key[0], key[1])
-            t_done = time.monotonic()
-            for i, r in enumerate(live):
-                # each slot holds CLONES of its own row: a view would pin
-                # the whole batch output (about 58 MB at batch 4,
-                # 440x1024, basic model) for as long as the slot lives,
-                # and eviction would free nothing
-                fl = None if r.prime else low_full[i, :lh, :lw].clone()
-                self._fcache.store(r.stream, hw, r.seq, ver,
-                                   fmap2[i, :lh, :lw].clone(),
-                                   ctx2[i, :lh, :lw].clone(), fl)
-                res = ServeResult(None if r.prime else flow[i], None)
-                if not settle_future(r.future, res):
-                    # wedge verdict settled it first (owns the span
-                    # close); a raced cancel owns nothing — close here
-                    if r.future.cancelled():
-                        self._trace_cancel(r)
-                    continue
-                settle.add("sched.request", r.t_submit, t_done,
-                           taken=t_disp)
-                queue_ms = (t_disp - r.t_submit) * 1e3
-                device_ms = (t_done - t_disp) * 1e3
-                tail = self.metrics.record_complete(
-                    label, queue_ms=queue_ms, device_ms=device_ms,
-                    priority=r.priority,
-                    trace_id=(r.span.trace_id if r.span is not None
-                              else None))
-                if self.tracer is not None and r.span is not None:
-                    self.tracer.close(
-                        r.span, "completed", "completed", tail=tail,
-                        observed_ms=round(queue_ms + device_ms, 3))
-            self._trace_close_dispatch(live, "ok")
-
-    def _dispatch_cached(self, key, batch: List[_Request],
-                         job: _DispatchJob, assemble=UNARMED) -> None:
-        """One feature-cached micro-batch: acquire every returning
-        row's pool slot (seq/geometry/weights-version exact — invalid
-        rows fail fast with ``FeatureCacheMiss``, they must not poison
-        the batch), warp each slot's ``flow_low`` into the row's
-        ``flow_init`` on device, and dispatch through the CACHED
-        bucket signature — one encoder pass, one frame of H2D per
-        row. Prime rows ride the same program with zeroed cache
-        inputs."""
-        live = self._claim(batch)
-        if not live:
-            return
-        job.batch = live
-        job.cached = True
-        h, w = key[0], key[1]
-        left, right, top, bottom = pad_amounts(h, w)
-        lh = (h + top + bottom) // 8
-        lw = (w + left + right) // 8
-        t_disp = time.monotonic()
-        try:  # EVERYTHING here routes failures to the batch's futures
-            bucket = self.engine.route_bucket(len(live), h, w,
-                                              cached=True)
-            job.bucket = bucket
-            label = ("x".join(map(str, bucket))
-                     + self.CACHE_LABEL_SUFFIX)
-            fault_point("serve.request")
-            if job.abandoned:
-                self.metrics.record_failure(self._fail_requests(
-                    live, self._wedge_error(key)))
-                return
-            # slot acquisition at assembly time: the submit-time probe
-            # already failed obvious misses fast, but eviction/flush/
-            # swap can land while queued — those rows fail HERE with
-            # the cold-restart signal, and the rest of the batch
-            # serves. ``ver`` is the stamp the engine re-checks under
-            # its snapshot lock (StaleFeatureError on a raced swap).
-            ver = getattr(self.engine, "weights_version", 0)
-            slots = []
-            kept: List[_Request] = []
-            missed: List[_Request] = []
-            for r in live:
-                if r.prime:
-                    kept.append(r)
-                    slots.append(None)
-                    continue
-                slot = self._fcache.acquire(r.stream, (h, w),
-                                            r.seq - 1, ver)
-                if slot is None:
-                    missed.append(r)
-                    continue
-                fi = None
-                if slot.flow_low is not None:
-                    # device-resident recurrence warm start: warp the
-                    # slot's flow_low on device (holes stay zero =
-                    # locally cold; a non-finite flow scatters nothing
-                    # — the poisoned-pair guard without a host sync)
-                    fi = forward_interpolate_device(slot.flow_low)
+    def _acquire_slots(self, live: List[_Request], h: int, w: int):
+        """The cached kind's rows: each returning row's pool slot
+        (seq/geometry/weights-version exact), its ``flow_low`` warped into
+        the row's ``flow_init`` on the device; prime rows take zeroed
+        cache inputs. A slot evicted, flushed or swapped while queued
+        fails its row HERE with ``FeatureCacheMiss`` (the cold-restart
+        signal), and the rest serve. Returns the rows that reach the
+        engine, their slots, and ``ver``: the stamp the engine re-checks
+        under its lock (``StaleFeatureError`` on a raced swap)."""
+        ver = getattr(self.engine, "weights_version", 0)
+        slots = []
+        kept: List[_Request] = []
+        missed: List[_Request] = []
+        for r in live:
+            if r.prime:
                 kept.append(r)
-                slots.append((slot.fmap, slot.ctx, fi))
-            if self.tracer is not None:
-                # feature-cache attribution: whether each row's slot
-                # actually held at assembly (the p99 question "was the
-                # stream warm or re-priming")
-                for r in kept:
-                    if r.span is not None:
-                        self.tracer.annotate(
-                            r.span,
-                            cache="prime" if r.prime else "hit",
-                            warm=not r.prime)
-                for r in missed:
-                    if r.span is not None:
-                        self.tracer.annotate(r.span, cache="miss")
-            if missed:
-                n = self._fail_requests(missed, FeatureCacheMiss(
+                slots.append(None)
+                continue
+            slot = self._fcache.acquire(r.stream, (h, w), r.seq - 1, ver)
+            if slot is None:
+                missed.append(r)
+                continue
+            # device-resident recurrence warm start: warp the slot's
+            # flow_low on device (holes stay zero = locally cold; a
+            # non-finite flow scatters nothing — the poisoned-pair guard
+            # without a host sync)
+            fi = (None if slot.flow_low is None
+                  else forward_interpolate_device(slot.flow_low))
+            kept.append(r)
+            slots.append((slot.fmap, slot.ctx, fi))
+        if self.tracer is not None:
+            # feature-cache attribution: whether each row's slot actually
+            # held at assembly (the p99 question "was the stream warm or
+            # re-priming")
+            for r in kept:
+                if r.span is not None:
+                    self.tracer.annotate(
+                        r.span, cache="prime" if r.prime else "hit",
+                        warm=not r.prime)
+            for r in missed:
+                if r.span is not None:
+                    self.tracer.annotate(r.span, cache="miss")
+        if missed:
+            self.metrics.record_failure(self._fail_requests(
+                missed, FeatureCacheMiss(
                     "cache slot invalidated while queued (evicted, "
-                    "flushed, or weights swapped) — re-prime the "
-                    "stream"))
-                self.metrics.record_failure(n)
-            if not kept:
-                # nothing reached the engine: a miss is pool churn,
-                # not a program fault — no breaker outcome (a
-                # "failed" here would let cache churn open a healthy
-                # bucket's breaker), and no dispatch/occupancy record
-                # (nothing dispatched)
-                return
-            live = kept
-            job.batch = live
-            # recorded AFTER acquisition so occupancy counts the rows
-            # that actually reach the engine — queued-invalidation
-            # misses must not inflate the warm-video A/B numbers
-            with self._cv:
-                depth = len(self._q)
-            real_px = len(live) * h * w
-            padded_px = bucket[0] * bucket[1] * bucket[2]
-            self.metrics.record_dispatch(
-                label, filled=len(live), capacity=bucket[0],
-                depth=depth, real_px=real_px, padded_px=padded_px)
-            self._trace_dispatch(live, label, bucket, t_disp,
-                                 real_px=real_px, padded_px=padded_px,
-                                 cached=True)
-            prev = self._prev_pending
-            overlapped = prev is not None and prev.t_ready is None
-            t_asm0 = time.monotonic()
-            i2 = np.stack([r.image2 for r in live])
-            assemble.end()
-            with layer_span("sched.ship",
-                            getattr(self.engine, "device", None)):
-                pending = self.engine.infer_cached_async(
-                    i2, slots, expect_version=ver)
-            self._hot_path(prev, overlapped, t_asm0, pending, live)
-            self._hand_off(
-                key, job, live, pending,
-                lambda outs: self._settle_cached(key, live, outs, label,
-                                                 t_disp, lh, lw, ver),
-                cached=True)
-        except Exception as exc:  # route to the callers; worker survives
-            self.metrics.record_failure(self._fail_requests(live, exc))
-            job.outcome = "failed"
+                    "flushed, or weights swapped) — re-prime the stream")))
+        return kept, slots, ver
 
     # -- lifecycle ---------------------------------------------------------
 

@@ -69,8 +69,8 @@ KNOWN_SITES = {
     "ckpt.orbax_save": "full-state save (corrupt zero-fills the step "
                        "directory's state file after it is committed)",
     "serve.request": "per micro-batch dispatch in the serving scheduler's "
-                     "worker (MicroBatchScheduler._dispatch, "
-                     "_dispatch_ragged and _dispatch_cached)",
+                     "worker (MicroBatchScheduler._dispatch, every kind "
+                     "of program)",
     "serve.dispatch_exec": "top of the supervised dispatch executor's job "
                            "loop (resilience.DispatchExecutor; watchdog "
                            "quarantine drill)",
@@ -78,7 +78,7 @@ KNOWN_SITES = {
                       "engine's weights are touched (raise: the swap fails; "
                       "a fleet rolls the lanes already swapped back, so "
                       "every lane keeps the old weights)",
-    "serve.fetch": "PendingBatch/RaggedPendingBatch.fetch in "
+    "serve.fetch": "PendingBatch.fetch in "
                    "serving/engine.py, before waiting for the device result "
                    "(hang: a dispatch that never completes)",
     "engine.compile": "RAFTEngine._get_program in serving/engine.py, before "

@@ -79,9 +79,9 @@ class _FleetEngine(_FakeEngine):
         self.spawned = 0
         self.ensures = 0
 
-    def ensure_bucket(self, b, h, w):
+    def ensure_bucket(self, b, h, w, kind="plain"):
         self.ensures += 1
-        return super().ensure_bucket(b, h, w)
+        return super().ensure_bucket(b, h, w, kind)
 
     def spawn_replica(self):
         rep = _FleetEngine()
@@ -203,13 +203,13 @@ def test_placement_validation_matches_jax():
 def test_bucket_fit_matches_jax():
     port, jax_ = _FleetEngine(), _JaxFleetEngine()
     keys = [(32, 32), (32, 32), (40, 48), (33, 31), (40, 48)]
-    fits = [[Placement.bucket_fit(port, k, 4) for k in keys],
+    fits = [[Placement.bucket_fit(port, *k, "plain", 4) for k in keys],
             [JaxPlacement.bucket_fit(jax_, k, 4) for k in keys]]
     assert fits[0] == fits[1] == [4, 4, 4, 4, 4]
     assert port.ensures == jax_.compile_calls == 3
     port.drop_bucket((4, 32, 32))
     jax_.drop_bucket((4, 32, 32))
-    assert (Placement.bucket_fit(port, (32, 32), 2)
+    assert (Placement.bucket_fit(port, 32, 32, "plain", 2)
             == JaxPlacement.bucket_fit(jax_, (32, 32), 2) == 2)
 
 

@@ -49,7 +49,7 @@ from raft_tpu_torch.serving.engine import RAFTEngine
 from raft_tpu_torch.serving.host_worker import StubEngine
 from raft_tpu_torch.serving.hosts import (HOST_DEAD, HOST_HEALTHY,
                                           HOST_SUSPECT, HostFleet,
-                                          HostWorker)
+                                          HostWorker, RemoteEngine)
 from raft_tpu_torch.serving.metrics import ServingMetrics
 from raft_tpu_torch.serving.scheduler import (ConfigError,
                                               MicroBatchScheduler)
@@ -187,6 +187,40 @@ class TestTransport:
             t.call("ping")
         # the plan is spent: the retry is clean
         assert t.call("ping")["ready"] is True
+
+    def test_remote_lanes_serve_the_plain_kind_only(self):
+        """The routing calls take the engine's program ``kind``: a remote
+        engine and the stub worker serve ``"plain"`` only and refuse the
+        other kinds before anything is sent; a plain call's messages are
+        the ones a kind-less call sent."""
+        t = LoopbackTransport(HostWorker(StubEngine()))
+        sent = []
+        call = t.call
+        t.call = lambda m, p=None, **kw: sent.append((m, p)) or call(
+            m, p, **kw)
+        eng = RemoteEngine(t, "h0")
+        assert eng.ensure_bucket(2, 30, 30) == (2, 32, 32)
+        assert eng.bucket_capacity(30, 30, kind="plain") == 2
+        assert eng.route_bucket(1, 30, 30) == (1, 32, 32)
+        eng.drop_bucket((2, 32, 32), kind="plain")
+        assert sent == [
+            ("ensure", {"n": 2, "h": 30, "w": 30, "kw": {}}),
+            ("capacity", {"h": 30, "w": 30, "kw": {}}),
+            ("route", {"n": 1, "h": 30, "w": 30}),
+            ("drop", {"bucket": (2, 32, 32), "kw": {}})]
+        for kind in ("ragged", "cached"):
+            for engine in (eng, StubEngine()):
+                for refused in (lambda: engine.bucket_capacity(
+                                    30, 30, kind=kind),
+                                lambda: engine.ensure_bucket(
+                                    1, 30, 30, kind=kind),
+                                lambda: engine.route_bucket(
+                                    1, 30, 30, kind=kind),
+                                lambda: engine.drop_bucket(
+                                    (2, 32, 32), kind=kind)):
+                    with pytest.raises(ValueError, match="'plain'"):
+                        refused()
+        assert len(sent) == 4
 
     def test_length_guard_rejects_corrupt_prefix(self):
         a, b = socket.socketpair()

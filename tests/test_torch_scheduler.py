@@ -108,7 +108,8 @@ class _FakePending:
 
 class _FakeEngine:
     """Duck-typed engine with the scheduler-facing surface
-    (capacity/route/ensure/drop/_compiled + the async dispatch split).
+    (capacity/route/ensure/drop/_compiled + the async dispatch split), of
+    the plain kind only.
     Hangs are events: ``gates[(h, w)]`` blocks that shape's dispatch until
     the test sets it."""
 
@@ -124,12 +125,12 @@ class _FakeEngine:
         self.calls = []
         self.ensure_gate = {}
 
-    def bucket_capacity(self, h, w):
+    def bucket_capacity(self, h, w, kind="plain"):
         fits = [s[0] for s in self._compiled
                 if s[1] == _pad8(h) and s[2] == _pad8(w)]
         return max(fits) if fits else None
 
-    def ensure_bucket(self, b, h, w):
+    def ensure_bucket(self, b, h, w, kind="plain"):
         gate = self.ensure_gate.get((h, w))
         if gate is not None:
             gate.wait(WAIT)
@@ -137,10 +138,10 @@ class _FakeEngine:
         self._compiled[shape] = object()
         return shape
 
-    def route_bucket(self, b, h, w):
+    def route_bucket(self, b, h, w, kind="plain"):
         return (self.bucket_capacity(h, w) or b, _pad8(h), _pad8(w))
 
-    def drop_bucket(self, shape):
+    def drop_bucket(self, shape, kind="plain"):
         return self._compiled.pop(shape, None) is not None
 
     def infer_batch_async(self, i1, i2, **kw):
@@ -632,6 +633,57 @@ def test_ragged_scheduler_coalesces_across_shapes(model):
     assert rec["ragged"]["cross_shape_dispatches"] > 0
     assert "2x32x40/ragged" in rec["buckets"]
     assert eng.ragged_classes() == [(2, 32, 40)]
+
+
+def _kind_engine(model, kind):
+    """A CPU engine holding a (1, 32, 32) program of ``kind`` beside one
+    of a sibling kind at the same shape: a ragged engine's capacity class
+    beside its plain bucket, a feature-cache engine's cached and plain
+    buckets."""
+    if kind == "ragged":
+        return RAFTEngine(model, SMALL, iters=1, envelope=[(1, 32, 32)],
+                          ragged=True, capacity_classes=[(1, 32, 32)],
+                          device="cpu")
+    return RAFTEngine(model, SMALL, iters=1, envelope=[(1, 32, 32)],
+                      warm_start=True, feature_cache=True, device="cpu")
+
+
+@pytest.mark.parametrize("site", ["serve.request", "serve.fetch"])
+@pytest.mark.parametrize("kind", ["plain", "ragged", "cached"])
+def test_wedge_drops_only_its_kinds_program(model, monkeypatch, kind, site):
+    """A wedged dispatch (``serve.request``) and a wedged completion
+    (``serve.fetch``) at ``pipeline_depth=2``: the verdict drops the
+    program from the table of the batch's kind, leaves the sibling kind's
+    program at the same shape, and counts the wedge on the kind's breaker
+    label."""
+    release = _releasable_hangs(monkeypatch)
+    eng = _kind_engine(model, kind)
+    before = eng.tables()
+    sched = _watchdog(eng, max_batch=1, dispatch_timeout_s=3.0,
+                      pipeline_depth=2, ragged=kind == "ragged",
+                      feature_cache=kind == "cached")
+    faults.arm([{"site": site, "kind": "hang", "count": 1, "hang_s": WAIT}])
+    try:
+        if kind == "cached":
+            fut = sched.submit_cached(_frame(3), stream="s", seq=0,
+                                      prime=True)
+        else:
+            fut = sched.submit(_frame(3), _frame(4))
+        with pytest.raises(DispatchWedged):
+            fut.result(timeout=WAIT)
+        tables = eng.tables()
+        health = sched.health()
+    finally:
+        faults.disarm()
+        release.set()
+        sched.close(drain=True)
+    assert tables == {k: [e for e in v if k != kind]
+                      for k, v in before.items()}
+    assert before[kind] == [((1, 32, 32), True)]
+    label = {"plain": "32x32", "ragged": "32x32/ragged",
+             "cached": "32x32/cache"}[kind]
+    assert health["buckets"][label]["wedges"] == 1
+    assert _identity(sched.metrics.snapshot())
 
 
 def test_feature_cache_session_and_miss(model):

@@ -169,8 +169,10 @@ def test_routing_matches_jax_engine(small, kw):
         assert got.route_bucket(b, h, w) == want.route_bucket(b, h, w)
         assert got.bucket_capacity(h, w) == want.bucket_capacity(h, w)
         if kw.get("ragged"):
-            assert got.route_ragged(b, h, w) == want.route_ragged(b, h, w)
-            assert got.ragged_capacity(h, w) == want.ragged_capacity(h, w)
+            assert (got.route_bucket(b, h, w, kind="ragged")
+                    == want.route_ragged(b, h, w))
+            assert (got.bucket_capacity(h, w, kind="ragged")
+                    == want.ragged_capacity(h, w))
             assert got.ragged_class_for(h, w) == want.ragged_class_for(h, w)
     assert got.ragged_classes() == (want.ragged_classes() if kw.get("ragged")
                                     else [])

@@ -411,18 +411,25 @@ def test_feature_cache_pool_thread_safety():
 # -- placement over explicit engines ----------------------------------------
 
 class _Eng:
-    """The capacity surface ``Placement.bucket_fit`` reads."""
+    """The capacity surface ``Placement.bucket_fit`` reads: the port's
+    ``kind=`` and the JAX engine's ``cached=`` with its ragged pair."""
 
     def __init__(self):
         self.calls = []
         self.table = {}
 
-    def bucket_capacity(self, h, w, cached=False):
+    def bucket_capacity(self, h, w, cached=False, kind=None):
+        if kind == "ragged":
+            return self.ragged_capacity(h, w)
+        cached = cached or kind == "cached"
         fits = [b for (b, bh, bw, c) in self.table
                 if bh >= h and bw >= w and c == cached]
         return max(fits) if fits else None
 
-    def ensure_bucket(self, b, h, w, cached=False):
+    def ensure_bucket(self, b, h, w, cached=False, kind=None):
+        if kind == "ragged":
+            return self.ensure_ragged(b, h, w)
+        cached = cached or kind == "cached"
         self.calls.append(("ensure", b, h, w, cached))
         self.table[(b, -(-h // 8) * 8, -(-w // 8) * 8, cached)] = True
         return (b, -(-h // 8) * 8, -(-w // 8) * 8)
@@ -435,6 +442,18 @@ class _Eng:
         return (b, h, w)
 
 
+def _bucket_fit(pl, eng, key, max_batch):
+    """``Placement.bucket_fit`` for a scheduler key: the JAX package's
+    reads the key itself, the port's takes the ``(h, w, kind)`` the
+    port's scheduler reads off it."""
+    if pl.__name__.startswith("raft_tpu_torch."):
+        from raft_tpu_torch.serving.scheduler import MicroBatchScheduler
+
+        return pl.Placement.bucket_fit(
+            eng, *MicroBatchScheduler._key_parts(key), max_batch)
+    return pl.Placement.bucket_fit(eng, key, max_batch)
+
+
 def _placement_run(pl):
     a, b, c = _Eng(), _Eng(), _Eng()
     p = pl.Placement(a, replicas=2, ceiling=3, engines=[a, b, c])
@@ -442,10 +461,10 @@ def _placement_run(pl):
            p.want_scale_up(9, 2, 4), p.want_scale_up(8, 2, 4),
            p.want_scale_up(99, 3, 4), p.want_retire(31.0, 3, 30.0),
            p.want_retire(31.0, 2, 30.0), p.want_retire(1.0, 3, 30.0)]
-    out.append(pl.Placement.bucket_fit(a, (30, 30), 4))
-    out.append(pl.Placement.bucket_fit(a, (30, 30), 4))    # now built
-    out.append(pl.Placement.bucket_fit(a, (30, 30, "cache"), 2))
-    out.append(pl.Placement.bucket_fit(a, (64, 64, "ragged"), 3))
+    out.append(_bucket_fit(pl, a, (30, 30), 4))
+    out.append(_bucket_fit(pl, a, (30, 30), 4))    # now built
+    out.append(_bucket_fit(pl, a, (30, 30, "cached"), 2))
+    out.append(_bucket_fit(pl, a, (64, 64, "ragged"), 3))
     out.append(a.calls)
     k = p.attach_host("h0", c)
     p.mark_host("h0", "dead")

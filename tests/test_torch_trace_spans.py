@@ -6,7 +6,8 @@ train step records ``train.step`` and its five phases, nested on one
 thread, and computes bitwise what the unarmed step computes; the scheduler
 at ``pipeline_depth=2`` records one ship, fetch wait, D2H copy and settle
 per dispatch, the dispatcher's spans and the completion stage's on
-threads of their own, and one ``sched.request`` per completed request. No
+threads of their own, and one ``sched.request`` per completed request,
+for each kind of program (plain, ragged and cached). No
 marker kernel is launched for a CPU device, and a second profiler session
 starts a cleared record. The dispatch gap counts from the previous
 outputs' completion on the device (``t_synced``), before their copies.
@@ -58,10 +59,10 @@ def _state():
     return create_train_state(model, TRAIN)
 
 
-def _frames(k):
+def _frames(k, h=32, w=32):
     rng = np.random.RandomState(k)
-    return (rng.uniform(0, 255, (32, 32, 3)).astype(np.float32),
-            rng.uniform(0, 255, (32, 32, 3)).astype(np.float32))
+    return (rng.uniform(0, 255, (h, w, 3)).astype(np.float32),
+            rng.uniform(0, 255, (h, w, 3)).astype(np.float32))
 
 
 @pytest.fixture(scope="module")
@@ -71,13 +72,42 @@ def engine():
                       envelope=[(1, 32, 32), (2, 32, 32)], device="cpu")
 
 
-def _serve(engine):
-    """Six requests through a depth-2 scheduler; its metrics snapshot."""
+def _kind_engine(engine, kind):
+    """The plain ``engine``, or one over its weights serving ``kind``: a
+    capacity class that two request shapes share, or the cached
+    signature."""
+    weights = engine.model.state_dict()
+    if kind == "ragged":
+        return RAFTEngine(weights, SMALL, iters=1, ragged=True,
+                          capacity_classes=[(2, 32, 32)], device="cpu")
+    if kind == "cached":
+        return RAFTEngine(weights, SMALL, iters=1, envelope=[(2, 32, 32)],
+                          warm_start=True, feature_cache=True, device="cpu")
+    return engine
+
+
+def _serve(engine, kind="plain"):
+    """Six requests of ``kind`` through a depth-2 scheduler; its metrics
+    snapshot. Ragged requests mix two shapes in one class; cached ones
+    are two streams, each primed and then served two pairs, a wave at a
+    time (a pair needs the slot its stream's previous frame stored)."""
     sched = MicroBatchScheduler(engine, max_batch=2, gather_window_s=0.0,
-                                pipeline_depth=2)
-    futs = [sched.submit(*_frames(k)) for k in range(REQUESTS)]
-    for f in futs:
-        assert f.result(timeout=WAIT).flow.shape == (32, 32, 2)
+                                pipeline_depth=2, ragged=kind == "ragged",
+                                feature_cache=kind == "cached")
+    if kind == "cached":
+        for seq in range(REQUESTS // 2):
+            futs = [sched.submit_cached(_frames(seq)[0], stream=s, seq=seq,
+                                        prime=seq == 0) for s in "ab"]
+            for f in futs:
+                flow = f.result(timeout=WAIT).flow
+                assert (flow is None if seq == 0
+                        else flow.shape == (32, 32, 2))
+    else:
+        shapes = [(32, 32), (24, 32) if kind == "ragged" else (32, 32)]
+        futs = [sched.submit(*_frames(k, *shapes[k % 2]))
+                for k in range(REQUESTS)]
+        for k, f in enumerate(futs):
+            assert f.result(timeout=WAIT).flow.shape == shapes[k % 2] + (2,)
     sched.close(drain=True)
     return sched.metrics.snapshot()
 
@@ -124,9 +154,11 @@ def test_train_step_spans_nest_and_leave_outputs_bitwise():
     assert trace.markers() == []          # a CPU device gets no marker
 
 
-def test_scheduler_spans_per_dispatch_and_request(engine):
+@pytest.mark.parametrize("kind", ["plain", "ragged", "cached"])
+def test_scheduler_spans_per_dispatch_and_request(engine, kind):
+    engine = _kind_engine(engine, kind)
     with armed():
-        snap = _serve(engine)
+        snap = _serve(engine, kind)
     recs = trace.records()
     dispatches = snap["dispatches"]
     assert dispatches >= REQUESTS // 2
