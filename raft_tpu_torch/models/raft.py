@@ -14,11 +14,15 @@ normalises NCHW copies (instance, group) computes in NCHW instead
 refinement loop becomes a Python loop, and ``coords1.detach()`` plays the
 part of ``stop_gradient`` (core/raft.py:123).
 
-Train mode (``test_mode=False``) stacks each iteration's low-resolution
-flow (and, for the basic model, its upsampling mask) and upsamples the
-stack once after the loop, as the JAX model does; ``train=True`` trains
-the batch norms unless ``freeze_bn``. ``raw_predictions=True`` returns the
-basic model's stack in the upsampler's subpixel domain for the fused loss.
+Test mode runs the update block's mask head in the last refinement step
+alone, the one whose mask the convex upsampler reads (the JAX model
+computes it in every step of its scan and keeps the last); the flow is
+the same bits. Train mode (``test_mode=False``) stacks each iteration's
+low-resolution flow (and, for the basic model, its upsampling mask) and
+upsamples the stack once after the loop, as the JAX model does;
+``train=True`` trains the batch norms unless ``freeze_bn``.
+``raw_predictions=True`` returns the basic model's stack in the
+upsampler's subpixel domain for the fused loss.
 
 ``alternate_corr=True`` takes the memory-efficient path: only the fmap2
 pyramid is built, and each step computes its windows on the fly (K5, or
@@ -167,18 +171,21 @@ class RAFT(nn.Module):
             pyramid = [v.to(torch.bfloat16) for v in pyramid]
         return lambda coords: corr_lookup(pyramid, coords, r, cfg.corr_impl)
 
-    def _step(self, lookup, net, inp, coords0, coords1, attn=None):
+    def _step(self, lookup, net, inp, coords0, coords1, attn=None,
+              mask: bool = True):
         """One refinement step (the JAX model's scan body): lookup, update
         block in the compute dtype, ``delta`` added in fp32. Returns
-        ``(net, coords1)`` and, for the basic model, the upsampling mask.
-        ``attn``: GMA's attention, which its update block takes."""
+        ``(net, coords1)`` and, for the basic model with ``mask``, the
+        upsampling mask. ``attn``: GMA's attention, which its update block
+        takes."""
         dt = self.config.compute_dtype
         corr = lookup(coords1)
         flow = coords1 - coords0
         args = (net, inp, corr.to(dt).permute(0, 3, 1, 2),
                 flow.to(dt).permute(0, 3, 1, 2))
-        net, up_mask, delta = (self.update_block(*args) if attn is None
-                               else self.update_block(*args, attn))
+        if attn is not None:
+            args += (attn,)
+        net, up_mask, delta = self.update_block(*args, mask=mask)
         coords1 = coords1 + delta.permute(0, 2, 3, 1).float()
         return (net, coords1) if up_mask is None else (net, coords1, up_mask)
 
@@ -264,15 +271,17 @@ class RAFT(nn.Module):
                                      **kw)
         up_mask = None
         flows, masks = [], []
-        for _ in range(iters):
-            # stop_gradient on the coordinate chain (core/raft.py:123)
-            out = step(net, inp, coords0, coords1.detach().contiguous())
+        for i in range(iters):
+            # stop_gradient on the coordinate chain (core/raft.py:123); test
+            # mode reads the last step's mask alone, so only it runs the head
+            out = step(net, inp, coords0, coords1.detach().contiguous(),
+                       mask=not test_mode or i == iters - 1)
             net, coords1 = out[:2]
             if not test_mode:
                 flows.append(coords1 - coords0)
                 if not cfg.small:
                     masks.append(out[2].permute(0, 2, 3, 1))
-            elif not cfg.small:
+            elif len(out) > 2:
                 up_mask = out[2]
 
         if test_mode:

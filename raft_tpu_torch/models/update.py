@@ -146,7 +146,8 @@ class BasicMotionEncoder(nn.Module):
 
 
 class SmallUpdateBlock(nn.Module):
-    """Motion encoder + ConvGRU + flow head; no mask head (update.py:99-112)."""
+    """Motion encoder + ConvGRU + flow head; no mask head (update.py:99-112),
+    so ``mask`` changes nothing."""
 
     def __init__(self, corr_planes: int, hidden_dim: int = 96):
         super().__init__()
@@ -154,7 +155,7 @@ class SmallUpdateBlock(nn.Module):
         self.gru = ConvGRU(hidden_dim, input_dim=82 + 64)
         self.flow_head = FlowHead(hidden_dim, 128)
 
-    def forward(self, net, inp, corr, flow):
+    def forward(self, net, inp, corr, flow, mask: bool = True):
         motion = self.encoder(flow, corr)
         net = self.gru(net, torch.cat([inp, motion], 1))
         return net, None, self.flow_head(net)
@@ -173,12 +174,14 @@ class BasicUpdateBlock(nn.Module):
         self.mask = nn.Sequential(conv(hidden_dim, 256, 3, 1, 1), nn.ReLU(),
                                   conv(256, 64 * 9, 1, 1, 0))
 
-    def forward(self, net, inp, corr, flow):
+    def forward(self, net, inp, corr, flow, mask: bool = True):
+        """``mask=False`` skips the mask head and returns None for the mask
+        (a test-mode step whose mask nothing reads)."""
         motion = self.encoder(flow, corr)
         net = self.gru(net, torch.cat([inp, motion], 1))
         delta = self.flow_head(net)
         # .25 scale to balance gradients (update.py:134-135)
-        return net, 0.25 * self.mask(net), delta
+        return net, 0.25 * self.mask(net) if mask else None, delta
 
 
 class GMAUpdateBlock(nn.Module):
@@ -199,9 +202,9 @@ class GMAUpdateBlock(nn.Module):
                                   conv(256, 64 * 9, 1, 1, 0))
         self.aggregator = Aggregate(128, heads, 128)
 
-    def forward(self, net, inp, corr, flow, attn):
+    def forward(self, net, inp, corr, flow, attn, mask: bool = True):
         motion = self.encoder(flow, corr)
         glob = self.aggregator(attn, motion)
         net = self.gru(net, torch.cat([inp, motion, glob], 1))
         delta = self.flow_head(net)
-        return net, 0.25 * self.mask(net), delta
+        return net, 0.25 * self.mask(net) if mask else None, delta

@@ -577,6 +577,45 @@ def test_train_mode_gradients_kernels_match_plain(cuda, monkeypatch):
     assert float(np.median(rel)) <= 1e-5
 
 
+def test_test_mode_mask_head_once_matches_every_step_loop(cuda):
+    """The basic serving geometry (batch 4, 440x1024, iters 20, TF32
+    convolutions, K1 and fused K2): test mode, whose mask head runs in the
+    last step alone, against the loop that runs it in every step
+    (``tests/test_torch_mask_once.py``), both eager: within 1e-5 px, and
+    bitwise where cuDNN takes the same algorithms for the same shapes."""
+    import types
+
+    from raft_tpu_torch.config import RAFTConfig
+    from raft_tpu_torch.models import RAFT
+    from tests.test_torch_mask_once import _every_step_refine
+
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        cfg = RAFTConfig(corr_impl="pallas", gru_impl="fused")
+        model = RAFT(cfg, torch.Generator().manual_seed(0)).to(cuda).eval()
+        rng = np.random.RandomState(0)
+        base = np.floor(rng.rand(4, 440 + 4, 1024 + 6, 3) * 256)
+        im1 = torch.from_numpy(base[:, :440, :1024].astype(np.float32))
+        im2 = torch.from_numpy(base[:, 4:, 6:].astype(np.float32))
+        im1, im2 = im1.to(cuda), im2.to(cuda)
+        calls = []
+        model.update_block.mask.register_forward_hook(
+            lambda *a: calls.append(1))
+        with torch.no_grad():
+            got = model(im1, im2, iters=20)
+            assert len(calls) == 1
+            model._refine = types.MethodType(_every_step_refine, model)
+            want = model(im1, im2, iters=20)
+        assert len(calls) == 1 + 20
+        for a, b in zip(got, want):
+            print(f"mask once vs every step {tuple(a.shape)}: max "
+                  f"{float((a - b).abs().max()):.3g} px, bitwise "
+                  f"{torch.equal(a, b)}")
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+
+
 def test_envelope_measures_the_card(cuda):
     """``cli/envelope`` at small sizes: every rate positive and plausible
     for a card, the device named."""
